@@ -1,0 +1,133 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and bind them with ctypes.
+
+The kernels are compiled at first use into one shared library with a plain
+C interface (no PyTorch headers, so nvcc takes seconds), under ``build/cuda``
+at the root of the checkout, which ``.gitignore`` lists.  The library's name
+carries a hash of the sources and flags, so an edited source rebuilds.
+Nothing here runs at import time.
+
+Each C entry point launches on the stream it is given, allocates nothing
+and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+``launches`` counts, per kernel, the launches its wrapper made in this
+process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: kernel name -> launches made by its wrapper in this process
+launches = {"window_block": 0, "window_checksum": 0, "welch_stage1": 0}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # out, n0, length, coeffs, nterms, lut, nlut, gain, pw, w, p, rtl,
+    # saturate, stream
+    "bhw_window_block": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _P),
+    # out, n_start, count, (same parameters as above), stream
+    "bhw_window_checksum": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _P),
+    # x, t, win, m0r, m0i, t1r, t1i, out_r, out_i, nfft, npair, mask_last,
+    # stream
+    "bhw_welch_stage1": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def build() -> tuple[Path, str, float]:
+    """Compile ``csrc/*.cu`` if the library for these sources is missing.
+    Returns (library path, compiler output, seconds spent compiling)."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    out = BUILD_DIR / f"libbhw_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, "", 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if r.returncode:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    return out, r.stdout + r.stderr, seconds
+
+
+def lib() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        path, _, _ = build()
+        dll = ctypes.CDLL(str(path))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(dll, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        dll.bhw_error_string.argtypes = [ctypes.c_int]
+        dll.bhw_error_string.restype = ctypes.c_char_p
+        _lib = dll
+    return _lib
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a C entry point reported a CUDA error; count the launch."""
+    if rc:
+        msg = lib().bhw_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+    launches[name] += 1
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device a wrapper runs on: the CPU (plain version) or a CUDA
+    device that must exist (kernel).  No other device is accepted."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "a CUDA device was asked for, but torch sees none; the CUDA "
+                "kernels cannot run here"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}: use 'cpu' or 'cuda'")
+    return device
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,275 @@
+"""Windowed Welch power spectrum analyzer, single device (counterpart of
+``blackman_harris_win_tpu/pipeline/spectral.py``).
+
+    sample stream -> overlapped frames -> quantized window apply
+    -> FFT -> |.|^2 -> Welch average
+
+The window is generated on the fly by the window kernel.  With
+``fft_mode="mxu"``, 1-D CUDA input at 50% overlap runs the fused stage-1
+kernel (framing + window + pack + first DFT stage, ``welchfft_kernel``)
+followed by matmul DFT stages; other input runs the same matmul stages on
+materialized frames.  Every DFT table is built on the host in float64.
+
+Float matmuls here must run in full fp32: the functions below turn TF32 off
+(``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``) where they run, as the JAX package
+pins ``Precision.HIGHEST``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..core.config import WindowSpec
+from ..kernels.welchfft_kernel import welch_stage1_fused
+from ..kernels.window_kernel import window_block
+from ..windows import catalog
+
+
+def _full_fp32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def window_scale(spec: WindowSpec, shift: int) -> float:
+    """Float scale of the quantized window: values are round(w * (2^(W-shift)-1))."""
+    return 1.0 / (2.0 ** (spec.data_width - shift) - 1.0)
+
+
+def frames_view(x, nfft: int, hop: int):
+    """Overlapped frames of the last axis: (..., T) -> (..., nF, nfft) with
+    frame m = x[..., m*hop : m*hop+nfft]; requires T >= nfft and exact
+    tiling ((T - nfft) % hop == 0).  A strided view: nothing is copied."""
+    return x.unfold(-1, nfft, hop)
+
+
+def welch_power(x, win, nfft: int, hop: int, fft_mode: str = "rfft"):
+    """Single-device Welch periodogram: mean |rfft(frame * win)|^2 over
+    frames.  x: (..., T) float; win: (nfft,) float.
+
+    ``fft_mode="packed"`` transforms two real frames per complex FFT and
+    reads the summed power back out of conjugate symmetry:
+    |F_even|^2 + |F_odd|^2 = (|Z(k)|^2 + |Z(-k)|^2) / 2.
+    ``fft_mode="mxu"`` does the same through matmul DFT stages; 1-D CUDA
+    input at hop == nfft/2 goes through the fused stage-1 kernel.
+    """
+    _full_fp32()
+    if (fft_mode == "mxu" and hop * 2 == nfft and x.ndim == 1
+            and x.shape[-1] % hop == 0 and x.shape[-1] >= nfft
+            and _fused_ok(nfft) and x.is_cuda):
+        return _mxu_fused_mean_power(x, win, nfft)
+    fr = frames_view(x, nfft, hop) * win
+    return frame_mean_power(fr, fft_mode)
+
+
+def _fused_ok(nfft: int) -> bool:
+    try:
+        radices = _mxu_radices(nfft)
+    except ValueError:
+        return False
+    return radices[0] == 128 and len(radices) >= 2
+
+
+def _mxu_fused_mean_power(x, win, nfft: int):
+    """Welch mean power via the stage-1 kernel + tensordot tail."""
+    _full_fp32()
+    radices = _mxu_radices(nfft)
+    r0 = radices[0]
+    xr, xi, nf = welch_stage1_fused(x, win, nfft, r0=r0)
+    npair = xr.shape[0]
+    xr = xr.reshape((npair, r0) + radices[1:])
+    xi = xi.reshape((npair, r0) + radices[1:])
+    mats, tws = _dft_tables_on(nfft, x.device)
+    ns = len(radices)
+    for s in range(1, ns):
+        mr, mi = mats[s]
+        # contract the first remaining sample axis (always axis 2); the
+        # output digit k_s lands at the tail
+        yr = (torch.tensordot(xr, mr, dims=([2], [1]))
+              - torch.tensordot(xi, mi, dims=([2], [1])))
+        yi = (torch.tensordot(xr, mi, dims=([2], [1]))
+              + torch.tensordot(xi, mr, dims=([2], [1])))
+        xr, xi = yr, yi
+        if s < ns - 1:
+            # layout (pair, k_0, rest_dims..., k_1..k_{s-1}, k_s): k_0 sits
+            # ahead of the rest dims because the kernel did stage 0
+            shape = (1, 1) + tuple(radices[s + 1:]) + (1,) * (s - 1) + (radices[s],)
+            twr, twi = (v.T.reshape(shape) for v in tws[s])
+            xr, xi = (xr * twr - xi * twi, xr * twi + xi * twr)
+    p = torch.sum(xr * xr + xi * xi, dim=0)  # (k_0, .., k_{ns-1})
+    pk = p.permute(tuple(reversed(range(ns)))).reshape(nfft)
+    k = nfft // 2 + 1
+    pk_rev = torch.cat([pk[:1], torch.flip(pk[1:], dims=(0,))])
+    return 0.5 * (pk[:k] + pk_rev[:k]) / nf
+
+
+def frame_mean_power(fr, fft_mode: str = "rfft"):
+    """Mean half-spectrum power over windowed frames (..., nF, nfft) ->
+    (..., nfft//2+1); the FFT stage shared by every welch path.
+
+    ``fft_mode="mxu"``: packed complex frame pairs through mixed-radix
+    Cooley-Tukey stages whose small DFTs are fp32 matmuls (radices <= 128,
+    f64-host-exact tables).  Requires power-of-two nfft >= 256.
+    """
+    _full_fp32()
+    if fft_mode == "rfft":
+        spec = torch.fft.rfft(fr, dim=-1)
+        return torch.mean(spec.abs() ** 2, dim=-2)
+    if fft_mode == "mxu":
+        return _mxu_packed_mean_power(fr)
+    if fft_mode != "packed":
+        raise ValueError("fft_mode must be 'rfft', 'packed' or 'mxu'")
+    nfft = fr.shape[-1]
+    nf = fr.shape[-2]
+    if nf % 2:  # pad one zero frame; it adds nothing to the power sum
+        fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
+    z = torch.complex(fr[..., 0::2, :], fr[..., 1::2, :])
+    p = torch.fft.fft(z, dim=-1).abs() ** 2  # (..., nF/2, nfft)
+    k = nfft // 2 + 1
+    # |Z(-k)|^2 for k = 0..nfft/2 is p reversed with the k=0 bin fixed
+    p_rev = torch.cat([p[..., :1], torch.flip(p[..., 1:], dims=(-1,))], dim=-1)
+    ps = 0.5 * (p[..., :k] + p_rev[..., :k])
+    return torch.sum(ps, dim=-2) / nf
+
+
+def _mxu_radices(nfft: int) -> tuple[int, ...]:
+    """Factor a power-of-two nfft into DFT radices: the fewest stages with
+    every radix <= 128, split as evenly as possible."""
+    if nfft < 256 or nfft & (nfft - 1):
+        raise ValueError(
+            "fft_mode='mxu' needs a power-of-two nfft >= 256 "
+            f"(got {nfft}); use 'rfft' or 'packed'"
+        )
+    k = nfft.bit_length() - 1
+    s = -(-k // 7)  # ceil: minimum stages with radix <= 2^7
+    base, extra = divmod(k, s)
+    return tuple(1 << (base + (1 if i < extra else 0)) for i in range(s))
+
+
+@lru_cache(maxsize=8)
+def _dft_tables(nfft: int):
+    """Host-f64-exact DFT matrices and inter-stage twiddles for
+    :func:`_mxu_radices`, as (real, imag) f32 numpy pairs."""
+    radices = _mxu_radices(nfft)
+    mats, tws = [], []
+    for s_i, r in enumerate(radices):
+        k = np.arange(r)
+        ang = -2.0 * np.pi * (k[:, None] * k[None, :] % r) / r
+        mats.append((np.cos(ang).astype(np.float32),
+                     np.sin(ang).astype(np.float32)))
+        if s_i < len(radices) - 1:
+            nt = 1
+            for rr in radices[s_i:]:
+                nt *= rr
+            ii, jj = np.arange(r), np.arange(nt // r)
+            ang = -2.0 * np.pi * (ii[:, None] * jj[None, :] % nt) / nt
+            tws.append((np.cos(ang).astype(np.float32),
+                        np.sin(ang).astype(np.float32)))
+    return radices, mats, tws
+
+
+@lru_cache(maxsize=8)
+def _dft_tables_on(nfft: int, device: torch.device):
+    """``_dft_tables`` as float32 tensor pairs on ``device``."""
+    _, mats, tws = _dft_tables(nfft)
+    on = lambda pair: tuple(torch.from_numpy(v).to(device) for v in pair)
+    return [on(m) for m in mats], [on(t) for t in tws]
+
+
+def _mxu_stages(xr, xi, nfft: int, nlead: int):
+    """Run the mixed-radix matmul DFT stages over the trailing radix axes
+    of (lead..., r_0, .., r_{ns-1}) real/imag tensors.  On return, axis
+    nlead+i indexes output digit k_i with bin k = k_0 + r_0*k_1 + ...
+
+    tensordot appends the contracted-output axis, so stage s always
+    contracts the FIRST remaining sample axis (position ``nlead``) and the
+    k axes accumulate at the tail in stage order, with no transposes."""
+    _full_fp32()
+    radices = _mxu_radices(nfft)
+    mats, tws = _dft_tables_on(nfft, xr.device)
+    ns = len(radices)
+    for s_i, r in enumerate(radices):
+        mr, mi = mats[s_i]
+        yr = (torch.tensordot(xr, mr, dims=([nlead], [1]))
+              - torch.tensordot(xi, mi, dims=([nlead], [1])))
+        yi = (torch.tensordot(xr, mi, dims=([nlead], [1]))
+              + torch.tensordot(xi, mr, dims=([nlead], [1])))
+        xr, xi = yr, yi
+        if s_i < ns - 1:
+            # table is (k_s, rest); broadcast it TRANSPOSED in the layout
+            # (lead, rest_dims..., k_0..k_{s-1}, k_s)
+            shape = (1,) * nlead + tuple(radices[s_i + 1:]) + (1,) * s_i + (r,)
+            twr, twi = (v.T.reshape(shape) for v in tws[s_i])
+            xr, xi = (xr * twr - xi * twi, xr * twi + xi * twr)
+    return xr, xi, radices
+
+
+def mxu_cfft(zr, zi):
+    """Complex FFT over the last axis through matmul DFT stages, natural
+    bin order: (..., M) real/imag f32 -> (..., M) real/imag f32.
+    M must satisfy :func:`_mxu_radices` (power of two >= 256)."""
+    m = zr.shape[-1]
+    radices = _mxu_radices(m)
+    lead = tuple(zr.shape[:-1])
+    nl = len(lead)
+    xr, xi, _ = _mxu_stages(zr.reshape(lead + radices),
+                            zi.reshape(lead + radices), m, nl)
+    perm = tuple(range(nl)) + tuple(nl + i for i in reversed(range(len(radices))))
+    return (xr.permute(perm).reshape(lead + (m,)),
+            xi.permute(perm).reshape(lead + (m,)))
+
+
+def _mxu_packed_mean_power(fr):
+    """The fft_mode="mxu" body: two real frames per complex input, matmul
+    DFT stages, power-only unpack via conjugate symmetry."""
+    nfft = fr.shape[-1]
+    nf = fr.shape[-2]
+    radices = _mxu_radices(nfft)
+    if nf % 2:
+        fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
+    lead = tuple(fr.shape[:-2])
+    npair = fr.shape[-2] // 2
+    xr = fr[..., 0::2, :].reshape(lead + (npair,) + radices)
+    xi = fr[..., 1::2, :].reshape(lead + (npair,) + radices)
+    nlead = len(lead) + 1
+
+    xr, xi, radices = _mxu_stages(xr, xi, nfft, nlead)
+    ns = len(radices)
+    p = torch.sum(xr * xr + xi * xi, dim=nlead - 1)  # sum over frame pairs
+    # natural bin order = transpose to reversed radix axes, flatten
+    nl = len(lead)
+    perm = tuple(range(nl)) + tuple(nl + i for i in reversed(range(ns)))
+    pk = p.permute(perm).reshape(lead + (nfft,))
+    k = nfft // 2 + 1
+    pk_rev = torch.cat([pk[..., :1], torch.flip(pk[..., 1:], dims=(-1,))], dim=-1)
+    return 0.5 * (pk[..., :k] + pk_rev[..., :k]) / nf
+
+
+def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
+                            win_mode: str = "quantized",
+                            fft_mode: str = "rfft"):
+    """Single-device analyzer: window generated on the fly (window kernel on
+    x's device), applied, Welch-averaged.  nfft = spec.n.
+
+    ``win_mode="quantized"`` reproduces the reference's integer window
+    datapath, then scales to float for the FFT.
+    """
+    nfft = spec.n
+    hop = hop or nfft // 2
+    if win_mode in ("float", "comp"):
+        raise NotImplementedError(
+            f"win_mode={win_mode!r} is not ported yet (ROADMAP.md queue 1 item 8)"
+        )
+    if win_mode != "quantized":
+        raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
+    if isinstance(name_or_coeffs, str):
+        d = catalog.get(name_or_coeffs)
+        coeffs_q, shift = d.quantized(spec.data_width), d.shift
+    else:
+        coeffs_q, shift = tuple(name_or_coeffs), 1
+    wq = window_block(coeffs_q, spec, 0, nfft, x.device)
+    win = wq.to(torch.float32) * window_scale(spec, shift)
+    return welch_power(x, win, nfft, hop, fft_mode)
