@@ -32,9 +32,16 @@ NVCC_FLAGS = (
 )
 
 #: kernel name -> launches made by its wrapper in this process
-launches = {"window_block": 0, "window_checksum": 0, "welch_stage1": 0}
+launches = {
+    "window_block": 0, "window_checksum": 0, "welch_stage1": 0,
+    "outer_block": 0, "outer_block_f32": 0, "outer_block_comp": 0,
+    "outer_checksum": 0, "outer_checksum_f32": 0, "outer_checksum_comp": 0,
+}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the table arguments of the outer-product entry points: hi, lo, h0, rows,
+# nl, hc, nk, np, a0, shift, w, saturate, a0f, a0lo
+_OUTER = (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F)
 _SIGNATURES = {
     # out, n0, length, coeffs, nterms, lut, nlut, gain, pw, w, p, rtl,
     # saturate, stream
@@ -44,6 +51,17 @@ _SIGNATURES = {
     # x, t, win, m0r, m0i, t1r, t1i, out_r, out_i, nfft, npair, mask_last,
     # stream
     "bhw_welch_stage1": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # mode, out0, out1, (table arguments), stream
+    "bhw_outer_block": (_I, _P, _P, *_OUTER, _P),
+    # mode, out, partials, npartials, bias, (table arguments), stream
+    "bhw_outer_checksum": (_I, _P, _P, _L, _I, *_OUTER, _P),
+}
+#: host-side queries of a kernel's launch geometry: name -> (args, result)
+_QUERIES = {
+    "bhw_outer_max_harmonics": ((), _I),
+    # rows, nl
+    "bhw_outer_npartials": ((_L, _I), _L),
+    "bhw_outer_checksum_depth": ((_L, _I), _L),
 }
 
 _lib = None
@@ -98,6 +116,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(dll, name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
+        for name, (args, res) in _QUERIES.items():
+            fn = getattr(dll, name)
+            fn.argtypes = list(args)
+            fn.restype = res
         dll.bhw_error_string.argtypes = [ctypes.c_int]
         dll.bhw_error_string.restype = ctypes.c_char_p
         _lib = dll

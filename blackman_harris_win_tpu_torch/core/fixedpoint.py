@@ -7,6 +7,7 @@ int64 tensors.
 - round-half-up off bit 0: ``(v >> 1) + v(0)`` (``src/bh_win_3term.vhd:264-280``);
 - round-half-up off bit 1: ``(v >> 2) + v(1)`` (``src/bh_win_3term.vhd:295-306``);
 - saturation to the signed range (``src/tay1_order.vhd:601-617``);
+- the outer-product mode's exact multiply-subtract-shift ``mulsub_shift30``;
 - coefficient quantization ``round(a * (2^(W-shift) - 1))``
   (``hls/windows/win_function.cpp:176-177, 349-355``).
 
@@ -51,6 +52,31 @@ def saturate(v, width: int):
     if isinstance(v, int):
         return max(lo, min(hi, v))
     return torch.clamp(v, lo, hi)
+
+
+def mulsub_shift30(a, c, b, d, round: bool = False, shift: int = 30):
+    """Exact ``(a*c - b*d) >> shift``, round-half-up with ``round=True``
+    (``(v + 2^(shift-1)) >> shift``), for |inputs| < 2^30 and shift in
+    {30, 31}: the semantics of the JAX package's ``limb.mulsub_shift30``,
+    computed in one int64 lane (|a*c - b*d| < 2^61) instead of its 15-bit
+    limbs.  Python ints or integer tensors (taken as int64)."""
+    if shift not in (30, 31):
+        raise ValueError("mulsub_shift30 supports shift in {30, 31}")
+    ops = []
+    for v in (a, c, b, d):
+        if isinstance(v, torch.Tensor):
+            v = v.to(torch.int64)
+            big = v.numel() and int(v.abs().max()) >= 1 << 30
+        else:
+            big = abs(int(v)) >= 1 << 30
+        if big:
+            raise ValueError("mulsub_shift30 needs |inputs| < 2^30")
+        ops.append(v)
+    a, c, b, d = ops
+    v = a * c - b * d
+    if round:
+        v = v + (1 << (shift - 1))
+    return v >> shift
 
 
 def quantize_coeff(a: float, width: int, shift: int) -> int:

@@ -4,7 +4,10 @@
     sample stream -> overlapped frames -> quantized window apply
     -> FFT -> |.|^2 -> Welch average
 
-The window is generated on the fly by the window kernel.  With
+The window is generated on the fly: by the window kernel (quantized), the
+f32 outer write-out kernel (``win_mode="float"``) or the comp outer
+write-out kernel (``win_mode="comp"``, the raw (s, e) pair applied as
+``frame*s + frame*e``).  With
 ``fft_mode="mxu"``, 1-D CUDA input at 50% overlap runs the fused stage-1
 kernel (framing + window + pack + first DFT stage, ``welchfft_kernel``)
 followed by matmul DFT stages; other input runs the same matmul stages on
@@ -24,6 +27,8 @@ import numpy as np
 import torch
 
 from ..core.config import WindowSpec
+from ..kernels.compwin import comp_window_pair
+from ..kernels.floatwin import float_window
 from ..kernels.welchfft_kernel import welch_stage1_fused
 from ..kernels.window_kernel import window_block
 from ..windows import catalog
@@ -37,6 +42,24 @@ def _full_fp32() -> None:
 def window_scale(spec: WindowSpec, shift: int) -> float:
     """Float scale of the quantized window: values are round(w * (2^(W-shift)-1))."""
     return 1.0 / (2.0 ** (spec.data_width - shift) - 1.0)
+
+
+def _check_float_window_arg(name_or_coeffs):
+    """Guard the ``win_mode="float"|"comp"`` argument: it must be a catalog
+    name or a *float* coefficient tuple (|a_k| <= 1).  A caller that flips
+    the mode flag while still passing the usual quantized-integer tuple
+    would otherwise get a silently wrong window with integer-count
+    amplitudes."""
+    if isinstance(name_or_coeffs, str):
+        return name_or_coeffs
+    coeffs = tuple(float(c) for c in name_or_coeffs)
+    if not coeffs or max(abs(c) for c in coeffs) > 1.0:
+        raise ValueError(
+            "win_mode='float' takes a window name or float coefficients "
+            f"with |a_k| <= 1, got {name_or_coeffs!r} (looks like a "
+            "quantized integer set — use win_mode='quantized' for those)"
+        )
+    return coeffs
 
 
 def frames_view(x, nfft: int, hop: int):
@@ -255,14 +278,24 @@ def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
     x's device), applied, Welch-averaged.  nfft = spec.n.
 
     ``win_mode="quantized"`` reproduces the reference's integer window
-    datapath, then scales to float for the FFT.
+    datapath, then scales to float for the FFT.  ``win_mode="float"``
+    generates the window natively in float32 (``kernels/floatwin.py``) and
+    runs the same Welch path, so 1-D CUDA input at ``fft_mode="mxu"`` reaches
+    the fused stage-1 kernel.  ``win_mode="comp"`` generates the raw
+    compensated (s, e) pair (``kernels/compwin.py``) and applies it as two
+    products per sample, ``frame*s + frame*e``.
     """
     nfft = spec.n
     hop = hop or nfft // 2
-    if win_mode in ("float", "comp"):
-        raise NotImplementedError(
-            f"win_mode={win_mode!r} is not ported yet (ROADMAP.md queue 1 item 8)"
-        )
+    if win_mode == "float":
+        win = float_window(_check_float_window_arg(name_or_coeffs), spec.phase_width,
+                           device=x.device)
+        return welch_power(x, win, nfft, hop, fft_mode)
+    if win_mode == "comp":
+        whi, wlo = comp_window_pair(_check_float_window_arg(name_or_coeffs),
+                                    spec.phase_width, device=x.device)
+        fr = frames_view(x, nfft, hop)
+        return frame_mean_power(fr * whi + fr * wlo, fft_mode)
     if win_mode != "quantized":
         raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
     if isinstance(name_or_coeffs, str):

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+
 from ..core.fixedpoint import quantize_coeffs
 
 
@@ -114,3 +116,24 @@ def get(name: str) -> WindowDef:
         raise KeyError(
             f"unknown window {name!r}; available: {sorted(CATALOG)}"
         ) from None
+
+
+def float_window_value(name: str, n, N: int):
+    """Float reference ``w[n] = a0 - a1 cos(2 pi n/N) + a2 cos(4 pi n/N) - ...``
+    (math/window_test.m:122-138).  Host numpy, float64, vectorized over ``n``."""
+    d = get(name)
+    n = np.asarray(n, dtype=np.float64)
+    acc = np.full_like(n, d.coeffs[0], dtype=np.float64)
+    for k in range(1, d.n_terms):
+        term = d.coeffs[k] * np.cos(2.0 * np.pi * k * n / N)
+        acc = acc - term if k % 2 == 1 else acc + term
+    return acc
+
+
+def golden_quantized_window(name: str, n, N: int, data_width: int):
+    """The reference's quantized golden model:
+    ``round((2^(W-shift) - 1) * w_float[n])`` (hls/windows/window_test.cpp:196,
+    math/window_test.m:139), as int64 numpy."""
+    d = get(name)
+    w = float_window_value(name, n, N)
+    return np.round((2.0 ** (data_width - d.shift) - 1.0) * w).astype(np.int64)

@@ -12,16 +12,25 @@ user calls, at the repository's real sizes:
 2. the same window under the RTL (VHDL) rounding contract (kernel 1a);
 3. the Welch analyzer: BH-4 W=17 pw=20 saturate window, nfft = 2^20,
    hop = 2^19, over 128 * 2^20 float32 samples, fft_mode="mxu" (kernel 1a
-   for the window, kernel 2 for framing + window + DFT stage 1).
+   for the window, kernel 2 for framing + window + DFT stage 1);
+4. the outer-product fast modes at the bench_all size (BH-7, W=32, pw=26,
+   wrap, m=11): the int window (outer write-out) and its in-kernel
+   checksum, the float32 window and its checksum, the compensated (s, e)
+   pair and its checksum;
+5. the analyzer with the new window modes at the size of 3: float32 window
+   (f32 outer write-out) into fft_mode="mxu" (kernel 2), and the comp pair
+   (comp outer write-out) into fft_mode="rfft".
 
 Every kernel's launch counter is zeroed just before that run and read just
 after; a kernel the path did not launch fails the run.  Then each output is
 checked: generation 0-LSB against the plain PyTorch version on the CPU on
-random and quadrant-seam blocks, the exact checksum identity, the analyzer
-against the rfft path and a float64 reference within the derived f32
+random and quadrant-seam blocks, the exact checksum identities, the float
+windows against the float64 golden on every sample, the spectral floors at
+pw=16, the analyzers against a float64 reference within the derived f32
 budget, and each kernel against its plain version on the card.  Last, each
 kernel and its plain version are timed with CUDA events (median of 5 after
-a warm-up).
+a warm-up; a checksum kernel's time is per call of 16 back-to-back calls
+with distinct biases).
 
 Exits non-zero, printing no result, if torch sees no CUDA device or any
 phase fails.  The last line is the JSON object
@@ -87,6 +96,76 @@ def _gate_blocks(label, win_dev, q, spec, blocks):
     print(f"{label}: {len(blocks)} blocks 0-LSB equal to the CPU plain version")
 
 
+def _gate_outer_blocks(label, win_dev, q, spec, m, blocks):
+    """0-LSB gate of an outer-mode int window against the CPU plain version,
+    row by row of 2^m samples."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels.outerwin_kernel import outer_block_int_plain
+
+    for blk in blocks:
+        got = win_dev[torch.from_numpy(blk).to(win_dev.device)].cpu()
+        want = torch.cat([outer_block_int_plain(q, spec, m, int(h), 1)
+                          for h in np.unique(blk >> m)])
+        rows = np.unique(blk >> m)
+        pos = np.searchsorted(rows, blk >> m) * (1 << m) + (blk & ((1 << m) - 1))
+        bad = blk[(got != want[torch.from_numpy(pos)]).numpy()]
+        _require(bad.size == 0, f"{label}: differs from the plain version at "
+                 f"indices {bad[:8].tolist()}")
+    print(f"{label}: {len(blocks)} blocks 0-LSB equal to the CPU plain version")
+
+
+def _gate_float_checksum(label, fn, first, bias, plain, win_k, win_p, depth_k, depth_p):
+    """Gate an f32/comp checksum kernel, at ``bias`` (``first`` is the main
+    path's result) and at 0, against its plain version ``plain(b)`` on the
+    same tables.  ``win_k``/``win_p`` are the write-outs of the kernel and of
+    the plain version: the checksum kernel computes each sample with the
+    write-out's device code, so its terms are ``win_k``'s bits.  Bounds:
+
+    - kernel vs the float64 sum of its terms + b: sum_bound(depth_k, S_k + |b|);
+    - kernel vs plain: that bound, plus sum |w_k - w_p| (measured exactly),
+      plus the plain sum's own sum_bound(depth_p, S_p + |b|);
+    - the float64 reductions here are each off by at most n * 2^-53 * S:
+      four such terms are added as slack.
+
+    Repeated calls must return the same bits.  Returns the largest
+    |kernel - plain|."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels.outerwin_kernel import sum_bound
+
+    n = sum(w.numel() for w in win_k)
+    sum_k = sum(float(w.double().sum()) for w in win_k)
+    abs_k = sum(float(w.double().abs().sum()) for w in win_k)
+    abs_p = sum(float(w.double().abs().sum()) for w in win_p)
+    diff = sum(float((a.double() - b.double()).abs().sum()) for a, b in zip(win_k, win_p))
+    slack = 4 * n * 2.0**-53 * (abs_k + abs_p)
+    worst = 0.0
+    for b, got in ((bias, first), (0, fn(0))):
+        _require(torch.equal(got, fn(b)), f"{label}: a repeated call returned other bits")
+        bound_k = sum_bound(depth_k, abs_k + abs(b)) + slack
+        err64 = abs(float(got) - (sum_k + b))
+        _require(err64 <= bound_k, f"{label} (bias {b}) vs float64 sum of its terms: "
+                 f"{err64:.3e} > {bound_k:.3e}")
+        want = float(plain(b))
+        tol = bound_k + diff + sum_bound(depth_p, abs_p + abs(b))
+        err = abs(float(got) - want)
+        _require(err <= tol, f"{label} (bias {b}) {float(got)!r} vs plain {want!r}: "
+                 f"{err:.3e} > {tol:.3e}")
+        print(f"{label} (bias {b}): {float(got)!r}; vs float64 sum {err64:.3e} "
+              f"(<= gamma({depth_k}) x (sum|w| + |b|) = {bound_k:.3e}); vs plain {want!r}: "
+              f"{err:.3e} (<= {bound_k:.3e} + sum|w_k - w_p| {diff:.3e} + "
+              f"gamma({depth_p}) x (sum|w_p| + |b|) = {tol:.3e}); repeat bit-equal")
+        worst = max(worst, err)
+    return worst
+
+
+def _time_batch_ms(fn, calls: int = 16) -> float:
+    """Per-call time of ``calls`` back-to-back calls of ``fn(bias)`` with
+    distinct biases inside one CUDA event pair (median of 5 after a warm-up)."""
+    return _time_ms(lambda: [fn(b) for b in range(calls)]) / calls
+
+
 def _f64_welch(x, win64, nfft: int, hop: int, chunk: int = 32):
     """Float64 Welch reference: mean |rfft(frame * win)|^2, frames in chunks."""
     import torch
@@ -113,6 +192,16 @@ def main(argv=None) -> int:
 
     from blackman_harris_win_tpu_torch import _build
     from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
+    from blackman_harris_win_tpu_torch.kernels.compwin import (
+        DEFAULT_THRESH,
+        GRID_BITS,
+        comp_window_flops,
+        comp_window_pair,
+        normalize_pair,
+    )
+    from blackman_harris_win_tpu_torch.kernels.floatwin import float_window, float_window_flops
+    from blackman_harris_win_tpu_torch.kernels.outerwin import window_block_outer
     from blackman_harris_win_tpu_torch.kernels.welchfft_kernel import (
         welch_stage1_fused,
         welch_stage1_plain,
@@ -131,6 +220,7 @@ def main(argv=None) -> int:
         window_scale,
         windowed_power_spectrum,
     )
+    from blackman_harris_win_tpu_torch.utils.spectral import window_sidelobe_db
     from blackman_harris_win_tpu_torch.windows import catalog
 
     # --- 1. device and build ---
@@ -168,6 +258,23 @@ def main(argv=None) -> int:
     chk = window_checksum(q7, spec_hls, 0, 4 * n, bias=0, device=dev)
     win_rtl = make_window("bh7", spec_rtl, coeffs=q7_rtl, device=dev)
     ps_mxu = windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu")
+    # outer-product modes, bench_all configs 11/13/15 (BH-7, pw=26, m=11)
+    m = 11
+    nrows = n >> m
+    bias = 123457
+    win_outer = window_block_outer(0, nrows, q7, spec_hls, m=m, device=dev)
+    chk_outer_fn = ok.make_checksum_fn(q7, spec_hls, m=m, rows=256, device=dev)
+    chk_outer = chk_outer_fn(bias)
+    win_f32 = float_window("bh7", pw, device=dev)
+    chk_f32_fn = ok.make_checksum_fn_f32("bh7", pw, m=m, rows=256, device=dev)
+    chk_f32 = chk_f32_fn(bias)
+    win_s, win_e = comp_window_pair("bh7", pw, device=dev)
+    chk_comp_fn = ok.make_checksum_fn_comp("bh7", pw, m=m, rows=256, device=dev)
+    chk_comp = chk_comp_fn(bias)
+    ps_float = windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="float",
+                                       fft_mode="mxu")
+    ps_comp = windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="comp",
+                                      fft_mode="rfft")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     counts = dict(_build.launches)
@@ -213,6 +320,96 @@ def main(argv=None) -> int:
           f"relative to max {err_s1 / scale_s1:.3e} (< 1e-5)")
     del s1r, s1i, p1r, p1i
 
+    # the analyzer with the float32 and the compensated window
+    win64_4 = torch.from_numpy(catalog.float_window_value("bh4", np.arange(nfft), nfft)).to(dev)
+    ref4 = _f64_welch(x, win64_4, nfft, hop)
+    for label, ps in (("float/mxu", ps_float), ("comp/rfft", ps_comp)):
+        _require(ps.shape == (nfft // 2 + 1,) and bool(torch.isfinite(ps).all()),
+                 f"analyzer {label}: output is not finite of shape (nfft/2+1,)")
+        rel = float(((ps.double() - ref4).abs() / ref4.abs()).max())
+        _require(rel < budget, f"analyzer {label}: per-bin rel err {rel:.3e} > {budget:.3e}")
+        print(f"analyzer win_mode {label}: per-bin rel vs float64 {rel:.3e} (< {budget:.3e})")
+    del ref4
+
+    # --- outer-product modes: gates ---
+    outer_plain = ok.outer_block_int_plain(q7, spec_hls, m, 0, nrows, device=dev)
+    err_ob = int((outer_plain.long() - win_outer.long()).abs().max())
+    _require(err_ob == 0, f"outer int kernel vs plain on the card: {err_ob} LSB")
+    del outer_plain
+    print("outer int window vs plain on the card: 0 LSB")
+    _gate_outer_blocks("outer int bh7 w32 pw26", win_outer, q7, spec_hls, m,
+                       _seam_blocks(n, rng))
+    sum_outer = int(win_outer.sum(dtype=torch.int64))
+    want_outer = ((sum_outer + bias + (1 << 31)) % (1 << 32)) - (1 << 31)
+    chk_outer_plain = ok.checksum_plain(q7, spec_hls, m, 256, bias, device=dev)
+    err_oc = abs(int(chk_outer) - int(chk_outer_plain))
+    _require(int(chk_outer) == want_outer and err_oc == 0,
+             f"outer checksum {int(chk_outer)}: int32-wrap sum + bias {want_outer}, "
+             f"plain {int(chk_outer_plain)}")
+    print(f"outer checksum: {int(chk_outer)} == int32-wrap window sum + bias == plain (exact)")
+
+    gold7 = catalog.float_window_value("bh7", np.arange(n), n)  # host float64
+    f32_plain = ok.outer_block_f32_plain("bh7", pw, m, 0, nrows, device=dev)
+    err_fb = float((f32_plain - win_f32).abs().max())
+    f32_bound = ok.f32_pair_bound("bh7")
+    _require(err_fb <= f32_bound, f"f32 kernel vs plain {err_fb:.3e} > {f32_bound:.3e}")
+    err_f64 = float(np.abs(win_f32.cpu().numpy().astype(np.float64) - gold7).max())
+    _require(err_f64 < 1.5e-6, f"f32 window vs float64 golden {err_f64:.3e} >= 1.5e-6")
+    print(f"f32 window: vs plain {err_fb:.3e} (<= op-count bound {f32_bound:.3e}); "
+          f"vs float64 golden {err_f64:.3e} (< 1.5e-6)")
+    depth = ok.checksum_depth(nrows, 1 << m)
+    err_fc = _gate_float_checksum(
+        "f32 checksum", chk_f32_fn, chk_f32, bias,
+        lambda b: ok.checksum_plain_f32("bh7", pw, m, 256, b, device=dev),
+        (win_f32,), (f32_plain,), depth, ok.checksum_plain_depth(nrows, 1 << m, 256))
+    del f32_plain
+
+    s_plain, e_plain = ok.outer_block_comp_plain("bh7", pw, m, GRID_BITS, DEFAULT_THRESH, 0,
+                                                 nrows, device=dev)
+    _require(torch.equal(s_plain, win_s), "comp s differs from the plain version")
+    err_e = float((e_plain - win_e).abs().max())
+    e_bound = ok.comp_e_bound("bh7")
+    _require(err_e <= e_bound, f"comp e vs plain {err_e:.3e} > {e_bound:.3e}")
+    err_ccp = _gate_float_checksum(
+        "comp checksum", chk_comp_fn, chk_comp, bias,
+        lambda b: ok.checksum_plain_comp("bh7", pw, m, 256, b, device=dev),
+        (win_s, win_e), (s_plain, e_plain), depth,
+        ok.checksum_plain_depth(nrows, 1 << m, 256, comp=True))
+    del s_plain, e_plain
+    pair64 = win_s.double() + win_e.double()
+    err_pair = float(np.abs(pair64.cpu().numpy() - gold7).max())
+    _require(err_pair < 5e-9, f"comp pair vs float64 golden {err_pair:.3e} >= 5e-9")
+    del gold7
+    seam = slice(n // 4 - 2048, n // 4 + 2048)
+    hi, lo = normalize_pair(win_s[seam], win_e[seam])
+    p64 = hi.astype(np.float64) + lo.astype(np.float64)
+    _require(np.array_equal(p64, pair64[seam].cpu().numpy())
+             and np.array_equal(p64.astype(np.float32), hi),
+             "normalize_pair across the N/4 seam is not exact and non-overlapping")
+    print(f"comp pair: s bit-equal to plain, e vs plain {err_e:.3e} (<= {e_bound:.3e}); "
+          f"s + e vs float64 golden {err_pair:.3e} (< 5e-9); normalize_pair exact and "
+          "non-overlapping across N/4")
+    del pair64
+
+    # spectral floors at pw=16 from the kernels' output
+    spec16 = WindowSpec(16, 32, overflow="wrap")
+    floors = {
+        "outer bh7 w32": (window_sidelobe_db(
+            window_block_outer(0, 32, q7, spec16, device=dev).cpu().numpy(),
+            oversample=4, guard_bins=16 * 7), -180.0),
+        "float bh7": (window_sidelobe_db(float_window("bh7", 16, device=dev).cpu().numpy()),
+                      -160.0),
+        "float bh4": (window_sidelobe_db(float_window("bh4", 16, device=dev).cpu().numpy()),
+                      -92.0),
+        "comp pair bh7": (window_sidelobe_db(
+            sum(v.double() for v in comp_window_pair("bh7", 16, device=dev)).cpu().numpy(),
+            n_terms=7), -180.0),
+    }
+    for label, (db, bound) in floors.items():
+        _require(db <= bound, f"floor {label}: {db:.2f} dB > {bound} dB")
+    print("floors at pw=16: " + ", ".join(f"{k} {v[0]:.2f} dB (<= {v[1]})"
+                                          for k, v in floors.items()))
+
     # --- 4. each kernel against its plain version on the card, timed ---
     idx = torch.arange(n, device=dev)
     plain_hls = window_values_plain(idx, q7, spec_hls)
@@ -251,6 +448,37 @@ def main(argv=None) -> int:
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      fft_mode="rfft")),
         ),
+        "outer_block": (
+            _time_ms(lambda: window_block_outer(0, nrows, q7, spec_hls, m=m, device=dev)),
+            _time_ms(lambda: ok.outer_block_int_plain(q7, spec_hls, m, 0, nrows, device=dev)),
+        ),
+        "outer_checksum": (
+            _time_batch_ms(chk_outer_fn),
+            _time_ms(lambda: ok.checksum_plain(q7, spec_hls, m, 256, 0, device=dev)),
+        ),
+        "outer_block_f32": (
+            _time_ms(lambda: float_window("bh7", pw, device=dev)),
+            _time_ms(lambda: ok.outer_block_f32_plain("bh7", pw, m, 0, nrows, device=dev)),
+        ),
+        "outer_checksum_f32": (
+            _time_batch_ms(chk_f32_fn),
+            _time_ms(lambda: ok.checksum_plain_f32("bh7", pw, m, 256, 0, device=dev)),
+        ),
+        "outer_block_comp": (
+            _time_ms(lambda: comp_window_pair("bh7", pw, device=dev)),
+            _time_ms(lambda: ok.outer_block_comp_plain("bh7", pw, m, GRID_BITS,
+                                                       DEFAULT_THRESH, 0, nrows, device=dev)),
+        ),
+        "outer_checksum_comp": (
+            _time_batch_ms(chk_comp_fn),
+            _time_ms(lambda: ok.checksum_plain_comp("bh7", pw, m, 256, 0, device=dev)),
+        ),
+        "analyzer float/mxu vs comp/rfft": (
+            _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
+                                                     win_mode="float", fft_mode="mxu")),
+            _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
+                                                     win_mode="comp", fft_mode="rfft")),
+        ),
     }
     for name, (ms, plain_ms) in t.items():
         print(f"time {label} {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms)")
@@ -258,6 +486,15 @@ def main(argv=None) -> int:
           f"Msamples/s, window_checksum {4 * n / t['window_checksum'][0] / 1e3:.1f} "
           f"Msamples/s, analyzer mxu {nsamp / t['analyzer mxu vs rfft'][0] / 1e3:.1f} "
           "Msamples/s in")
+    print(f"rates {label}: " + ", ".join(
+        f"{k} {n / t[k][0] / 1e3:.1f} Msamples/s (plain {n / t[k][1] / 1e3:.1f})"
+        for k in ("outer_block", "outer_checksum", "outer_block_f32", "outer_checksum_f32",
+                  "outer_block_comp", "outer_checksum_comp")))
+    # the no-fusion f32 op models of the float modes (FMA pairs count 4 ops)
+    gflops_f32 = float_window_flops(n, 8) / t["outer_checksum_f32"][0] / 1e6
+    gflops_comp = comp_window_flops(n, "bh7") / t["outer_checksum_comp"][0] / 1e6
+    print(f"rates {label}: outer_checksum_f32 {gflops_f32:.1f} GFLOP/s, "
+          f"outer_checksum_comp {gflops_comp:.1f} GFLOP/s (no-fusion op models)")
 
     src = "blackman_harris_win_tpu_torch/csrc/"
     tpu_win = "blackman_harris_win_tpu/kernels/pallas/window_kernel.py:378"
@@ -275,6 +512,15 @@ def main(argv=None) -> int:
          "launches": counts["welch_stage1"], "max_abs_err": err_s1,
          "ms": t["welch_stage1"][0], "plain_ms": t["welch_stage1"][1]},
     ]
+    tpu_outer = "blackman_harris_win_tpu/kernels/pallas/outerwin_kernel.py:"
+    for name, line, err in (
+        ("outer_block", 86, err_ob), ("outer_checksum", 86, err_oc),
+        ("outer_block_f32", 276, err_fb), ("outer_checksum_f32", 276, err_fc),
+        ("outer_block_comp", 170, err_e), ("outer_checksum_comp", 170, err_ccp),
+    ):
+        kernels.append({"name": name, "route": "cuda", "source": src + "outerwin_kernel.cu",
+                        "replaces": f"{tpu_outer}{line}", "launches": counts[name],
+                        "max_abs_err": err, "ms": t[name][0], "plain_ms": t[name][1]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -30,6 +30,11 @@ PORT_MODULES = [
     "blackman_harris_win_tpu_torch.kernels.window",
     "blackman_harris_win_tpu_torch.kernels.window_kernel",
     "blackman_harris_win_tpu_torch.kernels.welchfft_kernel",
+    "blackman_harris_win_tpu_torch.kernels.outerwin",
+    "blackman_harris_win_tpu_torch.kernels.floatwin",
+    "blackman_harris_win_tpu_torch.kernels.compwin",
+    "blackman_harris_win_tpu_torch.kernels.outerwin_kernel",
+    "blackman_harris_win_tpu_torch.utils.spectral",
     "blackman_harris_win_tpu_torch.pipeline.spectral",
 ]
 

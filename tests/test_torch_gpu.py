@@ -14,6 +14,9 @@ import torch
 
 from blackman_harris_win_tpu_torch import _build
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
+from blackman_harris_win_tpu_torch.kernels import compwin as pc
+from blackman_harris_win_tpu_torch.kernels import outerwin as po
+from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels import window as kw
 from blackman_harris_win_tpu_torch.kernels import window_kernel as wk
 from blackman_harris_win_tpu_torch.kernels.welchfft_kernel import (
@@ -126,3 +129,144 @@ def test_wrappers_reject_bad_tensors(cuda):
         welch_stage1_fused(x[::2], win, nfft)
     with pytest.raises(ValueError):
         wk.window_block(catalog.get("bh4").quantized(17), WindowSpec(12, 17), -1, 8, cuda)
+
+
+# --- outer-product fast modes (csrc/outerwin_kernel.cu) ---
+
+OUTER_INT_CASES = [  # (window, W, overflow, pw, m)
+    ("bh7", 32, "wrap", 16, 11),
+    ("bh7", 32, "saturate", 16, 11),
+    ("bh4", 18, "saturate", 15, 6),
+    ("hann", 17, "wrap", 13, 5),  # 32 lanes: fewer than a block's 256
+]
+
+
+@pytest.mark.parametrize("name,w,overflow,pw,m", OUTER_INT_CASES)
+def test_outer_int_block_kernel_matches_plain(cuda, name, w, overflow, pw, m):
+    spec = WindowSpec(pw, w, overflow=overflow)
+    q = catalog.get(name).quantized(w)
+    n = 1 << pw
+    _build.reset_launches()
+    got = po.window_block_outer(0, n >> m, q, spec, m=m, device=cuda)
+    assert _build.launches["outer_block"] == 1
+    want = po.window_block_outer(0, n >> m, q, spec, m=m)  # CPU plain version
+    assert torch.equal(got.cpu(), want)
+    plain = ok.outer_block_int_plain(q, spec, m, 0, n >> m, device=cuda)
+    assert torch.equal(got, plain)
+    for n0 in (n // 4 - (2 << m), 3 * n // 4 - (2 << m)):  # blocks across seams
+        blk = po.window_block_outer(n0, 4, q, spec, m=m, device=cuda).cpu()
+        assert torch.equal(blk, want[n0:n0 + (4 << m)])
+
+
+@pytest.mark.parametrize("name,w,overflow,pw,m", OUTER_INT_CASES)
+def test_outer_int_checksum_kernel_matches_plain(cuda, name, w, overflow, pw, m):
+    spec = WindowSpec(pw, w, overflow=overflow)
+    q = catalog.get(name).quantized(w)
+    fn = ok.make_checksum_fn(q, spec, m=m, rows=8, device=cuda)
+    plain = ok.make_checksum_fn(q, spec, m=m, rows=8)
+    win = po.window_block_outer(0, (1 << pw) >> m, q, spec, m=m)
+    base = int(win.sum(dtype=torch.int64))
+    for bias in (0, 9, -(1 << 31)):
+        want = ((base + bias + (1 << 31)) % (1 << 32)) - (1 << 31)
+        got = fn(bias)
+        assert got.dtype == torch.int32 and got.device == cuda
+        assert int(got) == int(plain(bias)) == want
+
+
+def _check_checksum_against_plain(n, m, got, win_k, win_p, plain, comp=False):
+    """f32/comp checksum kernel results ``got`` (at bias 0 and 5) against the
+    float64 sum of its terms (the write-out ``win_k``: the checksum kernel
+    computes each sample with the write-out's device code) within its
+    derived bound, and against its plain version within that bound plus
+    sum |w_k - w_p| plus the plain sum's own bound (rows = 8)."""
+    depth_k = ok.checksum_depth(n >> m, 1 << m)
+    depth_p = ok.checksum_plain_depth(n >> m, 1 << m, 8, comp=comp)
+    exact = sum(float(w.double().sum()) for w in win_k)
+    abs_k = sum(float(w.double().abs().sum()) for w in win_k)
+    abs_p = sum(float(w.double().abs().sum()) for w in win_p)
+    diff = sum(float((a.double() - b.double()).abs().sum()) for a, b in zip(win_k, win_p))
+    for bias, c in zip((0, 5), got):
+        bound_k = ok.sum_bound(depth_k, abs_k + bias)
+        assert abs(float(c) - (exact + bias)) <= bound_k, (float(c), exact + bias, bound_k)
+        tol = bound_k + diff + ok.sum_bound(depth_p, abs_p + bias)
+        want = float(plain(bias))
+        assert abs(float(c) - want) <= tol, (float(c), want, tol)
+
+
+@pytest.mark.parametrize("name,pw,m,bf16", [("bh7", 16, 11, False), ("bh4", 14, 5, False),
+                                            ("bh4", 14, 7, True)])
+def test_outer_f32_block_and_checksum_kernels(cuda, name, pw, m, bf16):
+    n = 1 << pw
+    tdt = torch.bfloat16 if bf16 else None
+    got = ok.outer_block_f32(name, pw, m, 0, n >> m, device=cuda, table_dtype=tdt)
+    plain = ok.outer_block_f32_plain(name, pw, m, 0, n >> m, device=cuda, table_dtype=tdt)
+    # two f32 evaluation orders: bounded by the op count
+    assert float((got - plain).abs().max()) <= ok.f32_pair_bound(name)
+    fn = ok.make_checksum_fn_f32(name, pw, m=m, rows=8, table_dtype=tdt, device=cuda)
+    c0, c0b, c5 = fn(0), fn(0), fn(5)
+    assert torch.equal(c0, c0b)  # deterministic: no float atomics
+    assert float(c5) == float(np.float32(float(c0) + 5.0))  # bias added last
+    _check_checksum_against_plain(
+        n, m, (c0, c5), (got,), (plain,),
+        lambda b: ok.checksum_plain_f32(name, pw, m, 8, b, table_dtype=tdt, device=cuda))
+
+
+@pytest.mark.parametrize("name,pw,m,thresh", [("bh7", 16, 11, pc.DEFAULT_THRESH),
+                                              ("hamming", 13, 6, pc.DEFAULT_THRESH),
+                                              ("bh4", 13, 7, 1.1)])
+def test_outer_comp_block_kernel_matches_plain(cuda, name, pw, m, thresh):
+    n = 1 << pw
+    s, e = ok.outer_block_comp(name, pw, m, pc.GRID_BITS, thresh, 0, n >> m, device=cuda)
+    ps, pe = ok.outer_block_comp_plain(name, pw, m, pc.GRID_BITS, thresh, 0, n >> m,
+                                       device=cuda)
+    assert torch.equal(s, ps)  # exact on the 2^-22 grid under any evaluation
+    assert float((e - pe).abs().max()) <= ok.comp_e_bound(name, thresh=thresh)
+    gold = torch.from_numpy(catalog.float_window_value(name, np.arange(n), n)).to(cuda)
+    # pair accuracy 5e-9; with nothing compensated (thresh above every
+    # |a_k|) the pair is plain f32, 3e-7 (tests/test_compwin.py)
+    bound = 5e-9 if thresh < 1 else 3e-7
+    assert float((s.double() + e.double() - gold).abs().max()) < bound
+
+
+@pytest.mark.parametrize("name,pw,m", [("bh7", 16, 11), ("hamming", 13, 6)])
+def test_outer_comp_checksum_kernel(cuda, name, pw, m):
+    n = 1 << pw
+    s, e = pc.comp_window_pair(name, pw, m=m, device=cuda)
+    ps, pe = ok.outer_block_comp_plain(name, pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, 0, n >> m,
+                                       device=cuda)
+    fn = ok.make_checksum_fn_comp(name, pw, m=m, rows=8, device=cuda)
+    c0, c5 = fn(0), fn(5)
+    assert torch.equal(c0, fn(0))
+    assert float(c5) == float(np.float32(float(c0) + 5.0))
+    _check_checksum_against_plain(
+        n, m, (c0, c5), (s, e), (ps, pe),
+        lambda b: ok.checksum_plain_comp(name, pw, m, 8, b, device=cuda), comp=True)
+
+
+def test_outer_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError, match="divisible"):
+        ok.make_checksum_fn_f32("bh4", 12, m=7, rows=24, device=cuda)
+    with pytest.raises(ValueError, match="coefficients"):
+        ok.outer_block_f32((0.1,) * 9, 10, 5, 0, 4, device=cuda)
+    with pytest.raises(ValueError, match="compensation threshold"):
+        ok.make_checksum_fn_comp((0.9, 1e-7, 1e-7), 12, m=7, rows=8, device=cuda)
+
+
+@pytest.mark.parametrize("win_mode,fft_mode,kernels", [
+    ("float", "mxu", ("outer_block_f32", "welch_stage1")),
+    ("comp", "rfft", ("outer_block_comp",)),
+])
+def test_analyzer_float_modes_run_the_kernels(cuda, win_mode, fft_mode, kernels):
+    spec = WindowSpec(13, 17)
+    nfft = spec.n
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=nfft * 9).astype(np.float32)).to(cuda)
+    _build.reset_launches()
+    got = sp.windowed_power_spectrum(x, "bh4", spec, win_mode=win_mode, fft_mode=fft_mode)
+    for name in kernels:
+        assert _build.launches[name] == 1, name
+    win64 = torch.from_numpy(catalog.float_window_value("bh4", np.arange(nfft), nfft)).to(cuda)
+    fr = x.unfold(0, nfft, nfft // 2).double() * win64
+    ref = (torch.fft.rfft(fr, dim=-1).abs() ** 2).mean(dim=0)
+    rel = float(((got.double() - ref).abs() / ref).max())
+    assert rel < 32 * 2.0**-24 * np.sqrt(nfft), rel

@@ -277,5 +277,5 @@ class TestCpuGuards:
             size=5 * 4096).astype(np.float32))
         welch_stage1_fused(x, torch.ones(1 << 13), 1 << 13)
         windowed_power_spectrum(x, "bh4", spec, fft_mode="mxu")
-        assert _build.launches == {"window_block": 0, "window_checksum": 0,
-                                   "welch_stage1": 0}
+        assert {"window_block", "window_checksum", "welch_stage1"} <= set(_build.launches)
+        assert _build.launches == dict.fromkeys(_build.launches, 0)
