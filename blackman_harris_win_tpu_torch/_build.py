@@ -36,6 +36,7 @@ launches = {
     "window_block": 0, "window_checksum": 0, "welch_stage1": 0,
     "outer_block": 0, "outer_block_f32": 0, "outer_block_comp": 0,
     "outer_checksum": 0, "outer_checksum_f32": 0, "outer_checksum_comp": 0,
+    "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_checksum": 0,
 }
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -55,6 +56,13 @@ _SIGNATURES = {
     "bhw_outer_block": (_I, _P, _P, *_OUTER, _P),
     # mode, out, partials, npartials, bias, (table arguments), stream
     "bhw_outer_checksum": (_I, _P, _P, _L, _I, *_OUTER, _P),
+    # c, s, n0, count, rom, pw, w, ls, ramb_pi, stream
+    "bhw_taylor_sincos_block": (_P, _P, _L, _L, _P, _I, _I, _I, _I, _P),
+    # out, n0, count, rom, pw, w, ls, coeffs, nterms, ramb_pi (pw), ramb_pi
+    # (pw-1), saturate, stream
+    "bhw_taylor_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P),
+    # out, n0, count, rom, pw, w, ls, ramb_pi, stream
+    "bhw_taylor_checksum": (_P, _L, _L, _P, _I, _I, _I, _I, _P),
 }
 #: host-side queries of a kernel's launch geometry: name -> (args, result)
 _QUERIES = {

@@ -1,43 +1,76 @@
 """Fused cosine-sum window generation (counterpart of
-``blackman_harris_win_tpu/kernels/window.py``, CORDIC source only).
+``blackman_harris_win_tpu/kernels/window.py``).
 
 The reference's K-1 spatially replicated CORDIC instances become a harmonic
 loop; the per-instance phase counters stepping +k mod 2^PHI become the
 closed form ``(k * n) mod 2^PHI``, so any block of the window is computed
-from its indices alone.
+from its indices alone.  Three sine sources (``WindowSpec.sin_type``): the
+CORDIC generators, the TAYLOR generator (``taylor.py``, 2/3-term windows
+only) and the taylor2 fast mode (``fastwin.py``, HLS only).
 
 Two rounding modes (see ``WindowSpec``): "hls" (the coherent functional
 spec) and "rtl" (the VHDL cores' two round-half-up stages).
 
 ``window_samples`` is the indexed reference math on int64 lanes, on any
-device.  ``make_window`` and ``window_block`` produce contiguous blocks
-through the window kernel's wrapper (``window_kernel.window_block``): the
-CUDA kernel for a CUDA device, its plain version on the CPU.
+device.  ``make_window`` and ``window_block`` produce contiguous blocks:
+
+- CORDIC: through ``window_kernel.window_block``;
+- TAYLOR, HLS: through ``taylor_kernel.window_block``;
+- TAYLOR RTL and taylor2 (no kernel in the JAX package either):
+  ``window_samples`` in torch ops on the requested device.
+
+A kernel wrapper runs the CUDA kernel for a CUDA device and its plain
+version on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..core.config import WindowSpec
 from ..core.fixedpoint import round_half_up_bit0, round_half_up_bit1, wrap
 from ..windows import catalog
 from . import cordic as _cordic
+from .fastwin import window_values_fast
+from .taylor import taylor_sincos
+
+TAYLOR_TERMS_MSG = ("TAYLOR sin_type supports 2/3-term windows only "
+                    "(src/win_selector.vhd: 4/5/7-term cores are CORDIC-only)")
 
 
 def _harmonic_cos(n, k: int, spec: WindowSpec):
-    """cos of harmonic k at sample indices n: the closed-form phase
-    (k*n) mod 2^PW into one CORDIC generator (amplitude 2^(W-2))."""
+    """cos of harmonic k at sample indices n.
+
+    CORDIC: closed-form phase (k*n) mod 2^PW into one generator (amplitude
+    2^(W-2)).  TAYLOR: the reference doubles frequency by instantiating the
+    generator one phase bit narrower (src/bh_win_3term.vhd:221-233), so
+    harmonic k=2^j uses taylor at PW-j with phase n mod 2^(PW-j) (amplitude
+    2^(W-1)); only 2/3-term windows support TAYLOR, matching
+    src/win_selector.vhd:93-147.
+    """
     pw = spec.phase_width
-    c, _ = _cordic.cordic_sincos((k * n) & ((1 << pw) - 1), spec.cordic_spec)
+    if spec.sin_type == "cordic":
+        c, _ = _cordic.cordic_sincos((k * n) & ((1 << pw) - 1), spec.cordic_spec)
+        return c
+    if k not in (1, 2):
+        raise ValueError(TAYLOR_TERMS_MSG)
+    pwk = pw - (k - 1)
+    c, _ = taylor_sincos(n & ((1 << pwk) - 1), pwk, spec.data_width, spec.lut_size)
     return c
+
+
+def _cos_shift(spec: WindowSpec) -> int:
+    """log2 of the cosine source's amplitude: 2^(W-2) for CORDIC, full scale
+    2^(W-1) for TAYLOR."""
+    return spec.data_width - (2 if spec.sin_type == "cordic" else 1)
 
 
 def _check_lanes(coeffs_q, spec: WindowSpec) -> None:
     """Every product a_k * cos_k and the W+2-bit tree must fit int64."""
     w = spec.data_width
     amax = max(abs(int(c)) for c in coeffs_q)
-    prod_bits = amax.bit_length() + (w - 2) + 1
+    prod_bits = amax.bit_length() + _cos_shift(spec) + 1
     if max(prod_bits, w + 2) > 63:
         raise ValueError(
             f"this configuration needs {max(prod_bits, w + 2)}-bit products; "
@@ -52,14 +85,11 @@ def window_samples(n, coeffs_q, spec: WindowSpec):
     ``catalog.get(name).quantized(data_width)``.  Returns signed
     data_width-bit values in an int64 tensor on ``n``'s device.
     """
-    if spec.sin_type != "cordic":
-        raise NotImplementedError(
-            f"sin_type {spec.sin_type!r} is not ported yet (ROADMAP.md "
-            "queue 1 item 7 for 'taylor', item 8 for 'taylor2')"
-        )
+    n = torch.as_tensor(n, dtype=torch.int64)
+    if spec.sin_type == "taylor2":
+        return window_values_fast(n, coeffs_q, spec)
     coeffs_q = tuple(int(c) for c in coeffs_q)
     _check_lanes(coeffs_q, spec)
-    n = torch.as_tensor(n, dtype=torch.int64)
     if spec.rounding == "hls":
         return _window_hls(n, coeffs_q, spec)
     return _window_rtl(n, coeffs_q, spec)
@@ -69,13 +99,14 @@ def _window_hls(n, coeffs_q, spec: WindowSpec):
     """HLS semantics: ``w[n] = a0 - m1 + m2 - ...``,
     ``m_k = (a_k * cos_k) >> (W-2)`` (hls/windows/win_function.cpp:361-375).
 
-    The accumulator is exact in int64, so saturate clamps the true sum
-    (at W=32 the JAX int32 datapath recovers the same value by counting
-    signed overflows, pallas/window_kernel.py:332-360)."""
-    w = spec.data_width
+    The shift is W-1 for the full-scale TAYLOR source.  The accumulator is
+    exact in int64, so saturate clamps the true sum (at W=32 the JAX int32
+    datapath recovers the same value by counting signed overflows,
+    pallas/window_kernel.py:332-360)."""
+    w, shift = spec.data_width, _cos_shift(spec)
     acc = torch.full(n.shape, coeffs_q[0], dtype=torch.int64, device=n.device)
     for k in range(1, len(coeffs_q)):
-        m = (coeffs_q[k] * _harmonic_cos(n, k, spec)) >> (w - 2)
+        m = (coeffs_q[k] * _harmonic_cos(n, k, spec)) >> shift
         acc = acc - m if k % 2 == 1 else acc + m
     if spec.overflow == "saturate":
         return torch.clamp(acc, -(1 << (w - 1)), (1 << (w - 1)) - 1)
@@ -88,7 +119,9 @@ def _window_rtl(n, coeffs_q, spec: WindowSpec):
     product slice [2W-2:W-2] -> W+1 bits, round-half-up off bit 0 -> W bits,
     alternating adder tree in W+2 bits (W+1 for 2-term), final round-half-up
     off bit 1 (bit 0 for 2-term) -> W bits.  The output register is W bits
-    wide, so "saturate" and "wrap" agree here."""
+    wide, so "saturate" and "wrap" agree here.  The datapath is scaled for
+    the full-scale TAYLOR source; the CORDIC source needs
+    :func:`rtl_cordic_coeffs`."""
     w = spec.data_width
     bs = []
     for k in range(1, len(coeffs_q)):
@@ -107,7 +140,7 @@ def _window_rtl(n, coeffs_q, spec: WindowSpec):
 def make_window(name: str, spec: WindowSpec, coeffs=None, device="cpu"):
     """The full 2^phase_width-point quantized window for a named coefficient
     set (the ``win_selector`` equivalent, src/win_selector.vhd:93-199), as
-    int32 on ``device``."""
+    int32 on ``device`` (routed as :func:`window_block`)."""
     d = catalog.get(name)
     coeffs_q = coeffs if coeffs is not None else d.quantized(spec.data_width)
     return window_block(0, spec.n, coeffs_q, spec, device)
@@ -130,8 +163,9 @@ def rtl_cordic_coeffs(coeffs_q) -> tuple[int, ...]:
 def win_function(sel: int, n, spec: WindowSpec):
     """HLS runtime selector semantics (hls/windows/win_function.cpp:380-422):
     selector code -> window; unknown code -> zeros (win_empty)."""
+    n = torch.as_tensor(n)
     if sel not in catalog.HLS_SEL:
-        return torch.zeros(torch.as_tensor(n).shape, dtype=torch.int64)
+        return torch.zeros(n.shape, dtype=torch.int64, device=n.device)
     d = catalog.get(catalog.HLS_SEL[sel])
     return window_samples(n, d.quantized(spec.data_width), spec)
 
@@ -140,7 +174,16 @@ def window_block(n0: int, block_len: int, coeffs_q, spec: WindowSpec,
                  device="cpu"):
     """A contiguous block [n0, n0+block_len) of the window as int32 on
     ``device`` — the streaming building block (no host ever needs the full
-    window)."""
-    from .window_kernel import window_block as _block
+    window).  CORDIC and TAYLOR/HLS go through their kernels' wrappers;
+    TAYLOR RTL and taylor2 run ``window_samples`` on ``device``."""
+    if spec.sin_type == "cordic":
+        from .window_kernel import window_block as _block
 
-    return _block(coeffs_q, spec, n0, block_len, device)
+        return _block(coeffs_q, spec, n0, block_len, device)
+    if spec.sin_type == "taylor" and spec.rounding == "hls":
+        from .taylor_kernel import window_block as _block
+
+        return _block(coeffs_q, spec, n0, block_len, device)
+    n0, block_len = int(n0), int(block_len)
+    n = torch.arange(n0, n0 + block_len, device=_build.resolve_device(device))
+    return window_samples(n, coeffs_q, spec).to(torch.int32)

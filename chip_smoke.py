@@ -19,7 +19,13 @@ user calls, at the repository's real sizes:
    pair and its checksum;
 5. the analyzer with the new window modes at the size of 3: float32 window
    (f32 outer write-out) into fft_mode="mxu" (kernel 2), and the comp pair
-   (comp outer write-out) into fft_mode="rfft".
+   (comp outer write-out) into fft_mode="rfft";
+6. the TAYLOR source at the bench_all size of configs 16-18 (pw=26): the raw
+   (cos, sin) engine written out at W=16/LS=10 and W=32/LS=12, the in-kernel
+   checksum of each (rows=64), the Blackman W=32 LS=12 wrap and Hamming W=16
+   LS=10 saturate HLS windows through ``make_window`` (Taylor window
+   kernel); and, in torch ops on the card (no kernel exists for them), an
+   RTL-contract TAYLOR Hamming window and a taylor2 BH-7 W=32 LS=12 window.
 
 Every kernel's launch counter is zeroed just before that run and read just
 after; a kernel the path did not launch fails the run.  Then each output is
@@ -80,16 +86,15 @@ def _seam_blocks(n: int, rng) -> list[np.ndarray]:
     return blocks
 
 
-def _gate_blocks(label, win_dev, q, spec, blocks):
-    """0-LSB gate of a written window against the CPU plain version."""
+def _gate_blocks(label, win_dev, plain, blocks):
+    """0-LSB gate of a written output against ``plain(idx)``, its plain
+    version on the CPU at the int64 indices ``idx``."""
     import torch
-
-    from blackman_harris_win_tpu_torch.kernels.window_kernel import window_values_plain
 
     for blk in blocks:
         idx = torch.from_numpy(blk)
         got = win_dev[idx.to(win_dev.device)].cpu()
-        want = window_values_plain(idx, q, spec)
+        want = plain(idx)
         bad = blk[(got != want).numpy()]
         _require(bad.size == 0, f"{label}: differs from the plain version at "
                  f"indices {bad[:8].tolist()}")
@@ -201,7 +206,9 @@ def main(argv=None) -> int:
         normalize_pair,
     )
     from blackman_harris_win_tpu_torch.kernels.floatwin import float_window, float_window_flops
+    from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
     from blackman_harris_win_tpu_torch.kernels.outerwin import window_block_outer
+    from blackman_harris_win_tpu_torch.kernels.taylor import taylor_sincos_block
     from blackman_harris_win_tpu_torch.kernels.welchfft_kernel import (
         welch_stage1_fused,
         welch_stage1_plain,
@@ -209,6 +216,7 @@ def main(argv=None) -> int:
     from blackman_harris_win_tpu_torch.kernels.window import (
         make_window,
         rtl_cordic_coeffs,
+        window_samples,
     )
     from blackman_harris_win_tpu_torch.kernels.window_kernel import (
         window_block,
@@ -275,6 +283,20 @@ def main(argv=None) -> int:
                                        fft_mode="mxu")
     ps_comp = windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="comp",
                                       fft_mode="rfft")
+    # the TAYLOR source, bench_all configs 16-18 (pw=26, 2^26 phases)
+    tay_cfgs = ((16, 10), (32, 12))  # (W, LS)
+    tay_cs = {cfg: taylor_sincos_block(0, n, pw, *cfg, device=dev) for cfg in tay_cfgs}
+    tay_fns = {cfg: tk.make_checksum_fn_taylor(pw, *cfg, rows=64, device=dev)
+               for cfg in tay_cfgs}
+    tay_chk = {cfg: tay_fns[cfg](0, bias) for cfg in tay_cfgs}
+    tay_specs = {  # name -> spec: HLS through the kernel, RTL/taylor2 in torch ops
+        "blackman": WindowSpec(pw, 32, sin_type="taylor", lut_size=12, overflow="wrap"),
+        "hamming": WindowSpec(pw, 16, sin_type="taylor", lut_size=10, overflow="saturate"),
+        "hamming rtl": WindowSpec(pw, 16, sin_type="taylor", rounding="rtl", lut_size=10,
+                                  overflow="saturate"),
+        "bh7 taylor2": WindowSpec(pw, 32, sin_type="taylor2", lut_size=12, overflow="wrap"),
+    }
+    tay_win = {k: make_window(k.split()[0], sp, device=dev) for k, sp in tay_specs.items()}
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     counts = dict(_build.launches)
@@ -285,13 +307,15 @@ def main(argv=None) -> int:
     # --- 3. gates ---
     print(f"gate seed: {args.seed}")
     rng = np.random.default_rng(args.seed)
-    _gate_blocks("hls bh7 w32 pw26", win_hls, q7, spec_hls, _seam_blocks(n, rng))
+    _gate_blocks("hls bh7 w32 pw26", win_hls, lambda i: window_values_plain(i, q7, spec_hls),
+                 _seam_blocks(n, rng))
     sum32 = int(win_hls.sum(dtype=torch.int64))
     want_chk = ((4 * sum32 + (1 << 31)) % (1 << 32)) - (1 << 31)
     _require(int(chk) == want_chk,
              f"checksum {int(chk)} != 4 x int32-wrap window sum {want_chk}")
     print(f"checksum over 4 periods: {int(chk)} == 4 x window sum (exact)")
-    _gate_blocks("rtl bh7 w32 pw26", win_rtl, q7_rtl, spec_rtl, _seam_blocks(n, rng))
+    _gate_blocks("rtl bh7 w32 pw26", win_rtl, lambda i: window_values_plain(i, q7_rtl, spec_rtl),
+                 _seam_blocks(n, rng))
 
     d4 = catalog.get("bh4")
     _require(ps_mxu.shape == (nfft // 2 + 1,) and bool(torch.isfinite(ps_mxu).all()),
@@ -391,6 +415,57 @@ def main(argv=None) -> int:
           "non-overlapping across N/4")
     del pair64
 
+    # --- the TAYLOR source: gates ---
+    for cfg in tay_cfgs:
+        c_dev, s_dev = tay_cs[cfg]
+        for part, out in enumerate((c_dev, s_dev)):
+            _gate_blocks(f"taylor {'cs'[part]} w{cfg[0]} ls{cfg[1]} pw26", out,
+                         lambda i, c=cfg, p=part: tk.taylor_sincos_plain(i, pw, *c)[p],
+                         _seam_blocks(n, rng))
+    for k, sp in tay_specs.items():
+        q = catalog.get(k.split()[0]).quantized(sp.data_width)
+        _gate_blocks(f"taylor window {k} w{sp.data_width} pw26", tay_win[k],
+                     lambda i, q=q, sp=sp: window_samples(i, q, sp).to(torch.int32),
+                     _seam_blocks(n, rng))
+    idx = torch.arange(n, device=dev)
+    err_tcs = 0
+    err_tck = 0
+    for cfg in tay_cfgs:
+        pc, ps = tk.taylor_sincos_plain(idx, pw, *cfg)
+        c_dev, s_dev = tay_cs[cfg]
+        err_tcs = max(err_tcs, int((pc.long() - c_dev.long()).abs().max()),
+                      int((ps.long() - s_dev.long()).abs().max()))
+        del pc, ps
+        # a full period's quadrants cancel (the sum is the bias), so the
+        # checksum kernel is also held on a random range that is not one
+        r0 = int(rng.integers(n))
+        ranges = ((0, n, tay_chk[cfg]),
+                  (r0, n // 3, tk.checksum_range(r0, n // 3, pw, *cfg, bias, dev)))
+        cs_sum = c_dev.long() + s_dev.long()
+        for start, count, got in ranges:
+            total = int(cs_sum[torch.arange(start, start + count, device=dev) % n].sum())
+            want = ((total + bias + (1 << 31)) % (1 << 32)) - (1 << 31)
+            plain = int(tk.taylor_checksum_plain(pw, *cfg, start, bias, device=dev,
+                                                 count=count))
+            err_tck = max(err_tck, abs(int(got) - plain))
+            _require(int(got) == want == plain,
+                     f"taylor checksum w{cfg[0]} [{start}, +{count}): {int(got)}, int32-wrap "
+                     f"c+s sum + bias {want}, plain {plain}")
+            print(f"taylor checksum w{cfg[0]} ls{cfg[1]} over [{start}, +{count}): "
+                  f"{int(got)} == int32-wrap sum of the written c+s + bias == plain on the "
+                  "card (exact)")
+        del cs_sum
+    _require(err_tcs == 0, f"taylor sincos kernel vs plain on the card: {err_tcs} LSB")
+    err_twin = 0
+    for k in ("blackman", "hamming"):
+        sp = tay_specs[k]
+        plain = tk.taylor_window_plain(idx, catalog.get(k).quantized(sp.data_width), sp)
+        err_twin = max(err_twin, int((plain.long() - tay_win[k].long()).abs().max()))
+        del plain
+    _require(err_twin == 0, f"taylor window kernel vs plain on the card: {err_twin} LSB")
+    print("taylor kernels vs plain on the card: 0 LSB (sincos w16/w32, windows blackman "
+          "w32 wrap, hamming w16 saturate)")
+
     # spectral floors at pw=16 from the kernels' output
     spec16 = WindowSpec(16, 32, overflow="wrap")
     floors = {
@@ -404,6 +479,9 @@ def main(argv=None) -> int:
         "comp pair bh7": (window_sidelobe_db(
             sum(v.double() for v in comp_window_pair("bh7", 16, device=dev)).cpu().numpy(),
             n_terms=7), -180.0),
+        "taylor2 bh7 w32": (window_sidelobe_db(make_window(
+            "bh7", tay_specs["bh7 taylor2"].with_(phase_width=16), device=dev).cpu().numpy(),
+            oversample=4, guard_bins=16 * 7), -180.0),
     }
     for label, (db, bound) in floors.items():
         _require(db <= bound, f"floor {label}: {db:.2f} dB > {bound} dB")
@@ -411,7 +489,6 @@ def main(argv=None) -> int:
                                           for k, v in floors.items()))
 
     # --- 4. each kernel against its plain version on the card, timed ---
-    idx = torch.arange(n, device=dev)
     plain_hls = window_values_plain(idx, q7, spec_hls)
     err_1a = int((plain_hls.long() - win_hls.long()).abs().max())
     plain_rtl = window_values_plain(idx, q7_rtl, spec_rtl)
@@ -473,6 +550,19 @@ def main(argv=None) -> int:
             _time_batch_ms(chk_comp_fn),
             _time_ms(lambda: ok.checksum_plain_comp("bh7", pw, m, 256, 0, device=dev)),
         ),
+        **{f"taylor_sincos_block w{c[0]}": (
+            _time_ms(lambda c=c: taylor_sincos_block(0, n, pw, *c, device=dev)),
+            _time_ms(lambda c=c: tk.taylor_sincos_plain(idx, pw, *c)),
+        ) for c in tay_cfgs},
+        **{f"taylor_checksum w{c[0]}": (
+            _time_batch_ms(lambda b, c=c: tay_fns[c](0, b)),
+            _time_ms(lambda c=c: tk.taylor_checksum_plain(pw, *c, 0, 0, device=dev)),
+        ) for c in tay_cfgs},
+        **{f"taylor_window_block {k}": (
+            _time_ms(lambda k=k: make_window(k, tay_specs[k], device=dev)),
+            _time_ms(lambda k=k: tk.taylor_window_plain(
+                idx, catalog.get(k).quantized(tay_specs[k].data_width), tay_specs[k])),
+        ) for k in ("blackman", "hamming")},
         "analyzer float/mxu vs comp/rfft": (
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      win_mode="float", fft_mode="mxu")),
@@ -482,6 +572,9 @@ def main(argv=None) -> int:
     }
     for name, (ms, plain_ms) in t.items():
         print(f"time {label} {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms)")
+    for k in ("hamming rtl", "bh7 taylor2"):  # torch ops on the card, no kernel
+        ms = _time_ms(lambda k=k: make_window(k.split()[0], tay_specs[k], device=dev))
+        print(f"time {label} taylor window {k} (torch ops, no kernel): {ms:.3f} ms")
     print(f"rates {label}: window_block {n / t['window_block'][0] / 1e3:.1f} "
           f"Msamples/s, window_checksum {4 * n / t['window_checksum'][0] / 1e3:.1f} "
           f"Msamples/s, analyzer mxu {nsamp / t['analyzer mxu vs rfft'][0] / 1e3:.1f} "
@@ -495,6 +588,8 @@ def main(argv=None) -> int:
     gflops_comp = comp_window_flops(n, "bh7") / t["outer_checksum_comp"][0] / 1e6
     print(f"rates {label}: outer_checksum_f32 {gflops_f32:.1f} GFLOP/s, "
           f"outer_checksum_comp {gflops_comp:.1f} GFLOP/s (no-fusion op models)")
+    print(f"rates {label}: " + ", ".join(
+        f"{k} {n / t[k][0] / 1e3:.1f} Msamples/s" for k in t if k.startswith("taylor")))
 
     src = "blackman_harris_win_tpu_torch/csrc/"
     tpu_win = "blackman_harris_win_tpu/kernels/pallas/window_kernel.py:378"
@@ -521,6 +616,15 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": src + "outerwin_kernel.cu",
                         "replaces": f"{tpu_outer}{line}", "launches": counts[name],
                         "max_abs_err": err, "ms": t[name][0], "plain_ms": t[name][1]})
+    tpu_tay = "blackman_harris_win_tpu/kernels/pallas/taylor_kernel.py:71"
+    for name, key, err in (
+        ("taylor_sincos_block", "taylor_sincos_block w32", err_tcs),
+        ("taylor_window_block", "taylor_window_block blackman", err_twin),
+        ("taylor_checksum", "taylor_checksum w32", err_tck),
+    ):
+        kernels.append({"name": name, "route": "cuda", "source": src + "taylor_kernel.cu",
+                        "replaces": tpu_tay, "launches": counts[name], "max_abs_err": err,
+                        "ms": t[key][0], "plain_ms": t[key][1]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

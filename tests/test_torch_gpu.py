@@ -17,6 +17,7 @@ from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import compwin as pc
 from blackman_harris_win_tpu_torch.kernels import outerwin as po
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
+from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
 from blackman_harris_win_tpu_torch.kernels import window as kw
 from blackman_harris_win_tpu_torch.kernels import window_kernel as wk
 from blackman_harris_win_tpu_torch.kernels.welchfft_kernel import (
@@ -270,3 +271,134 @@ def test_analyzer_float_modes_run_the_kernels(cuda, win_mode, fft_mode, kernels)
     ref = (torch.fft.rfft(fr, dim=-1).abs() ** 2).mean(dim=0)
     rel = float(((got.double() - ref).abs() / ref).max())
     assert rel < 32 * 2.0**-24 * np.sqrt(nfft), rel
+
+
+# --- the TAYLOR source (csrc/taylor_kernel.cu) ---
+
+TAYLOR_SINCOS_CASES = [  # (pw, w, ls): ROM in shared memory up to LS=14
+    (14, 16, 10),  # tay1, W<19 branch
+    (14, 24, 10),  # tay1, W>=19 branch (clamp)
+    (12, 16, 10),  # PW-LS == 2: exact LUT
+    (11, 16, 10),  # PW-LS < 2: over-wide LUT
+    (26, 32, 12),  # the main path's engine size
+    (26, 16, 10),
+    (31, 32, 9),  # the int32 phase ceiling
+    (26, 32, 14),  # 128 KB ROM: the opt-in shared-memory branch
+    (20, 24, 15),  # 256 KB ROM: the read-only-cache branch
+    (16, 16, 15),  # read-only cache, over-wide LUT
+]
+
+
+@pytest.mark.parametrize("pw,w,ls", TAYLOR_SINCOS_CASES)
+def test_taylor_sincos_block_kernel_matches_plain(cuda, pw, w, ls):
+    n = _spots(pw, np.random.default_rng(pw * 1000 + w * 10 + ls), min(2048, 1 << (pw - 2)))
+    runs = np.split(n, np.nonzero(np.diff(n) != 1)[0] + 1)
+    # a block across the period end, taken mod 2^pw
+    runs.append(np.arange((1 << pw) - 100, (1 << pw) + 100))
+    _build.reset_launches()
+    for run in runs:
+        c, s = tk.sincos_block(int(run[0]), len(run), pw, w, ls, cuda)
+        pc, ps = tk.taylor_sincos_plain(torch.from_numpy(run), pw, w, ls)
+        assert torch.equal(c.cpu(), pc) and torch.equal(s.cpu(), ps), (pw, w, ls, int(run[0]))
+    assert _build.launches["taylor_sincos_block"] == len(runs)
+    if pw <= 16:  # the whole period against the plain version on the card
+        c, s = tk.sincos_block(0, 1 << pw, pw, w, ls, cuda)
+        pc, ps = tk.taylor_sincos_plain(torch.arange(1 << pw, device=cuda), pw, w, ls)
+        assert torch.equal(c, pc) and torch.equal(s, ps)
+
+
+TAYLOR_WINDOW_CASES = [  # (coeffs or name, pw, w, ls, overflow)
+    ("hamming", 12, 16, 10, "wrap"),
+    ("hann", 11, 16, 10, "saturate"),  # k=1 over-wide LUT
+    ("blackman", 14, 24, 10, "saturate"),
+    ("blackman", 12, 16, 10, "wrap"),  # k=1 exact LUT, k=2 over-wide
+    ("bh3_hls", 13, 32, 9, "wrap"),
+    ("blackman", 26, 32, 12, "wrap"),  # the main path's window
+    ("hamming", 26, 16, 10, "saturate"),
+    ("blackman", 31, 32, 9, "saturate"),
+    ("blackman", 20, 24, 15, "wrap"),  # read-only-cache ROM
+    ((900_000_000, 900_000_000, 500_000_000), 12, 32, 9, "saturate"),  # W=32 clamp
+    ((900_000_000, 900_000_000, 500_000_000), 12, 32, 9, "wrap"),
+]
+
+
+@pytest.mark.parametrize("win,pw,w,ls,overflow", TAYLOR_WINDOW_CASES)
+def test_taylor_window_block_kernel_matches_plain(cuda, win, pw, w, ls, overflow):
+    spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, overflow=overflow)
+    q = catalog.get(win).quantized(w) if isinstance(win, str) else win
+    n = _spots(pw, np.random.default_rng(pw * 100 + w + ls), min(2048, 1 << (pw - 2)))
+    runs = np.split(n, np.nonzero(np.diff(n) != 1)[0] + 1)
+    _build.reset_launches()
+    for run in runs:
+        got = tk.window_block(q, spec, int(run[0]), len(run), cuda).cpu()
+        want = tk.taylor_window_plain(torch.from_numpy(run), q, spec)
+        assert torch.equal(got, want), (win, pw, w, int(run[0]))
+    assert _build.launches["taylor_window_block"] == len(runs)
+    if pw <= 16:
+        got = tk.window_block(q, spec, 0, 1 << pw, cuda)
+        assert torch.equal(got, tk.taylor_window_plain(torch.arange(1 << pw, device=cuda),
+                                                       q, spec))
+        if isinstance(win, str):  # make_window routes through the kernel
+            assert torch.equal(kw.make_window(win, spec, device=cuda), got)
+
+
+def test_taylor_window_w32_saturate_clamps(cuda):
+    q = (900_000_000, 900_000_000, 500_000_000)
+    sat, wrp = (WindowSpec(12, 32, sin_type="taylor", lut_size=9, overflow=o)
+                for o in ("saturate", "wrap"))
+    a = tk.window_block(q, sat, 0, 1 << 12, cuda)
+    b = tk.window_block(q, wrp, 0, 1 << 12, cuda)
+    assert int(a.max()) == (1 << 31) - 1 and not torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pw,w,ls,rows", [
+    (14, 16, 10, 8),
+    (26, 32, 12, 64),
+    (26, 16, 10, 64),
+    (24, 32, 14, 64),  # opt-in shared-memory ROM
+    (20, 24, 15, 64),  # read-only-cache ROM
+    (31, 32, 12, 64),
+])
+def test_taylor_checksum_kernel_matches_plain(cuda, pw, w, ls, rows):
+    fn = tk.make_checksum_fn_taylor(pw, w, ls, rows=rows, device=cuda)
+    c, s = tk.sincos_block(0, 1 << pw, pw, w, ls, cuda)
+    cs = c.long() + s.long()
+    del c, s
+    wrap32 = lambda v: ((v + (1 << 31)) % (1 << 32)) - (1 << 31)  # noqa: E731
+    n0 = rows << (pw - ls - 2)
+    for start, bias in ((0, 0), (0, 123457), (n0, -(1 << 31))):
+        got = fn(start, bias)
+        assert got.dtype == torch.int32 and got.device == cuda
+        plain = tk.taylor_checksum_plain(pw, w, ls, start, bias, device=cuda)
+        assert int(got) == int(plain) == wrap32(int(cs.sum()) + bias), (start, bias)
+    # a full period's quadrants cancel: ranges that are not whole periods
+    # check the kernel's arithmetic
+    rng = np.random.default_rng(pw + w + ls)
+    for start, count in ((0, (1 << pw) // 3), (int(rng.integers(1 << pw)), 100003),
+                         ((1 << pw) - 5000, 10000)):
+        got = tk.checksum_range(start, count, pw, w, ls, 7, cuda)
+        plain = tk.taylor_checksum_plain(pw, w, ls, start, 7, device=cuda, count=count)
+        idx = torch.arange(start, start + count, device=cuda) % (1 << pw)
+        assert int(got) == int(plain) == wrap32(int(cs[idx].sum()) + 7), (start, count)
+
+
+def test_taylor_torch_op_routes_launch_no_kernel(cuda):
+    # TAYLOR RTL and taylor2 run window_samples on the card, as JAX runs them
+    # in plain jnp; both land on the requested device
+    cases = [("hamming", WindowSpec(12, 16, sin_type="taylor", rounding="rtl", lut_size=10)),
+             ("bh7", WindowSpec(12, 32, sin_type="taylor2", lut_size=12, overflow="wrap"))]
+    _build.reset_launches()
+    for name, spec in cases:
+        got = kw.make_window(name, spec, device=cuda)
+        assert got.device == cuda
+        assert torch.equal(got.cpu(), kw.make_window(name, spec))
+    assert _build.launches == dict.fromkeys(_build.launches, 0)
+
+
+@pytest.mark.parametrize("sel", [1, 0])  # a known selector, an unknown one
+def test_win_function_on_the_card(cuda, sel):
+    spec = WindowSpec(10, 17, overflow="wrap")
+    n = torch.arange(0, 1 << 10, 3, device=cuda)
+    got = kw.win_function(sel, n, spec)
+    assert got.device == n.device
+    assert torch.equal(got.cpu(), kw.win_function(sel, n.cpu(), spec))

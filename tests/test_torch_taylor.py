@@ -1,0 +1,346 @@
+"""PyTorch port, the TAYLOR source: the indexed generator, the block
+functions, the TAYLOR windows (both contracts) and the Taylor checksum's
+plain version, each 0-LSB against the JAX package, the exact-int golden
+model and the native C++ oracle, on the same numpy inputs.  The Taylor
+kernel's CPU wrappers run the plain versions."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blackman_harris_win_tpu.core import config as jconfig
+from blackman_harris_win_tpu.kernels import taylor as jt
+from blackman_harris_win_tpu.kernels import window as jkw
+from blackman_harris_win_tpu.kernels.pallas.taylor_kernel import (
+    make_checksum_fn_taylor as jmake_checksum_fn_taylor,
+)
+from blackman_harris_win_tpu.model import golden, native
+from blackman_harris_win_tpu_torch import _build
+from blackman_harris_win_tpu_torch.core.config import WindowSpec
+from blackman_harris_win_tpu_torch.kernels import taylor as pt
+from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
+from blackman_harris_win_tpu_torch.kernels import window as kw
+from blackman_harris_win_tpu_torch.windows import catalog
+
+REGIMES = [  # (pw, w, ls)
+    (10, 16, 8),  # tay1 (PW-LS > 2), W<19 branch
+    (11, 16, 9),  # tay1, the reference testbench's configuration
+    (10, 16, 9),  # PW-LS < 2: over-wide LUT, top-aligned
+    (12, 10, 10),  # PW-LS == 2: exact LUT
+    (14, 24, 10),  # tay1, W>=19 branch (product slice + clamp)
+    (12, 32, 9),  # widest output
+]
+
+
+def _seams(pw, half=4):
+    n = 1 << pw
+    pts = []
+    for base in (0, n // 4, n // 2, 3 * n // 4, n - half):
+        pts.extend(range(max(0, base - half), min(n, base + half)))
+    return np.array(sorted(set(pts)), np.int64)
+
+
+def _jspec(spec):
+    return jconfig.WindowSpec(**vars(spec))
+
+
+def _np(t):
+    return np.asarray(t).astype(np.int64)
+
+
+def _port_cs(n, pw, w, ls):
+    c, s = pt.taylor_sincos(torch.from_numpy(np.asarray(n, np.int64)), pw, w, ls)
+    return c.numpy(), s.numpy()
+
+
+@pytest.fixture(scope="module")
+def oracle():
+    native.build()
+    return native
+
+
+class TestTaylorSincos:
+    @pytest.mark.parametrize("pw,w,ls", REGIMES + [(14, 31, 9), (14, 32, 10), (12, 32, 8)])
+    def test_full_period_vs_jax_and_native(self, oracle, pw, w, ls):
+        n = np.arange(1 << pw)
+        c, s = _port_cs(n, pw, w, ls)
+        jc, js = jt.taylor_sincos(n, pw, w, ls)
+        np.testing.assert_array_equal(c, _np(jc))
+        np.testing.assert_array_equal(s, _np(js))
+        nc, ns = oracle.taylor_sincos(n, pw, w, ls)
+        np.testing.assert_array_equal(c, nc)
+        np.testing.assert_array_equal(s, ns)
+
+    @pytest.mark.parametrize("pw", [26, 31])
+    @pytest.mark.parametrize("w,ls", [(16, 10), (24, 12), (32, 12), (32, 9)])
+    def test_seams_vs_jax_and_native(self, oracle, pw, w, ls):
+        n = _seams(pw, half=8)
+        c, s = _port_cs(n, pw, w, ls)
+        jc, js = jt.taylor_sincos(n, pw, w, ls)
+        np.testing.assert_array_equal(c, _np(jc))
+        np.testing.assert_array_equal(s, _np(js))
+        nc, ns = oracle.taylor_sincos(n, pw, w, ls)
+        np.testing.assert_array_equal(c, nc)
+        np.testing.assert_array_equal(s, ns)
+
+    @pytest.mark.parametrize("pw,w,ls", REGIMES)
+    def test_sampled_vs_golden(self, pw, w, ls):
+        rng = np.random.default_rng(pw * 100 + w + ls)
+        n = np.unique(np.concatenate([rng.integers(0, 1 << pw, 96), _seams(pw, 2)]))
+        c, s = _port_cs(n, pw, w, ls)
+        want = np.array([golden.taylor_sincos(int(p), pw, w, ls) for p in n])
+        np.testing.assert_array_equal(c, want[:, 0])
+        np.testing.assert_array_equal(s, want[:, 1])
+
+    def test_indices_wrap_mod_period(self):
+        pw, w, ls = 10, 16, 8
+        n = np.arange(1 << pw)
+        c0, s0 = _port_cs(n, pw, w, ls)
+        c1, s1 = _port_cs(n + 3 * (1 << pw), pw, w, ls)
+        np.testing.assert_array_equal(c0, c1)
+        np.testing.assert_array_equal(s0, s1)
+
+    def test_rom_equals_jax(self):
+        for ls, w in ((9, 16), (12, 32), (10, 24)):
+            np.testing.assert_array_equal(pt._rom(ls, w), jt._rom(ls, w))
+
+    @pytest.mark.parametrize("pw,w,ls,match", [
+        (10, 16, 10, "LUT_SIZE"),
+        (10, 16, 12, "LUT_SIZE"),
+        (12, 34, 8, "data_width <= 32"),
+    ])
+    def test_guards_raise_where_jax_raises(self, pw, w, ls, match):
+        with pytest.raises(ValueError, match=match):
+            jt.taylor_sincos(np.arange(8), pw, w, ls)
+        with pytest.raises(ValueError, match=match):
+            pt.taylor_sincos(torch.arange(8), pw, w, ls)
+        with pytest.raises(ValueError, match=match):
+            pt.taylor_sincos_block(0, 8, pw, w, ls)
+        with pytest.raises(ValueError, match=match):
+            tk.taylor_checksum_plain(pw, w, ls)
+
+
+BLOCK_CASES = [  # (pw, w, ls): every regime and both tay1 width branches
+    (14, 16, 10), (14, 24, 10), (12, 16, 10), (11, 16, 10), (14, 32, 12),
+]
+
+
+class TestBlocks:
+    @pytest.mark.parametrize("pw,w,ls", BLOCK_CASES)
+    def test_sincos_block_vs_jax_block_and_indexed(self, pw, w, ls):
+        r = 1 << max(pw - ls - 2, 0)
+        count = min(64, 1 << ls) * r
+        # the start, the N/4 quadrant seam, the period end (JAX-aligned)
+        for n0 in (0, ((1 << (pw - 2)) - count // 2) // r * r, (1 << pw) - count):
+            c, s = pt.taylor_sincos_block(n0, count, pw, w, ls)
+            assert c.dtype == torch.int32 and c.shape == (count,)
+            jc, js = jt.taylor_sincos_block(n0, count, pw, w, ls)
+            np.testing.assert_array_equal(c.numpy(), np.asarray(jc), err_msg=f"n0={n0}")
+            np.testing.assert_array_equal(s.numpy(), np.asarray(js), err_msg=f"n0={n0}")
+
+    @pytest.mark.parametrize("pw,w,ls", BLOCK_CASES)
+    def test_unaligned_block_across_the_period_end(self, pw, w, ls):
+        # the port indexes every sample, so blocks need no R-alignment
+        n0, count = (1 << pw) - 37, 101
+        c, s = pt.taylor_sincos_block(n0, count, pw, w, ls)
+        jc, js = jt.taylor_sincos(np.arange(n0, n0 + count), pw, w, ls)
+        np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+    @pytest.mark.parametrize("name,w,overflow", [
+        ("hamming", 16, "wrap"), ("blackman", 24, "wrap"), ("bh3_hls", 32, "wrap"),
+        ("hann", 16, "saturate"), ("blackman", 32, "saturate"),
+    ])
+    def test_window_block_vs_jax(self, name, w, overflow):
+        pw, ls = 14, 10
+        spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, overflow=overflow)
+        q = catalog.get(name).quantized(w)
+        r1 = 1 << (pw - ls - 2)
+        count = 32 * r1
+        for n0 in (0, ((1 << (pw - 2)) - count // 2) // r1 * r1, (1 << pw) - count):
+            got = pt.taylor_window_block(n0, count, q, spec)
+            assert got.dtype == torch.int32
+            want = jt.taylor_window_block(n0, count, q, _jspec(spec))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"n0={n0}")
+            idx = jkw.window_samples(n0 + np.arange(count), q, _jspec(spec))
+            np.testing.assert_array_equal(got.numpy(), _np(idx), err_msg=f"n0={n0}")
+
+    def test_w32_saturate_with_an_overflowing_set(self):
+        pw, ls = 12, 9
+        q = (900_000_000, 900_000_000, 500_000_000)  # peak q0+q1+q2 > 2^31-1
+        r1 = 1 << (pw - ls - 2)
+        n0, count = (1 << (pw - 1)) - 32 * r1, 64 * r1  # spans the peak
+        outs = {}
+        for overflow in ("saturate", "wrap"):
+            spec = WindowSpec(pw, 32, sin_type="taylor", lut_size=ls, overflow=overflow)
+            got = pt.taylor_window_block(n0, count, q, spec).numpy()
+            want = jt.taylor_window_block(n0, count, q, _jspec(spec))
+            np.testing.assert_array_equal(got, np.asarray(want))
+            idx = jkw.window_samples(n0 + np.arange(count), q, _jspec(spec))
+            np.testing.assert_array_equal(got, _np(idx))
+            outs[overflow] = got
+        assert (outs["saturate"] != outs["wrap"]).any()  # saturation was exercised
+        assert outs["saturate"].max() == (1 << 31) - 1
+
+    def test_window_range_vs_jax(self):
+        pw, w, ls = 13, 16, 10
+        spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, overflow="wrap")
+        q = catalog.get("blackman").quantized(w)
+        count = 1 << (pw - 1)  # wider than one JAX chunk (2^(pw-3))
+        got = pt.taylor_window_range(1 << (pw - 2), count, q, spec)
+        want = jt.taylor_window_range(1 << (pw - 2), count, q, _jspec(spec))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_window_guards_raise_where_jax_raises(self):
+        spec = WindowSpec(12, 16, sin_type="taylor", lut_size=10)
+        q4 = catalog.get("bh4").quantized(16)
+        with pytest.raises(ValueError, match="2/3-term"):
+            jt.taylor_window_block(0, 64, q4, _jspec(spec))
+        with pytest.raises(ValueError, match="2/3-term"):
+            pt.taylor_window_block(0, 64, q4, spec)
+        with pytest.raises(ValueError, match="2/3-term"):
+            kw.make_window("bh4", spec)
+        with pytest.raises(ValueError, match="2/3-term"):
+            jkw.make_window("bh4", _jspec(spec))
+        # k=2 runs at PW-1: LS must stay below it
+        narrow = WindowSpec(11, 16, sin_type="taylor", lut_size=10)
+        qb = catalog.get("blackman").quantized(16)
+        with pytest.raises(ValueError, match="LUT_SIZE"):
+            jt.taylor_window_block(0, 64, qb, _jspec(narrow))
+        with pytest.raises(ValueError, match="LUT_SIZE"):
+            pt.taylor_window_block(0, 64, qb, narrow)
+        wide = WindowSpec(12, 33, sin_type="taylor", lut_size=8)
+        with pytest.raises(ValueError, match="data_width <= 32"):
+            pt.taylor_window_block(0, 64, (1, 1), wide)
+
+
+WINDOW_CASES = [  # (name, pw, w, ls, rounding, overflow)
+    ("hamming", 12, 16, 10, "hls", "wrap"),
+    ("blackman", 14, 24, 10, "hls", "saturate"),
+    ("hann", 11, 16, 10, "hls", "wrap"),  # k=1 over-wide LUT
+    ("blackman", 12, 16, 10, "hls", "wrap"),  # k=1 exact, k=2 over-wide
+    ("bh3_hls", 13, 16, 10, "hls", "wrap"),  # k=1 tay1, k=2 exact
+    ("bh3_hls", 12, 32, 9, "hls", "saturate"),
+    ("hamming", 12, 16, 10, "rtl", "saturate"),
+    ("blackman", 12, 24, 9, "rtl", "wrap"),
+    ("blackman", 12, 32, 10, "rtl", "wrap"),
+    ("hamming", 4, 16, 1, "hls", "wrap"),  # below the JAX block path's pw >= 5
+]
+
+
+class TestTaylorWindows:
+    @pytest.mark.parametrize("name,pw,w,ls,rounding,overflow", WINDOW_CASES)
+    def test_make_window_vs_jax(self, name, pw, w, ls, rounding, overflow):
+        spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, rounding=rounding,
+                          overflow=overflow)
+        got = kw.make_window(name, spec)
+        assert got.dtype == torch.int32
+        want = jkw.make_window(name, _jspec(spec))
+        np.testing.assert_array_equal(got.numpy(), _np(want))
+
+    @pytest.mark.parametrize("name,pw,w,ls,rounding,overflow",
+                             [WINDOW_CASES[i] for i in (0, 3, 5, 6, 8)])
+    def test_window_block_across_the_period_end(self, name, pw, w, ls, rounding, overflow):
+        spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, rounding=rounding,
+                          overflow=overflow)
+        q = catalog.get(name).quantized(w)
+        n0 = (1 << pw) - 300
+        got = kw.window_block(n0, 600, q, spec)
+        want = jkw.window_block(n0, 600, q, _jspec(spec))
+        np.testing.assert_array_equal(got.numpy(), _np(want))
+
+    @pytest.mark.parametrize("pw,w,rounding,overflow", [
+        (26, 32, "hls", "wrap"), (26, 16, "hls", "saturate"), (31, 32, "hls", "saturate"),
+        (31, 24, "rtl", "wrap"), (26, 32, "rtl", "wrap"),
+    ])
+    def test_window_samples_seams(self, oracle, pw, w, rounding, overflow):
+        spec = WindowSpec(pw, w, sin_type="taylor", lut_size=10, rounding=rounding,
+                          overflow=overflow)
+        q = catalog.get("blackman").quantized(w)
+        n = _seams(pw, half=8)
+        got = kw.window_samples(torch.from_numpy(n), q, spec).numpy()
+        np.testing.assert_array_equal(got, _np(jkw.window_samples(n, q, _jspec(spec))))
+        if rounding == "hls":  # the kernel's plain version, on the same samples
+            plain = tk.taylor_window_plain(torch.from_numpy(n), q, spec)
+            np.testing.assert_array_equal(plain.numpy(), got)
+
+    def test_4term_raises_in_both_contracts(self):
+        q = catalog.get("bh4").quantized(16)
+        for rounding in ("hls", "rtl"):
+            spec = WindowSpec(12, 16, sin_type="taylor", rounding=rounding)
+            with pytest.raises(ValueError, match="2/3-term"):
+                kw.window_samples(torch.arange(4), q, spec)
+            with pytest.raises(ValueError, match="2/3-term"):
+                jkw.window_samples(np.arange(4), q, _jspec(spec))
+
+
+class TestChecksum:
+    def test_plain_vs_pallas_interpret(self):
+        pw, w, ls, rows = 14, 16, 10, 8
+        jfn = jmake_checksum_fn_taylor(pw, w, ls, rows=rows, interpret=True)
+        fn = tk.make_checksum_fn_taylor(pw, w, ls, rows=rows)
+        shifted = rows << (pw - ls - 2)
+        for n0, bias in ((0, 0), (0, 7), (shifted, 0), (shifted, 7)):
+            want = int(jfn(jnp.int32(n0), jnp.int32(bias)))
+            got = tk.taylor_checksum_plain(pw, w, ls, n0, bias)
+            assert got.dtype == torch.int32 and int(got) == want, (n0, bias)
+            assert int(fn(n0, bias)) == want
+
+    @pytest.mark.parametrize("pw,w,ls", [(12, 32, 8), (13, 24, 9)])
+    def test_plain_is_the_int32_wrap_sum(self, pw, w, ls):
+        c, s = jt.taylor_sincos(np.arange(1 << pw), pw, w, ls)
+        total = int(_np(c).sum() + _np(s).sum()) - (1 << 31)
+        want = ((total + (1 << 31)) % (1 << 32)) - (1 << 31)
+        assert int(tk.taylor_checksum_plain(pw, w, ls, 0, -(1 << 31))) == want
+
+    @pytest.mark.parametrize("n0,count", [(0, 1000), (5000, 1 << 14), ((1 << 14) - 7, 29)])
+    def test_range_is_the_int32_wrap_sum(self, n0, count):
+        # ranges other than whole periods, where the quadrants do not cancel
+        pw, w, ls = 14, 32, 10
+        n = np.arange(n0, n0 + count)
+        c, s = jt.taylor_sincos(n, pw, w, ls)
+        total = int(_np(c).sum() + _np(s).sum()) + 5
+        want = ((total + (1 << 31)) % (1 << 32)) - (1 << 31)
+        got = tk.checksum_range(n0, count, pw, w, ls, 5)
+        assert got.dtype == torch.int32 and int(got) == want
+
+    def test_guards_raise_where_jax_raises(self):
+        for args, kw_, match in (((12, 16, 10), {}, "tay1 regime"),
+                                 ((14, 16, 10), {"rows": 24}, "divide"),
+                                 ((14, 34, 10), {}, "data_width <= 32")):
+            with pytest.raises(ValueError, match=match):
+                jmake_checksum_fn_taylor(*args, **kw_)
+            with pytest.raises(ValueError, match=match):
+                tk.make_checksum_fn_taylor(*args, **kw_)
+        fn = tk.make_checksum_fn_taylor(14, 16, 10, rows=8)
+        with pytest.raises(ValueError, match="multiple"):
+            fn(4, 0)
+
+
+class TestCpuWrappers:
+    def test_raise_without_cuda(self):
+        if torch.cuda.is_available():
+            pytest.skip("this host has a CUDA device")
+        spec = WindowSpec(12, 16, sin_type="taylor", lut_size=8)
+        q = catalog.get("hamming").quantized(16)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tk.sincos_block(0, 16, 12, 16, 8, "cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tk.window_block(q, spec, 0, 16, "cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tk.make_checksum_fn_taylor(12, 16, 8, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kw.make_window("hamming", spec.with_(rounding="rtl"), device="cuda")
+        with pytest.raises(ValueError):
+            tk.sincos_block(0, 16, 12, 16, 8, "meta")
+
+    def test_launch_counters_stay_zero_on_cpu(self):
+        _build.reset_launches()
+        spec = WindowSpec(12, 16, sin_type="taylor", lut_size=8)
+        pt.taylor_sincos_block(0, 64, 12, 16, 8)
+        kw.make_window("hamming", spec)
+        tk.make_checksum_fn_taylor(12, 16, 8, rows=8)(0, 1)
+        assert {"taylor_sincos_block", "taylor_window_block",
+                "taylor_checksum"} <= set(_build.launches)
+        assert _build.launches == dict.fromkeys(_build.launches, 0)

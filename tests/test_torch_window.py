@@ -138,11 +138,19 @@ class TestWindowSamples:
         n = np.arange(1 << 12, dtype=np.int64)
         np.testing.assert_array_equal(_port(n, q, spec), _native(n, q, spec))
 
-    @pytest.mark.parametrize("sin_type", ["taylor", "taylor2"])
-    def test_taylor_not_ported(self, sin_type):
-        spec = WindowSpec(12, 17, sin_type=sin_type)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kw.window_samples(torch.arange(4), catalog.get("hann").quantized(17), spec)
+    @pytest.mark.parametrize("sin_type,name,w,rounding,overflow", [
+        ("taylor", "hann", 17, "hls", "saturate"),
+        ("taylor", "blackman", 32, "hls", "wrap"),
+        ("taylor", "hamming", 24, "rtl", "wrap"),
+        ("taylor2", "bh7", 32, "hls", "wrap"),
+        ("taylor2", "bh4", 24, "hls", "saturate"),
+    ])
+    def test_taylor_sources_match_jax(self, sin_type, name, w, rounding, overflow):
+        spec = WindowSpec(16, w, sin_type=sin_type, rounding=rounding, overflow=overflow,
+                          lut_size=12 if sin_type == "taylor2" else 10)
+        q = catalog.get(name).quantized(w)
+        n = _block_and_seams(16, seed=w + len(q))
+        np.testing.assert_array_equal(_port(n, q, spec), _jax(n, q, spec))
 
     def test_products_must_fit_int64(self):
         spec = WindowSpec(12, 40)
@@ -172,6 +180,12 @@ class TestWindowFunctions:
         got = kw.win_function(sel, torch.from_numpy(n), spec).numpy()
         want = np.asarray(jkw.win_function(sel, jnp.asarray(n), _jspec(spec)))
         np.testing.assert_array_equal(got, want)
+
+    def test_win_function_zeros_on_the_device_of_n(self):
+        spec = WindowSpec(10, 17, overflow="wrap")
+        n = torch.arange(4, device="meta")
+        out = kw.win_function(0, n, spec)  # unknown selector: win_empty
+        assert out.device == n.device and out.shape == n.shape
 
     def test_window_block_matches_jax(self):
         spec = WindowSpec(20, 32, overflow="wrap")
