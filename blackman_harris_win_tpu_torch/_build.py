@@ -2,9 +2,10 @@
 
 The kernels are compiled at first use into one shared library with a plain
 C interface (no PyTorch headers, so nvcc takes seconds), under ``build/cuda``
-at the root of the checkout, which ``.gitignore`` lists.  The library's name
-carries a hash of the sources and flags, so an edited source rebuilds.
-Nothing here runs at import time.
+at the root of the checkout, which ``.gitignore`` lists: one nvcc per
+source, all started together, then one link.  The library's name carries a
+hash of the sources and flags, so an edited source rebuilds.  Nothing here
+runs at import time.
 
 Each C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: kernel name -> launches made by its wrapper in this process
@@ -37,6 +38,7 @@ launches = {
     "outer_block": 0, "outer_block_f32": 0, "outer_block_comp": 0,
     "outer_checksum": 0, "outer_checksum_f32": 0, "outer_checksum_comp": 0,
     "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_checksum": 0,
+    "materialize": 0,
 }
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -63,6 +65,8 @@ _SIGNATURES = {
     "bhw_taylor_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P),
     # out, n0, count, rom, pw, w, ls, ramb_pi, stream
     "bhw_taylor_checksum": (_P, _L, _L, _P, _I, _I, _I, _I, _P),
+    # dst, src, nbytes, stream
+    "bhw_materialize": (_P, _P, _L, _P),
 }
 #: host-side queries of a kernel's launch geometry: name -> (args, result)
 _QUERIES = {
@@ -92,7 +96,8 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, str, float]:
-    """Compile ``csrc/*.cu`` if the library for these sources is missing.
+    """Compile ``csrc/*.cu`` if the library for these sources is missing:
+    each source to an object by its own nvcc, all at once, then one link.
     Returns (library path, compiler output, seconds spent compiling)."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -102,16 +107,30 @@ def build() -> tuple[Path, str, float]:
     out = BUILD_DIR / f"libbhw_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out, "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    objdir = BUILD_DIR / f"obj_{h.hexdigest()[:16]}_{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(src, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(objdir / f"{src.stem}.o"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for src in srcs]
+    logs, failed = [], []
+    for src, p in procs:
+        logs.append(p.communicate()[0])
+        if p.returncode:
+            failed.append(f"{src.name} ({p.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{''.join(logs)}")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    r = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                        *(str(objdir / f"{src.stem}.o") for src in srcs)],
+                       capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    shutil.rmtree(objdir, ignore_errors=True)
     if r.returncode:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stdout}{r.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
-    return out, r.stdout + r.stderr, seconds
+    return out, "".join(logs) + r.stdout + r.stderr, seconds
 
 
 def lib() -> ctypes.CDLL:
@@ -142,10 +161,12 @@ def check(name: str, rc: int) -> None:
     launches[name] += 1
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device=None) -> torch.device:
     """The torch device a wrapper runs on: the CPU (plain version) or a CUDA
-    device that must exist (kernel).  No other device is accepted."""
-    device = torch.device(device)
+    device that must exist (kernel).  ``None`` is the current CUDA device:
+    entry points run on the card unless the caller asks for the CPU.  No
+    other device is accepted."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -157,6 +178,15 @@ def resolve_device(device) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}: use 'cpu' or 'cuda'")
     return device
+
+
+def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
+    """The input of a pipeline function as a tensor: a tensor stays on its
+    own device (cast to ``dtype`` if one is given); anything else (numpy,
+    lists) goes to ``device``, resolved as :func:`resolve_device` does."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
 
 
 def stream_of(device: torch.device) -> int:

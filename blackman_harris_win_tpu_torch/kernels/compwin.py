@@ -181,7 +181,7 @@ def comp_tile(s, e, hic_blk, loc_t, hip_blk, lop_t):
 
 def comp_window_block(n0, rows: int, name_or_coeffs, pw: int,
                       m: int = DEFAULT_SPLIT, g: int = GRID_BITS,
-                      thresh: float = DEFAULT_THRESH, device="cpu"):
+                      thresh: float = DEFAULT_THRESH, device=None):
     """Window samples [n0, n0 + rows*2^m) as the RAW f32 (s, e) pair on
     ``device``, each (rows * 2^m,), with s + e == w[n] to ~3e-10 (BH-7).
     The components are not normalized; consumers apply the pair as
@@ -196,7 +196,7 @@ def comp_window_block(n0, rows: int, name_or_coeffs, pw: int,
 
 def comp_window_pair(name_or_coeffs, pw: int, m: int | None = None,
                      g: int = GRID_BITS, thresh: float = DEFAULT_THRESH,
-                     device="cpu"):
+                     device=None):
     """Full-period RAW (s, e) pair on ``device`` (see :func:`comp_window_block`)."""
     if m is None:
         m = min(DEFAULT_SPLIT, pw - 1) if pw > 1 else 0
@@ -213,7 +213,7 @@ def comp_window_pair(name_or_coeffs, pw: int, m: int | None = None,
 
 def comp_window(name_or_coeffs, pw: int, m: int | None = None,
                 pair: bool = False, g: int = GRID_BITS,
-                thresh: float = DEFAULT_THRESH, device="cpu"):
+                thresh: float = DEFAULT_THRESH, device=None):
     """Full-period compensated window, folded on the host.
 
     ``pair=False`` returns the folded (2^pw,) f32 tensor (the best window

@@ -67,7 +67,7 @@ def _host_f64_window(coeffs, pw: int) -> np.ndarray:
 
 
 def float_window_block(n0, rows: int, name_or_coeffs, pw: int,
-                       m: int = DEFAULT_SPLIT, device="cpu"):
+                       m: int = DEFAULT_SPLIT, device=None):
     """Window samples [n0, n0 + rows*2^m) as a (rows * 2^m,) float32 tensor
     on ``device`` at unit amplitude.  ``n0`` must be a multiple of 2^m with
     the block inside one period (the API of ``outerwin.window_block_outer``)."""
@@ -79,7 +79,7 @@ def float_window_block(n0, rows: int, name_or_coeffs, pw: int,
     return outer_block_f32(coeffs, pw, m, h0, rows, device)
 
 
-def float_window(name_or_coeffs, pw: int, m: int | None = None, device="cpu"):
+def float_window(name_or_coeffs, pw: int, m: int | None = None, device=None):
     """Full-period (2^pw,) float32 window on ``device``, generated on the fly
     (no stored table of window values; only the 2^(pw-m) + 2^m trig tables)."""
     if m is None:

@@ -91,7 +91,7 @@ def check_int_coeffs(coeffs_q) -> tuple[int, ...]:
 
 
 def window_block_outer(n0, rows: int, coeffs_q, spec: WindowSpec,
-                       m: int = DEFAULT_SPLIT, device="cpu"):
+                       m: int = DEFAULT_SPLIT, device=None):
     """Window samples [n0, n0 + rows*2^m) as a (rows * 2^m,) int32 tensor on
     ``device``.  ``n0`` must be a multiple of 2^m with the block inside one
     period.  HLS accumulate semantics with the ideal-rounded outer-product

@@ -195,46 +195,46 @@ def _checksum_plain(t: _Tiles, rows: int, bias: int):
 
 
 def checksum_plain(coeffs_q, spec: WindowSpec, m: int = 11, rows: int = 128, bias: int = 0,
-                   device="cpu"):
+                   device=None):
     """Plain version of the int checksum kernel on ``device`` (0-d int32)."""
-    t = _int_tiles(check_int_coeffs(coeffs_q), spec, m, torch.device(device))
+    t = _int_tiles(check_int_coeffs(coeffs_q), spec, m, _build.resolve_device(device))
     return _checksum_plain(t, rows, bias)
 
 
 def checksum_plain_f32(name_or_coeffs, pw: int, m: int = 11, rows: int = 128,
-                       bias: int = 0, table_dtype=None, device="cpu"):
+                       bias: int = 0, table_dtype=None, device=None):
     """Plain version of the f32 checksum kernel on ``device`` (0-d float32)."""
-    t = _f32_tiles(_resolve_coeffs(name_or_coeffs), pw, m, torch.device(device), table_dtype)
+    t = _f32_tiles(_resolve_coeffs(name_or_coeffs), pw, m, _build.resolve_device(device), table_dtype)
     return _checksum_plain(t, rows, bias)
 
 
 def checksum_plain_comp(name_or_coeffs, pw: int, m: int = 11, rows: int = 128,
-                        bias: int = 0, device="cpu"):
+                        bias: int = 0, device=None):
     """Plain version of the comp checksum kernel on ``device`` (0-d float32)."""
     t = _comp_tiles(_resolve_coeffs(name_or_coeffs), pw, m, GRID_BITS, DEFAULT_THRESH,
-                    torch.device(device))
+                    _build.resolve_device(device))
     return _checksum_plain(t, rows, bias)
 
 
 def outer_block_int_plain(coeffs_q, spec: WindowSpec, m: int, h0: int, rows: int,
-                          device="cpu"):
+                          device=None):
     """Plain version of the int write-out kernel: (rows * 2^m,) int32 samples
     of h rows [h0, h0+rows), in int64 torch ops on ``device``."""
-    t = _int_tiles(check_int_coeffs(coeffs_q), spec, m, torch.device(device))
+    t = _int_tiles(check_int_coeffs(coeffs_q), spec, m, _build.resolve_device(device))
     return _flat(_plain_tile(t, h0, rows))
 
 
-def outer_block_f32_plain(coeffs, pw: int, m: int, h0: int, rows: int, device="cpu",
+def outer_block_f32_plain(coeffs, pw: int, m: int, h0: int, rows: int, device=None,
                           table_dtype=None):
     """Plain version of the f32 write-out kernel (torch float32 ops)."""
-    t = _f32_tiles(_resolve_coeffs(coeffs), pw, m, torch.device(device), table_dtype)
+    t = _f32_tiles(_resolve_coeffs(coeffs), pw, m, _build.resolve_device(device), table_dtype)
     return _flat(_plain_tile(t, h0, rows))
 
 
 def outer_block_comp_plain(coeffs, pw: int, m: int, g: int, thresh: float, h0: int,
-                           rows: int, device="cpu"):
+                           rows: int, device=None):
     """Plain version of the comp write-out kernel: the raw (s, e) pair."""
-    t = _comp_tiles(_resolve_coeffs(coeffs), pw, m, g, thresh, torch.device(device))
+    t = _comp_tiles(_resolve_coeffs(coeffs), pw, m, g, thresh, _build.resolve_device(device))
     return _flat(_plain_tile(t, h0, rows))
 
 
@@ -274,7 +274,7 @@ def _block(name: str, t: _Tiles, h0: int, rows: int, device: torch.device):
     return out0 if out1 is None else (out0, out1)
 
 
-def outer_block_int(coeffs_q, spec: WindowSpec, m: int, h0: int, rows: int, device="cpu"):
+def outer_block_int(coeffs_q, spec: WindowSpec, m: int, h0: int, rows: int, device=None):
     """int32 samples of h rows [h0, h0+rows) (rows * 2^m,) on ``device``:
     the plain version on the CPU, the int write-out kernel on CUDA."""
     device = _build.resolve_device(device)
@@ -282,7 +282,7 @@ def outer_block_int(coeffs_q, spec: WindowSpec, m: int, h0: int, rows: int, devi
     return _block("outer_block", t, h0, rows, device)
 
 
-def outer_block_f32(coeffs, pw: int, m: int, h0: int, rows: int, device="cpu",
+def outer_block_f32(coeffs, pw: int, m: int, h0: int, rows: int, device=None,
                     table_dtype=None):
     """float32 samples of h rows [h0, h0+rows) on ``device`` (f32 write-out)."""
     device = _build.resolve_device(device)
@@ -291,7 +291,7 @@ def outer_block_f32(coeffs, pw: int, m: int, h0: int, rows: int, device="cpu",
 
 
 def outer_block_comp(coeffs, pw: int, m: int, g: int, thresh: float, h0: int, rows: int,
-                     device="cpu"):
+                     device=None):
     """The raw (s, e) pair of h rows [h0, h0+rows) on ``device`` (comp
     write-out)."""
     device = _build.resolve_device(device)
@@ -327,7 +327,7 @@ def _checksum_fn(name: str, t: _Tiles, rows: int, device: torch.device):
 
 
 def make_checksum_fn(coeffs_q, spec: WindowSpec, m: int = 11, rows: int = 128,
-                     device="cpu"):
+                     device=None):
     """``fn(bias)`` -> 0-d int32 tensor on ``device``: the int32-wrap sum of
     all 2^pw int outer-product samples plus ``bias`` (replaces the Pallas
     ``make_checksum_fn``).  ``fn(b) == fn(0) + b`` mod 2^32.  ``rows`` must
@@ -340,7 +340,7 @@ def make_checksum_fn(coeffs_q, spec: WindowSpec, m: int = 11, rows: int = 128,
 
 
 def make_checksum_fn_f32(name_or_coeffs, pw: int, m: int = 11, rows: int = 128,
-                         table_dtype=None, device="cpu"):
+                         table_dtype=None, device=None):
     """``fn(bias)`` -> 0-d float32 tensor: the full-period f32 window sum plus
     ``bias`` (replaces the Pallas ``make_checksum_fn_f32``).  A timing
     checksum: the f32 sum of 2^pw terms carries rounding.  ``table_dtype``
@@ -352,7 +352,7 @@ def make_checksum_fn_f32(name_or_coeffs, pw: int, m: int = 11, rows: int = 128,
 
 
 def make_checksum_fn_comp(name_or_coeffs, pw: int, m: int = 11, rows: int = 128,
-                          device="cpu"):
+                          device=None):
     """``fn(bias)`` -> 0-d float32 tensor: sum s + sum e of the raw
     compensated pair over the full period, plus ``bias`` (replaces the
     Pallas ``make_checksum_fn_comp``)."""

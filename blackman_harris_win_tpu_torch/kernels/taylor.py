@@ -117,7 +117,7 @@ def taylor_sincos(n, phase_width: int, data_width: int, lut_size: int):
 
 
 def taylor_sincos_block(n0, count: int, phase_width: int, data_width: int,
-                        lut_size: int, device="cpu"):
+                        lut_size: int, device=None):
     """(cos, sin) over the consecutive index block [n0, n0 + count) as int32
     (count,) tensors on ``device``, bit-exact vs :func:`taylor_sincos`."""
     from .taylor_kernel import sincos_block
@@ -125,7 +125,7 @@ def taylor_sincos_block(n0, count: int, phase_width: int, data_width: int,
     return sincos_block(n0, count, phase_width, data_width, lut_size, device)
 
 
-def taylor_window_block(n0, count: int, coeffs_q, spec, device="cpu"):
+def taylor_window_block(n0, count: int, coeffs_q, spec, device=None):
     """TAYLOR-source window block [n0, n0+count) as int32 on ``device`` —
     bit-exact vs ``window_samples`` with ``sin_type="taylor"`` (HLS
     rounding, 2/3-term only; the reference doubles harmonic frequency by
@@ -137,7 +137,7 @@ def taylor_window_block(n0, count: int, coeffs_q, spec, device="cpu"):
     return window_block(coeffs_q, spec, n0, count, device)
 
 
-def taylor_window_range(n0, count: int, coeffs_q, spec, device="cpu"):
+def taylor_window_range(n0, count: int, coeffs_q, spec, device=None):
     """:func:`taylor_window_block` over an arbitrary range: the JAX package
     chunks it for its per-call row bound, which the port's kernel does not
     have, so this is one block."""

@@ -95,12 +95,12 @@ def taylor_window_plain(n, coeffs_q, spec: WindowSpec):
 
 
 def taylor_checksum_plain(pw: int, w: int, ls: int, n0: int = 0, bias: int = 0,
-                          device="cpu", count: int | None = None):
+                          device=None, count: int | None = None):
     """Plain version of the checksum kernel: the int32-wrap sum of c+s over
     the ``count`` (default 2^pw) samples from ``n0``, plus bias (0-d int32
     on ``device``), generated and summed in chunks."""
     check_widths(pw, w, ls)
-    device = torch.device(device)
+    device = _build.resolve_device(device)
     n0 = int(n0) % (1 << pw)
     end = n0 + (1 << pw if count is None else _check_count(count))
     acc = torch.zeros((), dtype=torch.int64, device=device)
@@ -117,7 +117,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
     _build.check(name, rc)
 
 
-def sincos_block(n0, count: int, pw: int, w: int, ls: int, device="cpu"):
+def sincos_block(n0, count: int, pw: int, w: int, ls: int, device=None):
     """(c, s) int32 (count,) over [n0, n0+count) on ``device`` (kernel
     ``taylor_sincos_block``)."""
     check_widths(pw, w, ls)
@@ -133,7 +133,7 @@ def sincos_block(n0, count: int, pw: int, w: int, ls: int, device="cpu"):
     return c, s
 
 
-def window_block(coeffs_q, spec: WindowSpec, n0, count: int, device="cpu"):
+def window_block(coeffs_q, spec: WindowSpec, n0, count: int, device=None):
     """The HLS TAYLOR window over [n0, n0+count) as int32 on ``device``
     (kernel ``taylor_window_block``)."""
     coeffs = _window_params(coeffs_q, spec)
@@ -152,7 +152,7 @@ def window_block(coeffs_q, spec: WindowSpec, n0, count: int, device="cpu"):
     return out
 
 
-def checksum_range(n0, count: int, pw: int, w: int, ls: int, bias: int = 0, device="cpu"):
+def checksum_range(n0, count: int, pw: int, w: int, ls: int, bias: int = 0, device=None):
     """The int32-wrap sum of c+s over [n0, n0+count), plus ``bias``, as a 0-d
     int32 tensor on ``device`` (kernel ``taylor_checksum``); the samples are
     never stored."""
@@ -160,7 +160,7 @@ def checksum_range(n0, count: int, pw: int, w: int, ls: int, bias: int = 0, devi
     n0, count = int(n0) % (1 << pw), _check_count(count)
     device = _build.resolve_device(device)
     if device.type == "cpu":
-        return taylor_checksum_plain(pw, w, ls, n0, bias, count=count)
+        return taylor_checksum_plain(pw, w, ls, n0, bias, device, count=count)
     out = torch.full((), wrap(int(bias), 32), dtype=torch.int32, device=device)
     if count:
         _launch("taylor_checksum", device, out.data_ptr(), n0, count,
@@ -168,7 +168,7 @@ def checksum_range(n0, count: int, pw: int, w: int, ls: int, bias: int = 0, devi
     return out
 
 
-def make_checksum_fn_taylor(pw: int, w: int, ls: int, rows: int = 64, device="cpu"):
+def make_checksum_fn_taylor(pw: int, w: int, ls: int, rows: int = 64, device=None):
     """Build ``fn(n0, bias)`` -> 0-d int32 tensor on ``device``: the
     int32-wrap sum of (cos + sin) over one full 2^pw period starting at
     ``n0``, plus ``bias``, reduced in the kernel (replaces the Pallas

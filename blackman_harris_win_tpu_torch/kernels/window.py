@@ -137,7 +137,7 @@ def _window_rtl(n, coeffs_q, spec: WindowSpec):
     return wrap(round_half_up_bit1(wrap(acc, w + 2)), w)
 
 
-def make_window(name: str, spec: WindowSpec, coeffs=None, device="cpu"):
+def make_window(name: str, spec: WindowSpec, coeffs=None, device=None):
     """The full 2^phase_width-point quantized window for a named coefficient
     set (the ``win_selector`` equivalent, src/win_selector.vhd:93-199), as
     int32 on ``device`` (routed as :func:`window_block`)."""
@@ -171,7 +171,7 @@ def win_function(sel: int, n, spec: WindowSpec):
 
 
 def window_block(n0: int, block_len: int, coeffs_q, spec: WindowSpec,
-                 device="cpu"):
+                 device=None):
     """A contiguous block [n0, n0+block_len) of the window as int32 on
     ``device`` — the streaming building block (no host ever needs the full
     window).  CORDIC and TAYLOR/HLS go through their kernels' wrappers;

@@ -60,11 +60,11 @@ def window_values_plain(n, coeffs_q, spec: WindowSpec):
 
 
 def window_checksum_plain(coeffs_q, spec: WindowSpec, n_start: int, count: int,
-                          bias: int = 0, device="cpu"):
+                          bias: int = 0, device=None):
     """Plain version of kernel 1b: ``torch.sum`` of ``window_values_plain``
     over [n_start, n_start+count), plus bias, wrapped to int32 (0-d)."""
     _check_range(n_start, count)
-    device = torch.device(device)
+    device = _build.resolve_device(device)
     acc = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(n_start, n_start + count, _CHUNK):
         n = torch.arange(s, min(s + _CHUNK, n_start + count), device=device)
@@ -86,7 +86,7 @@ def _launch(name: str, out, start: int, count: int, coeffs_q, spec: WindowSpec,
     _build.check(name, rc)
 
 
-def window_block(coeffs_q, spec: WindowSpec, n0: int, length: int, device="cpu"):
+def window_block(coeffs_q, spec: WindowSpec, n0: int, length: int, device=None):
     """Window samples [n0, n0+length) as int32 (length,) on ``device``
     (kernel 1a; replaces ``pallas_window_block``)."""
     n0, length = int(n0), int(length)
@@ -101,7 +101,7 @@ def window_block(coeffs_q, spec: WindowSpec, n0: int, length: int, device="cpu")
 
 
 def window_checksum(coeffs_q, spec: WindowSpec, n_start: int, count: int,
-                    bias: int = 0, device="cpu"):
+                    bias: int = 0, device=None):
     """int32-wrap sum of the window samples at indices n_start ..
     n_start+count-1 (mod 2^PW), plus ``bias``, as a 0-d int32 tensor on
     ``device`` (kernel 1b).  The window is never stored."""
@@ -109,7 +109,7 @@ def window_checksum(coeffs_q, spec: WindowSpec, n_start: int, count: int,
     _check_range(n_start, count)
     device = _build.resolve_device(device)
     if device.type == "cpu":
-        return window_checksum_plain(coeffs_q, spec, n_start, count, bias)
+        return window_checksum_plain(coeffs_q, spec, n_start, count, bias, device)
     out = torch.full((), wrap(int(bias), 32), dtype=torch.int32, device=device)
     if count:
         _launch("window_checksum", out, n_start, count, coeffs_q, spec, device)

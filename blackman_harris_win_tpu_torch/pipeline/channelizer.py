@@ -1,0 +1,80 @@
+"""Polyphase DFT filter-bank channelizer, critically sampled (counterpart
+of ``blackman_harris_win_tpu/pipeline/channelizer.py``).
+
+Splits a wideband stream into C uniformly spaced channels, each decimated by
+C:
+
+- the polyphase decomposition is a reshape;
+- the C branch FIRs are one grouped ``conv1d`` (groups = C) with flipped
+  taps (``conv1d`` correlates), in full fp32;
+- the cross-branch DFT is ``torch.fft.fft`` along the branch axis.
+
+Channel k of frame m:  Y[m, k] = sum_p e^{-j 2 pi p k / C} *
+(sum_t h_p[t] x[(m - t) C + p])  (h_p[t] = h[t C + p]); a tone at +k/C of
+fs lands in channel k.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from .fir import design_lowpass
+from .spectral import _full_fp32
+
+
+def design_prototype(
+    n_channels: int,
+    taps_per_branch: int,
+    window: str = "bh4",
+    data_width: int = 24,
+    cutoff_scale: float = 1.0,
+) -> np.ndarray:
+    """Prototype lowpass for a C-channel bank: cutoff 1/C of Nyquist
+    (scaled), length C * taps_per_branch, designed with the quantized
+    windows."""
+    n_taps = n_channels * taps_per_branch
+    return design_lowpass(
+        n_taps, cutoff_scale / n_channels, window=window, data_width=data_width
+    )
+
+
+def polyphase_channelize(x, prototype, n_channels: int, device=None):
+    """x: (..., T) real/complex -> (..., n_frames, n_channels) complex.
+
+    A tensor ``x`` runs on its device; array-like input goes to ``device``
+    (default the card).  T must be a multiple of n_channels; n_frames =
+    T // C - (taps_per_branch - 1) (valid region).  Output channel k is
+    centered at f = k/C * fs.
+    """
+    c = n_channels
+    h = np.asarray(prototype, np.float64)
+    if h.size % c:
+        raise ValueError("prototype length must be a multiple of n_channels")
+    tpb = h.size // c
+    x = _build.as_tensor(x, device=device)
+    if x.shape[-1] % c:
+        raise ValueError("input length must be a multiple of n_channels")
+
+    lead = x.shape[:-1]
+    # commutator: sample n -> branch p = n mod C, frame n // C
+    xp = x.reshape(lead + (x.shape[-1] // c, c))  # (..., frame, branch)
+    rdt = x.real.dtype if x.is_complex() else x.dtype
+    # branch FIR y_p[m] = sum_t h[t*C + p] x[(m - t)*C + p] is a true
+    # convolution: flip the taps for conv1d's correlation
+    hp = torch.as_tensor(h.reshape(tpb, c), dtype=rdt, device=x.device)
+    kk = torch.flip(hp, dims=(0,)).T.reshape(c, 1, tpb)  # (out, in/groups, width)
+
+    def branches_conv(sig):  # (..., nf, c) -> (..., nf_out, c)
+        s = sig.reshape((-1,) + tuple(sig.shape[-2:])).transpose(1, 2)  # (B, c, nf)
+        y = torch.nn.functional.conv1d(s, kk, groups=c).transpose(1, 2)  # (B, nf_out, c)
+        return y.reshape(tuple(sig.shape[:-2]) + tuple(y.shape[-2:]))
+
+    _full_fp32()
+    if xp.is_complex():
+        y = torch.complex(branches_conv(xp.real), branches_conv(xp.imag))
+    else:
+        y = branches_conv(xp)
+    # DFT across branches (e^{-j 2 pi p k / C}) so channel k sits at +k/C
+    return torch.fft.fft(y, dim=-1)

@@ -25,18 +25,37 @@ user calls, at the repository's real sizes:
    checksum of each (rows=64), the Blackman W=32 LS=12 wrap and Hamming W=16
    LS=10 saturate HLS windows through ``make_window`` (Taylor window
    kernel); and, in torch ops on the card (no kernel exists for them), an
-   RTL-contract TAYLOR Hamming window and a taylor2 BH-7 W=32 LS=12 window.
+   RTL-contract TAYLOR Hamming window and a taylor2 BH-7 W=32 LS=12 window;
+7. the DDC at bench_all config 21: 2^26 float32 samples, fc = 1/8, decim 4,
+   64 taps (``design_lowpass(64, 0.2)``), dds48 NCO at pw=20 W=16; its
+   decimating FIR takes the bulk branch, which runs the materialization
+   kernel (kernel 7) before the strided conv;
+8. the SDR chain (torch ops: it has no kernel of its own) at the multichip
+   dryrun's stage-4 configuration (4 channels, 6 taps per branch, AW=20)
+   over a 2^22-sample tone, a latency check, and at bench_all config 5
+   (16 channels, 8 taps per branch) over 16 * 2^22 noise samples;
+9. STFT/WOLA round trips at the analyzer configuration (BH-4 W=17 pw=20
+   saturate, nfft 2^20, hop 2^19, 32 * 2^20 samples) through the quantized
+   pair (window kernel), the float pair (f32 outer write-out) and the comp
+   pair (comp outer write-out).
 
-Every kernel's launch counter is zeroed just before that run and read just
-after; a kernel the path did not launch fails the run.  Then each output is
-checked: generation 0-LSB against the plain PyTorch version on the CPU on
-random and quadrant-seam blocks, the exact checksum identities, the float
-windows against the float64 golden on every sample, the spectral floors at
-pw=16, the analyzers against a float64 reference within the derived f32
-budget, and each kernel against its plain version on the card.  Last, each
-kernel and its plain version are timed with CUDA events (median of 5 after
-a warm-up; a checksum kernel's time is per call of 16 back-to-back calls
-with distinct biases).
+Every kernel's launch counter is zeroed just before each phase and read
+just after; a phase that did not launch a kernel of its path fails the run,
+and so does a kernel no phase launched.  Then each output is checked:
+generation 0-LSB against the plain PyTorch version on the CPU on random and
+quadrant-seam blocks, the exact checksum identities, the float windows
+against the float64 golden on every sample, the spectral floors at pw=16,
+the analyzers against a float64 reference within the derived f32 budget,
+the DDC against a float64 FIR of its exact integer mixer products, the SDR
+tone offset and discriminator, the STFT round trips and frames of each
+pair's stft against the golden window, and each kernel against its plain
+version on the card; a torch.profiler breakdown of one DDC call must record
+device time.  Last, each kernel and its plain version are timed
+with CUDA events (median of 5 after a warm-up; a checksum kernel's time is
+per call of 16 back-to-back calls with distinct biases), beside its bound
+(the least time the card could take: bytes over 3.35 TB/s or operations
+over the peak rate of their type, the larger) and, where one PyTorch call
+computes the same function, that call's time.
 
 Exits non-zero, printing no result, if torch sees no CUDA device or any
 phase fails.  The last line is the JSON object
@@ -53,6 +72,22 @@ import sys
 import time
 
 import numpy as np
+
+
+#: NVIDIA H100 SXM peaks (data sheet): device memory bytes/s and float32
+#: FLOP/s outside the tensor cores
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+#: int32 operations/s: an SM issues INT32 on 64 of its 128 FP32 lanes, and
+#: the float32 rate counts an FMA as two operations, so a quarter of it
+INT32_OPS = F32_FLOPS / 4
+
+
+def _bound(nbytes: float, ops: float = 0.0, rate: float = INT32_OPS) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate
+    or operations over their peak rate, the larger, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -110,7 +145,7 @@ def _gate_outer_blocks(label, win_dev, q, spec, m, blocks):
 
     for blk in blocks:
         got = win_dev[torch.from_numpy(blk).to(win_dev.device)].cpu()
-        want = torch.cat([outer_block_int_plain(q, spec, m, int(h), 1)
+        want = torch.cat([outer_block_int_plain(q, spec, m, int(h), 1, device="cpu")
                           for h in np.unique(blk >> m)])
         rows = np.unique(blk >> m)
         pos = np.searchsorted(rows, blk >> m) * (1 << m) + (blk & ((1 << m) - 1))
@@ -183,6 +218,311 @@ def _f64_welch(x, win64, nfft: int, hop: int, chunk: int = 32):
     return acc / frames.shape[0]
 
 
+def _counted(launched: dict, label: str, expect, fn):
+    """Run one phase of the main path with every launch counter zeroed just
+    before it and read just after; each kernel in ``expect`` must have been
+    launched.  The counts add into ``launched``."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    for k, v in counts.items():
+        launched[k] += v
+    print(f"phase {label}: {secs:.3f} s host clock (first call), launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    missing = [k for k in expect if not counts[k]]
+    _require(not missing, f"phase {label}: kernels {missing} were not launched")
+    return out
+
+
+def _nco_blocks(fw: int, pw: int, rng, block: int = 4096) -> list[np.ndarray]:
+    """Index blocks for the NCO gate: four random blocks in [0, 2^31); where
+    the tuning word is odd (n -> n*fw mod 2^pw is then a bijection), the
+    indices whose phase lies within +-3 of the quadrant seams 0, N/4, N/2,
+    3N/4; and n = 0..63, which covers every phase an fc = 1/8 NCO visits."""
+    n = 1 << pw
+    blocks = [b + np.arange(block) for b in rng.integers(0, (1 << 31) - block, size=4)]
+    if fw % 2:
+        seams = np.array([(s + d) % n for s in (0, n // 4, n // 2, 3 * n // 4)
+                          for d in range(-3, 4)], np.int64)
+        blocks.append((seams * pow(fw, -1, n)) % n)
+    blocks.append(np.arange(64))
+    return blocks
+
+
+def _ddc_gates(x, bb, h, fc: float, decim: int, pw: int, w: int, rng, dev) -> dict:
+    """Gates of the DDC phase: the materialization kernel bit-equal to its
+    input and its plain version on the mixer output it copies; the NCO 0 LSB
+    against the CPU plain version at fc and at 0.2371; the tone gate of
+    bench_all config 21; a random 2^16-output window against a float64 FIR
+    of the exact integer mixer products; TF32 off."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels.barrier import materialize, materialize_plain
+    from blackman_harris_win_tpu_torch.pipeline.ddc import (
+        MIX_IN_BITS,
+        ddc,
+        freq_word,
+        mix_iq_int,
+        nco_iq,
+    )
+
+    t = x.shape[-1]
+    amp_in = float((1 << MIX_IN_BITS) - 1)
+    xq = torch.round(x * amp_in).to(torch.int32)
+    mi, mq = mix_iq_int(xq, torch.arange(t, device=dev), freq_word(fc, pw), pw, w)
+    del xq
+    m_int = torch.stack([mi, mq])
+    del mi, mq
+    m2 = m_int.to(torch.float32) * float(np.float32(1.0 / (amp_in * (1 << (w - 2)))))
+    mat, plain = materialize(m2), materialize_plain(m2)
+    bits = m2.view(torch.int32)
+    _require(torch.equal(mat.view(torch.int32), bits) and torch.equal(plain.view(torch.int32), bits),
+             "materialize: the copy of the mixer output is not bit-equal to it")
+    mat_err = float((mat - plain).abs().max())
+    print(f"materialize on the (2, {t}) mixer output: bit-equal to its input and to "
+          "materialize_plain on the card")
+    del mat, plain, m2
+
+    for f in (fc, 0.2371):
+        fw = freq_word(f, pw)
+        blocks = _nco_blocks(fw, pw, rng)
+        for blk in blocks:
+            got = nco_iq(torch.from_numpy(blk).to(dev), fw, pw, w)
+            want = nco_iq(blk, fw, pw, w, device="cpu")
+            _require(all(torch.equal(g.cpu(), v) for g, v in zip(got, want)),
+                     f"NCO fc={f}: differs from the CPU plain version")
+        print(f"NCO dds48 pw={pw} W={w} fc={f}: {len(blocks)} blocks (random, phase seams) "
+              "0-LSB equal to the CPU plain version")
+
+    df, nt = 1 / 256, 16384
+    tone = torch.cos(2 * np.pi * (fc + df) * torch.arange(nt, device=dev, dtype=torch.float64))
+    bbt = ddc(tone.to(torch.float32), fc, decim, taps=h).cpu().numpy()
+    zt = (bbt[0].astype(np.float64) + 1j * bbt[1])[16:-16]
+    f_meas = float(np.mean(np.diff(np.unwrap(np.angle(zt)))) / (2 * np.pi * decim))
+    _require(abs(f_meas - df) < 1e-4, f"DDC tone gate: f_meas {f_meas} vs {df}")
+
+    # output j >= head is the body FIR at input offset (j - head) * decim
+    n_taps, nout = len(h), 1 << 16
+    head = (n_taps - decim) // decim
+    j0 = int(rng.integers(head, bb.shape[-1] - nout))
+    b0 = (j0 - head) * decim
+    m64 = m_int[:, b0:b0 + decim * (nout - 1) + n_taps].double() / (amp_in * (1 << (w - 2)))
+    ref = m64.unfold(-1, n_taps, decim) @ torch.from_numpy(np.asarray(h, np.float64)).to(dev)
+    err = float((bb[:, j0:j0 + nout].double() - ref).abs().max())
+    # each f32 term h32 * m2 carries the taps' rounding, the int->f32
+    # conversion, the f32 scale and the rescale product (4 roundings) plus
+    # the n_taps roundings of the f32 dot product: gamma(n_taps + 4)
+    u = 2.0**-24
+    k = n_taps + 4
+    sum_h, max_m = float(np.abs(h).sum()), float(m64.abs().max())
+    bound = k * u / (1 - k * u) * sum_h * max_m
+    _require(err <= bound, f"DDC vs float64 FIR: {err:.3e} > {bound:.3e}")
+    _require(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on after the DDC")
+    print(f"DDC: tone at fc+1/256 measured at {f_meas:.7f} (|err| {abs(f_meas - df):.2e} "
+          f"< 1e-4); outputs [{j0}, +{nout}) vs float64 FIR of the exact mixer ints: "
+          f"{err:.3e} (<= gamma(n_taps+4) x sum|h| x max|m| = {k}u/(1-{k}u) x {sum_h:.4f} x "
+          f"{max_m:.4f} = {bound:.3e}); cuDNN TF32 off")
+    return {"mat_err": mat_err, "fir_err": err, "fir_bound": bound, "f_meas": f_meas}
+
+
+def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=None) -> None:
+    """The chain's output is its own discriminator over the card's
+    channelizer output and lies in the angle range; the discriminator on
+    the card is 0 LSB against its CPU plain version on the same int I/Q
+    (all of it, or a random run of ``frames`` outputs per channel); where
+    the input is a tone at channel 1 + ``offset``, that offset comes back
+    within 2e-3 (the dryrun's gate)."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import polyphase_channelize
+    from blackman_harris_win_tpu_torch.pipeline.demod import fm_demod_conj
+
+    y = polyphase_channelize(x, proto, n_ch)
+    i = torch.round(y.real * 2.0**14).to(torch.int32).mT
+    q = torch.round(y.imag * 2.0**14).to(torch.int32).mT
+    del y
+    d_dev = fm_demod_conj(i, q, 16, aw)
+    _require(torch.equal(d_dev.mT, out), f"SDR {label}: sdr_chain differs from its own "
+             "discriminator")
+    half = 1 << (aw - 1)
+    _require(int(out.min()) >= -half and int(out.max()) < half,
+             f"SDR {label}: output outside [-2^{aw - 1}, 2^{aw - 1})")
+    nf = d_dev.shape[-1] if frames is None else min(frames, d_dev.shape[-1])
+    a = int(rng.integers(0, d_dev.shape[-1] - nf + 1))
+    d_cpu = fm_demod_conj(i[:, a:a + nf + 1].cpu(), q[:, a:a + nf + 1].cpu(), 16, aw)
+    _require(torch.equal(d_dev[:, a:a + nf].cpu(), d_cpu),
+             f"SDR {label}: fm_demod_conj on the card differs from the CPU")
+    msg = (f"SDR {label}: output {tuple(out.shape)} in range; fm_demod_conj on the card 0-LSB "
+           f"equal to the CPU plain version on {d_cpu.numel()} discriminator outputs")
+    if offset is not None:
+        f1 = float(out[:, 1].double().mean()) / (1 << aw)
+        _require(abs(f1 - offset * n_ch) < 2e-3,
+                 f"SDR {label}: channel-1 offset {f1} vs {offset * n_ch}")
+        msg += (f"; channel-1 offset {f1:.6f} (want {offset * n_ch}, |err| "
+                f"{abs(f1 - offset * n_ch):.2e} < 2e-3)")
+    print(msg)
+
+
+def _stft_frame_gate(name, fwd, x, dw_kernel: float, w_plain, gold, nfft: int, hop: int,
+                     rng) -> None:
+    """Three random frames of the pair's ``fwd(x)`` against a float64 rfft
+    of the same samples times the golden window ``gold`` (float64).  The
+    pair's window lies within dw of gold: ``dw_kernel`` (its generator
+    against the plain version ``w_plain``, derived) plus max |w_plain -
+    gold|, measured on the plain version (torch ops, no kernel).  Bound per
+    bin: sum |x| dw, plus the f32 transform's normwise bound sqrt(nfft)
+    (||x gold||_2 + dw ||x||_2) (7 log2(nfft) + 3) u: a radix-2 FFT with
+    twiddles accurate to u (eta < 7u, Higham, Thm 24.2) after at most 3
+    roundings per windowed sample (the comp pair's two products and their
+    sum); any |err_k| <= ||err||_2."""
+    import torch
+
+    u = 2.0**-24
+    dw = dw_kernel + float((w_plain - gold).abs().max())
+    s = fwd(x)
+    worst, bound = 0.0, 0.0
+    for f in rng.choice(s.shape[-2], size=3, replace=False):
+        xf = x[int(f) * hop:int(f) * hop + nfft].double()
+        ref = torch.fft.rfft(xf * gold)
+        err = float((s[int(f)].to(torch.complex128) - ref).abs().max())
+        b = (float(xf.abs().sum()) * dw + np.sqrt(nfft) * (
+            float((xf * gold).norm()) + dw * float(xf.norm()))
+            * (7 * np.log2(nfft) + 3) * u)
+        _require(err <= b, f"STFT {name} pair: frame {int(f)} vs float64 rfft x golden "
+                 f"window {err:.3e} > {b:.3e}")
+        worst, bound = max(worst, err), max(bound, b)
+    print(f"STFT {name} pair: 3 frames vs float64 rfft of x x golden BH-4 window: max "
+          f"{worst:.3e} (<= sum|x| dw + sqrt(nfft)(||x w||_2 + dw ||x||_2)(7 log2 nfft + 3)u, "
+          f"dw = {dw:.3e}: {bound:.3e})")
+
+
+def _stft_round_trips(x, spec, hop: int, dev) -> dict:
+    """The three STFT pairs at ``spec`` (BH-4): build each (its window from
+    the window kernel, the f32 or the comp outer write-out) and run
+    istft(stft(x)); returns name -> (fwd, inv, interior max |y - x|)."""
+    from blackman_harris_win_tpu_torch.pipeline.stft import (
+        comp_stft_pair,
+        float_stft_pair,
+        quantized_stft_pair,
+    )
+
+    edge = spec.n - hop  # the first and last nfft - hop samples see fewer frames
+    pairs = {
+        "quantized": quantized_stft_pair("bh4", spec, hop, device=dev),
+        "float": float_stft_pair("bh4", spec.phase_width, hop, device=dev),
+        "comp": comp_stft_pair("bh4", spec.phase_width, hop, device=dev),
+    }
+    out = {}
+    for name, (fwd, inv, _) in pairs.items():
+        y = inv(fwd(x))
+        out[name] = (fwd, inv, float((y - x)[edge:-edge].abs().max()))
+    return out
+
+
+#: operations per (cos, sin) call of the TAYLOR generator: phase split (2),
+#: quadrant (1), ROM index (1), the tay1 correction (2 products, 2 shifts,
+#: 2 adds), the quadrant steering (2 negations, 2 selects)
+TAYLOR_OPS = 14
+
+
+def _cordic_ops(n_terms: int, iters: int) -> int:
+    """Operations per window sample of the CORDIC generators: per harmonic,
+    ``iters`` iterations of 2 shifts, 3 adds/subtracts and a sign test, plus
+    the phase product and mask, the quadrant fix, a_k * cos, its shift and
+    the accumulate (6); per sample the wrap or clamp (4).  Each counts as
+    one operation whatever its width, so the bound stays low."""
+    return (n_terms - 1) * (6 * iters + 6) + 4
+
+
+def _kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
+                   mat_bytes: int) -> dict:
+    """name -> (bound ms, "bytes" | "operations") of each kernel at the main
+    path's shapes: each input read once, each output written once (tables
+    and scalars are negligible); integer operations at INT32_OPS, float32
+    ones at F32_FLOPS."""
+    from blackman_harris_win_tpu_torch.kernels.compwin import comp_window_flops
+    from blackman_harris_win_tpu_torch.kernels.floatwin import float_window_flops
+
+    nf = (nsamp - nfft) // hop + 1
+    npair = (nf + 1) // 2
+    k1 = n_terms - 1
+    f32, comp = float_window_flops(n, n_terms), comp_window_flops(n, "bh7")
+    return {
+        "window_block": _bound(4 * n, n * _cordic_ops(n_terms, 32)),
+        "window_checksum": _bound(4, 4 * n * (_cordic_ops(n_terms, 32) + 1)),
+        # the work the function needs, not the kernel's direct DFT-matrix
+        # product: per packed pair, the window products (2 nfft), an FFT-128
+        # of each of the nfft/128 columns (5 * 128 * log2(128) flops) and
+        # the stage-1 twiddle (6 flops per element)
+        "welch_stage1": _bound(4 * nsamp + 4 * nfft + 8 * npair * nfft,
+                               npair * (2 * nfft + nfft // 128 * 5 * 128 * 7 + 6 * nfft),
+                               F32_FLOPS),
+        # per harmonic: 2 products, subtract, round, shift, accumulate
+        "outer_block": _bound(4 * n, n * (6 * k1 + 2)),
+        "outer_checksum": _bound(4, n * (6 * k1 + 3)),
+        "outer_block_f32": _bound(4 * n, f32, F32_FLOPS),
+        "outer_checksum_f32": _bound(4, f32 + n, F32_FLOPS),
+        "outer_block_comp": _bound(8 * n, comp, F32_FLOPS),
+        "outer_checksum_comp": _bound(8, comp + 2 * n, F32_FLOPS),
+        "taylor_sincos_block": _bound(8 * n, n * TAYLOR_OPS),
+        "taylor_checksum": _bound(4, n * (TAYLOR_OPS + 2)),
+        # Blackman: two generator calls, a_k * cos, shift, accumulate, wrap
+        "taylor_window_block": _bound(4 * n, n * (2 * (TAYLOR_OPS + 3) + 2)),
+        "materialize": _bound(2 * mat_bytes),
+    }
+
+
+def _profile_ddc(run_ddc, label: str) -> None:
+    """One DDC call under torch.profiler: device time by kernel, grouped
+    into the barrier copy, the FIR (convolution and matmul kernels) and the
+    elementwise passes (NCO, mixer, rescale, copies), beside the call's
+    CUDA-event wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_ddc()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # a failure of the profiler fails the run: PERF.md's breakdown reads it
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run_ddc()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, us / 1e3, e.count))
+    _require(bool(rows), "DDC profile: torch.profiler recorded no device time")
+    groups = {"materialize": 0.0, "FIR (conv, gemm)": 0.0, "elementwise": 0.0}
+    for key, ms, _ in rows:
+        k = key.lower()
+        if "materialize" in k:
+            groups["materialize"] += ms
+        elif any(s in k for s in ("conv", "cudnn", "gemm", "xmma", "cutlass", "gemv", "dot")):
+            groups["FIR (conv, gemm)"] += ms
+        else:
+            groups["elementwise"] += ms
+    busy = sum(groups.values())
+    print(f"profile {label} ddc (one call): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"{max(0.0, 1 - busy / wall):.1%}; " + "; ".join(f"{k} {v:.3f} ms"
+                                                         for k, v in groups.items()))
+    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  profile kernel {ms:9.3f} ms  x{cnt:<3d} {key[:110]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20260516,
@@ -198,6 +538,7 @@ def main(argv=None) -> int:
     from blackman_harris_win_tpu_torch import _build
     from blackman_harris_win_tpu_torch.core.config import WindowSpec
     from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
+    from blackman_harris_win_tpu_torch.kernels.barrier import materialize, materialize_plain
     from blackman_harris_win_tpu_torch.kernels.compwin import (
         DEFAULT_THRESH,
         GRID_BITS,
@@ -207,7 +548,7 @@ def main(argv=None) -> int:
     )
     from blackman_harris_win_tpu_torch.kernels.floatwin import float_window, float_window_flops
     from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
-    from blackman_harris_win_tpu_torch.kernels.outerwin import window_block_outer
+    from blackman_harris_win_tpu_torch.kernels.outerwin import DEFAULT_SPLIT, window_block_outer
     from blackman_harris_win_tpu_torch.kernels.taylor import taylor_sincos_block
     from blackman_harris_win_tpu_torch.kernels.welchfft_kernel import (
         welch_stage1_fused,
@@ -224,6 +565,10 @@ def main(argv=None) -> int:
         window_checksum_plain,
         window_values_plain,
     )
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import design_prototype
+    from blackman_harris_win_tpu_torch.pipeline.ddc import MIX_IN_BITS, ddc, freq_word, mix_iq_int
+    from blackman_harris_win_tpu_torch.pipeline.fir import decimating_fir, design_lowpass
+    from blackman_harris_win_tpu_torch.pipeline.sdr import sdr_chain
     from blackman_harris_win_tpu_torch.pipeline.spectral import (
         window_scale,
         windowed_power_spectrum,
@@ -258,37 +603,47 @@ def main(argv=None) -> int:
     nfft, hop, nsamp = spec4.n, 1 << 19, 128 << 20
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     x = torch.randn(nsamp, generator=gen, device=dev, dtype=torch.float32)
+    x21 = torch.randn(1 << 26, generator=gen, device=dev, dtype=torch.float32)
+    x_stft = torch.randn(32 << 20, generator=gen, device=dev, dtype=torch.float32)
+    c5, tpb5 = 16, 8  # bench_all config 5: noise through a 16-channel bank
+    x_sdr5 = torch.randn(c5 << 22, generator=gen, device=dev, dtype=torch.float32)
     torch.cuda.synchronize()
 
-    _build.reset_launches()
+    launched = dict.fromkeys(_build.launches, 0)
     t0 = time.perf_counter()
-    win_hls = make_window("bh7", spec_hls, device=dev)
-    chk = window_checksum(q7, spec_hls, 0, 4 * n, bias=0, device=dev)
-    win_rtl = make_window("bh7", spec_rtl, coeffs=q7_rtl, device=dev)
-    ps_mxu = windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu")
+    win_hls, chk = _counted(launched, "1 generation", ("window_block", "window_checksum"),
+                            lambda: (make_window("bh7", spec_hls, device=dev),
+                                     window_checksum(q7, spec_hls, 0, 4 * n, bias=0, device=dev)))
+    win_rtl = _counted(launched, "2 rtl generation", ("window_block",),
+                       lambda: make_window("bh7", spec_rtl, coeffs=q7_rtl, device=dev))
+    ps_mxu = _counted(launched, "3 analyzer", ("window_block", "welch_stage1"),
+                      lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu"))
     # outer-product modes, bench_all configs 11/13/15 (BH-7, pw=26, m=11)
     m = 11
     nrows = n >> m
     bias = 123457
-    win_outer = window_block_outer(0, nrows, q7, spec_hls, m=m, device=dev)
-    chk_outer_fn = ok.make_checksum_fn(q7, spec_hls, m=m, rows=256, device=dev)
-    chk_outer = chk_outer_fn(bias)
-    win_f32 = float_window("bh7", pw, device=dev)
-    chk_f32_fn = ok.make_checksum_fn_f32("bh7", pw, m=m, rows=256, device=dev)
-    chk_f32 = chk_f32_fn(bias)
-    win_s, win_e = comp_window_pair("bh7", pw, device=dev)
-    chk_comp_fn = ok.make_checksum_fn_comp("bh7", pw, m=m, rows=256, device=dev)
-    chk_comp = chk_comp_fn(bias)
-    ps_float = windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="float",
-                                       fft_mode="mxu")
-    ps_comp = windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="comp",
-                                      fft_mode="rfft")
+
+    def outer_phase():
+        fns = (ok.make_checksum_fn(q7, spec_hls, m=m, rows=256, device=dev),
+               ok.make_checksum_fn_f32("bh7", pw, m=m, rows=256, device=dev),
+               ok.make_checksum_fn_comp("bh7", pw, m=m, rows=256, device=dev))
+        return (window_block_outer(0, nrows, q7, spec_hls, m=m, device=dev),
+                float_window("bh7", pw, device=dev), comp_window_pair("bh7", pw, device=dev),
+                fns, tuple(f(bias) for f in fns))
+
+    (win_outer, win_f32, (win_s, win_e), (chk_outer_fn, chk_f32_fn, chk_comp_fn),
+     (chk_outer, chk_f32, chk_comp)) = _counted(
+        launched, "4 outer-product modes",
+        ("outer_block", "outer_checksum", "outer_block_f32", "outer_checksum_f32",
+         "outer_block_comp", "outer_checksum_comp"), outer_phase)
+    ps_float, ps_comp = _counted(
+        launched, "5 analyzer float/comp", ("outer_block_f32", "welch_stage1", "outer_block_comp"),
+        lambda: (windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="float",
+                                         fft_mode="mxu"),
+                 windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="comp",
+                                         fft_mode="rfft")))
     # the TAYLOR source, bench_all configs 16-18 (pw=26, 2^26 phases)
     tay_cfgs = ((16, 10), (32, 12))  # (W, LS)
-    tay_cs = {cfg: taylor_sincos_block(0, n, pw, *cfg, device=dev) for cfg in tay_cfgs}
-    tay_fns = {cfg: tk.make_checksum_fn_taylor(pw, *cfg, rows=64, device=dev)
-               for cfg in tay_cfgs}
-    tay_chk = {cfg: tay_fns[cfg](0, bias) for cfg in tay_cfgs}
     tay_specs = {  # name -> spec: HLS through the kernel, RTL/taylor2 in torch ops
         "blackman": WindowSpec(pw, 32, sin_type="taylor", lut_size=12, overflow="wrap"),
         "hamming": WindowSpec(pw, 16, sin_type="taylor", lut_size=10, overflow="saturate"),
@@ -296,13 +651,41 @@ def main(argv=None) -> int:
                                   overflow="saturate"),
         "bh7 taylor2": WindowSpec(pw, 32, sin_type="taylor2", lut_size=12, overflow="wrap"),
     }
-    tay_win = {k: make_window(k.split()[0], sp, device=dev) for k, sp in tay_specs.items()}
-    torch.cuda.synchronize()
+
+    def taylor_phase():
+        cs = {cfg: taylor_sincos_block(0, n, pw, *cfg, device=dev) for cfg in tay_cfgs}
+        fns = {cfg: tk.make_checksum_fn_taylor(pw, *cfg, rows=64, device=dev) for cfg in tay_cfgs}
+        return (cs, fns, {cfg: fns[cfg](0, bias) for cfg in tay_cfgs},
+                {k: make_window(k.split()[0], sp, device=dev) for k, sp in tay_specs.items()})
+
+    tay_cs, tay_fns, tay_chk, tay_win = _counted(
+        launched, "6 taylor", ("taylor_sincos_block", "taylor_checksum", "taylor_window_block"),
+        taylor_phase)
+    # the DDC, bench_all config 21
+    fc21, dec21, pw21, w21 = 1 / 8, 4, 20, 16
+    h21 = design_lowpass(64, 0.8 / dec21)
+    bb = _counted(launched, "7 ddc", ("materialize",),
+                  lambda: ddc(x21, fc21, dec21, taps=h21, phase_width=pw21, data_width=w21,
+                              flavor="dds48"))
+    # the SDR chain: dryrun stage 4's configuration over 2^22 samples (a
+    # latency check with the tone gate) and bench_all config 5
+    n_ch, tpb, aw, offset = 4, 6, 20, 0.005
+    proto = design_prototype(n_ch, tpb)
+    proto5 = design_prototype(c5, tpb5)
+    nn = torch.arange(1 << 22, device=dev, dtype=torch.float64)
+    x_sdr = torch.cos(2 * np.pi * (1 / n_ch + offset) * nn).to(torch.float32)
+    del nn
+    sdr_out, sdr5_out = _counted(launched, "8 sdr", (),
+                                 lambda: (sdr_chain(x_sdr, proto, n_ch, angle_width=aw),
+                                          sdr_chain(x_sdr5, proto5, c5, angle_width=aw)))
+    # STFT/WOLA round trips at the analyzer configuration
+    stft_res = _counted(launched, "9 stft", ("window_block", "outer_block_f32", "outer_block_comp"),
+                        lambda: _stft_round_trips(x_stft, spec4, hop, dev))
     main_s = time.perf_counter() - t0
-    counts = dict(_build.launches)
-    print(f"main path: {main_s:.3f} s host clock (first call), launches {counts}")
-    for name, c in counts.items():
+    print(f"main path: {main_s:.3f} s host clock (first call), launches {launched}")
+    for name, c in launched.items():
         _require(c > 0, f"kernel {name} was not launched by the main path")
+    counts = launched
 
     # --- 3. gates ---
     print(f"gate seed: {args.seed}")
@@ -488,6 +871,42 @@ def main(argv=None) -> int:
     print("floors at pw=16: " + ", ".join(f"{k} {v[0]:.2f} dB (<= {v[1]})"
                                           for k, v in floors.items()))
 
+    # --- the DDC, the SDR chain and the STFT round trips: gates ---
+    _require(bb.shape == (2, (1 << 26) // dec21) and bool(torch.isfinite(bb).all()),
+             f"DDC output is not finite of shape (2, 2^26/{dec21})")
+    ddc_res = _ddc_gates(x21, bb, h21, fc21, dec21, pw21, w21, rng, dev)
+    _require(sdr_out.shape == ((1 << 22) // n_ch - tpb, n_ch), "SDR output shape")
+    _sdr_gates("dryrun 4x6", x_sdr, sdr_out, proto, n_ch, aw, offset, rng)
+    _require(sdr5_out.shape == ((c5 << 22) // c5 - tpb5, c5), "SDR config 5 output shape")
+    _sdr_gates("config 5 16x8", x_sdr5, sdr5_out, proto5, c5, aw, None, rng, frames=1 << 16)
+    del sdr5_out
+    for name, (_, _, err) in stft_res.items():
+        _require(err < 2e-5, f"STFT {name} pair: round trip interior max err {err:.3e} >= 2e-5")
+    print("STFT/WOLA round trips, nfft 2^20 hop 2^19, 32*2^20 samples, interior max "
+          "|istft(stft(x)) - x|: " + ", ".join(f"{k} {v[2]:.3e}" for k, v in stft_res.items())
+          + " (< 2e-5)")
+    # each pair's stft against the golden window: the round trip divides by
+    # the window, so it alone cannot see a wrong one
+    m4 = min(DEFAULT_SPLIT, spec4.phase_width - 1)
+    rows4 = nfft >> m4
+    gold4 = torch.from_numpy(catalog.float_window_value("bh4", np.arange(nfft), nfft)).to(dev)
+    wq_plain = (window_values_plain(torch.arange(nfft, device=dev), d4.quantized(17), spec4)
+                .double() * window_scale(spec4, d4.shift))
+    s4p, e4p = ok.outer_block_comp_plain("bh4", spec4.phase_width, m4, GRID_BITS,
+                                         DEFAULT_THRESH, 0, rows4, device=dev)
+    plain4 = {  # name -> (derived |pair window - plain|, plain window in float64)
+        # f32(int) * f32(scale): the scale's rounding and the product's
+        "quantized": (2 * 2.0**-24 * float(wq_plain.abs().max()), wq_plain),
+        "float": (ok.f32_pair_bound("bh4"), ok.outer_block_f32_plain(
+            "bh4", spec4.phase_width, m4, 0, rows4, device=dev).double()),
+        # s bit-equal to plain, e within its evaluation-order bound
+        "comp": (ok.comp_e_bound("bh4"), s4p.double() + e4p.double()),
+    }
+    del s4p, e4p
+    for name, (fwd, _, _) in stft_res.items():
+        _stft_frame_gate(name, fwd, x_stft, *plain4[name], gold4, nfft, hop, rng)
+    del plain4, wq_plain, gold4
+
     # --- 4. each kernel against its plain version on the card, timed ---
     plain_hls = window_values_plain(idx, q7, spec_hls)
     err_1a = int((plain_hls.long() - win_hls.long()).abs().max())
@@ -570,8 +989,58 @@ def main(argv=None) -> int:
                                                      win_mode="comp", fft_mode="rfft")),
         ),
     }
+    # the barrier kernel on the DDC's own mixer output, (2, 2^26) f32
+    amp_in = float((1 << MIX_IN_BITS) - 1)
+    n21 = torch.arange(1 << 26, device=dev)
+
+    def mixer():  # the DDC's NCO, integer mixer and f32 rescale
+        xq = torch.round(x21 * amp_in).to(torch.int32)
+        mi, mq = mix_iq_int(xq, n21, freq_word(fc21, pw21), pw21, w21)
+        return torch.stack([mi, mq]).to(torch.float32) * float(
+            np.float32(1.0 / (amp_in * (1 << (w21 - 2)))))
+
+    m21 = mixer()
+    t["materialize"] = (_time_ms(lambda: materialize(m21)),
+                        _time_ms(lambda: materialize_plain(m21)))
+    lib_ms = {"materialize": _time_ms(lambda: torch.clone(m21))}
     for name, (ms, plain_ms) in t.items():
         print(f"time {label} {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms)")
+    print(f"time {label} materialize library call torch.clone: {lib_ms['materialize']:.3f} ms")
+
+    # the DDC's wall time and its pieces (CUDA events), and one call profiled
+    def run_ddc():
+        return ddc(x21, fc21, dec21, taps=h21, phase_width=pw21, data_width=w21)
+
+    halo21 = len(h21) - dec21
+    mat21 = materialize(m21)
+    taps21 = torch.from_numpy(h21.astype(np.float32)).to(dev).reshape(1, 1, -1)
+    seg21 = torch.cat([m21[..., -halo21:], m21[..., :halo21]], dim=-1)
+    t_ddc = {
+        "ddc (whole call)": _time_ms(run_ddc),
+        "NCO + mixer + rescale (torch ops)": _time_ms(mixer),
+        "materialize kernel": t["materialize"][0],
+        "conv1d body (cuDNN, fp32)": _time_ms(lambda: torch.nn.functional.conv1d(
+            mat21.reshape(-1, 1, 1 << 26), taps21, stride=dec21)),
+        "wrap segment FIR": _time_ms(lambda: decimating_fir(seg21, h21, dec21)),
+    }
+    del mat21
+    print(f"time {label} DDC 2^26 samples, decim {dec21}, 64 taps, dds48 pw={pw21} W={w21}: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in t_ddc.items())
+          + f"; {(1 << 26) / t_ddc['ddc (whole call)'] / 1e3:.1f} Msamples/s in")
+    _profile_ddc(run_ddc, label)
+    t_sdr = _time_ms(lambda: sdr_chain(x_sdr, proto, n_ch, angle_width=aw))
+    print(f"time {label} SDR chain latency check, 2^22 samples, 4 channels x 6 taps, AW=20 "
+          f"(torch ops, no kernel): {t_sdr:.3f} ms")
+    t_sdr5 = _time_ms(lambda: sdr_chain(x_sdr5, proto5, c5, angle_width=aw))
+    print(f"time {label} SDR chain bench_all config 5, 16*2^22 samples, 16 channels x 8 taps, "
+          f"AW=20 (torch ops, no kernel): {t_sdr5:.3f} ms; "
+          f"{(c5 << 22) / t_sdr5 / 1e3:.1f} Msamples/s in")
+    for name, (fwd, inv, _) in stft_res.items():
+        spec_x = fwd(x_stft)
+        t_f, t_i = _time_ms(lambda: fwd(x_stft)), _time_ms(lambda: inv(spec_x))
+        print(f"time {label} STFT {name} pair, 32*2^20 samples, nfft 2^20 hop 2^19: "
+              f"stft {t_f:.3f} ms, istft {t_i:.3f} ms")
+        del spec_x
     for k in ("hamming rtl", "bh7 taylor2"):  # torch ops on the card, no kernel
         ms = _time_ms(lambda k=k: make_window(k.split()[0], tay_specs[k], device=dev))
         print(f"time {label} taylor window {k} (torch ops, no kernel): {ms:.3f} ms")
@@ -592,39 +1061,43 @@ def main(argv=None) -> int:
         f"{k} {n / t[k][0] / 1e3:.1f} Msamples/s" for k in t if k.startswith("taylor")))
 
     src = "blackman_harris_win_tpu_torch/csrc/"
-    tpu_win = "blackman_harris_win_tpu/kernels/pallas/window_kernel.py:378"
-    kernels = [
-        {"name": "window_block", "route": "cuda", "source": src + "window_kernel.cu",
-         "replaces": tpu_win, "launches": counts["window_block"],
-         "max_abs_err": err_1a, "ms": t["window_block"][0],
-         "plain_ms": t["window_block"][1]},
-        {"name": "window_checksum", "route": "cuda", "source": src + "window_kernel.cu",
-         "replaces": tpu_win, "launches": counts["window_checksum"],
-         "max_abs_err": err_1b, "ms": t["window_checksum"][0],
-         "plain_ms": t["window_checksum"][1]},
-        {"name": "welch_stage1", "route": "cuda", "source": src + "welchfft_kernel.cu",
-         "replaces": "blackman_harris_win_tpu/kernels/pallas/welchfft_kernel.py:77",
-         "launches": counts["welch_stage1"], "max_abs_err": err_s1,
-         "ms": t["welch_stage1"][0], "plain_ms": t["welch_stage1"][1]},
+    bounds = _kernel_bounds(n, len(q7), nsamp, nfft, hop, m21.numel() * m21.element_size())
+    err_mat = ddc_res["mat_err"]
+    tpu = "blackman_harris_win_tpu/kernels/pallas/"
+    rows = [  # name, source, replaces, timing key, max abs err
+        ("window_block", "window_kernel.cu", "window_kernel.py:378", "window_block", err_1a),
+        ("window_checksum", "window_kernel.cu", "window_kernel.py:378", "window_checksum",
+         err_1b),
+        ("welch_stage1", "welchfft_kernel.cu", "welchfft_kernel.py:77", "welch_stage1", err_s1),
+        ("outer_block", "outerwin_kernel.cu", "outerwin_kernel.py:86", "outer_block", err_ob),
+        ("outer_checksum", "outerwin_kernel.cu", "outerwin_kernel.py:86", "outer_checksum",
+         err_oc),
+        ("outer_block_f32", "outerwin_kernel.cu", "outerwin_kernel.py:276", "outer_block_f32",
+         err_fb),
+        ("outer_checksum_f32", "outerwin_kernel.cu", "outerwin_kernel.py:276",
+         "outer_checksum_f32", err_fc),
+        ("outer_block_comp", "outerwin_kernel.cu", "outerwin_kernel.py:170", "outer_block_comp",
+         err_e),
+        ("outer_checksum_comp", "outerwin_kernel.cu", "outerwin_kernel.py:170",
+         "outer_checksum_comp", err_ccp),
+        ("taylor_sincos_block", "taylor_kernel.cu", "taylor_kernel.py:71",
+         "taylor_sincos_block w32", err_tcs),
+        ("taylor_window_block", "taylor_kernel.cu", "taylor_kernel.py:71",
+         "taylor_window_block blackman", err_twin),
+        ("taylor_checksum", "taylor_kernel.cu", "taylor_kernel.py:71", "taylor_checksum w32",
+         err_tck),
+        ("materialize", "barrier_kernel.cu", "barrier.py:31", "materialize", err_mat),
     ]
-    tpu_outer = "blackman_harris_win_tpu/kernels/pallas/outerwin_kernel.py:"
-    for name, line, err in (
-        ("outer_block", 86, err_ob), ("outer_checksum", 86, err_oc),
-        ("outer_block_f32", 276, err_fb), ("outer_checksum_f32", 276, err_fc),
-        ("outer_block_comp", 170, err_e), ("outer_checksum_comp", 170, err_ccp),
-    ):
-        kernels.append({"name": name, "route": "cuda", "source": src + "outerwin_kernel.cu",
-                        "replaces": f"{tpu_outer}{line}", "launches": counts[name],
-                        "max_abs_err": err, "ms": t[name][0], "plain_ms": t[name][1]})
-    tpu_tay = "blackman_harris_win_tpu/kernels/pallas/taylor_kernel.py:71"
-    for name, key, err in (
-        ("taylor_sincos_block", "taylor_sincos_block w32", err_tcs),
-        ("taylor_window_block", "taylor_window_block blackman", err_twin),
-        ("taylor_checksum", "taylor_checksum w32", err_tck),
-    ):
-        kernels.append({"name": name, "route": "cuda", "source": src + "taylor_kernel.cu",
-                        "replaces": tpu_tay, "launches": counts[name], "max_abs_err": err,
-                        "ms": t[key][0], "plain_ms": t[key][1]})
+    kernels = []
+    for name, source, replaces, key, err in rows:
+        bound_ms, bound_by = bounds[name]
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": tpu + replaces, "launches": counts[name],
+                        "max_abs_err": err, "ms": t[key][0], "plain_ms": t[key][1],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms.get(name)})
+        print(f"bound {label} {name}: {bound_ms:.4f} ms ({bound_by}); measured {t[key][0]:.3f} ms,"
+              f" roofline share {bound_ms / t[key][0]:.1%}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

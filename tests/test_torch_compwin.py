@@ -58,7 +58,7 @@ class TestPair:
     @pytest.mark.parametrize("name", names())
     def test_s_bit_equal_e_bounded_pair_accurate(self, name):
         pw = 12
-        s, e = pc.comp_window_pair(name, pw)
+        s, e = pc.comp_window_pair(name, pw, device="cpu")
         js, je = jc.comp_window_pair(name, pw)
         assert s.dtype == e.dtype == torch.float32 and s.shape == (1 << pw,)
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))  # exact grid products
@@ -71,7 +71,7 @@ class TestPair:
         pw, m, rows = 14, 6, 4
         n = 1 << pw
         for n0 in (n // 4 - 128, n // 2 - 128, 3 * n // 4 - 128, n - rows * 64):
-            s, e = pc.comp_window_block(n0, rows, name, pw, m=m)
+            s, e = pc.comp_window_block(n0, rows, name, pw, m=m, device="cpu")
             js, je = jc.comp_window_block(n0, rows, name, pw, m=m)
             np.testing.assert_array_equal(s.numpy(), np.asarray(js))
             assert np.abs(e.numpy() - np.asarray(je)).max() <= pk.comp_e_bound(name)
@@ -80,13 +80,13 @@ class TestPair:
 
     def test_all_plain_threshold(self):
         pw = 12
-        s, e = pc.comp_window_pair("bh4", pw, thresh=1.1)
+        s, e = pc.comp_window_pair("bh4", pw, thresh=1.1, device="cpu")
         js, je = jc.comp_window_pair("bh4", pw, thresh=1.1)
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))
         assert np.abs(e.numpy() - np.asarray(je)).max() <= pk.comp_e_bound("bh4", thresh=1.1)
 
     def test_normalize_pair_exact_and_equal_to_jax(self):
-        s, e = pc.comp_window_pair("bh7", 14)
+        s, e = pc.comp_window_pair("bh7", 14, device="cpu")
         hi, lo = pc.normalize_pair(s, e)
         jhi, jlo = jc.normalize_pair(s.numpy(), e.numpy())
         np.testing.assert_array_equal(hi, jhi)
@@ -98,46 +98,46 @@ class TestPair:
 
     def test_comp_window_folded_and_pair(self):
         pw = 14
-        hi, lo = pc.comp_window("bh7", pw, pair=True)
+        hi, lo = pc.comp_window("bh7", pw, pair=True, device="cpu")
         jhi, jlo = jc.comp_window("bh7", pw, pair=True)
         gold = float_window_value("bh7", np.arange(1 << pw), 1 << pw)
         assert np.abs(_pair64(hi, lo) - gold).max() < 5e-9
         assert np.abs(_pair64(hi, lo) - _pair64(jhi, jlo)).max() < 5e-9
-        folded = pc.comp_window("bh7", pw)
+        folded = pc.comp_window("bh7", pw, device="cpu")
         assert torch.equal(folded, hi)
 
     @pytest.mark.parametrize("pw,m", [(1, None), (4, 0)])
     def test_host_f64_branch(self, pw, m):
-        s, e = pc.comp_window_pair("bh7", pw, m=m)
+        s, e = pc.comp_window_pair("bh7", pw, m=m, device="cpu")
         js, je = jc.comp_window_pair("bh7", pw, m=m)
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))
         np.testing.assert_array_equal(e.numpy(), np.asarray(je))
 
     def test_guards(self):
         with pytest.raises(ValueError, match="1.9"):
-            pc.comp_window((0.9, 0.9, 0.9), 12)
+            pc.comp_window((0.9, 0.9, 0.9), 12, device="cpu")
         with pytest.raises(ValueError, match="split"):
-            pc.comp_window_block(0, 1, "hann", 10, m=10)
+            pc.comp_window_block(0, 1, "hann", 10, m=10, device="cpu")
 
 
 class TestSpectralFloors:
     def test_bh7_pair_holds_180_at_pw16(self):
-        s, e = pc.comp_window_pair("bh7", 16)
+        s, e = pc.comp_window_pair("bh7", 16, device="cpu")
         assert window_sidelobe_db(_pair64(s, e), n_terms=7) <= -180.0
 
     @pytest.mark.parametrize("name,bound", [("hamming", -43.0), ("bh4", -92.0), ("bh5", -124.0)])
     def test_published_floors_held_folded(self, name, bound):
-        assert window_sidelobe_db(pc.comp_window(name, 16).numpy()) <= bound
+        assert window_sidelobe_db(pc.comp_window(name, 16, device="cpu").numpy()) <= bound
 
 
 class TestCompChecksum:
     @pytest.mark.parametrize("name,pw,m", [("bh7", 12, 7), ("hamming", 11, 6)])
     def test_plain_matches_pallas_interpret(self, name, pw, m):
         rows = 8
-        fn = pk.make_checksum_fn_comp(name, pw, m=m, rows=rows)
+        fn = pk.make_checksum_fn_comp(name, pw, m=m, rows=rows, device="cpu")
         jfn = jk.make_checksum_fn_comp(name, pw, m=m, rows=rows, interpret=True)
         n = 1 << pw
-        s, e = pc.comp_window_pair(name, pw, m=m)
+        s, e = pc.comp_window_pair(name, pw, m=m, device="cpu")
         sum_abs = float(np.abs(s.numpy()).sum() + np.abs(e.numpy()).sum())
         # two f32 sums of the same 2n terms (plus the bias) in two orders,
         # each within 2n * 2^-24 * (sum|terms| + |bias|) of the exact sum; the
@@ -154,24 +154,24 @@ class TestCompChecksum:
         # the plain sum (pairwise trees over s and e per tile, s + e, running
         # sum over tiles) of the plain pair's terms, against their float64 sum
         s, e = (v.double() for v in pk.outer_block_comp_plain(
-            name, pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, 0, 1 << (pw - m)))
+            name, pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, 0, 1 << (pw - m), device="cpu"))
         depth = pk.checksum_plain_depth(1 << (pw - m), 1 << m, rows, comp=True)
         exact, sum_abs = float(s.sum() + e.sum()), float(s.abs().sum() + e.abs().sum())
         for bias in (0, 123457):
-            got = float(pk.checksum_plain_comp(name, pw, m, rows, bias))
+            got = float(pk.checksum_plain_comp(name, pw, m, rows, bias, device="cpu"))
             bound = pk.sum_bound(depth, sum_abs + bias)
             assert abs(got - (exact + bias)) <= bound, (got, bound)
 
     def test_all_below_threshold_raises(self):
         with pytest.raises(ValueError, match="compensation threshold") as ours:
-            pk.make_checksum_fn_comp((0.9, 1e-7, 1e-7), 12, m=7, rows=8)
+            pk.make_checksum_fn_comp((0.9, 1e-7, 1e-7), 12, m=7, rows=8, device="cpu")
         with pytest.raises(ValueError, match="compensation threshold") as theirs:
             jk.make_checksum_fn_comp((0.9, 1e-7, 1e-7), 12, m=7, rows=8, interpret=True)
         assert str(ours.value) == str(theirs.value)
 
     def test_rows_must_divide(self):
         with pytest.raises(ValueError, match="divisible"):
-            pk.make_checksum_fn_comp("bh7", 12, m=7, rows=24)
+            pk.make_checksum_fn_comp("bh7", 12, m=7, rows=24, device="cpu")
 
 
 class TestAnalyzerCompMode:

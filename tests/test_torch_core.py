@@ -34,8 +34,18 @@ PORT_MODULES = [
     "blackman_harris_win_tpu_torch.kernels.floatwin",
     "blackman_harris_win_tpu_torch.kernels.compwin",
     "blackman_harris_win_tpu_torch.kernels.outerwin_kernel",
+    "blackman_harris_win_tpu_torch.kernels.taylor",
+    "blackman_harris_win_tpu_torch.kernels.taylor_kernel",
+    "blackman_harris_win_tpu_torch.kernels.fastwin",
+    "blackman_harris_win_tpu_torch.kernels.barrier",
     "blackman_harris_win_tpu_torch.utils.spectral",
     "blackman_harris_win_tpu_torch.pipeline.spectral",
+    "blackman_harris_win_tpu_torch.pipeline.fir",
+    "blackman_harris_win_tpu_torch.pipeline.ddc",
+    "blackman_harris_win_tpu_torch.pipeline.demod",
+    "blackman_harris_win_tpu_torch.pipeline.channelizer",
+    "blackman_harris_win_tpu_torch.pipeline.sdr",
+    "blackman_harris_win_tpu_torch.pipeline.stft",
 ]
 
 

@@ -94,11 +94,11 @@ class TestWindowValuesFast:
         n = np.arange(1 << 12, dtype=np.int64)
         got = kw.window_samples(torch.from_numpy(n), q, spec).numpy()
         np.testing.assert_array_equal(got, np.asarray(jkw.window_samples(n, q, _jspec(spec))))
-        win = kw.make_window("bh7", spec)
+        win = kw.make_window("bh7", spec, device="cpu")
         assert win.dtype == torch.int32
         np.testing.assert_array_equal(win.numpy(), np.asarray(jkw.make_window("bh7", _jspec(spec))))
         n0 = (1 << 12) - 100  # across the period end
-        blk = kw.window_block(n0, 300, q, spec)
+        blk = kw.window_block(n0, 300, q, spec, device="cpu")
         np.testing.assert_array_equal(blk.numpy(),
                                       np.asarray(jkw.window_block(n0, 300, q, _jspec(spec))))
 
@@ -119,7 +119,7 @@ class TestWindowValuesFast:
 
     def test_bh7_w32_floor(self):
         spec = WindowSpec(16, 32, sin_type="taylor2", lut_size=12, overflow="wrap")
-        win = kw.make_window("bh7", spec).numpy().astype(np.float64)
+        win = kw.make_window("bh7", spec, device="cpu").numpy().astype(np.float64)
         assert window_sidelobe_db(win, oversample=4, guard_bins=16 * 7) <= -180.0
 
     def test_guards_raise_where_jax_raises(self):

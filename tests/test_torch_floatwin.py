@@ -60,7 +60,7 @@ class TestSampleAccuracy:
     @pytest.mark.parametrize("name", names())
     def test_matches_jax_and_f64_golden(self, name):
         pw = 12
-        got = pf.float_window(name, pw)
+        got = pf.float_window(name, pw, device="cpu")
         assert got.dtype == torch.float32 and got.shape == (1 << pw,)
         want = np.asarray(jf.float_window(name, pw))
         # two f32 evaluations differ by at most the op-count bound
@@ -69,13 +69,13 @@ class TestSampleAccuracy:
         assert np.abs(got.numpy().astype(np.float64) - gold).max() < 1.5e-6
 
     def test_explicit_coefficients(self):
-        w = pf.float_window((0.5, 0.5), 10).numpy().astype(np.float64)
+        w = pf.float_window((0.5, 0.5), 10, device="cpu").numpy().astype(np.float64)
         n = np.arange(1024)
         assert np.max(np.abs(w - (0.5 - 0.5 * np.cos(2 * np.pi * n / 1024)))) < 1e-6
 
     @pytest.mark.parametrize("pw,m", [(1, None), (4, 0), (6, -1)])
     def test_host_f64_branch(self, pw, m):
-        got = pf.float_window("hann", pw, m=m).numpy()
+        got = pf.float_window("hann", pw, m=m, device="cpu").numpy()
         np.testing.assert_array_equal(got, np.asarray(jf.float_window("hann", pw, m=m)))
 
     def test_flops_model(self):
@@ -85,9 +85,9 @@ class TestSampleAccuracy:
 class TestBlocks:
     def test_blocks_tile_the_window(self):
         pw, m, rows = 14, 8, 4
-        full = pf.float_window("bh5", pw, m=m)
+        full = pf.float_window("bh5", pw, m=m, device="cpu")
         step = rows << m
-        blocks = [pf.float_window_block(n0, rows, "bh5", pw, m=m) for n0 in range(0, 1 << pw, step)]
+        blocks = [pf.float_window_block(n0, rows, "bh5", pw, m=m, device="cpu") for n0 in range(0, 1 << pw, step)]
         assert torch.equal(torch.cat(blocks), full)
 
     @pytest.mark.parametrize("name", ["bh4", "bh7"])
@@ -95,15 +95,15 @@ class TestBlocks:
         pw, m, rows = 14, 6, 4
         n = 1 << pw
         for n0 in (n // 4 - 128, n // 2 - 128, 3 * n // 4 - 128, n - rows * 64):
-            got = pf.float_window_block(n0, rows, name, pw, m=m).numpy()
+            got = pf.float_window_block(n0, rows, name, pw, m=m, device="cpu").numpy()
             want = np.asarray(jf.float_window_block(n0, rows, name, pw, m=m))
             assert np.abs(got - want).max() <= pk.f32_pair_bound(name)
 
     def test_split_bounds(self):
         with pytest.raises(ValueError, match="split"):
-            pf.float_window_block(0, 1, "hann", 10, m=10)
+            pf.float_window_block(0, 1, "hann", 10, m=10, device="cpu")
         with pytest.raises(ValueError, match="multiple"):
-            pf.float_window_block(5, 1, "hann", 10, m=4)
+            pf.float_window_block(5, 1, "hann", 10, m=4, device="cpu")
 
 
 class TestSpectralFloors:
@@ -118,10 +118,10 @@ class TestSpectralFloors:
         ("bh5", -124.0),
     ])
     def test_published_floor_held(self, name, bound):
-        assert window_sidelobe_db(pf.float_window(name, 16).numpy()) <= bound
+        assert window_sidelobe_db(pf.float_window(name, 16, device="cpu").numpy()) <= bound
 
     def test_bh7_floor_pinned(self):
-        fl = window_sidelobe_db(pf.float_window("bh7", 16).numpy())
+        fl = window_sidelobe_db(pf.float_window("bh7", 16, device="cpu").numpy())
         assert -180.0 < fl <= -160.0
 
 
@@ -132,11 +132,11 @@ class TestF32Checksum:
         pw, m, rows = 12, 7, 8
         tdt = torch.bfloat16 if table_dtype else None
         jdt = jnp.bfloat16 if table_dtype else None
-        fn = pk.make_checksum_fn_f32(name, pw, m=m, rows=rows, table_dtype=tdt)
+        fn = pk.make_checksum_fn_f32(name, pw, m=m, rows=rows, table_dtype=tdt, device="cpu")
         jfn = jk.make_checksum_fn_f32(name, pw, m=m, rows=rows, interpret=True,
                                       table_dtype=jdt)
         n = 1 << pw
-        w = pk.outer_block_f32_plain(name, pw, m, 0, n >> m, table_dtype=tdt).numpy()
+        w = pk.outer_block_f32_plain(name, pw, m, 0, n >> m, table_dtype=tdt, device="cpu").numpy()
         sum_abs = float(np.abs(w.astype(np.float64)).sum())
         # both are f32 sums of the same n terms (plus the bias) in two orders:
         # each is within n * 2^-24 * (sum|w| + |bias|) of the exact sum, and
@@ -156,16 +156,16 @@ class TestF32Checksum:
     def test_plain_within_its_derived_bound(self, name, pw, m, rows):
         # the plain sum (pairwise tree per tile, running sum over tiles) of
         # the plain write-out's terms, against their float64 sum
-        w = pk.outer_block_f32_plain(name, pw, m, 0, 1 << (pw - m)).double()
+        w = pk.outer_block_f32_plain(name, pw, m, 0, 1 << (pw - m), device="cpu").double()
         depth = pk.checksum_plain_depth(1 << (pw - m), 1 << m, rows)
         for bias in (0, 123457):
-            got = float(pk.checksum_plain_f32(name, pw, m, rows, bias))
+            got = float(pk.checksum_plain_f32(name, pw, m, rows, bias, device="cpu"))
             bound = pk.sum_bound(depth, float(w.abs().sum()) + bias)
             assert abs(got - (float(w.sum()) + bias)) <= bound, (got, bound)
 
     def test_rows_must_divide(self):
         with pytest.raises(ValueError, match="divisible") as ours:
-            pk.make_checksum_fn_f32("bh4", 12, m=7, rows=24)
+            pk.make_checksum_fn_f32("bh4", 12, m=7, rows=24, device="cpu")
         with pytest.raises(ValueError, match="divisible") as theirs:
             jk.make_checksum_fn_f32("bh4", 12, m=7, rows=24)
         assert str(ours.value) == str(theirs.value)

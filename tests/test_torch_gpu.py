@@ -15,6 +15,7 @@ import torch
 from blackman_harris_win_tpu_torch import _build
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import compwin as pc
+from blackman_harris_win_tpu_torch.kernels.barrier import materialize, materialize_plain
 from blackman_harris_win_tpu_torch.kernels import outerwin as po
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
@@ -24,6 +25,8 @@ from blackman_harris_win_tpu_torch.kernels.welchfft_kernel import (
     welch_stage1_fused,
     welch_stage1_plain,
 )
+from blackman_harris_win_tpu_torch.pipeline import ddc as pddc
+from blackman_harris_win_tpu_torch.pipeline import fir as pfir
 from blackman_harris_win_tpu_torch.pipeline import spectral as sp
 from blackman_harris_win_tpu_torch.windows import catalog
 
@@ -84,7 +87,7 @@ def test_window_checksum_kernel_matches_plain(cuda, name, pw, w, rounding, overf
     q = _coeffs(name, w, rounding)
     n_start, count = (1 << pw) - 70000, 200003  # crosses the period end
     got = wk.window_checksum(q, spec, n_start, count, bias=12345, device=cuda)
-    want = wk.window_checksum_plain(q, spec, n_start, count, bias=12345)
+    want = wk.window_checksum_plain(q, spec, n_start, count, bias=12345, device="cpu")
     assert int(got) == int(want)
 
 
@@ -150,7 +153,7 @@ def test_outer_int_block_kernel_matches_plain(cuda, name, w, overflow, pw, m):
     _build.reset_launches()
     got = po.window_block_outer(0, n >> m, q, spec, m=m, device=cuda)
     assert _build.launches["outer_block"] == 1
-    want = po.window_block_outer(0, n >> m, q, spec, m=m)  # CPU plain version
+    want = po.window_block_outer(0, n >> m, q, spec, m=m, device="cpu")  # CPU plain version
     assert torch.equal(got.cpu(), want)
     plain = ok.outer_block_int_plain(q, spec, m, 0, n >> m, device=cuda)
     assert torch.equal(got, plain)
@@ -164,8 +167,8 @@ def test_outer_int_checksum_kernel_matches_plain(cuda, name, w, overflow, pw, m)
     spec = WindowSpec(pw, w, overflow=overflow)
     q = catalog.get(name).quantized(w)
     fn = ok.make_checksum_fn(q, spec, m=m, rows=8, device=cuda)
-    plain = ok.make_checksum_fn(q, spec, m=m, rows=8)
-    win = po.window_block_outer(0, (1 << pw) >> m, q, spec, m=m)
+    plain = ok.make_checksum_fn(q, spec, m=m, rows=8, device="cpu")
+    win = po.window_block_outer(0, (1 << pw) >> m, q, spec, m=m, device="cpu")
     base = int(win.sum(dtype=torch.int64))
     for bias in (0, 9, -(1 << 31)):
         want = ((base + bias + (1 << 31)) % (1 << 32)) - (1 << 31)
@@ -391,7 +394,7 @@ def test_taylor_torch_op_routes_launch_no_kernel(cuda):
     for name, spec in cases:
         got = kw.make_window(name, spec, device=cuda)
         assert got.device == cuda
-        assert torch.equal(got.cpu(), kw.make_window(name, spec))
+        assert torch.equal(got.cpu(), kw.make_window(name, spec, device="cpu"))
     assert _build.launches == dict.fromkeys(_build.launches, 0)
 
 
@@ -402,3 +405,98 @@ def test_win_function_on_the_card(cuda, sel):
     got = kw.win_function(sel, n, spec)
     assert got.device == n.device
     assert torch.equal(got.cpu(), kw.win_function(sel, n.cpu(), spec))
+
+
+# --- the materialization barrier (kernel 7) and the DDC -------------------
+
+MAT_DTYPES = [torch.int32, torch.float32, torch.float64, torch.float16, torch.int8,
+              torch.bool, torch.complex64]
+MAT_LENGTHS = [1, 7, 127, 32767, 32769, 100003, (1 << 20) + 3]
+
+
+def _mat_data(dtype, n, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, (n,), generator=g, device=device).bool()
+    if not dtype.is_floating_point and not dtype.is_complex:
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, (n,), generator=g, device=device, dtype=dtype)
+    return torch.randn(n, generator=g, device=device, dtype=dtype)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", MAT_DTYPES)
+@pytest.mark.parametrize("n", MAT_LENGTHS)
+def test_materialize_kernel_matches_plain(cuda, dtype, n):
+    x = _mat_data(dtype, n, cuda, seed=n)
+    _build.reset_launches()
+    got = materialize(x)
+    assert _build.launches["materialize"] == 1
+    assert got.device == x.device and got.data_ptr() != x.data_ptr()
+    torch.cuda.synchronize()
+    assert _same_bits(got, materialize_plain(x)) and _same_bits(got, x)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.float32, 3),
+                                          (torch.int8, 1), (torch.int8, 5), (torch.int8, 15),
+                                          (torch.float16, 1), (torch.float64, 1)])
+def test_materialize_unaligned_views(cuda, dtype, offset):
+    # a view such as x[1:] starts off 16-byte alignment; the kernel copies
+    # the ragged head and tail apart from the vector body
+    x = _mat_data(dtype, 100003, cuda, seed=offset)
+    for v in (x[offset:], x[offset:-offset], x[offset:offset + 17]):
+        _build.reset_launches()
+        got = materialize(v)
+        assert _build.launches["materialize"] == 1
+        assert _same_bits(got, v) and _same_bits(got, materialize_plain(v))
+
+
+def test_materialize_strided_input(cuda):
+    base = torch.randn(6, 4099, device=cuda)
+    for v in (base[:, ::3], base.T, base[1::2, 5:]):
+        got = materialize(v)
+        assert got.is_contiguous() and torch.equal(got, v)
+
+
+@pytest.mark.parametrize("shape", [(0,), (3, 0), (0, 5, 2)])
+def test_materialize_zero_size_launches_nothing(cuda, shape):
+    x = torch.empty(shape, device=cuda)
+    _build.reset_launches()
+    got = materialize(x)
+    assert _build.launches["materialize"] == 0
+    assert got.shape == x.shape and got.device == x.device
+
+
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+@pytest.mark.parametrize("freq", [1 / 8, 0.2371])
+def test_nco_on_the_card_matches_cpu_plain(cuda, flavor, freq):
+    pw = 20
+    fw = pddc.freq_word(freq, pw)
+    rng = np.random.default_rng(int(freq * 1e4))
+    n = np.concatenate([rng.integers(0, 1 << 31, 8192), np.arange(4096),
+                        [2**31 - 1, 2**30, (1 << pw) - 1, 1 << pw]]).astype(np.int64)
+    got = pddc.nco_iq(torch.from_numpy(n).to(cuda), fw, pw, 16, flavor)
+    want = pddc.nco_iq(n, fw, pw, 16, flavor, device="cpu")
+    for g, w in zip(got, want):
+        assert g.device == cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+def test_ddc_on_the_card_matches_cpu_plain(cuda, flavor):
+    # T = 2^22: the body FIR takes the bulk branch through the barrier kernel
+    t = 1 << 22
+    x = np.random.default_rng(4).normal(size=t).astype(np.float32)
+    h = pfir.design_lowpass(64, 0.2)
+    _build.reset_launches()
+    got = pddc.ddc(torch.from_numpy(x).to(cuda), 1 / 8, 4, taps=h, flavor=flavor)
+    assert _build.launches["materialize"] == 1
+    assert not torch.backends.cudnn.allow_tf32
+    want = pddc.ddc(x, 1 / 8, 4, taps=h, flavor=flavor, device="cpu")
+    # same mixer ints (0 LSB), two f32 64-tap FIRs: <= 2 gamma(64) sum|h| max|m|
+    u = 2.0**-24
+    bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(x).max()
+    assert float((got.cpu() - want).abs().max()) <= bound

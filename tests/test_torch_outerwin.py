@@ -106,7 +106,7 @@ class TestWindowBlockOuter:
         pw, m = 14, 7
         spec = WindowSpec(pw, w, overflow=overflow)
         q = catalog.get(name).quantized(w)
-        got = po.window_block_outer(0, 1 << (pw - m), q, spec, m=m)
+        got = po.window_block_outer(0, 1 << (pw - m), q, spec, m=m, device="cpu")
         want = np.asarray(jo.window_block_outer(0, 1 << (pw - m), q, _jspec(spec), m=m))
         assert got.dtype == torch.int32 and got.shape == (1 << pw,)
         np.testing.assert_array_equal(got.numpy(), want)
@@ -119,19 +119,19 @@ class TestWindowBlockOuter:
         q = catalog.get(name).quantized(w)
         for seam in (n // 4, n // 2, 3 * n // 4):
             n0 = seam - 2 * (1 << m)  # the block straddles the seam
-            got = po.window_block_outer(n0, rows, q, spec, m=m).numpy()
+            got = po.window_block_outer(n0, rows, q, spec, m=m, device="cpu").numpy()
             want = np.asarray(jo.window_block_outer(n0, rows, q, _jspec(spec), m=m))
             np.testing.assert_array_equal(got, want)
         last = n - rows * (1 << m)  # the block that ends the period
         np.testing.assert_array_equal(
-            po.window_block_outer(last, rows, q, spec, m=m).numpy(),
+            po.window_block_outer(last, rows, q, spec, m=m, device="cpu").numpy(),
             np.asarray(jo.window_block_outer(last, rows, q, _jspec(spec), m=m)))
 
     def test_w32_saturate_is_a_no_op(self):
         pw, m = 13, 6
         q = catalog.get("bh7").quantized(32)
-        sat = po.window_block_outer(0, 1 << (pw - m), q, WindowSpec(pw, 32, overflow="saturate"), m=m)
-        wrp = po.window_block_outer(0, 1 << (pw - m), q, WindowSpec(pw, 32, overflow="wrap"), m=m)
+        sat = po.window_block_outer(0, 1 << (pw - m), q, WindowSpec(pw, 32, overflow="saturate"), m=m, device="cpu")
+        wrp = po.window_block_outer(0, 1 << (pw - m), q, WindowSpec(pw, 32, overflow="wrap"), m=m, device="cpu")
         assert torch.equal(sat, wrp)
 
     @pytest.mark.parametrize("name,w,overflow", CASES)
@@ -149,7 +149,7 @@ class TestWindowBlockOuter:
     def test_matches_ideal_within_lsb(self):
         pw, w = 16, 32
         q = catalog.get("bh7").quantized(w)
-        win = po.window_block_outer(0, 1 << (pw - 11), q, WindowSpec(pw, w, overflow="wrap"))
+        win = po.window_block_outer(0, 1 << (pw - 11), q, WindowSpec(pw, w, overflow="wrap"), device="cpu")
         a = np.array(q, np.float64)
         n = np.arange(1 << pw)
         ideal = a[0] + sum((-1) ** k * a[k] * np.cos(2 * np.pi * k * n / (1 << pw))
@@ -162,13 +162,13 @@ class TestWindowBlockOuter:
         spec = WindowSpec(12, 32, overflow="wrap")
         q = catalog.get("bh7").quantized(32)
         with pytest.raises(ValueError, match="split"):
-            po.window_block_outer(0, 1, q, spec, m=12)
+            po.window_block_outer(0, 1, q, spec, m=12, device="cpu")
         with pytest.raises(ValueError, match="2\\^30"):
-            po.window_block_outer(0, 1, (1 << 30, 5), spec, m=6)
+            po.window_block_outer(0, 1, (1 << 30, 5), spec, m=6, device="cpu")
         with pytest.raises(ValueError, match="multiple"):
-            po.window_block_outer(3, 1, q, spec, m=6)
+            po.window_block_outer(3, 1, q, spec, m=6, device="cpu")
         with pytest.raises(ValueError, match="period"):
-            po.window_block_outer(1 << 11, 64, q, spec, m=6)
+            po.window_block_outer(1 << 11, 64, q, spec, m=6, device="cpu")
 
     def test_cpu_runs_no_kernel_and_cuda_raises_without_a_card(self):
         if torch.cuda.is_available():
@@ -176,8 +176,8 @@ class TestWindowBlockOuter:
         spec = WindowSpec(12, 32, overflow="wrap")
         q = catalog.get("bh7").quantized(32)
         _build.reset_launches()
-        po.window_block_outer(0, 4, q, spec, m=6)
-        pk.make_checksum_fn(q, spec, m=6, rows=8)(0)
+        po.window_block_outer(0, 4, q, spec, m=6, device="cpu")
+        pk.make_checksum_fn(q, spec, m=6, rows=8, device="cpu")(0)
         assert not any(_build.launches.values())
         with pytest.raises(RuntimeError, match="CUDA"):
             po.window_block_outer(0, 4, q, spec, m=6, device="cuda")
@@ -191,9 +191,9 @@ class TestIntChecksum:
         pw, m = 14, 7
         spec = WindowSpec(pw, w, overflow=overflow)
         q = catalog.get(name).quantized(w)
-        fn = pk.make_checksum_fn(q, spec, m=m, rows=32)
+        fn = pk.make_checksum_fn(q, spec, m=m, rows=32, device="cpu")
         jfn = jk.make_checksum_fn(q, _jspec(spec), m=m, rows=32, interpret=True)
-        ref = _int32_sum(po.window_block_outer(0, 1 << (pw - m), q, spec, m=m).numpy())
+        ref = _int32_sum(po.window_block_outer(0, 1 << (pw - m), q, spec, m=m, device="cpu").numpy())
         for bias in (0, 9):
             got = fn(bias)
             assert got.dtype == torch.int32 and got.shape == ()
@@ -202,7 +202,7 @@ class TestIntChecksum:
     def test_int32_wrap_of_bias(self):
         spec = WindowSpec(12, 32, overflow="wrap")
         q = catalog.get("bh7").quantized(32)
-        fn = pk.make_checksum_fn(q, spec, m=6, rows=8)
+        fn = pk.make_checksum_fn(q, spec, m=6, rows=8, device="cpu")
         base = int(fn(0))
         big = (1 << 31) - 1
         want = ((base + big + (1 << 31)) % (1 << 32)) - (1 << 31)
@@ -212,7 +212,7 @@ class TestIntChecksum:
         spec = WindowSpec(14, 32, overflow="wrap")
         q = catalog.get("bh7").quantized(32)
         with pytest.raises(ValueError, match="divisible") as ours:
-            pk.make_checksum_fn(q, spec, m=7, rows=48)
+            pk.make_checksum_fn(q, spec, m=7, rows=48, device="cpu")
         with pytest.raises(ValueError, match="divisible") as theirs:
             jk.make_checksum_fn(q, _jspec(spec), m=7, rows=48)
         assert str(ours.value) == str(theirs.value)
@@ -228,7 +228,7 @@ class TestSpectralFloors:
     def test_bh7_holds_published_floor(self):
         pw, w = 16, 32
         q = catalog.get("bh7").quantized(w)
-        win = po.window_block_outer(0, 1 << (pw - 11), q, WindowSpec(pw, w, overflow="wrap"))
+        win = po.window_block_outer(0, 1 << (pw - 11), q, WindowSpec(pw, w, overflow="wrap"), device="cpu")
         assert _sidelobe_db(win.numpy(), 7) <= -180.0
 
     @pytest.mark.parametrize("name,w,bound", [
@@ -239,7 +239,7 @@ class TestSpectralFloors:
     def test_other_windows_hold_published_floor(self, name, w, bound):
         pw = 13
         q = catalog.get(name).quantized(w)
-        win = po.window_block_outer(0, 1 << (pw - 11), q, WindowSpec(pw, w, overflow="saturate"))
+        win = po.window_block_outer(0, 1 << (pw - 11), q, WindowSpec(pw, w, overflow="saturate"), device="cpu")
         assert _sidelobe_db(win.numpy(), catalog.get(name).n_terms) <= bound
 
 

@@ -116,9 +116,9 @@ class TestTaylorSincos:
         with pytest.raises(ValueError, match=match):
             pt.taylor_sincos(torch.arange(8), pw, w, ls)
         with pytest.raises(ValueError, match=match):
-            pt.taylor_sincos_block(0, 8, pw, w, ls)
+            pt.taylor_sincos_block(0, 8, pw, w, ls, device="cpu")
         with pytest.raises(ValueError, match=match):
-            tk.taylor_checksum_plain(pw, w, ls)
+            tk.taylor_checksum_plain(pw, w, ls, device="cpu")
 
 
 BLOCK_CASES = [  # (pw, w, ls): every regime and both tay1 width branches
@@ -133,7 +133,7 @@ class TestBlocks:
         count = min(64, 1 << ls) * r
         # the start, the N/4 quadrant seam, the period end (JAX-aligned)
         for n0 in (0, ((1 << (pw - 2)) - count // 2) // r * r, (1 << pw) - count):
-            c, s = pt.taylor_sincos_block(n0, count, pw, w, ls)
+            c, s = pt.taylor_sincos_block(n0, count, pw, w, ls, device="cpu")
             assert c.dtype == torch.int32 and c.shape == (count,)
             jc, js = jt.taylor_sincos_block(n0, count, pw, w, ls)
             np.testing.assert_array_equal(c.numpy(), np.asarray(jc), err_msg=f"n0={n0}")
@@ -143,7 +143,7 @@ class TestBlocks:
     def test_unaligned_block_across_the_period_end(self, pw, w, ls):
         # the port indexes every sample, so blocks need no R-alignment
         n0, count = (1 << pw) - 37, 101
-        c, s = pt.taylor_sincos_block(n0, count, pw, w, ls)
+        c, s = pt.taylor_sincos_block(n0, count, pw, w, ls, device="cpu")
         jc, js = jt.taylor_sincos(np.arange(n0, n0 + count), pw, w, ls)
         np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))
@@ -159,7 +159,7 @@ class TestBlocks:
         r1 = 1 << (pw - ls - 2)
         count = 32 * r1
         for n0 in (0, ((1 << (pw - 2)) - count // 2) // r1 * r1, (1 << pw) - count):
-            got = pt.taylor_window_block(n0, count, q, spec)
+            got = pt.taylor_window_block(n0, count, q, spec, device="cpu")
             assert got.dtype == torch.int32
             want = jt.taylor_window_block(n0, count, q, _jspec(spec))
             np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"n0={n0}")
@@ -174,7 +174,7 @@ class TestBlocks:
         outs = {}
         for overflow in ("saturate", "wrap"):
             spec = WindowSpec(pw, 32, sin_type="taylor", lut_size=ls, overflow=overflow)
-            got = pt.taylor_window_block(n0, count, q, spec).numpy()
+            got = pt.taylor_window_block(n0, count, q, spec, device="cpu").numpy()
             want = jt.taylor_window_block(n0, count, q, _jspec(spec))
             np.testing.assert_array_equal(got, np.asarray(want))
             idx = jkw.window_samples(n0 + np.arange(count), q, _jspec(spec))
@@ -188,7 +188,7 @@ class TestBlocks:
         spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, overflow="wrap")
         q = catalog.get("blackman").quantized(w)
         count = 1 << (pw - 1)  # wider than one JAX chunk (2^(pw-3))
-        got = pt.taylor_window_range(1 << (pw - 2), count, q, spec)
+        got = pt.taylor_window_range(1 << (pw - 2), count, q, spec, device="cpu")
         want = jt.taylor_window_range(1 << (pw - 2), count, q, _jspec(spec))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -198,9 +198,9 @@ class TestBlocks:
         with pytest.raises(ValueError, match="2/3-term"):
             jt.taylor_window_block(0, 64, q4, _jspec(spec))
         with pytest.raises(ValueError, match="2/3-term"):
-            pt.taylor_window_block(0, 64, q4, spec)
+            pt.taylor_window_block(0, 64, q4, spec, device="cpu")
         with pytest.raises(ValueError, match="2/3-term"):
-            kw.make_window("bh4", spec)
+            kw.make_window("bh4", spec, device="cpu")
         with pytest.raises(ValueError, match="2/3-term"):
             jkw.make_window("bh4", _jspec(spec))
         # k=2 runs at PW-1: LS must stay below it
@@ -209,10 +209,10 @@ class TestBlocks:
         with pytest.raises(ValueError, match="LUT_SIZE"):
             jt.taylor_window_block(0, 64, qb, _jspec(narrow))
         with pytest.raises(ValueError, match="LUT_SIZE"):
-            pt.taylor_window_block(0, 64, qb, narrow)
+            pt.taylor_window_block(0, 64, qb, narrow, device="cpu")
         wide = WindowSpec(12, 33, sin_type="taylor", lut_size=8)
         with pytest.raises(ValueError, match="data_width <= 32"):
-            pt.taylor_window_block(0, 64, (1, 1), wide)
+            pt.taylor_window_block(0, 64, (1, 1), wide, device="cpu")
 
 
 WINDOW_CASES = [  # (name, pw, w, ls, rounding, overflow)
@@ -234,7 +234,7 @@ class TestTaylorWindows:
     def test_make_window_vs_jax(self, name, pw, w, ls, rounding, overflow):
         spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, rounding=rounding,
                           overflow=overflow)
-        got = kw.make_window(name, spec)
+        got = kw.make_window(name, spec, device="cpu")
         assert got.dtype == torch.int32
         want = jkw.make_window(name, _jspec(spec))
         np.testing.assert_array_equal(got.numpy(), _np(want))
@@ -246,7 +246,7 @@ class TestTaylorWindows:
                           overflow=overflow)
         q = catalog.get(name).quantized(w)
         n0 = (1 << pw) - 300
-        got = kw.window_block(n0, 600, q, spec)
+        got = kw.window_block(n0, 600, q, spec, device="cpu")
         want = jkw.window_block(n0, 600, q, _jspec(spec))
         np.testing.assert_array_equal(got.numpy(), _np(want))
 
@@ -279,11 +279,11 @@ class TestChecksum:
     def test_plain_vs_pallas_interpret(self):
         pw, w, ls, rows = 14, 16, 10, 8
         jfn = jmake_checksum_fn_taylor(pw, w, ls, rows=rows, interpret=True)
-        fn = tk.make_checksum_fn_taylor(pw, w, ls, rows=rows)
+        fn = tk.make_checksum_fn_taylor(pw, w, ls, rows=rows, device="cpu")
         shifted = rows << (pw - ls - 2)
         for n0, bias in ((0, 0), (0, 7), (shifted, 0), (shifted, 7)):
             want = int(jfn(jnp.int32(n0), jnp.int32(bias)))
-            got = tk.taylor_checksum_plain(pw, w, ls, n0, bias)
+            got = tk.taylor_checksum_plain(pw, w, ls, n0, bias, device="cpu")
             assert got.dtype == torch.int32 and int(got) == want, (n0, bias)
             assert int(fn(n0, bias)) == want
 
@@ -292,7 +292,7 @@ class TestChecksum:
         c, s = jt.taylor_sincos(np.arange(1 << pw), pw, w, ls)
         total = int(_np(c).sum() + _np(s).sum()) - (1 << 31)
         want = ((total + (1 << 31)) % (1 << 32)) - (1 << 31)
-        assert int(tk.taylor_checksum_plain(pw, w, ls, 0, -(1 << 31))) == want
+        assert int(tk.taylor_checksum_plain(pw, w, ls, 0, -(1 << 31), device="cpu")) == want
 
     @pytest.mark.parametrize("n0,count", [(0, 1000), (5000, 1 << 14), ((1 << 14) - 7, 29)])
     def test_range_is_the_int32_wrap_sum(self, n0, count):
@@ -302,7 +302,7 @@ class TestChecksum:
         c, s = jt.taylor_sincos(n, pw, w, ls)
         total = int(_np(c).sum() + _np(s).sum()) + 5
         want = ((total + (1 << 31)) % (1 << 32)) - (1 << 31)
-        got = tk.checksum_range(n0, count, pw, w, ls, 5)
+        got = tk.checksum_range(n0, count, pw, w, ls, 5, device="cpu")
         assert got.dtype == torch.int32 and int(got) == want
 
     def test_guards_raise_where_jax_raises(self):
@@ -313,7 +313,7 @@ class TestChecksum:
                 jmake_checksum_fn_taylor(*args, **kw_)
             with pytest.raises(ValueError, match=match):
                 tk.make_checksum_fn_taylor(*args, **kw_)
-        fn = tk.make_checksum_fn_taylor(14, 16, 10, rows=8)
+        fn = tk.make_checksum_fn_taylor(14, 16, 10, rows=8, device="cpu")
         with pytest.raises(ValueError, match="multiple"):
             fn(4, 0)
 
@@ -338,9 +338,9 @@ class TestCpuWrappers:
     def test_launch_counters_stay_zero_on_cpu(self):
         _build.reset_launches()
         spec = WindowSpec(12, 16, sin_type="taylor", lut_size=8)
-        pt.taylor_sincos_block(0, 64, 12, 16, 8)
-        kw.make_window("hamming", spec)
-        tk.make_checksum_fn_taylor(12, 16, 8, rows=8)(0, 1)
+        pt.taylor_sincos_block(0, 64, 12, 16, 8, device="cpu")
+        kw.make_window("hamming", spec, device="cpu")
+        tk.make_checksum_fn_taylor(12, 16, 8, rows=8, device="cpu")(0, 1)
         assert {"taylor_sincos_block", "taylor_window_block",
                 "taylor_checksum"} <= set(_build.launches)
         assert _build.launches == dict.fromkeys(_build.launches, 0)

@@ -96,8 +96,16 @@ class TestCordic:
         np.testing.assert_array_equal(c.numpy(), native.cordic_dds(ph, 14, 24, p)[0])
 
     def test_other_flavors_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            cordic.cordic_sincos(torch.arange(4), CordicSpec(12, 17, "dds48"))
+        # every flavor is ported now (tests/test_torch_cordic.py holds them);
+        # the window kernel's constants still take only hls and dds
+        ph = _seams(12)
+        for flavor in ("cmodel", "dds48", "scaled"):
+            c, s = cordic.cordic_sincos(torch.from_numpy(ph), CordicSpec(12, 17, flavor))
+            jc, js = jcordic.cordic_sincos(jnp.asarray(ph), jconfig.CordicSpec(12, 17, flavor))
+            np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+            np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+            with pytest.raises(ValueError, match="hls and dds"):
+                cordic.cordic_constants(CordicSpec(12, 17, flavor))
 
 
 class TestWindowSamples:
@@ -168,7 +176,7 @@ class TestWindowFunctions:
     def test_make_window(self, name, w, rounding, overflow):
         spec = WindowSpec(10, w, rounding=rounding, overflow=overflow)
         q = _coeffs(name, w, rounding)
-        got = kw.make_window(name, spec, coeffs=q)
+        got = kw.make_window(name, spec, coeffs=q, device="cpu")
         want = np.asarray(jkw.make_window(name, _jspec(spec), coeffs=q))
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
@@ -191,7 +199,7 @@ class TestWindowFunctions:
         spec = WindowSpec(20, 32, overflow="wrap")
         q = catalog.get("bh7").quantized(32)
         n0 = (1 << 20) - 1000  # runs across the period end
-        got = kw.window_block(n0, 2048, q, spec)
+        got = kw.window_block(n0, 2048, q, spec, device="cpu")
         want = np.asarray(jkw.window_block(n0, 2048, q, _jspec(spec)))
         np.testing.assert_array_equal(got.numpy(), want)
 
@@ -235,7 +243,7 @@ class TestWindowKernelPlain:
         q = catalog.get("bh4").quantized(17)
         want = np.asarray(pallas_window_block(q, _jspec(spec), n0, 1024, rows=8,
                                               interpret=True))
-        got = wk.window_block(q, spec, n0, 1024)
+        got = wk.window_block(q, spec, n0, 1024, device="cpu")
         np.testing.assert_array_equal(got.numpy(), want)
 
     @pytest.mark.parametrize("rounding", ["hls", "rtl"])
@@ -247,20 +255,20 @@ class TestWindowKernelPlain:
         vals = jwindow_values(jnp.asarray(n % (1 << 26), jnp.int32), q, _jspec(spec))
         total = int(np.asarray(vals).astype(np.int64).sum()) + bias
         want = (total + (1 << 31)) % (1 << 32) - (1 << 31)
-        got = wk.window_checksum_plain(q, spec, n_start, count, bias)
+        got = wk.window_checksum_plain(q, spec, n_start, count, bias, device="cpu")
         assert got.dtype == torch.int32 and int(got) == want
-        assert int(wk.window_checksum(q, spec, n_start, count, bias)) == want
+        assert int(wk.window_checksum(q, spec, n_start, count, bias, device="cpu")) == want
 
     def test_kernel_parameter_checks(self):
         q = catalog.get("bh4").quantized(17)
         with pytest.raises(NotImplementedError):
-            wk.window_block(q, WindowSpec(12, 17, sin_type="taylor"), 0, 8)
+            wk.window_block(q, WindowSpec(12, 17, sin_type="taylor"), 0, 8, device="cpu")
         with pytest.raises(ValueError):
-            wk.window_block(q, WindowSpec(12, 33), 0, 8)
+            wk.window_block(q, WindowSpec(12, 33), 0, 8, device="cpu")
         with pytest.raises(ValueError):
-            wk.window_block((1,) * 9, WindowSpec(12, 17), 0, 8)
+            wk.window_block((1,) * 9, WindowSpec(12, 17), 0, 8, device="cpu")
         with pytest.raises(ValueError):
-            wk.window_checksum(q, WindowSpec(12, 17), -1, 8)
+            wk.window_checksum(q, WindowSpec(12, 17), -1, 8, device="cpu")
 
 
 class TestCpuGuards:
@@ -285,8 +293,8 @@ class TestCpuGuards:
         _build.reset_launches()
         spec = WindowSpec(13, 17, overflow="saturate")
         q = catalog.get("bh4").quantized(17)
-        wk.window_block(q, spec, 0, 64)
-        wk.window_checksum(q, spec, 0, 64)
+        wk.window_block(q, spec, 0, 64, device="cpu")
+        wk.window_checksum(q, spec, 0, 64, device="cpu")
         x = torch.from_numpy(np.random.default_rng(0).normal(
             size=5 * 4096).astype(np.float32))
         welch_stage1_fused(x, torch.ones(1 << 13), 1 << 13)
