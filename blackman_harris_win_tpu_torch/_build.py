@@ -47,10 +47,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _OUTER = (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F)
 _SIGNATURES = {
     # out, n0, length, coeffs, nterms, lut, nlut, gain, pw, w, p, rtl,
-    # saturate, stream
-    "bhw_window_block": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _P),
+    # saturate, datapath, stream
+    "bhw_window_block": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P),
     # out, n_start, count, (same parameters as above), stream
-    "bhw_window_checksum": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _P),
+    "bhw_window_checksum": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P),
     # x, t, win, m0r, m0i, t1r, t1i, out_r, out_i, nfft, npair, mask_last,
     # stream
     "bhw_welch_stage1": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

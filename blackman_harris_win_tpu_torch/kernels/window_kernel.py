@@ -13,6 +13,8 @@ Both implement the HLS and the RTL rounding contracts with wrap/saturate,
 for the CORDIC source, W <= 32.  Each wrapper runs its plain PyTorch version
 (``window_values_plain`` / ``window_checksum_plain``) for the CPU and
 launches the kernel for a CUDA device; there is no fallback between them.
+The kernel's datapath (the word layout of the CORDIC state) follows from the
+configuration alone, by :func:`_datapath`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,29 @@ from .window import _check_lanes, window_samples
 MAX_TERMS = 8
 #: checksum plain version: samples generated per step
 _CHUNK = 1 << 22
+#: the kernel's CORDIC datapaths, in the order of their codes in
+#: ``csrc/window_kernel.cu`` (enum Datapath)
+_DATAPATHS = ("i32", "r2s", "i64")
+
+
+def _datapath(spec: WindowSpec) -> str:
+    """The kernel's datapath for a configuration, from the CORDIC state's
+    internal width iw (W+2 for the HLS flavor, W+P for the RTL one):
+
+    - ``"i32"``: iw <= 32 (HLS W <= 30, RTL W+P <= 32), one 32-bit word per
+      register;
+    - ``"r2s"``: iw in {33, 34} (HLS W = 31, 32; RTL W+P = 33, 34), x and y
+      as 2^S*h + l with h a 32-bit word, S = iw - 32;
+    - ``"i64"``: the wider RTL registers, W+P in 35..39.
+
+    Raises for a width no datapath takes (W > 32)."""
+    w = spec.data_width
+    if not 8 <= w <= 32:
+        raise ValueError("the window kernels write int32 samples: data_width <= 32")
+    iw = w + (spec.precision if spec.rounding == "rtl" else 2)
+    if iw <= 32:
+        return "i32"
+    return "r2s" if iw <= 34 else "i64"
 
 
 def _kernel_params(coeffs_q, spec: WindowSpec):
@@ -40,8 +65,10 @@ def _kernel_params(coeffs_q, spec: WindowSpec):
     coeffs = tuple(int(c) for c in coeffs_q)
     if not 2 <= len(coeffs) <= MAX_TERMS:
         raise ValueError(f"the window kernels take 2..{MAX_TERMS} coefficients")
-    if spec.data_width > 32:
-        raise ValueError("the window kernels write int32 samples: data_width <= 32")
+    _datapath(spec)  # validates the width
+    if any(not -(1 << 31) <= c < 1 << 31 for c in coeffs):
+        # the TPU kernel's coefficients are int32 lanes too
+        raise ValueError("the window kernels take int32 coefficients")
     _check_lanes(coeffs, spec)
     lut, gain = cordic_constants(spec.cordic_spec)  # validates the widths
     return np.asarray(coeffs, np.int64), np.asarray(lut, np.int64), gain
@@ -81,7 +108,7 @@ def _launch(name: str, out, start: int, count: int, coeffs_q, spec: WindowSpec,
             coeffs.ctypes.data, len(coeffs), lut.ctypes.data, len(lut), gain,
             spec.phase_width, spec.data_width, spec.precision,
             int(spec.rounding == "rtl"), int(spec.overflow == "saturate"),
-            _build.stream_of(device),
+            _DATAPATHS.index(_datapath(spec)), _build.stream_of(device),
         )
     _build.check(name, rc)
 

@@ -52,10 +52,18 @@ pair's stft against the golden window, and each kernel against its plain
 version on the card; a torch.profiler breakdown of one DDC call must record
 device time.  Last, each kernel and its plain version are timed
 with CUDA events (median of 5 after a warm-up; a checksum kernel's time is
-per call of 16 back-to-back calls with distinct biases), beside its bound
-(the least time the card could take: bytes over 3.35 TB/s or operations
-over the peak rate of their type, the larger) and, where one PyTorch call
-computes the same function, that call's time.
+per call of 16 back-to-back calls with distinct biases; the copy kernel,
+its plain version and ``torch.clone`` are timed one call alone and, on a
+line of their own, per call of 16 queued), beside its bound (the least
+time the card could take: bytes over 3.35 TB/s or operations over the
+peak rate of their type, the larger; integer operations at the issue
+rate, one per lane per cycle) and, where one PyTorch call computes the
+same function, that call's time.  The window kernel is timed on each
+datapath it has at the timed size (2^26 samples: HLS and RTL BH-7 W=32 on
+``r2s``, the analyzer's BH-4 W=17 saturate window on ``i32``), each beside
+its operation bound; the build prints each kernel's ptxas registers and,
+where ``cuobjdump`` exists, the SASS instructions of one unrolled CORDIC
+iteration per datapath and of the bulk-copy ring's main loop.
 
 Exits non-zero, printing no result, if torch sees no CUDA device or any
 phase fails.  The last line is the JSON object
@@ -78,9 +86,15 @@ import numpy as np
 #: FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
-#: int32 operations/s: an SM issues INT32 on 64 of its 128 FP32 lanes, and
-#: the float32 rate counts an FMA as two operations, so a quarter of it
-INT32_OPS = F32_FLOPS / 4
+#: int32 operations/s: the issue rate, one instruction per lane per cycle
+#: (128 lanes per SM), half the float32 rate, which counts an FMA as two.
+#: Shifts, logic and compares issue on the ALU pipe (64 lanes) at half this;
+#: adds and multiplies also issue as IMAD on the FMA pipe, so a mix of both
+#: pipes reaches it.  A CORDIC iteration's 6 operations hold 3 that only the
+#: ALU pipe takes (2 shifts, the sign test), which at half the rate take as
+#: long as 6 at this one: the iterations' bound is the same under either
+#: count.
+INT32_OPS = F32_FLOPS / 2
 
 
 def _bound(nbytes: float, ops: float = 0.0, rate: float = INT32_OPS) -> tuple[float, str]:
@@ -441,6 +455,57 @@ def _cordic_ops(n_terms: int, iters: int) -> int:
     return (n_terms - 1) * (6 * iters + 6) + 4
 
 
+#: the window kernels' instantiations: mangled-name fragment -> datapath
+_WINDOW_INSTANCES = {"ILi0ELi0E": "i32", "ILi1ELi1E": "r2s S=1", "ILi1ELi2E": "r2s S=2",
+                     "ILi2ELi0E": "i64"}
+
+
+def _print_sass(lib_path) -> None:
+    """From ``cuobjdump -sass``: per window-kernel instantiation (datapath),
+    its instruction count and the instructions of one unrolled CORDIC
+    iteration of one chain (in the two-chain body, the median distance
+    between the first shifts by successive immediates k, 8 <= k < 24,
+    halved); for the bulk-copy ring of ``materialize``, its instruction count
+    and the length of its main loop, one pass of which moves one stage (the
+    widest backward branch).  Needs ``cuobjdump``; prints that it is missing
+    otherwise."""
+    import re
+    import shutil
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("sass: cuobjdump not found, instruction counts not measured")
+        return
+    r = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                       timeout=300)
+    funcs = re.split(r"\n\s*Function : ", r.stdout)[1:]
+    for body in funcs:
+        name = body.split("\n", 1)[0].strip()
+        if "materialize_bulk_kernel" in name:
+            at = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+            spans = [int(a, 16) - int(m.group(1), 16) for a, text in at
+                     if (m := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text))
+                     and int(m.group(1), 16) < int(a, 16)]
+            loop = f"{max(spans) // 16 + 1} instructions" if spans else "not found"
+            print(f"sass materialize_bulk_kernel: {len(at)} instructions; main loop, one "
+                  f"stage per pass, {loop}")
+            continue
+        if "window_block_kernel" not in name:
+            continue
+        dp = next((v for k, v in _WINDOW_INSTANCES.items() if k in name), name)
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
+        first = {}
+        for i, text in enumerate(ins):
+            m = re.match(r"@?!?P?\w*\s*SHF\.R\.\S+\s+\w+,\s*\w+,\s*0x([0-9a-f]+),", text)
+            if m and int(m.group(1), 16) not in first:
+                first[int(m.group(1), 16)] = i
+        gaps = [first[k + 1] - first[k] for k in range(8, 24) if k in first and k + 1 in first]
+        per = f"{float(np.median(gaps)) / 2:.1f}" if gaps else "not found"
+        print(f"sass window_block {dp}: {len(ins)} instructions; one unrolled CORDIC iteration "
+              f"of one chain ~ {per} instructions")
+
+
 def _kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
                    mat_bytes: int) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
@@ -588,9 +653,13 @@ def main(argv=None) -> int:
     path, log, secs = _build.build()
     _build.lib()
     print(f"build: {secs:.1f} s -> {path.name}")
+    fn = "?"
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line.strip()
+        elif "Used" in line or "spill" in line:
+            print(f"  ptxas {fn}: {line.split('info    :')[-1].strip()}")
+    _print_sass(path)
 
     # --- 2. the main path, counted ---
     pw, w = 26, 32
@@ -912,13 +981,19 @@ def main(argv=None) -> int:
     err_1a = int((plain_hls.long() - win_hls.long()).abs().max())
     plain_rtl = window_values_plain(idx, q7_rtl, spec_rtl)
     err_1a_rtl = int((plain_rtl.long() - win_rtl.long()).abs().max())
-    _require(err_1a == 0 and err_1a_rtl == 0,
-             f"window kernel vs plain on the card: {err_1a}, {err_1a_rtl} LSB")
-    del plain_hls, plain_rtl
+    # the i32 datapath at the timed size: the analyzer's window over 2^26
+    q4_17, spec17 = d4.quantized(17), WindowSpec(pw, 17, overflow="saturate")
+    win17 = window_block(q4_17, spec17, 0, n, dev)
+    err_1a_i32 = int((window_values_plain(idx, q4_17, spec17).long() - win17.long()).abs().max())
+    _require(err_1a == 0 and err_1a_rtl == 0 and err_1a_i32 == 0,
+             f"window kernel vs plain on the card: {err_1a}, {err_1a_rtl}, {err_1a_i32} LSB")
+    err_1a = max(err_1a, err_1a_rtl, err_1a_i32)
+    del plain_hls, plain_rtl, win17
     chk_plain = window_checksum_plain(q7, spec_hls, 0, 4 * n, device=dev)
     err_1b = abs(int(chk) - int(chk_plain))
     _require(err_1b == 0, f"checksum kernel {int(chk)} != plain {int(chk_plain)}")
-    print("window kernels vs plain on the card: 0 LSB (hls, rtl, checksum)")
+    print("window kernels vs plain on the card: 0 LSB (hls w32 r2s, rtl w32 r2s, hls w17 "
+          "saturate i32, checksum)")
 
     label = f"[{smi}]"
     t = {
@@ -929,6 +1004,10 @@ def main(argv=None) -> int:
         "window_block_rtl": (
             _time_ms(lambda: window_block(q7_rtl, spec_rtl, 0, n, dev)),
             _time_ms(lambda: window_values_plain(idx, q7_rtl, spec_rtl)),
+        ),
+        "window_block_i32": (
+            _time_ms(lambda: window_block(q4_17, spec17, 0, n, dev)),
+            _time_ms(lambda: window_values_plain(idx, q4_17, spec17)),
         ),
         "window_checksum": (
             _time_ms(lambda: window_checksum(q7, spec_hls, 0, 4 * n, device=dev)),
@@ -1000,12 +1079,31 @@ def main(argv=None) -> int:
             np.float32(1.0 / (amp_in * (1 << (w21 - 2)))))
 
     m21 = mixer()
+    # one call per event pair, as the DDC makes it; the per-call time of 16
+    # queued calls, which hides the host's launch latency, is printed beside
     t["materialize"] = (_time_ms(lambda: materialize(m21)),
                         _time_ms(lambda: materialize_plain(m21)))
     lib_ms = {"materialize": _time_ms(lambda: torch.clone(m21))}
+    queued = {k: _time_batch_ms(lambda _, f=f: f(m21)) for k, f in (
+        ("kernel", materialize), ("plain", materialize_plain), ("torch.clone", torch.clone))}
     for name, (ms, plain_ms) in t.items():
         print(f"time {label} {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms)")
     print(f"time {label} materialize library call torch.clone: {lib_ms['materialize']:.3f} ms")
+    print(f"time {label} materialize per call of 16 queued: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in queued.items()))
+    mat_bytes = 2 * m21.numel() * m21.element_size()
+    print(f"rates {label}: materialize {mat_bytes / t['materialize'][0] / 1e9:.3f} TB/s alone, "
+          f"{mat_bytes / queued['kernel'] / 1e9:.3f} TB/s queued; torch.clone "
+          f"{mat_bytes / lib_ms['materialize'] / 1e9:.3f} TB/s alone, "
+          f"{mat_bytes / queued['torch.clone'] / 1e9:.3f} TB/s queued")
+    for key, dp, q, sp in (("window_block", "r2s", q7, spec_hls),
+                           ("window_block_rtl", "r2s", q7_rtl, spec_rtl),
+                           ("window_block_i32", "i32", q4_17, spec17)):
+        iters = sp.data_width - (sp.rounding == "rtl")
+        b_ms, b_by = _bound(4 * n, n * _cordic_ops(len(q), iters))
+        print(f"bound {label} {key} ({sp.rounding} W={sp.data_width} {len(q)} terms, datapath "
+              f"{dp}, {iters} iterations): {b_ms:.4f} ms ({b_by}); measured {t[key][0]:.3f} ms, "
+              f"roofline share {b_ms / t[key][0]:.1%}")
 
     # the DDC's wall time and its pieces (CUDA events), and one call profiled
     def run_ddc():

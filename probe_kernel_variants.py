@@ -1,0 +1,237 @@
+"""Time the port's ``materialize`` copy and its window-kernel datapaths on one
+card, each beside what it is compared with in the same process.
+
+    python3 probe_kernel_variants.py [--rounds N] [--against DIR]
+
+1. ``materialize`` (``csrc/barrier_kernel.cu``) on the DDC's (2, 2^26)
+   float32 mixer-sized array, against ``torch.clone``: through the port's
+   wrapper and through its C entry (no Python between the calls), and, with
+   ``--against DIR``, the ``bhw_materialize`` of another revision's
+   ``csrc/barrier_kernel.cu`` under DIR (for example the parent commit,
+   unpacked with ``git archive``), built here on its own.  Each is timed in
+   turns (once per round, the order reversed every other round) three ways:
+   one call alone in an event pair (the host's launch latency included, as
+   ``chip_smoke.py`` times a kernel), 20 queued calls per event pair (per
+   call), and the device time of one call under ``torch.profiler``; and the
+   host time per call of the wrapper, of the C entry, of ``torch.clone``
+   and of each step of the wrapper alone.  Every output is bit-equal to its
+   input.
+2. The window kernel (``csrc/window_kernel.cu``) at 2^26 samples: each
+   configuration through the datapath ``window_kernel._datapath`` chooses
+   and through the int64 datapath (the C entry takes the datapath code; the
+   port's wrapper never passes another than its own), outputs bit-equal.
+
+Prints one line per measurement with the card's name and power limit, and
+as its last line one JSON object with every time (ms, median over the
+rounds).  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+
+def _build_other(root: Path):
+    """``bhw_materialize`` of the ``csrc/barrier_kernel.cu`` under ``root``,
+    built alone into this checkout's build directory."""
+    from blackman_harris_win_tpu_torch import _build
+
+    src = root / "blackman_harris_win_tpu_torch" / "csrc" / "barrier_kernel.cu"
+    out = _build.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libbarrier_other.so"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).bhw_materialize
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _event_ms(fn, reps: int) -> float:
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, calls: int = 5) -> float:
+    """Device time per call of ``fn`` under torch.profiler: every CUDA
+    kernel and copy it ran, summed, over ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / calls
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """Host time per call of ``fn`` in microseconds: ``calls`` calls on
+    the host clock, the device work they queue finished outside it."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _in_turns(fns: dict, rounds: int, measure) -> dict:
+    """Median of ``measure(fn)`` for each function, taken in turns: every
+    round measures each once, the order reversed every other round."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            times[k].append(measure(fns[k]))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--against", type=Path, default=None,
+                    help="a checkout of another revision whose materialize kernel is timed "
+                         "beside the port's")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import window_kernel as wk
+    from blackman_harris_win_tpu_torch.kernels.barrier import materialize
+    from blackman_harris_win_tpu_torch.kernels.window import rtl_cordic_coeffs
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    label = f"[{smi.splitlines()[0]}]"
+    print(smi.splitlines()[0])
+    lib = _build.lib()
+    result = {"device": smi.splitlines()[0]}
+
+    # --- 1. materialize on a (2, 2^26) float32 array ---
+    x = torch.randn(2, 1 << 26, device=dev)
+    nbytes = x.numel() * x.element_size()
+    stream = _build.stream_of(dev)
+    entries = {"port, C entry": lib.bhw_materialize}
+    if args.against is not None:
+        entries[f"{args.against.name}, C entry"] = _build_other(args.against)
+    outs = {k: torch.empty_like(x) for k in entries}
+
+    def direct(k):
+        rc = entries[k](outs[k].data_ptr(), x.data_ptr(), nbytes, stream)
+        if rc:
+            raise RuntimeError(f"materialize {k}: CUDA error {rc}")
+
+    fns = {"port, wrapper": lambda: materialize(x),
+           **{k: (lambda k=k: direct(k)) for k in entries},
+           "torch.clone": lambda: torch.clone(x)}
+    bits = x.view(torch.int32)
+    for k in entries:
+        direct(k)
+    for k, y in (("port, wrapper", materialize(x)), *outs.items()):
+        if not torch.equal(y.view(torch.int32), bits):
+            raise RuntimeError(f"materialize {k}: the copy differs from its input")
+    bound = 2 * nbytes / 3.35e12 * 1e3
+    result["materialize"] = {}
+    for how, measure in (("alone", lambda f: _event_ms(f, 1)),
+                         ("per call of 20 queued", lambda f: _event_ms(f, 20)),
+                         ("device time", _device_ms)):
+        t = _in_turns(fns, args.rounds, measure)
+        for k, ms in t.items():
+            print(f"time {label} materialize (2, 2^26) f32 {how}, {k}: {ms:.4f} ms, "
+                  f"{2 * nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.1%} of the {bound:.4f} ms bound")
+        result["materialize"][how] = t
+    # the host's share of a call alone: each step of the wrapper by itself
+    def device_ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {"wrapper, whole call": lambda: materialize(x),
+             "C entry": lambda: direct("port, C entry"),
+             "torch.clone": lambda: torch.clone(x),
+             "resolve_device": lambda: _build.resolve_device(x.device),
+             "torch.empty_like": lambda: torch.empty_like(x),
+             "with torch.cuda.device": device_ctx,
+             "stream_of": lambda: _build.stream_of(dev)}
+    host = _in_turns(steps, args.rounds, _host_us)
+    for k, us in host.items():
+        print(f"time {label} materialize host time per call, {k}: {us:.1f} us")
+    result["materialize"]["host us"] = host
+    n = 1 << 26
+    q7, q4 = catalog.get("bh7").quantized(32), catalog.get("bh4").quantized(17)
+    cfgs = {
+        "hls bh7 w32 pw26 wrap": (q7, WindowSpec(26, 32, overflow="wrap")),
+        "rtl bh7 w32 p1 pw26": (rtl_cordic_coeffs(q7),
+                                WindowSpec(26, 32, rounding="rtl", overflow="wrap")),
+        "hls bh4 w17 pw26 saturate": (q4, WindowSpec(26, 17, overflow="saturate")),
+    }
+    result["window_block"] = {}
+    for label_cfg, (q, spec) in cfgs.items():
+        own = wk._datapath(spec)
+        coeffs, lut, gain = wk._kernel_params(q, spec)
+        forced = torch.empty(n, dtype=torch.int32, device=dev)
+
+        def run_i64():
+            rc = lib.bhw_window_block(
+                forced.data_ptr(), 0, n, coeffs.ctypes.data, len(coeffs), lut.ctypes.data,
+                len(lut), gain, spec.phase_width, spec.data_width, spec.precision,
+                int(spec.rounding == "rtl"), int(spec.overflow == "saturate"),
+                wk._DATAPATHS.index("i64"), stream)
+            if rc:
+                raise RuntimeError(f"window_block i64: CUDA error {rc}")
+
+        run_i64()
+        mine = wk.window_block(q, spec, 0, n, dev)
+        torch.cuda.synchronize()
+        if not torch.equal(mine, forced):
+            raise RuntimeError(f"window {label_cfg}: {own} and i64 datapaths differ")
+        tw = _in_turns({own: lambda: wk.window_block(q, spec, 0, n, dev), "i64": run_i64},
+                       max(4, args.rounds // 2), lambda f: _event_ms(f, 3))
+        for k, ms in tw.items():
+            print(f"time {label} window_block {label_cfg} datapath {k}: {ms:.3f} ms")
+        result["window_block"][label_cfg] = tw
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,8 +12,9 @@ from blackman_harris_win_tpu.kernels.pallas.barrier import materialize as jmater
 from blackman_harris_win_tpu_torch import _build
 from blackman_harris_win_tpu_torch.kernels.barrier import materialize, materialize_plain
 
-# lengths around the TPU kernel's (256, 128) = 32768-element tile
-LENGTHS = [1, 7, 127, 32767, 32769, 100003]
+# lengths around the TPU kernel's (256, 128) = 32768-element tile, and 8195
+# 4-byte elements: 12 bytes past the card kernel's 32 KB bulk-copy stage
+LENGTHS = [1, 7, 127, 8195, 32767, 32769, 100003]
 
 
 def _data(dtype, n, seed=0):
@@ -79,3 +80,4 @@ def test_cpu_runs_no_kernel():
     _build.reset_launches()
     materialize(torch.ones(1000))
     assert _build.launches["materialize"] == 0
+

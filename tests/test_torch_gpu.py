@@ -91,6 +91,57 @@ def test_window_checksum_kernel_matches_plain(cuda, name, pw, w, rounding, overf
     assert int(got) == int(want)
 
 
+def _sweep_case(w, rounding):
+    """The card sweep's configuration at width w: a BH-7 prefix of 2..7
+    terms (cycling with w) and, for the RTL contract, P = 1 + w mod 7, so
+    every datapath of ``window_kernel._datapath`` is reached."""
+    nterms = 2 + (w + (rounding == "rtl")) % 6
+    q = catalog.get("bh7").quantized(w)[:nterms]
+    p = 1 + w % 7 if rounding == "rtl" else 1
+    return (kw.rtl_cordic_coeffs(q) if rounding == "rtl" else q), p
+
+
+@pytest.mark.parametrize("overflow", ["wrap", "saturate"])
+@pytest.mark.parametrize("rounding", ["hls", "rtl"])
+@pytest.mark.parametrize("w", range(8, 33))
+def test_window_block_sweep_every_width(cuda, w, rounding, overflow):
+    # a full period at pw=12 and +-3 around the quadrant seams at pw=31,
+    # 0 LSB against the CPU plain version
+    q, p = _sweep_case(w, rounding)
+    full = WindowSpec(12, w, rounding=rounding, overflow=overflow, precision=p)
+    _build.reset_launches()
+    got = wk.window_block(q, full, 0, 1 << 12, cuda).cpu()
+    assert torch.equal(got, wk.window_values_plain(torch.arange(1 << 12), q, full)), (
+        w, rounding, overflow, p, wk._datapath(full))
+    seam = full.with_(phase_width=31)
+    n = 1 << 31
+    for base in (0, n // 4, n // 2, 3 * n // 4, n):
+        run = np.arange(base - 3, base + 4) % n
+        got = wk.window_block(q, seam, int(run[0]), 7, cuda).cpu()
+        want = wk.window_values_plain(torch.from_numpy(np.arange(run[0], run[0] + 7)), q, seam)
+        assert torch.equal(got, want), (w, rounding, overflow, p, int(base))
+    assert _build.launches["window_block"] == 6
+
+
+@pytest.mark.parametrize("name,w,rounding,p,datapath", [
+    ("bh4", 17, "hls", 1, "i32"),
+    ("bh4", 31, "hls", 1, "r2s"),
+    ("bh7", 32, "hls", 1, "r2s"),
+    ("bh7", 32, "rtl", 1, "r2s"),
+    ("bh7", 32, "rtl", 5, "i64"),
+])
+def test_window_checksum_each_datapath(cuda, name, w, rounding, p, datapath):
+    spec = WindowSpec(20, w, rounding=rounding, overflow="wrap", precision=p)
+    assert wk._datapath(spec) == datapath
+    q = _coeffs(name, w, rounding)
+    n_start, count = (1 << 20) - 50000, 150001  # crosses the period end
+    _build.reset_launches()
+    got = wk.window_checksum(q, spec, n_start, count, bias=-99, device=cuda)
+    assert _build.launches["window_checksum"] == 1
+    want = wk.window_checksum_plain(q, spec, n_start, count, bias=-99, device="cpu")
+    assert int(got) == int(want)
+
+
 @pytest.mark.parametrize("nfft,nframes", [(1 << 13, 5), (1 << 13, 4),
                                           (1 << 14, 7), (1 << 19, 3)])
 def test_welch_stage1_kernel_matches_plain(cuda, nfft, nframes):
@@ -453,6 +504,42 @@ def test_materialize_unaligned_views(cuda, dtype, offset):
         got = materialize(v)
         assert _build.launches["materialize"] == 1
         assert _same_bits(got, v) and _same_bits(got, materialize_plain(v))
+
+
+#: the bulk-copy ring's stage size (csrc/barrier_kernel.cu kStageBytes)
+STAGE_BYTES = 32768
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 7])
+def test_materialize_around_the_stage_size(cuda, dtype, k):
+    # byte sizes k*stage - 17 .. k*stage + 17 at element offsets 0..15:
+    # every split into ragged head, bulk body and ragged tail, and the
+    # vector path where the offset leaves src off dst's 16-byte phase
+    item = torch.empty((), dtype=dtype).element_size()
+    x = _mat_data(dtype, (k * STAGE_BYTES + 17) // item + 16, cuda, seed=k)
+    sizes = sorted({b // item for b in range(k * STAGE_BYTES - 17, k * STAGE_BYTES + 18)})
+    _build.reset_launches()
+    calls = 0
+    for off in range(16):
+        for m in sizes:
+            v = x[off:off + m]
+            got = materialize(v)
+            calls += 1
+            assert _same_bits(got, v), (dtype, k, off, m)
+    assert _build.launches["materialize"] == calls
+
+
+@pytest.mark.parametrize("offset", [0, 1, 16])
+def test_materialize_ring_wraps(cuda, offset):
+    # 64 MB + 17: more stages per block than the ring holds on any card of
+    # up to 300 SMs, so every stage is loaded again after its store
+    x = _mat_data(torch.int8, (64 << 20) + 17 + offset, cuda, seed=offset)
+    v = x[offset:]
+    _build.reset_launches()
+    got = materialize(v)
+    assert _build.launches["materialize"] == 1
+    assert _same_bits(got, v)
 
 
 def test_materialize_strided_input(cuda):

@@ -212,23 +212,37 @@ class TestWindowKernelPlain:
     """window_values_plain against JAX ``window_values`` — the body the
     Pallas kernel runs (int32 lanes, limb datapaths, overflow tracking)."""
 
-    @pytest.mark.parametrize("name,pw,w,rounding,overflow", [
-        ("bh4", 12, 17, "hls", "wrap"),
-        ("bh7", 12, 24, "hls", "wrap"),
-        ("bh7", 12, 32, "hls", "wrap"),
-        ("bh7", 26, 32, "hls", "wrap"),
-        ("hann", 10, 24, "hls", "wrap"),
-        ("bh5", 11, 20, "hls", "wrap"),
-        ("bh4", 12, 32, "hls", "saturate"),  # w=32 overflow tracking
-        ("bh3", 14, 32, "hls", "saturate"),
-        ("bh4", 20, 17, "hls", "saturate"),  # the analyzer's window
-        ("bh7", 26, 32, "rtl", "wrap"),
-        ("hann", 12, 32, "rtl", "wrap"),
-        ("bh4", 12, 17, "rtl", "wrap"),
-        ("bh4", 31, 32, "hls", "wrap"),
+    @pytest.mark.parametrize("name,pw,w,rounding,overflow,p", [
+        pytest.param(*c, 1, id="-".join(map(str, c))) for c in [
+            ("bh4", 12, 17, "hls", "wrap"),
+            ("bh7", 12, 24, "hls", "wrap"),
+            ("bh7", 12, 32, "hls", "wrap"),
+            ("bh7", 26, 32, "hls", "wrap"),
+            ("hann", 10, 24, "hls", "wrap"),
+            ("bh5", 11, 20, "hls", "wrap"),
+            ("bh4", 12, 32, "hls", "saturate"),  # w=32 overflow tracking
+            ("bh3", 14, 32, "hls", "saturate"),
+            ("bh4", 20, 17, "hls", "saturate"),  # the analyzer's window
+            ("bh7", 26, 32, "rtl", "wrap"),
+            ("hann", 12, 32, "rtl", "wrap"),
+            ("bh4", 12, 17, "rtl", "wrap"),
+            ("bh4", 31, 32, "hls", "wrap"),
+        ]
+    ] + [  # the kernel's datapath boundaries (window_kernel._datapath)
+        ("bh7", 12, 30, "hls", "wrap", 1),  # i32, iw = 32
+        ("bh7", 12, 31, "hls", "wrap", 1),  # r2s S=1 (JAX: radix-2^24 limbs)
+        ("bh4", 13, 31, "hls", "saturate", 1),
+        ("bh5", 12, 32, "hls", "saturate", 1),  # r2s S=2 (JAX: _cos_wide4)
+        ("bh7", 12, 31, "rtl", "wrap", 1),  # i32, iw = 32
+        ("bh4", 12, 31, "rtl", "wrap", 2),  # r2s S=1
+        ("bh7", 13, 31, "rtl", "wrap", 3),  # r2s S=2
+        ("bh7", 12, 32, "rtl", "wrap", 1),  # r2s S=1
+        ("bh3", 12, 32, "rtl", "wrap", 2),  # r2s S=2
+        ("bh7", 13, 32, "rtl", "wrap", 3),  # i64, iw = 35
+        ("bh7", 12, 25, "rtl", "wrap", 7),  # i32, iw = 32
     ])
-    def test_matches_pallas_body(self, name, pw, w, rounding, overflow):
-        spec = WindowSpec(pw, w, rounding=rounding, overflow=overflow)
+    def test_matches_pallas_body(self, name, pw, w, rounding, overflow, p):
+        spec = WindowSpec(pw, w, rounding=rounding, overflow=overflow, precision=p)
         q = _coeffs(name, w, rounding)
         step = max(1, (1 << pw) // 512)
         n = np.unique(np.concatenate([np.arange(0, 1 << pw, step), _seams(pw)]))
@@ -236,6 +250,23 @@ class TestWindowKernelPlain:
         want = np.asarray(jwindow_values(jnp.asarray(n, jnp.int32), q, _jspec(spec)))
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("rounding", ["hls", "rtl"])
+    @pytest.mark.parametrize("p", range(1, 8))
+    @pytest.mark.parametrize("w", range(8, 33))
+    def test_datapath(self, w, p, rounding):
+        # the CORDIC state's internal width: W+2 (HLS flavor), W+P (dds, RTL)
+        iw = w + (2 if rounding == "hls" else p)
+        want = "i32" if iw <= 32 else "r2s" if iw in (33, 34) else "i64"
+        spec = WindowSpec(12, w, rounding=rounding, precision=p)
+        assert wk._datapath(spec) == want
+        assert want in wk._DATAPATHS
+
+    def test_datapath_rejects_wide_registers(self):
+        with pytest.raises(ValueError, match="data_width <= 32"):
+            wk._datapath(WindowSpec(12, 33))
+        with pytest.raises(ValueError, match="int32 coefficients"):
+            wk.window_block((1 << 31, 5), WindowSpec(12, 17), 0, 8, device="cpu")
 
     @pytest.mark.parametrize("n0", [0, 4096 - 1024])
     def test_block_matches_pallas_interpret(self, n0):
