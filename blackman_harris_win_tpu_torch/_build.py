@@ -51,17 +51,18 @@ _SIGNATURES = {
     "bhw_window_block": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P),
     # out, n_start, count, (same parameters as above), stream
     "bhw_window_checksum": (_P, _L, _L, _P, _I, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P),
-    # x, t, win, m0r, m0i, t1r, t1i, out_r, out_i, nfft, npair, mask_last,
-    # stream
+    # x, t, win, roots_r, roots_i, t1r, t1i, out_r, out_i, nfft, npair,
+    # mask_last, stream
     "bhw_welch_stage1": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # mode, out0, out1, (table arguments), stream
     "bhw_outer_block": (_I, _P, _P, *_OUTER, _P),
     # mode, out, partials, npartials, bias, (table arguments), stream
     "bhw_outer_checksum": (_I, _P, _P, _L, _I, *_OUTER, _P),
-    # c, s, n0, count, rom, pw, w, ls, ramb_pi, stream
+    # c, s, n0, count, rom, pw, w, ls, ramb_pi, stream (c and s 16-byte
+    # aligned, else cudaErrorInvalidValue)
     "bhw_taylor_sincos_block": (_P, _P, _L, _L, _P, _I, _I, _I, _I, _P),
-    # out, n0, count, rom, pw, w, ls, coeffs, nterms, ramb_pi (pw), ramb_pi
-    # (pw-1), saturate, stream
+    # out (16-byte aligned), n0, count, rom, pw, w, ls, coeffs, nterms,
+    # ramb_pi (pw), ramb_pi (pw-1), saturate, stream
     "bhw_taylor_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P),
     # out, n0, count, rom, pw, w, ls, ramb_pi, stream
     "bhw_taylor_checksum": (_P, _L, _L, _P, _I, _I, _I, _I, _P),

@@ -2,8 +2,7 @@
 // Hopper (sm_90a).
 //
 // Replaces blackman_harris_win_tpu/kernels/pallas/taylor_kernel.py:
-// make_checksum_fn_taylor with three kernels that share one device function
-// (taylor_cs: (cos, sin) at a sample index, in all three PW-LS regimes):
+// make_checksum_fn_taylor with three kernels over one generator:
 //   taylor_sincos_kernel    writes c and s for [n0, n0+count);
 //   taylor_window_kernel    the HLS 2/3-term TAYLOR window: harmonic 1 at PW,
 //                           harmonic 2 at PW-1 (the reference's one-bit-
@@ -13,26 +12,64 @@
 // The semantics are those of model/golden.py:taylor_sincos and
 // tay1_correction (src/taylor_sincos.vhd, src/tay1_order.vhd).
 //
-// The TPU kernel walked the ROM in (rows, R) tiles through a modular
-// BlockSpec to avoid an XLA gather.  Here each thread indexes its samples
-// itself and reads its ROM entry from shared memory: a block stages the
-// whole quarter-wave ROM once (2^LS int2 entries, 32 KB at LS=12, up to the
-// 227 KB opt-in at LS=14) and then walks a grid-stride loop, so the staging
-// is amortised over many samples.  Larger ROMs are read through the
-// read-only cache.  Neighbouring threads share a ROM entry (R = 2^(PW-LS-2)
-// consecutive samples per entry), so the loads are broadcasts.
+// What bounds it on the H100: integer issue (the write-outs also store 8
+// or 4 bytes a sample).  The design follows from the generator's structure:
 //
-// What bounds it on the H100: integer issue.  A sample costs the index
-// split, one ROM load, two 32x32->64 products (mpi * sin, mpi * cos; mpi <
-// pi * 2^18 and |ROM| < 2^31), shifts, wraps and the quadrant select: a few
-// tens of instructions.  The write-out also stores 8 bytes per sample (c, s).
+// - Regimes at compile time.  kLut covers the LUT regimes (PW-LS < 2
+//   over-wide, PW-LS == 2 exact, and tay1 where ramb_pi rounds to 0, PW-LS
+//   >= 23, whose correction is 0); kTayNarrow and kTayWide are tay1 with
+//   the W < 19 and W >= 19 arithmetic.  The host picks the instance; W, PW
+//   and LS stay runtime values.
+// - Runs.  R = 2^(PW-LS-2) consecutive samples share one ROM entry and one
+//   quadrant, and along a run mpi = ramb_pi * acnt steps by ramb_pi.  A lane
+//   takes kG samples of one run (8 in the write-outs, 16 in the checksum):
+//   it reads the entry once, picks the quadrant's form once (which ROM word
+//   is the base, which is multiplied, the signs, the W < 19 rounding
+//   offset), and advances the run's mpi by the exact step ramb_pi from
+//   sample to sample; each product is one 32x32+64 multiply-add (see
+//   walk_out for why not an advanced 64-bit product).  The products are
+//   scaled by 2^sc so that the shift by 19+LS is the high word (LS <= 13)
+//   or the high word shifted by LS-13: no 64-bit shift.  A lane whose
+//   samples leave their run (run boundaries, R < kG, LS = 0) computes each
+//   sample on its own, in the int64 form.
+// - 32-bit words.  Everything after the shift is done mod 2^32 in uint32
+//   and wrapped to W bits once per output.  Why that is exact:
+//     * ROM entries are in [0, 2^(W-1) - 1] (first-quadrant cos/sin at
+//       amplitude 2^(W-1) - 1), so they fit int32.
+//     * mpi = ramb_pi * acnt < 2^20: with STAGE = PW-LS-3 and acnt <
+//       2^(STAGE+1), ramb_pi <= pi * 2^(17-STAGE) + 1/2 gives mpi < pi * 2^18
+//       + 2^STAGE < 2^20 for STAGE <= 17; STAGE 18 and 19 have ramb_pi 2 and
+//       1 (mpi < 2^20); from STAGE 20 on ramb_pi is 0 (kLut).  So
+//       |mult * mpi| < 2^31 * 2^20 = 2^51 is exact in int64 and (mult * mpi)
+//       >> (19+LS) is the exact floor.  In the run walk, sc = max(13-LS, 0)
+//       gives mpi * 2^sc < 2^(33-LS) <= 2^32 for LS >= 1 (and so J * ramb_pi
+//       * 2^sc, which is at most that), and mult * mpi * 2^sc + 2^(32+rs) <
+//       2^63 + 2^49: each fits its unsigned word.
+//     * Every later step of the reference is +, -, or a wrap to W <= 32
+//       bits, and x -> x mod 2^W factors through x mod 2^32.  So the low 32
+//       bits of the shifted product, added in uint32 and wrapped to W bits,
+//       give the reference's W-bit value, whatever the magnitudes before the
+//       wrap (wrapw(a - wrapw(b)) == wrapw(a - b): the reference's inner
+//       wrap of the sliced product is the same ring map).
+//     * The W >= 19 clamp acts on the wrapped W-bit value, as the
+//       reference's does; the steered negations then act on values in [0,
+//       2^(W-1) - 1] and need no wrap.  With W < 19 the negation is taken
+//       before the one wrap: wrapw(-wrapw(x)) == wrapw(-x).
+//   Wrapping arithmetic is done in unsigned types (defined); right shifts of
+//   negative values are arithmetic under nvcc.
+// - Stores.  The write-outs lay a warp's 32 * kG samples out so that lane l
+//   holds samples 4l + 128h + j (h < kG/4, j < 4): each int4 store of the
+//   warp covers 512 contiguous bytes.  The checksum gives each lane kG
+//   consecutive samples and sums mod 2^32 (per lane, warp, block, then one
+//   atomicAdd per block: exact in any order).
+// - The ROM is read through the read-only cache: one load per lane per run
+//   walk, the same address across a warp.  Staging it in shared memory
+//   measured within 2% of this (PERF.md, Findings), so the simpler stays.
+// - The write-outs' int4 stores need c, s and out 16-byte aligned; their C
+//   entries refuse other pointers (cudaErrorInvalidValue).
 //
 // The ROM comes from the host (numpy float64, as the JAX package builds
-// it): cos() on the device rounds differently.  Defined arithmetic: every
-// wrap and left shift goes through uint64_t; right shifts of negative
-// values are arithmetic under nvcc; no product or sum can overflow int64
-// (products < 2^22 * 2^31, coefficients |a_k| < 2^31 checked by the
-// wrapper).
+// it): cos() on the device rounds differently.
 
 #include <cstdint>
 
@@ -42,11 +79,12 @@ namespace {
 
 typedef long long i64;
 typedef unsigned long long u64;
+typedef unsigned u32;
 
 constexpr int kThreads = 256;
 constexpr int kMaxTerms = 3;
-constexpr size_t kSmemDefault = 48 * 1024;
-constexpr size_t kSmemOptIn = 232448;  // 227 KB: a block's opt-in maximum on sm_90
+
+enum Regime { kNone = 0, kLut = 1, kTayNarrow = 2, kTayWide = 3 };
 
 // One generator instance: phase width, data width, LUT size, and the
 // correction's phase constant round(pi * 2^(17-STAGE)) (tay1 regime only).
@@ -54,143 +92,338 @@ struct Gen {
   int pw, w, ls, ramb_pi;
 };
 
-struct WinParams {
-  i64 coeffs[kMaxTerms];
-  Gen gen[kMaxTerms - 1];  // harmonic k runs gen[k-1]
-  int nterms, saturate;
+// A generator's per-launch constants.
+struct GenK {
+  u64 pmask;     // 2^PW - 1
+  u64 qmask;     // 2^(PW-2) - 1
+  int qshift;    // PW - 2
+  int shr, shl;  // ROM address = (phase >> shr) << shl
+  u32 rmask;     // R - 1 (tay1 regimes, R <= 2^20)
+  int ramb, xs, ws;  // ramb_pi, 19 + LS, 32 - W
+  int top;           // 2^(W-1) - 1
+  // the run walk's unsigned form: products scaled by 2^sc, floor(./2^xs) =
+  // hi32 >> rs (sc = max(32 - xs, 0), rs = max(xs - 32, 0)), rambs =
+  // ramb_pi << sc, off = 2^(32+rs) - 1, pw2 = 2^ws; walk: a tay1 regime
+  // with LS >= 1 (mpi * 2^sc < 2^(33-LS) <= 2^32)
+  int sc, rs;
+  u32 rambs, pw2;
+  u64 off;
+  bool walk;
 };
 
-// Two's-complement wrap to `width` bits (sign-extended low bits).
-__device__ __forceinline__ i64 wrapw(i64 v, int width) {
-  const int s = 64 - width;
-  return (i64)((u64)v << s) >> s;
+int regime_of(const Gen& g) {
+  if (g.pw - g.ls <= 2 || g.ramb_pi == 0) return kLut;
+  return g.w < 19 ? kTayNarrow : kTayWide;
 }
 
-// ROM readers: the copy staged in shared memory, or the table in device
-// memory through the read-only cache.
-struct SmemRom {
-  const int2* p;
-  __device__ __forceinline__ int2 operator()(u64 a) const { return p[a]; }
-};
-struct LdgRom {
-  const int2* p;
-  __device__ __forceinline__ int2 operator()(u64 a) const { return __ldg(p + a); }
+GenK consts(const Gen& g) {
+  const int d = g.pw - g.ls;
+  GenK k;
+  k.pmask = (1ull << g.pw) - 1;
+  k.qmask = (1ull << (g.pw - 2)) - 1;
+  k.qshift = g.pw - 2;
+  k.shr = d >= 2 ? d - 2 : 0;
+  k.shl = d >= 2 ? 0 : 2 - d;
+  k.rmask = regime_of(g) == kLut ? 0u : (u32)((1ull << (d - 2)) - 1);
+  k.ramb = g.ramb_pi;
+  k.xs = 19 + g.ls;
+  k.ws = 32 - g.w;
+  k.top = (int)((1ll << (g.w - 1)) - 1);
+  k.sc = k.xs < 32 ? 32 - k.xs : 0;
+  k.rs = k.xs > 32 ? k.xs - 32 : 0;
+  k.rambs = (u32)g.ramb_pi << k.sc;
+  k.pw2 = 1u << k.ws;
+  k.off = (1ull << (32 + k.rs)) - 1;
+  k.walk = regime_of(g) != kLut && g.ls >= 1;
+  return k;
+}
+
+// Two's-complement wrap of a 32-bit word to W = 32 - ws bits.
+__device__ __forceinline__ int wrapw(u32 v, int ws) { return (int)(v << ws) >> ws; }
+
+// One output (cos: kSin = 0, sin: kSin = 1) in quadrant q from ROM entry e,
+// sample by sample: value = sgn * clamp(wrap(base + tsgn * floor(mult * mpi
+// / 2^xs))) for kTayWide, wrap(sgn * (base + floor(mult * mpi / 2^xs))) for
+// kTayNarrow, sgn * base for kLut.  The reference's steering: c = (mc, -ms,
+// -mc, ms), s = (ms, mc, -ms, -mc) for q = 0..3, with mc = cos +
+// corr(-sin) and ms = sin + corr(cos).
+struct Form {
+  int base, mult, tsgn, sgn;
 };
 
-// (cos, sin) of the TAYLOR generator at sample index n (taken mod 2^PW).
-template <class Rom>
-__device__ __forceinline__ void taylor_cs(u64 n, const Gen& g, const Rom& rom, i64& c,
-                                          i64& s) {
-  const int pw = g.pw, w = g.w, ls = g.ls, d = g.pw - g.ls;
-  const u64 cnt = n & ((1ull << pw) - 1);
-  const int quadrant = (int)(cnt >> (pw - 2));
-  const u64 ph = cnt & ((1ull << (pw - 2)) - 1);
-  i64 mc, ms;
-  if (d < 2) {  // over-wide LUT: top-aligned address (taylor_sincos.vhd:159-160)
-    const int2 e = rom(ph << (ls - pw + 2));
-    mc = e.x;
-    ms = e.y;
-  } else if (d == 2) {  // exact quarter-wave LUT
-    const int2 e = rom(ph);
-    mc = e.x;
-    ms = e.y;
-  } else {  // tay1 correction, STAGE = PW-LS-3, VAL_SHIFT = LS
-    const int2 e = rom(ph >> (d - 2));
-    // acnt can exceed 32 bits only where ramb_pi rounds to 0 (PW-LS >= 23)
-    const int acnt = (int)(ph & ((1ull << (d - 2)) - 1));
-    const int mpi = g.ramb_pi * acnt;  // < pi * 2^18 (tay1_order.vhd:130-147)
-    const int xs = 19 + ls;
-    const i64 pc = ((i64)mpi * e.x) >> xs, ps = ((i64)mpi * e.y) >> xs;
-    if (w < 19) {
-      // 48-bit DSP accumulate then slice, no saturation (vhd:180-504):
-      // (cos<<X - mpi*sin) >> X == cos + ((mpi*(-sin)) >> X)
-      mc = wrapw(e.x + (((i64)mpi * -(i64)e.y) >> xs), w);
-      ms = wrapw(e.y + pc, w);
+__device__ __forceinline__ bool ms_form(int q, int sin) { return ((q & 1) != 0) != (sin != 0); }
+__device__ __forceinline__ int steer_sign(int q, int sin) {
+  return (sin ? q >= 2 : (q == 1 || q == 2)) ? -1 : 1;
+}
+
+template <int kReg, int kSin>
+__device__ __forceinline__ Form form(int q, int2 e) {
+  Form f;
+  f.sgn = steer_sign(q, kSin);
+  if (ms_form(q, kSin)) {
+    f.base = e.y;
+    f.mult = e.x;
+    f.tsgn = 1;
+  } else {
+    f.base = e.x;
+    f.mult = kReg == kTayNarrow ? -e.y : e.y;
+    f.tsgn = kReg == kTayNarrow ? 1 : -1;
+  }
+  return f;
+}
+
+template <int kReg>
+__device__ __forceinline__ int finish(const Form& f, i64 p, const GenK& g) {
+  if constexpr (kReg == kLut) {
+    return f.sgn * f.base;
+  } else {
+    const u32 v = (u32)f.base + (u32)f.tsgn * (u32)(p >> g.xs);
+    if constexpr (kReg == kTayNarrow) {
+      return wrapw((u32)f.sgn * v, g.ws);
     } else {
-      // product sliced to W bits, W-bit add, negatives clamp to +max
-      // ("scale overflow", vhd:601-617)
-      const i64 top = (1ll << (w - 1)) - 1;
-      mc = wrapw(e.x - wrapw(ps, w), w);
-      ms = wrapw(e.y + wrapw(pc, w), w);
-      if (mc < 0) mc = top;
-      if (ms < 0) ms = top;
+      int m = wrapw(v, g.ws);
+      m = m < 0 ? g.top : m;
+      return f.sgn * m;
     }
   }
-  const i64 nc = wrapw(-mc, w), ns = wrapw(-ms, w);
-  c = quadrant == 0 ? mc : quadrant == 1 ? ns : quadrant == 2 ? nc : ms;
-  s = quadrant == 0 ? ms : quadrant == 1 ? mc : quadrant == 2 ? ns : nc;
 }
 
-// Stage the ROM in shared memory (kSmem) or hand out the device table.
-template <bool kSmem>
-__device__ __forceinline__ auto rom_reader(const int2* rom, int ls) {
-  if constexpr (kSmem) {
-    extern __shared__ int2 rom_s[];
-    for (int i = threadIdx.x; i < (1 << ls); i += blockDim.x) rom_s[i] = __ldg(rom + i);
-    __syncthreads();
-    return SmemRom{rom_s};
-  } else {
-    return LdgRom{rom};
+// (cos, sin) at one sample index n (taken mod 2^PW), on its own.
+template <int kReg, bool kSin>
+__device__ __forceinline__ void sample(u64 n, const GenK& g, const int2* rom, int& c, int& s) {
+  const u64 cnt = n & g.pmask;
+  const int q = (int)(cnt >> g.qshift);
+  const u64 ph = cnt & g.qmask;
+  const int2 e = __ldg(rom + ((ph >> g.shr) << g.shl));
+  const int mpi = kReg == kLut ? 0 : g.ramb * (int)((u32)ph & g.rmask);
+  const Form fc = form<kReg, 0>(q, e);
+  c = finish<kReg>(fc, (i64)fc.mult * mpi, g);
+  if constexpr (kSin) {
+    const Form fs = form<kReg, 1>(q, e);
+    s = finish<kReg>(fs, (i64)fs.mult * mpi, g);
   }
 }
 
-template <bool kSmem>
+// One output along a run, in unsigned words: the product P = mult * mpi *
+// 2^sc (+ off) gives floor(mult * mpi / 2^xs) = hi32(P) >> rs (xs = 32 + rs
+// - sc).  P is one 32x32+64 multiply-add from the run's mpi * 2^sc, which
+// advances by the exact step J * ramb_pi * 2^sc (one 32-bit add for cos and
+// sin).  Forming the two products once a run and advancing them by 64-bit
+// adds of mult * ramb_pi * 2^sc takes two dependent instructions per output
+// where the multiply-add is one, and measured 12-15% slower in the checksum
+// (PERF.md, Findings).  Every factor is >= 0 (mult is the ROM word itself),
+// so the W < 19 form's floor(-sin * mpi / 2^xs) = -ceil(sin * mpi / 2^xs) adds off = 2^(32+rs) -
+// 1 once, to the run's first product.  The W >= 19 clamp: with u =
+// wrapped-value * 2^ws as a 32-bit word, min(u, 2^31 - 1) >> ws is the
+// W-bit value where it is >= 0 and top = 2^(W-1) - 1 where it is < 0.
+struct Walk {
+  u32 base, mult, tsgn, msgn;  // msgn: the steering sign times 2^ws (W < 19)
+  int sgn;
+  u64 off;
+};
+
+template <int kReg, int kSin>
+__device__ __forceinline__ Walk walk_form(int q, int2 e, const GenK& g) {
+  Walk f;
+  f.sgn = steer_sign(q, kSin);
+  f.msgn = (u32)f.sgn << g.ws;
+  f.off = 0;
+  if (ms_form(q, kSin)) {
+    f.base = (u32)e.y;
+    f.mult = (u32)e.x;
+    f.tsgn = 1u;
+  } else {
+    f.base = (u32)e.x;
+    f.mult = (u32)e.y;
+    f.tsgn = ~0u;
+    if (kReg == kTayNarrow) f.off = g.off;
+  }
+  return f;
+}
+
+template <int kReg, bool kRs>
+__device__ __forceinline__ int walk_out(const Walk& f, u64 p, const GenK& g) {
+  u32 t = (u32)(p >> 32);
+  if constexpr (kRs) t >>= g.rs;
+  const u32 v = f.base + f.tsgn * t;
+  if constexpr (kReg == kTayNarrow) {
+    return (int)(v * f.msgn) >> g.ws;
+  } else {
+    return f.sgn * (int)(min(v * g.pw2, 0x7fffffffu) >> g.ws);
+  }
+}
+
+// Lane layouts: the write-outs (kVec) give a lane 8 samples, 4 consecutive
+// and the 4 a warp's 128 samples on, so each int4 store of a warp covers
+// 512 contiguous bytes; the checksum gives a lane 16 consecutive samples.
+template <bool kVec>
+constexpr int kG = kVec ? 8 : 16;
+template <bool kVec>
+__host__ __device__ constexpr int lane_step(int k) {
+  return kVec ? 128 * (k / 4) + k % 4 : k;
+}
+template <bool kVec>
+constexpr int kSpan = lane_step<kVec>(kG<kVec> - 1);
+
+// One generator's values at a lane's samples n_a + lane_step(k), k < kG,
+// those with lane_step(k) < left: walking the run where all lie in one (and
+// LS >= 1, which the unsigned form needs), sample by sample otherwise.
+template <int kReg, bool kSin, bool kVec, bool kRs>
+__device__ __forceinline__ void gen_values(u64 n_a, i64 left, const GenK& g, const int2* rom,
+                                           int (&c)[kG<kVec>], int (&s)[kG<kVec>]) {
+  if constexpr (kReg != kLut) {
+    const u64 cnt = n_a & g.pmask;
+    const u64 ph = cnt & g.qmask;
+    const u32 acnt = (u32)ph & g.rmask;
+    if (g.walk && left > kSpan<kVec> && acnt + kSpan<kVec> <= g.rmask) {
+      const int q = (int)(cnt >> g.qshift);
+      const int2 e = __ldg(rom + (ph >> g.shr));
+      const u32 mpi0s = (u32)g.ramb * acnt << g.sc;
+      const Walk fc = walk_form<kReg, 0>(q, e, g);
+      const Walk fs = walk_form<kReg, 1>(q, e, g);
+#pragma unroll
+      for (int k = 0; k < kG<kVec>; ++k) {
+        // mpi * 2^sc at the k-th sample: < 2^32 inside the run
+        const u32 mpis = mpi0s + (u32)lane_step<kVec>(k) * g.rambs;
+        c[k] = walk_out<kReg, kRs>(fc, (u64)mpis * fc.mult + fc.off, g);
+        if constexpr (kSin) s[k] = walk_out<kReg, kRs>(fs, (u64)mpis * fs.mult + fs.off, g);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kG<kVec>; ++k)
+    if (lane_step<kVec>(k) < left) sample<kReg, kSin>(n_a + lane_step<kVec>(k), g, rom, c[k], s[k]);
+}
+
+// Store a lane's 8 write-out values: int4 stores when all are in range.
+__device__ __forceinline__ void store(int* __restrict__ out, i64 i0, i64 left,
+                                      const int (&v)[kG<true>]) {
+  if (left > kSpan<true>) {
+#pragma unroll
+    for (int h = 0; h < kG<true> / 4; ++h)
+      *reinterpret_cast<int4*>(out + i0 + 128 * h) =
+          make_int4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kG<true>; ++k)
+      if (lane_step<true>(k) < left) out[i0 + lane_step<true>(k)] = v[k];
+  }
+}
+
+// The grid-stride walk over warp tiles of 32 * kG samples: body(n_a, i0,
+// left) for each lane, n_a its first sample index, i0 its first output,
+// left = count - i0 > 0.
+template <bool kVec, class Body>
+__device__ __forceinline__ void tiles(u64 n0, i64 count, Body body) {
+  constexpr int tile = 32 * kG<kVec>;
+  const int lane = threadIdx.x & 31;
+  const i64 first = kVec ? 4 * lane : kG<kVec> * lane;
+  const i64 warps = (i64)gridDim.x * (blockDim.x / 32);
+  for (i64 t = ((i64)blockIdx.x * blockDim.x + threadIdx.x) / 32; t * tile < count; t += warps) {
+    const i64 i0 = t * tile + first;
+    if (i0 < count) body(n0 + (u64)i0, i0, count - i0);
+  }
+}
+
+// Run kernel body<kRs> with kRs = (rs != 0), decided once per launch (the
+// LS <= 13 generators need no shift after the high word).
+#define BHW_BY_RS(rs, ...)        \
+  do {                            \
+    if (rs) {                     \
+      constexpr bool kRs = true;  \
+      __VA_ARGS__;                \
+    } else {                      \
+      constexpr bool kRs = false; \
+      __VA_ARGS__;                \
+    }                             \
+  } while (0)
+
+template <int kReg>
 __global__ void __launch_bounds__(kThreads)
 taylor_sincos_kernel(int* __restrict__ c_out, int* __restrict__ s_out, u64 n0, i64 count,
-                     const int2* __restrict__ rom, const Gen g) {
-  const auto rd = rom_reader<kSmem>(rom, g.ls);
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
-    i64 c, s;
-    taylor_cs(n0 + (u64)i, g, rd, c, s);
-    c_out[i] = (int)c;
-    s_out[i] = (int)s;
-  }
+                     const int2* __restrict__ rom, const GenK g) {
+  BHW_BY_RS(g.rs, tiles<true>(n0, count, [&](u64 n_a, i64 i0, i64 left) {
+    int c[kG<true>], s[kG<true>];
+    gen_values<kReg, true, true, kRs>(n_a, left, g, rom, c, s);
+    store(c_out, i0, left, c);
+    store(s_out, i0, left, s);
+  }));
 }
 
-template <bool kSmem>
+struct WinParams {
+  int coeffs[kMaxTerms];
+  GenK gen[kMaxTerms - 1];  // harmonic k runs gen[k-1]
+  int w, saturate;
+};
+
+// HLS: a0 - m1 + m2, m_k = (a_k * cos_k) >> (W-1) (full-scale source); kReg2
+// is kNone for a 2-term window.  |a_k| < 2^31 and |cos_k| <= 2^(W-1) make
+// each product exact in int64 and |m_k| < 2^31, so m_k is the funnel shift
+// of the product's two words by W-1 <= 31.  Wrap needs the sum mod 2^32
+// only; saturate clamps the exact int64 sum.
+template <int kReg1, int kReg2>
 __global__ void __launch_bounds__(kThreads)
 taylor_window_kernel(int* __restrict__ out, u64 n0, i64 count, const int2* __restrict__ rom,
                      const WinParams P) {
-  const auto rd = rom_reader<kSmem>(rom, P.gen[0].ls);
-  const int w = P.gen[0].w;
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
-    // HLS: a0 - m1 + m2, m_k = (a_k * cos_k) >> (W-1) (full-scale source)
-    i64 acc = P.coeffs[0];
+  const int sh = P.w - 1, ws = 32 - P.w;
+  const i64 hi = (1ll << sh) - 1, lo = -(1ll << sh);
+  const u32 pw2 = 1u << ws;
+  BHW_BY_RS(P.gen[0].rs, tiles<true>(n0, count, [&](u64 n_a, i64 i0, i64 left) {
+    int c1[kG<true>], c2[kG<true>], unused[kG<true>];
+    gen_values<kReg1, false, true, kRs>(n_a, left, P.gen[0], rom, c1, unused);
+    if constexpr (kReg2 != kNone)
+      gen_values<kReg2, false, true, kRs>(n_a, left, P.gen[1], rom, c2, unused);
+    int m1[kG<true>], m2[kG<true>], v[kG<true>];
 #pragma unroll
-    for (int k = 1; k < kMaxTerms; ++k) {
-      if (k >= P.nterms) break;
-      i64 c, s;
-      taylor_cs(n0 + (u64)i, P.gen[k - 1], rd, c, s);
-      const i64 m = (P.coeffs[k] * c) >> (w - 1);
-      acc = (k & 1) ? acc - m : acc + m;
+    for (int k = 0; k < kG<true>; ++k) {
+      const i64 p1 = (i64)P.coeffs[1] * c1[k];
+      m1[k] = (int)__funnelshift_r((u32)p1, (u32)(p1 >> 32), sh);
+      m2[k] = 0;
+      if constexpr (kReg2 != kNone) {
+        const i64 p2 = (i64)P.coeffs[2] * c2[k];
+        m2[k] = (int)__funnelshift_r((u32)p2, (u32)(p2 >> 32), sh);
+      }
     }
-    if (P.saturate) {  // the int64 accumulator is exact: clamp the true sum
-      const i64 hi = (1ll << (w - 1)) - 1, lo = -(1ll << (w - 1));
-      acc = acc > hi ? hi : (acc < lo ? lo : acc);
+    if (P.saturate) {
+#pragma unroll
+      for (int k = 0; k < kG<true>; ++k) {
+        const i64 acc = (i64)P.coeffs[0] - m1[k] + m2[k];
+        v[k] = (int)(acc > hi ? hi : (acc < lo ? lo : acc));
+      }
     } else {
-      acc = wrapw(acc, w);
+#pragma unroll
+      for (int k = 0; k < kG<true>; ++k)
+        v[k] = (int)(((u32)P.coeffs[0] - (u32)m1[k] + (u32)m2[k]) * pw2) >> ws;
     }
-    out[i] = (int)acc;
-  }
+    store(out, i0, left, v);
+  }));
 }
 
-// Sum mod 2^32 is associative and commutative, so the per-thread, per-warp
+// Sum mod 2^32 is associative and commutative, so the per-lane, per-warp
 // and cross-block (atomicAdd) partial sums give a bit-exact total in any
-// block order.  *out holds the bias on entry.
-template <bool kSmem>
+// block order.  *out holds the bias on entry.  The lanes' groups are
+// aligned to multiples of kG in n (runs are too), so an unaligned n0 sends
+// no lane off its run but the first: the walk starts lead = n0 mod kG
+// samples early and leaves them out of the sum.
+template <int kReg>
 __global__ void __launch_bounds__(kThreads)
 taylor_checksum_kernel(unsigned* __restrict__ out, u64 n0, i64 count,
-                       const int2* __restrict__ rom, const Gen g) {
-  const auto rd = rom_reader<kSmem>(rom, g.ls);
+                       const int2* __restrict__ rom, const GenK g) {
+  const int lead = (int)(n0 & (kG<false> - 1));
   unsigned acc = 0;
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
-    i64 c, s;
-    taylor_cs(n0 + (u64)i, g, rd, c, s);
-    acc += (unsigned)c + (unsigned)s;
-  }
+  BHW_BY_RS(g.rs, tiles<false>(n0 - lead, count + lead, [&](u64 n_a, i64 i0, i64 left) {
+    int c[kG<false>], s[kG<false>];
+    gen_values<kReg, true, false, kRs>(n_a, left, g, rom, c, s);
+    if (left > kSpan<false> && i0 >= lead) {
+#pragma unroll
+      for (int k = 0; k < kG<false>; ++k) acc += (unsigned)c[k] + (unsigned)s[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < kG<false>; ++k)
+        if (k < left && i0 + k >= lead) acc += (unsigned)c[k] + (unsigned)s[k];
+    }
+  }));
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
   __shared__ unsigned warp_sum[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -204,37 +437,31 @@ taylor_checksum_kernel(unsigned* __restrict__ out, u64 n0, i64 count,
 }
 
 bool valid_gen(const Gen& g) {
+  // ramb_pi > 0 only where the correction's products keep to the proof's
+  // bounds (PW - LS <= 22, as round(pi * 2^(17-STAGE)) gives)
   return g.pw >= 2 && g.pw <= 62 && g.ls >= 0 && g.ls < g.pw && g.ls <= 30 && g.w >= 2 &&
-         g.w <= 32 && g.ramb_pi >= 0;
+         g.w <= 32 && g.ramb_pi >= 0 && g.ramb_pi <= 411775 &&
+         (g.ramb_pi == 0 || g.pw - g.ls <= 22);
 }
 
-// Launch the shared-memory variant where the ROM fits a block's opt-in
-// shared memory, the read-only-cache variant otherwise; one persistent
-// grid of as many blocks as fit on the card at once (a block stages the
-// ROM once and walks a grid-stride loop).
+// One persistent grid of as many blocks as fit on the card at once, or
+// fewer where count needs fewer.
 template <typename... P, typename... A>
-int launch(void (*smem_kernel)(P...), void (*ldg_kernel)(P...), int ls, i64 count,
-           cudaStream_t stream, A... args) {
+int launch(void (*kernel)(P...), i64 count, cudaStream_t stream, A... args) {
   if (count < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(int2) << ls;
-  const bool smem = bytes <= kSmemOptIn;
-  void (*kernel)(P...) = smem ? smem_kernel : ldg_kernel;
-  const size_t shm = smem ? bytes : 0;
-  cudaError_t e = cudaSuccess;
-  if (shm > kSmemDefault)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
   int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, shm);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  i64 blocks = (count + kThreads - 1) / kThreads;
+  i64 blocks = (count + (i64)kThreads * 8 - 1) / ((i64)kThreads * 8);
   if (blocks > (i64)sms * per_sm) blocks = (i64)sms * per_sm;
-  kernel<<<(unsigned)blocks, kThreads, shm, stream>>>(args...);
+  kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(args...);
   return (int)cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -243,37 +470,58 @@ extern "C" {
 int bhw_taylor_sincos_block(int* c, int* s, i64 n0, i64 count, const int* rom, int pw,
                             int w, int ls, int ramb_pi, void* stream) {
   const Gen g{pw, w, ls, ramb_pi};
-  if (!valid_gen(g) || n0 < 0) return (int)cudaErrorInvalidValue;
-  return launch(taylor_sincos_kernel<true>, taylor_sincos_kernel<false>, ls, count,
-                (cudaStream_t)stream, c, s, (u64)n0, count, (const int2*)rom, g);
+  if (!valid_gen(g) || n0 < 0 || !aligned16(c) || !aligned16(s)) return (int)cudaErrorInvalidValue;
+  const GenK k = consts(g);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int2* r = (const int2*)rom;
+  switch (regime_of(g)) {
+    case kLut: return launch(taylor_sincos_kernel<kLut>, count, st, c, s, (u64)n0, count, r, k);
+    case kTayNarrow: return launch(taylor_sincos_kernel<kTayNarrow>, count, st, c, s, (u64)n0, count, r, k);
+    default: return launch(taylor_sincos_kernel<kTayWide>, count, st, c, s, (u64)n0, count, r, k);
+  }
 }
 
 int bhw_taylor_window_block(int* out, i64 n0, i64 count, const int* rom, int pw, int w,
                             int ls, const i64* coeffs, int nterms, int ramb_pi1,
                             int ramb_pi2, int saturate, void* stream) {
-  if (nterms < 2 || nterms > kMaxTerms || n0 < 0) return (int)cudaErrorInvalidValue;
+  if (nterms < 2 || nterms > kMaxTerms || n0 < 0 || !aligned16(out)) return (int)cudaErrorInvalidValue;
   WinParams P;
   for (int k = 0; k < kMaxTerms; ++k) {
-    P.coeffs[k] = k < nterms ? coeffs[k] : 0;
-    if (P.coeffs[k] <= -(1ll << 31) || P.coeffs[k] >= (1ll << 31))
-      return (int)cudaErrorInvalidValue;
+    const i64 a = k < nterms ? coeffs[k] : 0;
+    if (a <= -(1ll << 31) || a >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    P.coeffs[k] = (int)a;
   }
-  P.gen[0] = Gen{pw, w, ls, ramb_pi1};
-  P.gen[1] = Gen{pw - 1, w, ls, ramb_pi2};
-  for (int k = 1; k < nterms; ++k)
-    if (!valid_gen(P.gen[k - 1])) return (int)cudaErrorInvalidValue;
-  P.nterms = nterms;
+  const Gen g1{pw, w, ls, ramb_pi1}, g2{pw - 1, w, ls, ramb_pi2};
+  if (!valid_gen(g1) || (nterms == 3 && !valid_gen(g2))) return (int)cudaErrorInvalidValue;
+  P.gen[0] = consts(g1);
+  P.gen[1] = nterms == 3 ? consts(g2) : P.gen[0];
+  P.w = w;
   P.saturate = saturate;
-  return launch(taylor_window_kernel<true>, taylor_window_kernel<false>, ls, count,
-                (cudaStream_t)stream, out, (u64)n0, count, (const int2*)rom, P);
+  const int r1 = regime_of(g1), r2 = nterms == 3 ? regime_of(g2) : kNone;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int2* r = (const int2*)rom;
+#define BHW_WIN(A, B)             \
+  if (r1 == A && r2 == B)         \
+    return launch(taylor_window_kernel<A, B>, count, st, out, (u64)n0, count, r, P);
+  BHW_WIN(kLut, kNone) BHW_WIN(kLut, kLut) BHW_WIN(kLut, kTayNarrow) BHW_WIN(kLut, kTayWide)
+  BHW_WIN(kTayNarrow, kNone) BHW_WIN(kTayNarrow, kLut) BHW_WIN(kTayNarrow, kTayNarrow)
+  BHW_WIN(kTayWide, kNone) BHW_WIN(kTayWide, kLut) BHW_WIN(kTayWide, kTayWide)
+#undef BHW_WIN
+  return (int)cudaErrorInvalidValue;
 }
 
 int bhw_taylor_checksum(unsigned* out, i64 n0, i64 count, const int* rom, int pw, int w,
                         int ls, int ramb_pi, void* stream) {
   const Gen g{pw, w, ls, ramb_pi};
   if (!valid_gen(g) || n0 < 0) return (int)cudaErrorInvalidValue;
-  return launch(taylor_checksum_kernel<true>, taylor_checksum_kernel<false>, ls, count,
-                (cudaStream_t)stream, out, (u64)n0, count, (const int2*)rom, g);
+  const GenK k = consts(g);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int2* r = (const int2*)rom;
+  switch (regime_of(g)) {
+    case kLut: return launch(taylor_checksum_kernel<kLut>, count, st, out, (u64)n0, count, r, k);
+    case kTayNarrow: return launch(taylor_checksum_kernel<kTayNarrow>, count, st, out, (u64)n0, count, r, k);
+    default: return launch(taylor_checksum_kernel<kTayWide>, count, st, out, (u64)n0, count, r, k);
+  }
 }
 
 }  // extern "C"

@@ -11,7 +11,11 @@ frame starts at b*nfft, odd at b*nfft + hop), so one pass over x forms
 
 ``welch_stage1_fused`` runs the CUDA kernel (``csrc/welchfft_kernel.cu``)
 for a CUDA tensor and ``welch_stage1_plain`` for a CPU tensor.
-Requires hop == nfft/2 and leading radix r0 == 128.
+Requires hop == nfft/2 and leading radix r0 == 128.  The kernel computes
+the DFT-128 as an FFT (an 8-point DFT over n2 for each n1 of n0 = n1 +
+16*n2, the twiddle W128^(n1*k2), a 16-point DFT over n1 for each k2 of
+k0 = k2 + 8*k1) whose roots all come from ``_fft128_roots``; the plain
+version keeps the direct DFT-matrix product.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from .. import _build
 
 #: output columns per CUDA block (csrc/welchfft_kernel.cu kJT)
-_KERNEL_COLS = 64
+_KERNEL_COLS = 32
 
 
 @lru_cache(maxsize=8)
@@ -41,11 +45,28 @@ def _tables(nfft: int, r0: int):
     return m0, t1
 
 
+@lru_cache(maxsize=1)
+def _fft128_roots():
+    """W128^m = exp(-2 pi i m / 128) for m < 64, the CUDA kernel's only roots
+    (W128^(m+64) = -W128^m), built in float64 and rounded to float32 as
+    ``_tables`` builds the DFT matrix: (real, imag) f32 numpy pair."""
+    ang = -2.0 * np.pi * np.arange(64) / 128
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
 @lru_cache(maxsize=8)
 def _tables_on(nfft: int, r0: int, device: torch.device):
     """``_tables`` as four float32 tensors (m0r, m0i, t1r, t1i) on ``device``."""
     (m0r, m0i), (t1r, t1i) = _tables(nfft, r0)
     return tuple(torch.from_numpy(v).to(device) for v in (m0r, m0i, t1r, t1i))
+
+
+@lru_cache(maxsize=8)
+def _kernel_tables_on(nfft: int, device: torch.device):
+    """The CUDA kernel's tables on ``device``: the FFT-128 roots and the
+    stage-1 twiddle (wr, wi, t1r, t1i), float32."""
+    (t1r, t1i) = _tables(nfft, 128)[1]
+    return tuple(torch.from_numpy(v).to(device) for v in (*_fft128_roots(), t1r, t1i))
 
 
 def _geometry(x, nfft: int, r0: int):
@@ -92,22 +113,22 @@ def welch_stage1_fused(x, win, nfft: int, r0: int = 128):
     if device.type == "cpu":
         return welch_stage1_plain(x, win, nfft, r0)
     rest = nfft // r0
-    if r0 != 128 or rest % _KERNEL_COLS or npair > 65535:
+    if r0 != 128 or rest % _KERNEL_COLS or npair >= 1 << 31:
         raise ValueError(
             "the CUDA stage-1 kernel needs r0 == 128, nfft/128 a multiple of "
-            f"{_KERNEL_COLS} and at most 65535 frame pairs"
+            f"{_KERNEL_COLS} and fewer than 2^31 frame pairs"
         )
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 tensor")
     if (win.shape != (nfft,) or win.dtype != torch.float32
             or win.device != x.device or not win.is_contiguous()):
         raise ValueError("win must be a contiguous (nfft,) float32 tensor on x's device")
-    m0r, m0i, t1r, t1i = _tables_on(nfft, r0, device)
+    wr, wi, t1r, t1i = _kernel_tables_on(nfft, device)
     out_r = torch.empty((npair, r0, rest), dtype=torch.float32, device=device)
     out_i = torch.empty_like(out_r)
     with torch.cuda.device(device):
         rc = _build.lib().bhw_welch_stage1(
-            x.data_ptr(), t, win.data_ptr(), m0r.data_ptr(), m0i.data_ptr(),
+            x.data_ptr(), t, win.data_ptr(), wr.data_ptr(), wi.data_ptr(),
             t1r.data_ptr(), t1i.data_ptr(), out_r.data_ptr(), out_i.data_ptr(),
             nfft, npair, nf % 2, _build.stream_of(device),
         )

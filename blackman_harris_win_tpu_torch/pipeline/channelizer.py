@@ -71,10 +71,10 @@ def polyphase_channelize(x, prototype, n_channels: int, device=None):
         y = torch.nn.functional.conv1d(s, kk, groups=c).transpose(1, 2)  # (B, nf_out, c)
         return y.reshape(tuple(sig.shape[:-2]) + tuple(y.shape[-2:]))
 
-    _full_fp32()
-    if xp.is_complex():
-        y = torch.complex(branches_conv(xp.real), branches_conv(xp.imag))
-    else:
-        y = branches_conv(xp)
+    with _full_fp32():
+        if xp.is_complex():
+            y = torch.complex(branches_conv(xp.real), branches_conv(xp.imag))
+        else:
+            y = branches_conv(xp)
     # DFT across branches (e^{-j 2 pi p k / C}) so channel k sits at +k/C
     return torch.fft.fft(y, dim=-1)

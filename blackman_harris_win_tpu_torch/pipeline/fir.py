@@ -8,7 +8,7 @@
   frames times taps (a full-fp32 contraction) at small sizes, and a strided
   ``conv1d`` otherwise, behind the materialization barrier (kernel 7,
   ``kernels/barrier.py``) at bulk sizes.  cuDNN runs fp32 convolutions in
-  TF32 by default, so TF32 is turned off where these run.
+  TF32 by default, so TF32 is turned off while these run (and restored after).
 
 The sharded variant waits for the port's ``dist/``.
 """
@@ -57,6 +57,7 @@ def design_lowpass(
     return h / h.sum()
 
 
+@_full_fp32()
 def decimating_fir(x, taps, decim: int, device=None):
     """y[m] = sum_t h[t] * x[m*decim + t] (valid region only).
 
@@ -75,7 +76,6 @@ def decimating_fir(x, taps, decim: int, device=None):
     lead = x.shape[:-1]
     t = x.shape[-1]
     n_taps = taps.shape[0]
-    _full_fp32()
     if n_taps % decim == 0 and t % decim == 0 and t >= n_taps:
         m_total = (t - n_taps) // decim + 1
         if m_total * n_taps <= FRAMES_MAX:

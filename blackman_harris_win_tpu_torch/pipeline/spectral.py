@@ -15,17 +15,22 @@ materialized frames.  Every DFT table is built on the host in float64.
 
 Float matmuls here must run in full fp32: the functions below turn TF32 off
 (``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32``) where they run, as the JAX package
-pins ``Precision.HIGHEST``.
+``torch.backends.cudnn.allow_tf32``) while they run and restore both flags
+after, as the JAX package pins ``Precision.HIGHEST`` per operation.
+
+Array-like ``x`` goes to ``device`` (default the card); a tensor runs where
+it lies.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..core.config import WindowSpec
 from ..kernels.compwin import comp_window_pair
 from ..kernels.floatwin import float_window
@@ -34,9 +39,24 @@ from ..kernels.window_kernel import window_block
 from ..windows import catalog
 
 
-def _full_fp32() -> None:
+@contextmanager
+def _full_fp32():
+    """TF32 off for float32 matmuls and cuDNN convolutions inside the block
+    (or the decorated function), both flags restored as they were after it."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def _float_dtype(t: torch.Tensor) -> torch.dtype:
+    """The real floating dtype that goes with ``t``: its own (the real part's
+    for complex), float32 for integer tensors."""
+    return t.real.dtype if t.is_floating_point() or t.is_complex() else torch.float32
 
 
 def window_scale(spec: WindowSpec, shift: int) -> float:
@@ -69,9 +89,11 @@ def frames_view(x, nfft: int, hop: int):
     return x.unfold(-1, nfft, hop)
 
 
-def welch_power(x, win, nfft: int, hop: int, fft_mode: str = "rfft"):
+@_full_fp32()
+def welch_power(x, win, nfft: int, hop: int, fft_mode: str = "rfft", device=None):
     """Single-device Welch periodogram: mean |rfft(frame * win)|^2 over
-    frames.  x: (..., T) float; win: (nfft,) float.
+    frames.  x: (..., T) float (array-likes go to ``device``); win: (nfft,)
+    float, cast to x's floating dtype.
 
     ``fft_mode="packed"`` transforms two real frames per complex FFT and
     reads the summed power back out of conjugate symmetry:
@@ -79,7 +101,8 @@ def welch_power(x, win, nfft: int, hop: int, fft_mode: str = "rfft"):
     ``fft_mode="mxu"`` does the same through matmul DFT stages; 1-D CUDA
     input at hop == nfft/2 goes through the fused stage-1 kernel.
     """
-    _full_fp32()
+    x = _build.as_tensor(x, device=device)
+    win = torch.as_tensor(win, dtype=_float_dtype(x), device=x.device)
     if (fft_mode == "mxu" and hop * 2 == nfft and x.ndim == 1
             and x.shape[-1] % hop == 0 and x.shape[-1] >= nfft
             and _fused_ok(nfft) and x.is_cuda):
@@ -96,9 +119,9 @@ def _fused_ok(nfft: int) -> bool:
     return radices[0] == 128 and len(radices) >= 2
 
 
+@_full_fp32()
 def _mxu_fused_mean_power(x, win, nfft: int):
     """Welch mean power via the stage-1 kernel + tensordot tail."""
-    _full_fp32()
     radices = _mxu_radices(nfft)
     r0 = radices[0]
     xr, xi, nf = welch_stage1_fused(x, win, nfft, r0=r0)
@@ -129,6 +152,7 @@ def _mxu_fused_mean_power(x, win, nfft: int):
     return 0.5 * (pk[:k] + pk_rev[:k]) / nf
 
 
+@_full_fp32()
 def frame_mean_power(fr, fft_mode: str = "rfft"):
     """Mean half-spectrum power over windowed frames (..., nF, nfft) ->
     (..., nfft//2+1); the FFT stage shared by every welch path.
@@ -137,7 +161,6 @@ def frame_mean_power(fr, fft_mode: str = "rfft"):
     Cooley-Tukey stages whose small DFTs are fp32 matmuls (radices <= 128,
     f64-host-exact tables).  Requires power-of-two nfft >= 256.
     """
-    _full_fp32()
     if fft_mode == "rfft":
         spec = torch.fft.rfft(fr, dim=-1)
         return torch.mean(spec.abs() ** 2, dim=-2)
@@ -202,6 +225,7 @@ def _dft_tables_on(nfft: int, device: torch.device):
     return [on(m) for m in mats], [on(t) for t in tws]
 
 
+@_full_fp32()
 def _mxu_stages(xr, xi, nfft: int, nlead: int):
     """Run the mixed-radix matmul DFT stages over the trailing radix axes
     of (lead..., r_0, .., r_{ns-1}) real/imag tensors.  On return, axis
@@ -210,7 +234,6 @@ def _mxu_stages(xr, xi, nfft: int, nlead: int):
     tensordot appends the contracted-output axis, so stage s always
     contracts the FIRST remaining sample axis (position ``nlead``) and the
     k axes accumulate at the tail in stage order, with no transposes."""
-    _full_fp32()
     radices = _mxu_radices(nfft)
     mats, tws = _dft_tables_on(nfft, xr.device)
     ns = len(radices)
@@ -273,9 +296,10 @@ def _mxu_packed_mean_power(fr):
 
 def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
                             win_mode: str = "quantized",
-                            fft_mode: str = "rfft"):
+                            fft_mode: str = "rfft", device=None):
     """Single-device analyzer: window generated on the fly (window kernel on
-    x's device), applied, Welch-averaged.  nfft = spec.n.
+    x's device), applied, Welch-averaged.  nfft = spec.n.  Array-like ``x``
+    goes to ``device`` (default the card); a tensor runs where it lies.
 
     ``win_mode="quantized"`` reproduces the reference's integer window
     datapath, then scales to float for the FFT.  ``win_mode="float"``
@@ -285,6 +309,7 @@ def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
     compensated (s, e) pair (``kernels/compwin.py``) and applies it as two
     products per sample, ``frame*s + frame*e``.
     """
+    x = _build.as_tensor(x, device=device)
     nfft = spec.n
     hop = hop or nfft // 2
     if win_mode == "float":

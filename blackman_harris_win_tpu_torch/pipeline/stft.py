@@ -26,7 +26,7 @@ import torch
 
 from .. import _build
 from ..core.config import WindowSpec
-from .spectral import frames_view, window_scale
+from .spectral import _float_dtype, frames_view, window_scale
 
 
 def stft(x, win, nfft: int, hop: int, device=None):
@@ -35,10 +35,12 @@ def stft(x, win, nfft: int, hop: int, device=None):
     x: (..., T) real (a tensor runs on its device; array-like input goes to
     ``device``, default the card); win: (nfft,) float.  Returns
     (..., nF, nfft//2+1) complex with frame m = rfft(x[m*hop : m*hop+nfft]
-    * win); needs the exact tiling (T - nfft) % hop == 0.
+    * win); needs the exact tiling (T - nfft) % hop == 0.  The window is
+    cast to x's floating dtype, so float32 x gives complex64 whatever the
+    window's dtype, as the JAX package does.
     """
     x = _build.as_tensor(x, device=device)
-    win = torch.as_tensor(win, device=x.device)
+    win = torch.as_tensor(win, dtype=_float_dtype(x), device=x.device)
     return torch.fft.rfft(frames_view(x, nfft, hop) * win, dim=-1)
 
 
@@ -72,14 +74,18 @@ def _wola_divide(num, den):
     return num / torch.where(den.abs() < eps, torch.full_like(den, eps), den)
 
 
-def istft(s, win, hop: int, length: int | None = None, synthesis_win=None):
-    """WOLA inverse STFT.  s: (..., nF, nfft//2+1) complex; ``win`` is the
-    analysis window used by ``stft`` (the synthesis window defaults to the
-    same).  Per-sample normalization by the tiled w_a*w_s sum.  Returns
-    (..., T) real on s's device."""
+def istft(s, win, hop: int, length: int | None = None, synthesis_win=None, device=None):
+    """WOLA inverse STFT.  s: (..., nF, nfft//2+1) complex (a tensor runs on
+    its device; array-like input goes to ``device``, default the card);
+    ``win`` is the analysis window used by ``stft`` (the synthesis window
+    defaults to the same), cast to s's real dtype.  Per-sample normalization
+    by the tiled w_a*w_s sum.  Returns (..., T) real on s's device."""
+    s = _build.as_tensor(s, device=device)
     nfft = 2 * (s.shape[-1] - 1)
-    win = torch.as_tensor(win, device=s.device)
-    ws = win if synthesis_win is None else torch.as_tensor(synthesis_win, device=s.device)
+    real = _float_dtype(s)
+    win = torch.as_tensor(win, dtype=real, device=s.device)
+    ws = (win if synthesis_win is None
+          else torch.as_tensor(synthesis_win, dtype=real, device=s.device))
     fr = torch.fft.irfft(s, n=nfft, dim=-1) * ws
     nf = s.shape[-2]
     t = (nf - 1) * hop + nfft

@@ -49,8 +49,9 @@ the analyzers against a float64 reference within the derived f32 budget,
 the DDC against a float64 FIR of its exact integer mixer products, the SDR
 tone offset and discriminator, the STFT round trips and frames of each
 pair's stft against the golden window, and each kernel against its plain
-version on the card; a torch.profiler breakdown of one DDC call must record
-device time.  Last, each kernel and its plain version are timed
+version on the card; torch.profiler breakdowns of one DDC call and of one
+fft_mode="mxu" analyzer call (stage-1 kernel, window kernel, GEMMs,
+elementwise and permute passes) must record device time.  Last, each kernel and its plain version are timed
 with CUDA events (median of 5 after a warm-up; a checksum kernel's time is
 per call of 16 back-to-back calls with distinct biases; the copy kernel,
 its plain version and ``torch.clone`` are timed one call alone and, on a
@@ -63,7 +64,9 @@ datapath it has at the timed size (2^26 samples: HLS and RTL BH-7 W=32 on
 ``r2s``, the analyzer's BH-4 W=17 saturate window on ``i32``), each beside
 its operation bound; the build prints each kernel's ptxas registers and,
 where ``cuobjdump`` exists, the SASS instructions of one unrolled CORDIC
-iteration per datapath and of the bulk-copy ring's main loop.
+iteration per datapath, of the bulk-copy ring's main loop, of the Taylor
+kernels' run walk per sample and of the stage-1 kernel's FFT body, with
+their local-memory instructions.
 
 Exits non-zero, printing no result, if torch sees no CUDA device or any
 phase fails.  The last line is the JSON object
@@ -275,7 +278,8 @@ def _ddc_gates(x, bb, h, fc: float, decim: int, pw: int, w: int, rng, dev) -> di
     input and its plain version on the mixer output it copies; the NCO 0 LSB
     against the CPU plain version at fc and at 0.2371; the tone gate of
     bench_all config 21; a random 2^16-output window against a float64 FIR
-    of the exact integer mixer products; TF32 off."""
+    of the exact integer mixer products, which TF32 would fail; the cuDNN TF32
+    flag as it was before the call."""
     import torch
 
     from blackman_harris_win_tpu_torch.kernels.barrier import materialize, materialize_plain
@@ -316,6 +320,7 @@ def _ddc_gates(x, bb, h, fc: float, decim: int, pw: int, w: int, rng, dev) -> di
               "0-LSB equal to the CPU plain version")
 
     df, nt = 1 / 256, 16384
+    tf32_before = torch.backends.cudnn.allow_tf32
     tone = torch.cos(2 * np.pi * (fc + df) * torch.arange(nt, device=dev, dtype=torch.float64))
     bbt = ddc(tone.to(torch.float32), fc, decim, taps=h).cpu().numpy()
     zt = (bbt[0].astype(np.float64) + 1j * bbt[1])[16:-16]
@@ -338,11 +343,12 @@ def _ddc_gates(x, bb, h, fc: float, decim: int, pw: int, w: int, rng, dev) -> di
     sum_h, max_m = float(np.abs(h).sum()), float(m64.abs().max())
     bound = k * u / (1 - k * u) * sum_h * max_m
     _require(err <= bound, f"DDC vs float64 FIR: {err:.3e} > {bound:.3e}")
-    _require(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on after the DDC")
+    _require(torch.backends.cudnn.allow_tf32 == tf32_before,
+             "the DDC left cuDNN's TF32 flag changed")
     print(f"DDC: tone at fc+1/256 measured at {f_meas:.7f} (|err| {abs(f_meas - df):.2e} "
           f"< 1e-4); outputs [{j0}, +{nout}) vs float64 FIR of the exact mixer ints: "
           f"{err:.3e} (<= gamma(n_taps+4) x sum|h| x max|m| = {k}u/(1-{k}u) x {sum_h:.4f} x "
-          f"{max_m:.4f} = {bound:.3e}); cuDNN TF32 off")
+          f"{max_m:.4f} = {bound:.3e}), TF32 off inside the call; cuDNN TF32 flag as before it")
     return {"mat_err": mat_err, "fir_err": err, "fir_bound": bound, "f_meas": f_meas}
 
 
@@ -468,7 +474,7 @@ def _print_sass(lib_path) -> None:
     halved); for the bulk-copy ring of ``materialize``, its instruction count
     and the length of its main loop, one pass of which moves one stage (the
     widest backward branch).  Needs ``cuobjdump``; prints that it is missing
-    otherwise."""
+    otherwise.  The Taylor and stage-1 kernels: see ``_print_block_sass``."""
     import re
     import shutil
     from pathlib import Path
@@ -491,6 +497,9 @@ def _print_sass(lib_path) -> None:
             print(f"sass materialize_bulk_kernel: {len(at)} instructions; main loop, one "
                   f"stage per pass, {loop}")
             continue
+        if "taylor_" in name or "welch_stage1_kernel" in name:
+            _print_block_sass(name, body)
+            continue
         if "window_block_kernel" not in name:
             continue
         dp = next((v for k, v in _WINDOW_INSTANCES.items() if k in name), name)
@@ -504,6 +513,46 @@ def _print_sass(lib_path) -> None:
         per = f"{float(np.median(gaps)) / 2:.1f}" if gaps else "not found"
         print(f"sass window_block {dp}: {len(ins)} instructions; one unrolled CORDIC iteration "
               f"of one chain ~ {per} instructions")
+
+
+#: csrc/taylor_kernel.cu: the Regime template values, and kG, the samples a
+#: lane walks per tile in each kernel
+_TAYLOR_REGIMES = {"0": "none", "1": "lut", "2": "tay1 W<19", "3": "tay1 W>=19"}
+TAYLOR_KG = {"sincos": 8, "window": 8, "checksum": 16}
+
+
+def _print_block_sass(name: str, body: str) -> None:
+    """A Taylor or stage-1 kernel instantiation's SASS: its instruction
+    count and its longest branch-free block.  In a Taylor kernel that block
+    is a lane's run walk over kG samples, one generator (window: the first
+    harmonic's), so its length over kG is the walk's instructions per sample
+    and generator; in the stage-1 kernel it is the FFT-128's unrolled body."""
+    import re
+
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    targets = {int(m.group(1), 16) for _, text in ins
+               if (m := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text))}
+    longest = run = 0
+    for addr, text in ins:
+        if int(addr, 16) in targets:
+            run = 0
+        run += 1
+        longest = max(longest, run)
+        if re.search(r"\b(BRA|EXIT|RET|BRX|JMP|CALL)\b", text):
+            run = 0
+    local = sum(1 for _, text in ins if re.search(r"\b(LDL|STL)", text))
+    regs = re.findall(r"ILi(\d)E", name)
+    if "taylor_" in name:
+        kind = next(k for k in ("sincos", "window", "checksum") if f"taylor_{k}" in name)
+        inst = "/".join(_TAYLOR_REGIMES.get(r, r) for r in regs)
+        kg = TAYLOR_KG[kind]
+        print(f"sass taylor_{kind} ({inst}): {len(ins)} instructions; longest branch-free "
+              f"block {longest}, {longest / kg:.1f} per sample of a {kg}-sample run walk; "
+              f"{local} local-memory instructions")
+    else:
+        print(f"sass welch_stage1 ({'16-byte' if regs == ['4'] else '4-byte'} copies): "
+              f"{len(ins)} instructions; longest branch-free block {longest}; {local} "
+              "local-memory instructions")
 
 
 def _kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
@@ -544,21 +593,31 @@ def _kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     }
 
 
-def _profile_ddc(run_ddc, label: str) -> None:
-    """One DDC call under torch.profiler: device time by kernel, grouped
-    into the barrier copy, the FIR (convolution and matmul kernels) and the
-    elementwise passes (NCO, mixer, rescale, copies), beside the call's
-    CUDA-event wall time."""
+#: device-time groups of the two profiled calls, in match order: name ->
+#: substrings of a kernel's name (lower case); the rest is the last group
+DDC_GROUPS = {"materialize": ("materialize",),
+              "FIR (conv, gemm)": ("conv", "cudnn", "gemm", "xmma", "cutlass", "gemv", "dot"),
+              "elementwise": ()}
+ANALYZER_GROUPS = {"welch_stage1": ("welch_stage1",),
+                   "window_block": ("window_block",),
+                   "GEMM": ("gemm", "xmma", "cutlass", "gemv", "dot", "cublas", "sm90_"),
+                   "elementwise or permute": ()}
+
+
+def _profile(fn, label: str, groups: dict) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel,
+    grouped by ``groups``, beside the call's CUDA-event wall time.  A
+    profile without device time fails the run.  Returns group -> ms, with
+    the wall and busy times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_ddc()
+    fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    # a failure of the profiler fails the run: PERF.md's breakdown reads it
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
-        run_ddc()
+        fn()
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end)
@@ -570,22 +629,20 @@ def _profile_ddc(run_ddc, label: str) -> None:
         if us is None:
             us = e.self_cuda_time_total
         rows.append((e.key, us / 1e3, e.count))
-    _require(bool(rows), "DDC profile: torch.profiler recorded no device time")
-    groups = {"materialize": 0.0, "FIR (conv, gemm)": 0.0, "elementwise": 0.0}
+    _require(bool(rows) and sum(r[1] for r in rows) > 0,
+             f"{label} profile: torch.profiler recorded no device time")
+    out = dict.fromkeys(groups, 0.0)
+    rest = list(groups)[-1]
     for key, ms, _ in rows:
         k = key.lower()
-        if "materialize" in k:
-            groups["materialize"] += ms
-        elif any(s in k for s in ("conv", "cudnn", "gemm", "xmma", "cutlass", "gemv", "dot")):
-            groups["FIR (conv, gemm)"] += ms
-        else:
-            groups["elementwise"] += ms
-    busy = sum(groups.values())
-    print(f"profile {label} ddc (one call): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+        out[next((g for g, subs in groups.items() if any(x in k for x in subs)), rest)] += ms
+    busy = sum(out.values())
+    print(f"profile {label} (one call): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
           f"{max(0.0, 1 - busy / wall):.1%}; " + "; ".join(f"{k} {v:.3f} ms"
-                                                         for k, v in groups.items()))
+                                                         for k, v in out.items()))
     for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  profile kernel {ms:9.3f} ms  x{cnt:<3d} {key[:110]}")
+    return {**out, "wall": wall, "busy": busy}
 
 
 def main(argv=None) -> int:
@@ -1068,6 +1125,9 @@ def main(argv=None) -> int:
                                                      win_mode="comp", fft_mode="rfft")),
         ),
     }
+    # the analyzer's device time by kernel (phase 3's call), for the matmul tail
+    _profile(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu"),
+             f"{label} analyzer mxu", ANALYZER_GROUPS)
     # the barrier kernel on the DDC's own mixer output, (2, 2^26) f32
     amp_in = float((1 << MIX_IN_BITS) - 1)
     n21 = torch.arange(1 << 26, device=dev)
@@ -1125,7 +1185,7 @@ def main(argv=None) -> int:
     print(f"time {label} DDC 2^26 samples, decim {dec21}, 64 taps, dds48 pw={pw21} W={w21}: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in t_ddc.items())
           + f"; {(1 << 26) / t_ddc['ddc (whole call)'] / 1e3:.1f} Msamples/s in")
-    _profile_ddc(run_ddc, label)
+    _profile(run_ddc, f"{label} ddc", DDC_GROUPS)
     t_sdr = _time_ms(lambda: sdr_chain(x_sdr, proto, n_ch, angle_width=aw))
     print(f"time {label} SDR chain latency check, 2^22 samples, 4 channels x 6 taps, AW=20 "
           f"(torch ops, no kernel): {t_sdr:.3f} ms")

@@ -1,5 +1,6 @@
-"""Time the port's ``materialize`` copy and its window-kernel datapaths on one
-card, each beside what it is compared with in the same process.
+"""Time the port's ``materialize`` copy, its window-kernel datapaths, its
+stage-1 kernel and its Taylor checksum on one card, each beside what it is
+compared with in the same process.
 
     python3 probe_kernel_variants.py [--rounds N] [--against DIR]
 
@@ -21,6 +22,18 @@ card, each beside what it is compared with in the same process.
    and through the int64 datapath (the C entry takes the datapath code; the
    port's wrapper never passes another than its own), outputs bit-equal.
 
+3. ``welch_stage1`` (``csrc/welchfft_kernel.cu``) at the analyzer's size
+   (nfft 2^20, 255 frames over 128 * 2^20 samples) through its wrapper and,
+   with ``--against DIR``, the ``bhw_welch_stage1`` of DIR's source (the
+   parent's direct DFT-matrix kernel takes the DFT matrix where the port's
+   takes the FFT-128 roots); outputs within 1e-5 of each other's maximum;
+   and the wrapper's host time per call.
+4. ``taylor_checksum`` (``csrc/taylor_kernel.cu``) over 2^26 samples at
+   pw=26, W=16/LS=10 and W=32/LS=12: through the wrapper, through its C
+   entry and, with ``--against DIR``, through DIR's ``bhw_taylor_checksum``;
+   per call of 16 queued, all sums equal; and the host time per call of the
+   wrapper and of each C entry.
+
 Prints one line per measurement with the card's name and power limit, and
 as its last line one JSON object with every time (ms, median over the
 rounds).  Exits non-zero without a CUDA device.
@@ -38,21 +51,30 @@ from pathlib import Path
 import numpy as np
 
 
-def _build_other(root: Path):
-    """``bhw_materialize`` of the ``csrc/barrier_kernel.cu`` under ``root``,
-    built alone into this checkout's build directory."""
+def _build_one(root: Path, source: str, tag: str):
+    """The kernel library of one ``csrc`` source under ``root``, built alone
+    into this checkout's build directory, its entry points bound with the
+    port's signatures."""
     from blackman_harris_win_tpu_torch import _build
 
-    src = root / "blackman_harris_win_tpu_torch" / "csrc" / "barrier_kernel.cu"
+    src = root / "blackman_harris_win_tpu_torch" / "csrc" / source
     out = _build.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libbarrier_other.so"
+    lib = out / f"lib{Path(source).stem}_{tag}.so"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(lib), str(src)], check=True)
-    fn = ctypes.CDLL(str(lib)).bhw_materialize
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(lib), str(src)],
+                   check=True)
+    dll = ctypes.CDLL(str(lib))
+    for name, args in _build._SIGNATURES.items():
+        if hasattr(dll, name):
+            getattr(dll, name).argtypes = list(args)
+            getattr(dll, name).restype = ctypes.c_int
+    return dll
+
+
+def _build_other(root: Path):
+    """``bhw_materialize`` of the ``csrc/barrier_kernel.cu`` under ``root``."""
+    return _build_one(root, "barrier_kernel.cu", "other").bhw_materialize
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -123,8 +145,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--against", type=Path, default=None,
-                    help="a checkout of another revision whose materialize kernel is timed "
-                         "beside the port's")
+                    help="a checkout of another revision whose materialize, welch_stage1 "
+                         "and taylor_checksum kernels are timed beside the port's")
     args = ap.parse_args(argv)
 
     import torch
@@ -229,8 +251,93 @@ def main(argv=None) -> int:
         for k, ms in tw.items():
             print(f"time {label} window_block {label_cfg} datapath {k}: {ms:.3f} ms")
         result["window_block"][label_cfg] = tw
+    _probe_welch(args, dev, label, stream, result)
+    _probe_taylor(args, dev, label, stream, result)
     print(json.dumps(result))
     return 0
+
+
+def _probe_welch(args, dev, label, stream, result) -> None:
+    """Section 3: the stage-1 kernel, the port's beside DIR's."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels import welchfft_kernel as wf
+
+    nfft, nsamp = 1 << 20, 128 << 20
+    x = torch.randn(nsamp, device=dev)
+    win = torch.from_numpy(np.hanning(nfft).astype(np.float32)).to(dev)
+    ref_r, ref_i, nf = wf.welch_stage1_fused(x, win, nfft)
+    fns = {"port, wrapper": lambda: wf.welch_stage1_fused(x, win, nfft)}
+    if args.against is not None:
+        fn = _build_one(args.against, "welchfft_kernel.cu", "other").bhw_welch_stage1
+        m0r, m0i, t1r, t1i = wf._tables_on(nfft, 128, dev)
+        out_r, out_i = torch.empty_like(ref_r), torch.empty_like(ref_i)
+
+        def other():
+            rc = fn(x.data_ptr(), nsamp, win.data_ptr(), m0r.data_ptr(), m0i.data_ptr(),
+                    t1r.data_ptr(), t1i.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), nfft,
+                    ref_r.shape[0], nf % 2, stream)
+            if rc:
+                raise RuntimeError(f"welch_stage1 {args.against.name}: CUDA error {rc}")
+
+        other()
+        scale = float(torch.maximum(ref_r.abs().max(), ref_i.abs().max()))
+        err = float(torch.maximum((out_r - ref_r).abs().max(), (out_i - ref_i).abs().max()))
+        if err / scale >= 1e-5:
+            raise RuntimeError(f"welch_stage1: port and {args.against.name} differ by {err}")
+        fns[f"{args.against.name}, C entry"] = other
+    bound = (4 * nsamp + 4 * nfft + 8 * ref_r.numel()) / 3.35e12 * 1e3
+    t = _in_turns(fns, args.rounds, lambda f: _event_ms(f, 1))
+    for k, ms in t.items():
+        print(f"time {label} welch_stage1 nfft 2^20, {nf} frames, {k}: {ms:.4f} ms, "
+              f"{bound / ms:.1%} of the {bound:.4f} ms bytes bound")
+    host = _in_turns({"port, wrapper": fns["port, wrapper"]}, args.rounds,
+                     lambda f: _host_us(f, 20))
+    print(f"time {label} welch_stage1 host time per call, port, wrapper: "
+          f"{host['port, wrapper']:.1f} us")
+    result["welch_stage1"] = {**t, "host us": host}
+
+
+def _probe_taylor(args, dev, label, stream, result) -> None:
+    """Section 4: the Taylor checksum, the port's beside DIR's."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
+
+    from blackman_harris_win_tpu_torch import _build
+
+    pw, n = 26, 1 << 26
+    libs = {"port, C entry": _build.lib()}
+    if args.against is not None:
+        libs[f"{args.against.name}, C entry"] = _build_one(args.against, "taylor_kernel.cu",
+                                                            "other")
+    result["taylor_checksum"] = {}
+    for w, ls in ((16, 10), (32, 12)):
+        rom = tk._rom_on(ls, w, dev)
+        want = int(tk.checksum_range(5, n - 9, pw, w, ls, 0, dev))
+        outs = {k: torch.zeros((), dtype=torch.int32, device=dev) for k in libs}
+
+        def entry(k, w=w, ls=ls, rom=rom):
+            rc = libs[k].bhw_taylor_checksum(outs[k].data_ptr(), 5, n - 9, rom.data_ptr(), pw,
+                                             w, ls, tk._ramb(pw, ls), stream)
+            if rc:
+                raise RuntimeError(f"taylor_checksum {k}: CUDA error {rc}")
+
+        for k in libs:
+            entry(k)
+            if int(outs[k]) != want:
+                raise RuntimeError(f"taylor_checksum {k}: {int(outs[k])} != {want}")
+        fns = {"port, wrapper": lambda w=w, ls=ls: tk.checksum_range(5, n - 9, pw, w, ls, 0, dev),
+               **{k: (lambda k=k: entry(k)) for k in libs}}
+        t = _in_turns(fns, args.rounds, lambda f: _event_ms(f, 16))
+        for k, ms in t.items():
+            print(f"time {label} taylor_checksum W={w} LS={ls} 2^26, per call of 16 queued, "
+                  f"{k}: {ms:.4f} ms")
+        host = _in_turns(fns, args.rounds, lambda f: _host_us(f, 16))
+        for k, us in host.items():
+            print(f"time {label} taylor_checksum W={w} LS={ls} host time per call, {k}: "
+                  f"{us:.1f} us")
+        result["taylor_checksum"][f"w{w}"] = {**t, "host us": host}
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ from blackman_harris_win_tpu_torch.kernels import compwin, floatwin, outerwin
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels import taylor, taylor_kernel
 from blackman_harris_win_tpu_torch.kernels import window, window_kernel
-from blackman_harris_win_tpu_torch.pipeline import channelizer, ddc, demod, fir, sdr, stft
+from blackman_harris_win_tpu_torch.pipeline import channelizer, ddc, demod, fir, sdr, spectral, stft
 from blackman_harris_win_tpu_torch.windows import catalog
 
 SPEC = WindowSpec(10, 17, overflow="saturate")
@@ -30,6 +30,7 @@ TSPEC = WindowSpec(10, 16, sin_type="taylor", lut_size=6)
 QH = catalog.get("hamming").quantized(16)
 X = np.random.default_rng(0).normal(size=1024).astype(np.float32)
 PROTO = channelizer.design_prototype(4, 6)
+S = np.fft.rfft(X[:896].reshape(7, 128), n=256).astype(np.complex64)
 
 # entry point -> call taking the device keyword
 ENTRY_POINTS = {
@@ -87,6 +88,10 @@ ENTRY_POINTS = {
         lambda **d: channelizer.polyphase_channelize(X, PROTO, 4, **d),
     "sdr.sdr_chain": lambda **d: sdr.sdr_chain(X, PROTO, 4, **d),
     "stft.stft": lambda **d: stft.stft(X, np.hanning(256), 256, 128, **d),
+    "stft.istft": lambda **d: stft.istft(S, np.hanning(256), 128, **d),
+    "spectral.welch_power": lambda **d: spectral.welch_power(X, np.hanning(256), 256, 128, **d),
+    "spectral.windowed_power_spectrum":
+        lambda **d: spectral.windowed_power_spectrum(X, "bh4", WindowSpec(8, 17), **d),
     "stft.quantized_stft_pair": lambda **d: stft.quantized_stft_pair("bh4", SPEC, **d)[2],
     "stft.float_stft_pair": lambda **d: stft.float_stft_pair("bh4", 10, **d)[2],
     "stft.comp_stft_pair": lambda **d: stft.comp_stft_pair("bh4", 10, **d)[2][0],

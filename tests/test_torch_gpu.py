@@ -143,7 +143,9 @@ def test_window_checksum_each_datapath(cuda, name, w, rounding, p, datapath):
 
 
 @pytest.mark.parametrize("nfft,nframes", [(1 << 13, 5), (1 << 13, 4),
-                                          (1 << 14, 7), (1 << 19, 3)])
+                                          (1 << 14, 7), (1 << 19, 3),
+                                          (1 << 20, 3), (1 << 20, 4),
+                                          (1 << 21, 3), (1 << 21, 4)])
 def test_welch_stage1_kernel_matches_plain(cuda, nfft, nframes):
     hop = nfft // 2
     rng = np.random.default_rng(nfft + nframes)
@@ -155,6 +157,25 @@ def test_welch_stage1_kernel_matches_plain(cuda, nfft, nframes):
     scale = float(torch.maximum(wr.abs().max(), wi.abs().max()))
     err = float(torch.maximum((gr - wr).abs().max(), (gi - wi).abs().max()))
     assert err / scale < 1e-5, err / scale
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_welch_stage1_kernel_unaligned_x(cuda, offset):
+    # x off 16-byte alignment takes the 4-byte copies; many frame pairs, so
+    # every block walks a range of pairs through the whole slot ring
+    nfft, nframes = 1 << 13, 41
+    hop = nfft // 2
+    rng = np.random.default_rng(offset)
+    base = torch.from_numpy(rng.normal(size=hop * (nframes + 1) + offset).astype(np.float32))
+    x = base.to(cuda)[offset:]
+    win = torch.from_numpy(np.hanning(nfft).astype(np.float32)).to(cuda)
+    _build.reset_launches()
+    gr, gi, nf = welch_stage1_fused(x, win, nfft)
+    assert _build.launches["welch_stage1"] == 1
+    wr, wi, _ = welch_stage1_plain(x, win, nfft)
+    scale = float(torch.maximum(wr.abs().max(), wi.abs().max()))
+    err = float(torch.maximum((gr - wr).abs().max(), (gi - wi).abs().max()))
+    assert nf == nframes and err / scale < 1e-5, err / scale
 
 
 @pytest.mark.parametrize("pw", [13, 19])
@@ -396,6 +417,50 @@ def test_taylor_window_block_kernel_matches_plain(cuda, win, pw, w, ls, overflow
             assert torch.equal(kw.make_window(win, spec, device=cuda), got)
 
 
+#: (pw, ls) of the Taylor card sweep: every regime (over-wide and exact
+#: LUT; tay1 with R = 2, 4, 16, 4096, 2^20; PW-LS = 23 and 24, where ramb_pi
+#: is 0) at the int32 phase ceiling and below
+TAYLOR_SWEEP = [(11, 10), (12, 10), (13, 10), (14, 10), (16, 10), (20, 8), (26, 12),
+                (29, 7), (30, 7), (31, 7)]
+
+
+def _sweep_ranges(pw, rng):
+    """Unaligned ranges across each quadrant seam and the period end, one
+    across a run boundary, one random, one aligned and a run long."""
+    n = 1 << pw
+    out = [((s - 301) % n, 603) for s in (0, n // 4, n // 2, 3 * n // 4)]
+    out.append((n - 1000, 2013))
+    out.append((int(rng.integers(0, n)), 3001))
+    out.append((int(rng.integers(0, max(n >> 12, 1))) << 12, 4096 + 5))
+    return out
+
+
+@pytest.mark.parametrize("w", range(8, 33))
+def test_taylor_kernels_sweep_every_width(cuda, w):
+    # all three Taylor entries at every regime, 0 LSB against the CPU plain
+    # versions (the checksum exact) on seam, run-boundary and random ranges
+    wrap32 = lambda v: ((v + (1 << 31)) % (1 << 32)) - (1 << 31)  # noqa: E731
+    for pw, ls in TAYLOR_SWEEP:
+        rng = np.random.default_rng(pw * 100 + w)
+        for n0, count in _sweep_ranges(pw, rng):
+            n = torch.arange(n0, n0 + count)
+            c, s = tk.sincos_block(n0, count, pw, w, ls, cuda)
+            pc, ps = tk.taylor_sincos_plain(n, pw, w, ls)
+            assert torch.equal(c.cpu(), pc) and torch.equal(s.cpu(), ps), (pw, ls, n0)
+            got = tk.checksum_range(n0, count, pw, w, ls, -77, cuda)
+            want = wrap32(int(pc.long().sum() + ps.long().sum()) - 77)
+            assert int(got) == want, (pw, ls, n0, count)
+        for name, overflow in (("blackman", "wrap"), ("hamming", "saturate")):
+            spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, overflow=overflow)
+            if name == "blackman" and ls >= pw - 1:
+                continue  # harmonic 2 runs at PW-1: LS must stay below it
+            q = catalog.get(name).quantized(w)
+            for n0, count in _sweep_ranges(pw, rng)[:5]:
+                got = tk.window_block(q, spec, n0, count, cuda).cpu()
+                want = tk.taylor_window_plain(torch.arange(n0, n0 + count), q, spec)
+                assert torch.equal(got, want), (name, pw, ls, n0)
+
+
 def test_taylor_window_w32_saturate_clamps(cuda):
     q = (900_000_000, 900_000_000, 500_000_000)
     sat, wrp = (WindowSpec(12, 32, sin_type="taylor", lut_size=9, overflow=o)
@@ -409,8 +474,8 @@ def test_taylor_window_w32_saturate_clamps(cuda):
     (14, 16, 10, 8),
     (26, 32, 12, 64),
     (26, 16, 10, 64),
-    (24, 32, 14, 64),  # opt-in shared-memory ROM
-    (20, 24, 15, 64),  # read-only-cache ROM
+    (24, 32, 14, 64),  # a 2^14-entry ROM
+    (20, 24, 15, 64),  # a 2^15-entry ROM
     (31, 32, 12, 64),
 ])
 def test_taylor_checksum_kernel_matches_plain(cuda, pw, w, ls, rows):
@@ -434,6 +499,31 @@ def test_taylor_checksum_kernel_matches_plain(cuda, pw, w, ls, rows):
         plain = tk.taylor_checksum_plain(pw, w, ls, start, 7, device=cuda, count=count)
         idx = torch.arange(start, start + count, device=cuda) % (1 << pw)
         assert int(got) == int(plain) == wrap32(int(cs[idx].sum()) + 7), (start, count)
+
+
+def test_taylor_write_out_entries_refuse_unaligned_outputs(cuda):
+    # the write-outs store int4s: an output pointer off a 16-byte boundary is
+    # refused (cudaErrorInvalidValue), an aligned one accepted
+    pw, w, ls = 14, 16, 10
+    rom, stream = tk._rom_on(ls, w, cuda), _build.stream_of(cuda)
+    buf = torch.zeros(2, 4096 + 4, dtype=torch.int32, device=cuda)
+    coeffs = np.asarray((1 << 14, 1 << 14), np.int64)
+    lib = _build.lib()
+
+    def sincos(c, s):
+        return lib.bhw_taylor_sincos_block(c, s, 0, 4096, rom.data_ptr(), pw, w, ls,
+                                           tk._ramb(pw, ls), stream)
+
+    def window(out):
+        return lib.bhw_taylor_window_block(out, 0, 4096, rom.data_ptr(), pw, w, ls,
+                                           coeffs.ctypes.data, 2, tk._ramb(pw, ls), 0, 0, stream)
+
+    a, b = buf[0].data_ptr(), buf[1].data_ptr()
+    assert sincos(a, b) == 0 and window(a) == 0
+    torch.cuda.synchronize()
+    for off in (4, 8, 12):
+        assert sincos(a + off, b) == 1 and sincos(a, b + off) == 1 and window(a + off) == 1
+    assert int(buf[:, 4096:].abs().sum()) == 0
 
 
 def test_taylor_torch_op_routes_launch_no_kernel(cuda):
@@ -579,9 +669,16 @@ def test_ddc_on_the_card_matches_cpu_plain(cuda, flavor):
     x = np.random.default_rng(4).normal(size=t).astype(np.float32)
     h = pfir.design_lowpass(64, 0.2)
     _build.reset_launches()
-    got = pddc.ddc(torch.from_numpy(x).to(cuda), 1 / 8, 4, taps=h, flavor=flavor)
+    # cuDNN's TF32 default on: the FIR turns it off while it runs and
+    # restores it after, and the bound below fails with TF32
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = pddc.ddc(torch.from_numpy(x).to(cuda), 1 / 8, 4, taps=h, flavor=flavor)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     assert _build.launches["materialize"] == 1
-    assert not torch.backends.cudnn.allow_tf32
     want = pddc.ddc(x, 1 / 8, 4, taps=h, flavor=flavor, device="cpu")
     # same mixer ints (0 LSB), two f32 64-tap FIRs: <= 2 gamma(64) sum|h| max|m|
     u = 2.0**-24

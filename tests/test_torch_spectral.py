@@ -66,6 +66,136 @@ class TestTables:
             sp._mxu_radices(384)
 
 
+def _radix2(re, im, wr, wi):
+    """The kernel's in-register radix-2 DFT (``dft<N>``) on the rows of
+    (N, cols) float32 arrays: bit reversal, then log2 N butterfly stages with
+    the roots W_len^k = W128^(k*128/len); W^0 is not multiplied."""
+    n = re.shape[0]
+    bits = n.bit_length() - 1
+    rev = [int(format(i, f"0{bits}b")[::-1], 2) for i in range(n)]
+    re, im = re[rev].copy(), im[rev].copy()
+    length = 2
+    while length <= n:
+        for s0 in range(0, n, length):
+            for k in range(length // 2):
+                a, b = s0 + k, s0 + k + length // 2
+                vr, vi = re[b], im[b]
+                if k:
+                    c, sn = wr[k * 128 // length], wi[k * 128 // length]
+                    vr, vi = re[b] * c - im[b] * sn, re[b] * sn + im[b] * c
+                re[b], im[b], re[a], im[a] = re[a] - vr, im[a] - vi, re[a] + vr, im[a] + vi
+        length *= 2
+    return re, im
+
+
+def _fft128_emulated(zr, zi):
+    """The kernel's FFT-128 in float32: n0 = n1 + 16 n2, an 8-point DFT over
+    n2 for each n1, the twiddle W128^(n1 k2), a 16-point DFT over n1 for
+    each k2; output row k0 = k2 + 8 k1."""
+    wr, wi = wk._fft128_roots()
+    ar = np.empty((16, 8) + zr.shape[1:], np.float32)
+    ai = np.empty_like(ar)
+    for n1 in range(16):
+        r, i = _radix2(zr[n1::16], zi[n1::16], wr, wi)
+        for k2 in range(8):
+            m = n1 * k2
+            sg = np.float32(-1.0 if m >= 64 else 1.0)
+            c, sn = sg * wr[m & 63], sg * wi[m & 63]
+            ar[n1, k2], ai[n1, k2] = r[k2] * c - i[k2] * sn, r[k2] * sn + i[k2] * c
+    yr, yi = np.empty_like(zr), np.empty_like(zi)
+    for k2 in range(8):
+        yr[k2::8], yi[k2::8] = _radix2(ar[:, k2], ai[:, k2], wr, wi)
+    return yr, yi
+
+
+def _fft128_bound(nstages=8):
+    """Normwise f32 bound of a radix-2 FFT (Higham, Thm 24.2): per stage eta
+    < 7u with roots accurate to u; log2(128) = 7 butterfly stages plus the
+    inter-pass twiddle, counted as an eighth."""
+    u = 2.0**-24
+    return nstages * 7 * u / (1 - nstages * 7 * u)
+
+
+def _stage1_emulated(x, win, nfft):
+    """The kernel's stage 1 on numpy float32, with its own indexing: x as
+    half-blocks of hop samples (64 rows of rest; past the end, zeros), pair b
+    reading half-blocks 2b, 2b+1, 2b+2, the odd pad frame masked, the
+    FFT-128 above, then the stage-1 twiddle."""
+    hop, rest = nfft // 2, nfft // 128
+    nf = (x.size - nfft) // hop + 1
+    npair = (nf + 1) // 2
+    nhalf = x.size // hop
+    half = lambda h: (x[h * hop:(h + 1) * hop].reshape(64, rest) if h < nhalf
+                      else np.zeros((64, rest), np.float32))  # noqa: E731
+    w = win.reshape(128, rest)
+    t1r, t1i = wk._tables(nfft, 128)[1]
+    out_r = np.empty((npair, 128, rest), np.float32)
+    out_i = np.empty_like(out_r)
+    for b in range(npair):
+        s0, s1, s2 = half(2 * b), half(2 * b + 1), half(2 * b + 2)
+        zr = np.concatenate([s0, s1]) * w
+        zi = np.concatenate([s1, s2]) * w
+        if nf % 2 and b == npair - 1:
+            zi[:] = 0
+        yr, yi = _fft128_emulated(zr, zi)
+        out_r[b], out_i[b] = yr * t1r - yi * t1i, yr * t1i + yi * t1r
+    return out_r, out_i, nf
+
+
+class TestFFT128:
+    """The stage-1 kernel's FFT-128: its host root table and its digit order,
+    emulated in float32, against np.fft.fft and the direct DFT matrix."""
+
+    def test_roots_are_the_dft_matrix_row(self):
+        wr, wi = wk._fft128_roots()
+        (m0r, m0i), _ = wk._tables(1 << 13, 128)
+        np.testing.assert_array_equal(wr, m0r[1, :64])
+        np.testing.assert_array_equal(wi, m0i[1, :64])
+        exact = np.exp(-2j * np.pi * np.arange(64) / 128)
+        assert np.abs(wr - exact.real).max() <= 2.0**-25
+        assert np.abs(wi - exact.imag).max() <= 2.0**-25
+
+    @pytest.mark.parametrize("k", [0, 1, 5, 8, 17, 63, 64, 100, 127])
+    def test_digit_order_is_natural(self, k):
+        # a tone at bin k lands at output row k
+        n = np.arange(128)
+        z = np.exp(2j * np.pi * k * n / 128)[:, None] * np.ones((1, 4))
+        yr, yi = _fft128_emulated(z.real.astype(np.float32), z.imag.astype(np.float32))
+        mag = np.hypot(yr[:, 0], yi[:, 0])
+        assert int(np.argmax(mag)) == k and abs(mag[k] - 128) < 1e-3
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_vs_numpy_and_the_direct_matrix(self, seed):
+        rng = np.random.default_rng(seed)
+        zr = rng.normal(size=(128, 64)).astype(np.float32)
+        zi = rng.normal(size=(128, 64)).astype(np.float32)
+        yr, yi = _fft128_emulated(zr, zi)
+        got = yr.astype(np.float64) + 1j * yi
+        z = zr.astype(np.float64) + 1j * zi
+        exact = np.fft.fft(z, axis=0)
+        norm_y = np.linalg.norm(exact, axis=0)
+        err = np.linalg.norm(got - exact, axis=0)
+        assert (err <= _fft128_bound() * norm_y).all(), (err / norm_y).max()
+        (m0r, m0i), _ = wk._tables(1 << 13, 128)
+        direct = (m0r.astype(np.float64) + 1j * m0i) @ z
+        # the matrix's f32 entries are within 2^-25 of exact in each part
+        slack = np.sqrt(2 * 128 * 128) * 2.0**-25 * np.linalg.norm(z, axis=0)
+        err_m = np.linalg.norm(got - direct, axis=0)
+        assert (err_m <= _fft128_bound() * norm_y + slack).all()
+
+    @pytest.mark.parametrize("nfft,nframes", [(1 << 13, 4), (1 << 13, 5), (1 << 14, 3)])
+    def test_stage1_layout_matches_plain(self, nfft, nframes):
+        hop = nfft // 2
+        x = _signal(hop * nframes + hop, nfft + nframes)
+        win = np.hanning(nfft).astype(np.float32)
+        er, ei, nf = _stage1_emulated(x, win, nfft)
+        pr, pi_, pnf = wk.welch_stage1_plain(torch.from_numpy(x), torch.from_numpy(win), nfft)
+        assert nf == pnf == nframes
+        scale = max(np.abs(pr.numpy()).max(), np.abs(pi_.numpy()).max())
+        err = max(np.abs(er - pr.numpy()).max(), np.abs(ei - pi_.numpy()).max())
+        assert err / scale < 1e-5, err / scale
+
+
 class TestFrames:
     @pytest.mark.parametrize("nfft,hop", [(64, 32), (64, 16), (64, 24)])
     def test_frames_view(self, nfft, hop):
@@ -163,12 +293,73 @@ class TestAnalyzer:
             ref = np.fft.fft(z.astype(np.complex128), axis=-1)
             assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 2e-6
 
-    def test_tf32_is_turned_off(self):
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
-        sp.welch_power(torch.zeros(1024), torch.ones(256), 256, 128, "mxu")
-        assert not torch.backends.cuda.matmul.allow_tf32
-        assert not torch.backends.cudnn.allow_tf32
+    @pytest.mark.parametrize("call", ["welch_power", "frame_mean_power", "mxu_cfft",
+                                      "fused_mean_power", "decimating_fir"])
+    def test_tf32_is_turned_off(self, monkeypatch, call):
+        # TF32 is off inside each call (the JAX package pins
+        # Precision.HIGHEST per operation), both flags are as the caller set
+        # them after it, and the results stay within their f32 budgets
+        seen = []
+
+        def spy(fn):
+            def wrapped(*a, **k):
+                seen.append((torch.backends.cuda.matmul.allow_tf32,
+                             torch.backends.cudnn.allow_tf32))
+                return fn(*a, **k)
+            return wrapped
+
+        for mod, name in ((torch, "tensordot"), (torch, "matmul"), (torch.fft, "rfft"),
+                          (torch.fft, "fft"), (torch.nn.functional, "conv1d")):
+            monkeypatch.setattr(mod, name, spy(getattr(mod, name)))
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+        nfft, hop = 1 << 13, 1 << 12
+        x = _signal(hop * 5, 31)
+        win = np.hanning(nfft).astype(np.float32)
+        ref = _f64_welch(x, win, nfft, hop)
+        if call == "welch_power":
+            got = sp.welch_power(torch.from_numpy(x), torch.from_numpy(win), nfft, hop, "mxu")
+            err, tol = _max_rel(got.numpy(), ref), _budget(nfft)
+        elif call == "frame_mean_power":
+            fr = sp.frames_view(torch.from_numpy(x), nfft, hop) * torch.from_numpy(win)
+            err, tol = _max_rel(sp.frame_mean_power(fr, "rfft").numpy(), ref), _budget(nfft)
+        elif call == "mxu_cfft":
+            z = x[:nfft] + 1j * x[nfft:2 * nfft]
+            gr, gi = sp.mxu_cfft(torch.from_numpy(x[:nfft]), torch.from_numpy(x[nfft:2 * nfft]))
+            want = np.fft.fft(z.astype(np.complex128))
+            err = np.abs(gr.numpy() + 1j * gi.numpy() - want).max() / np.abs(want).max()
+            tol = 2e-6
+        elif call == "fused_mean_power":
+            got = sp._mxu_fused_mean_power(torch.from_numpy(x), torch.from_numpy(win), nfft)
+            err, tol = _max_rel(got.numpy(), ref, per_bin=False), 1e-5
+        else:
+            from blackman_harris_win_tpu_torch.pipeline import fir
+
+            h = np.hanning(7) / np.hanning(7).sum()  # 7 taps, decim 2: the conv1d branch
+            got = fir.decimating_fir(torch.from_numpy(x), h, 2).numpy()
+            want = np.convolve(x.astype(np.float64), h[::-1], "valid")[::2]
+            u = 2.0**-24
+            err, tol = np.abs(got - want).max(), 9 * u / (1 - 9 * u) * np.abs(x).max()
+        assert seen and all(f == (False, False) for f in seen), seen
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        assert err < tol, (err, tol)
+
+    def test_numpy_input_matches_jax(self):
+        # array-like x goes to ``device`` (here the CPU), as the JAX package
+        # takes array-likes
+        spec = WindowSpec(10, 17, overflow="saturate")
+        nfft, hop = spec.n, spec.n // 2
+        x = _signal(hop * 7, 41)
+        win = np.hanning(nfft)
+        got = sp.welch_power(x, win, nfft, hop, "mxu", device="cpu")
+        assert got.dtype == torch.float32 and got.shape == (nfft // 2 + 1,)
+        want = np.asarray(jsp.welch_power(x, win, nfft, hop, "mxu"))
+        assert _max_rel(got.numpy(), want) < _budget(nfft)
+        got = sp.windowed_power_spectrum(x, "bh4", spec, fft_mode="packed", device="cpu")
+        want = np.asarray(jsp.windowed_power_spectrum(x, "bh4", jconfig.WindowSpec(**vars(spec)),
+                                                      fft_mode="packed"))
+        assert got.shape == want.shape == (nfft // 2 + 1,)
+        assert _max_rel(got.numpy(), want) < _budget(nfft)
 
     def test_modes_not_ported_or_unknown(self):
         # every win_mode of the JAX package is ported now; unknown modes raise

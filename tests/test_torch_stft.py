@@ -137,6 +137,31 @@ class TestRoundTrip:
                                       synthesis_win=jnp.ones(nfft)))
         np.testing.assert_allclose(y, want, rtol=0, atol=1e-12)
 
+    def test_f32_input_keeps_f32_with_a_float64_window(self):
+        # the window takes x's dtype (and s's real dtype), as the JAX
+        # package's output does with x64 off
+        nfft, hop = 1024, 512
+        x = np.random.default_rng(8).normal(size=nfft + 6 * hop).astype(np.float32)
+        s = stft.stft(x, np.hanning(nfft), nfft, hop, device="cpu")
+        assert s.dtype == torch.complex64
+        y = stft.istft(s, np.hanning(nfft), hop)
+        assert y.dtype == torch.float32
+        want = np.asarray(jstft.stft(x, np.hanning(nfft), nfft, hop))
+        assert np.abs(s.numpy() - want).max() / np.abs(want).max() < _budget(nfft)
+        inner = slice(nfft - hop, -(nfft - hop))
+        assert np.abs(y.numpy() - x)[inner].max() < 2e-5
+
+    def test_istft_takes_numpy_input(self):
+        nfft, hop = 256, 64
+        win = _win("bh4", nfft)
+        x = np.random.default_rng(9).normal(size=nfft + 9 * hop).astype(np.float32)
+        s = np.array(jstft.stft(x, win, nfft, hop))
+        got = stft.istft(s, win, hop, device="cpu")
+        assert got.device.type == "cpu" and got.shape == x.shape
+        want = np.asarray(jstft.istft(jnp.asarray(s), win, hop))
+        inner = slice(nfft - hop, -(nfft - hop))
+        np.testing.assert_allclose(got.numpy()[inner], want[inner], rtol=0, atol=2e-5)
+
     def test_batched_channels(self):
         nfft, hop = 16, 8
         win = catalog.float_window_value("hann", np.arange(nfft), nfft)

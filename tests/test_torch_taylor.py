@@ -344,3 +344,245 @@ class TestCpuWrappers:
         assert {"taylor_sincos_block", "taylor_window_block",
                 "taylor_checksum"} <= set(_build.launches)
         assert _build.launches == dict.fromkeys(_build.launches, 0)
+
+
+# --- the Taylor kernel's run walk (csrc/taylor_kernel.cu), emulated in numpy ---
+
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _kg(vec):
+    """Samples per lane per tile (csrc/taylor_kernel.cu kG): 8 in the
+    write-outs, 16 in the checksum."""
+    return 8 if vec else 16
+
+
+def _lane_steps(vec):
+    """Offsets of a lane's samples from its first: the write-out layout (4
+    consecutive, then the next 4 a warp's 128 samples on) or kG in a row."""
+    return np.array([128 * (k // 4) + k % 4 if vec else k for k in range(_kg(vec))], np.int64)
+
+
+def _lane_firsts(vec):
+    return np.arange(32, dtype=np.int64) * (4 if vec else _kg(vec))
+
+
+def _gen_consts(pw, w, ls):
+    d = pw - ls
+    ramb = pt.ramb_pi(d - 3) if d > 2 else 0
+    reg = "lut" if d <= 2 or ramb == 0 else ("narrow" if w < 19 else "wide")
+    xs = 19 + ls
+    sc, rs = max(32 - xs, 0), max(xs - 32, 0)
+    return dict(reg=reg, pmask=(1 << pw) - 1, qmask=(1 << (pw - 2)) - 1, qshift=pw - 2,
+                shr=max(d - 2, 0), shl=max(2 - d, 0),
+                rmask=0 if reg == "lut" else (1 << (d - 2)) - 1, ramb=ramb, xs=xs,
+                ws=32 - w, top=(1 << (w - 1)) - 1, rom=pt._rom(ls, w).astype(np.int64),
+                sc=sc, rs=rs, rambs=ramb << sc, off=(1 << (32 + rs)) - 1,
+                walk=reg != "lut" and ls >= 1)
+
+
+def _u64(x):
+    return np.asarray(x, np.int64).view(np.uint64)
+
+
+def _wrapw(v, ws):
+    """The kernel's wrapw on a uint32 word held in uint64: (int)(v << ws) >> ws."""
+    return (((v << np.uint64(ws)) & M32).astype(np.uint32).view(np.int32) >> ws).astype(np.int64)
+
+
+def _form(reg, sin, q, ex, ey):
+    ms_form = ((q & 1) != 0) != sin
+    sgn = np.where((q >= 2) if sin else ((q == 1) | (q == 2)), -1, 1)
+    base = np.where(ms_form, ey, ex)
+    if reg == "narrow":
+        return base, np.where(ms_form, ex, -ey), np.ones_like(q), sgn
+    return base, np.where(ms_form, ex, ey), np.where(ms_form, 1, -1), sgn
+
+
+def _finish(reg, f, p, g):
+    """One output from its form and its int64 product, in uint32 words."""
+    base, _, tsgn, sgn = f
+    if reg == "lut":
+        return sgn * base
+    t = _u64(p >> g["xs"]) & M32
+    v = (_u64(base) + _u64(tsgn) * t) & M32
+    if reg == "narrow":
+        return _wrapw((_u64(sgn) * v) & M32, g["ws"])
+    m = _wrapw(v, g["ws"])
+    return sgn * np.where(m < 0, g["top"], m)
+
+
+def _walk_form(reg, sin, q, ex, ey, g):
+    """The run's form of one output: base, mult, steering sign, offset."""
+    ms = ((q & 1) != 0) != sin
+    sgn = np.where((q >= 2) if sin else ((q == 1) | (q == 2)), -1, 1)
+    base, mult = np.where(ms, ey, ex), np.where(ms, ex, ey)
+    off = np.where(ms, 0, g["off"] if reg == "narrow" else 0)
+    return ms, sgn, base, mult, off
+
+
+def _walk_out(reg, form, p, g):
+    """One output along a run in the kernel's unsigned form (``walk_out``)
+    from its product P = mult * mpi * 2^sc (+ off for the W < 19 cos-like
+    form): floor(./2^xs) = hi32(P) >> rs, the W >= 19 clamp as min(v * 2^ws,
+    2^31 - 1) >> ws."""
+    ms, sgn, base, _, _ = form
+    t = (p >> np.uint64(32)) >> np.uint64(g["rs"])
+    v = (_u64(base) + np.where(ms, t, (M32 - t + np.uint64(1)) & M32)) & M32
+    if reg == "narrow":
+        return _wrapw((v * _u64(sgn)) & M32, g["ws"])
+    u = np.minimum((v << np.uint64(g["ws"])) & M32, np.uint64(0x7FFFFFFF))
+    return sgn * (u >> np.uint64(g["ws"])).astype(np.int64)
+
+
+def _sample(g, n, sin=True):
+    """Each sample on its own (the kernel's ``sample``)."""
+    reg = g["reg"]
+    cnt = n & g["pmask"]
+    q, ph = cnt >> g["qshift"], cnt & g["qmask"]
+    e = g["rom"][(ph >> g["shr"]) << g["shl"]]
+    mpi = np.zeros_like(ph) if reg == "lut" else g["ramb"] * (ph & g["rmask"])
+    fc, fs = _form(reg, False, q, e[..., 0], e[..., 1]), _form(reg, True, q, e[..., 0], e[..., 1])
+    return _finish(reg, fc, fc[1] * mpi, g), _finish(reg, fs, fs[1] * mpi, g)
+
+
+def _gen_values(g, n_a, left, steps, stats):
+    """A generator's (c, s) at each lane's samples n_a + steps: the run walk
+    where a lane's samples lie in one run, each on its own otherwise."""
+    span = int(steps[-1])
+    c, s = _sample(g, n_a[:, None] + steps[None, :])
+    if g["reg"] == "lut":
+        return c, s
+    cnt = n_a & g["pmask"]
+    ph = cnt & g["qmask"]
+    acnt = ph & g["rmask"]
+    fast = g["walk"] & (left > span) & (acnt + span <= g["rmask"])
+    stats["fast"] += int(fast.sum())
+    stats["lanes"] += fast.size
+    q = (cnt >> g["qshift"])[fast]
+    e = g["rom"][(ph >> g["shr"])[fast]]
+    mpi0s = (g["ramb"] * acnt[fast]) << g["sc"]
+    assert (mpi0s + int(span) * g["rambs"] < 1 << 32).all()  # the kernel's u32 word
+    for col, sin in ((c, False), (s, True)):
+        form = _walk_form(g["reg"], sin, q, e[:, 0], e[:, 1], g)
+        mult, off = form[3], form[4]
+        # the product at each sample, as the kernel forms it: one multiply-
+        # add from the run's mpi * 2^sc, advanced by the exact step J *
+        # ramb_pi * 2^sc; < 2^64, no wrap
+        for k in range(len(steps)):
+            p = _u64(mult) * _u64(mpi0s + int(steps[k]) * g["rambs"]) + _u64(off)
+            col[fast, k] = _walk_out(g["reg"], form, p, g)
+    return c, s
+
+
+def _lanes(n0, count, vec):
+    steps = _lane_steps(vec)
+    tile = 32 * _kg(vec)
+    ntiles = -(-count // tile)
+    i0 = (np.arange(ntiles, dtype=np.int64)[:, None] * tile + _lane_firsts(vec)[None, :]).ravel()
+    i0 = i0[i0 < count]
+    left = count - i0
+    return i0, n0 + i0, left, steps, steps[None, :] < left[:, None]
+
+
+def emulate_sincos(n0, count, pw, w, ls, stats):
+    i0, n_a, left, steps, valid = _lanes(n0, count, True)
+    c, s = _gen_values(_gen_consts(pw, w, ls), n_a, left, steps, stats)
+    idx = (i0[:, None] + steps[None, :])[valid]
+    out_c, out_s = np.zeros(count, np.int64), np.zeros(count, np.int64)
+    out_c[idx], out_s[idx] = c[valid], s[valid]
+    return out_c, out_s
+
+
+def emulate_checksum(n0, count, pw, w, ls, bias, stats):
+    # the walk starts lead = n0 mod kG samples early (groups aligned in n)
+    # and leaves those out of the sum
+    lead = n0 % _kg(False)
+    i0, n_a, left, steps, valid = _lanes(n0 - lead, count + lead, False)
+    c, s = _gen_values(_gen_consts(pw, w, ls), n_a, left, steps, stats)
+    valid &= (i0[:, None] + steps[None, :]) >= lead
+    total = int((_u64(c[valid]) + _u64(s[valid])).sum(dtype=np.uint64) & M32) + bias
+    return ((total + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def emulate_window(n0, count, coeffs, pw, w, ls, saturate, stats):
+    i0, n_a, left, steps, valid = _lanes(n0, count, True)
+    c1, _ = _gen_values(_gen_consts(pw, w, ls), n_a, left, steps, stats)
+    # m_k: the funnel shift of the int64 product's two words by W-1
+    m1 = ((_u64(coeffs[1] * c1) >> np.uint64(w - 1)) & M32).astype(np.uint32).view(np.int32)
+    m2 = np.zeros_like(m1)
+    if len(coeffs) == 3:  # harmonic 2: the generator one phase bit narrower
+        c2, _ = _gen_values(_gen_consts(pw - 1, w, ls), n_a, left, steps, stats)
+        m2 = ((_u64(coeffs[2] * c2) >> np.uint64(w - 1)) & M32).astype(np.uint32).view(np.int32)
+    if saturate:
+        acc = coeffs[0] - m1.astype(np.int64) + m2
+        v = np.clip(acc, -(1 << (w - 1)), (1 << (w - 1)) - 1)
+    else:  # the sum mod 2^32, wrapped to W bits
+        v = _wrapw((_u64(coeffs[0]) - _u64(m1) + _u64(m2)) & M32, 32 - w)
+    out = np.zeros(count, np.int64)
+    out[(i0[:, None] + steps[None, :])[valid]] = v[valid]
+    return out
+
+
+RUN_WALK_CONFIGS = [  # (pw, ls): PW-LS 1..24, every regime
+    (11, 10), (12, 10),  # over-wide and exact LUT
+    (13, 10), (14, 10),  # tay1, PW-LS 3 and 4 (R = 2, 4: below a lane's span)
+    (16, 10), (20, 8), (26, 12),  # R = 16, 4096, 4096
+    (29, 7), (30, 7), (31, 7),  # PW-LS 22 (ramb_pi 1), 23 and 24 (ramb_pi 0: LUT)
+]
+
+
+def _ranges(pw, rng):
+    """Unaligned ranges across the quadrant seams (0, N/4, N/2, 3N/4, and the
+    period end), across run boundaries and at random."""
+    n = 1 << pw
+    out = [((s - 301) % n, 603) for s in (0, n // 4, n // 2, 3 * n // 4)]
+    out.append((n - 1000, 2013))  # wraps mod 2^pw
+    out.append((int(rng.integers(0, n)), 3001))
+    out.append((int(rng.integers(0, max(n >> 12, 1))) << 12, 4096 + 5))  # aligned start
+    return out
+
+
+class TestRunWalkEmulation:
+    """The kernel's arithmetic, emulated: run walk, incremental products,
+    32-bit words, lane layouts and tails, 0 LSB against the plain version
+    and JAX (the card sweep, ``test_torch_gpu.py -k sweep``, holds the kernel
+    itself to the same)."""
+
+    @pytest.mark.parametrize("w", range(8, 33))
+    def test_sincos_and_checksum(self, w):
+        stats = {"fast": 0, "lanes": 0}
+        for pw, ls in RUN_WALK_CONFIGS:
+            rng = np.random.default_rng(pw * 100 + w)
+            for n0, count in _ranges(pw, rng):
+                n = n0 + np.arange(count, dtype=np.int64)
+                c, s = emulate_sincos(n0, count, pw, w, ls, stats)
+                pc, ps = tk.taylor_sincos_plain(torch.from_numpy(n), pw, w, ls)
+                np.testing.assert_array_equal(c, pc.numpy(), err_msg=f"c {pw} {ls} {n0}")
+                np.testing.assert_array_equal(s, ps.numpy(), err_msg=f"s {pw} {ls} {n0}")
+                jc, js = jt.taylor_sincos(n, pw, w, ls)
+                np.testing.assert_array_equal(c, _np(jc))
+                np.testing.assert_array_equal(s, _np(js))
+                got = emulate_checksum(n0, count, pw, w, ls, -77, stats)
+                want = tk.checksum_range(n0, count, pw, w, ls, -77, device="cpu")
+                assert got == int(want), (pw, ls, n0, count)
+        assert 0 < stats["fast"] < stats["lanes"]  # both paths were taken
+
+    @pytest.mark.parametrize("w", range(8, 33))
+    def test_window(self, w):
+        stats = {"fast": 0, "lanes": 0}
+        cases = [("blackman", 26, 12, "wrap"), ("hamming", 26, 10, "saturate"),
+                 ("blackman", 14, 10, "saturate"), ("blackman", 13, 10, "wrap"),
+                 ("blackman", 12, 9, "wrap"), ("blackman", 30, 7, "saturate"),
+                 ("hann", 29, 7, "wrap")]
+        for name, pw, ls, overflow in cases:
+            spec = WindowSpec(pw, w, sin_type="taylor", lut_size=ls, overflow=overflow)
+            q = catalog.get(name).quantized(w)
+            rng = np.random.default_rng(pw * 10 + w)
+            for n0, count in _ranges(pw, rng):
+                got = emulate_window(n0, count, q, pw, w, ls, overflow == "saturate", stats)
+                n = n0 + np.arange(count, dtype=np.int64)
+                want = tk.taylor_window_plain(torch.from_numpy(n), q, spec)
+                np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{name} {pw} {n0}")
+                np.testing.assert_array_equal(got, _np(jkw.window_samples(n, q, _jspec(spec))))
+        assert 0 < stats["fast"] < stats["lanes"]
