@@ -54,7 +54,8 @@ _SIGNATURES = {
     # x, t, win, roots_r, roots_i, t1r, t1i, out_r, out_i, nfft, npair,
     # mask_last, stream
     "bhw_welch_stage1": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # mode, out0, out1, (table arguments), stream
+    # mode, out0, out1, (table arguments), stream (float modes: out0 and out1
+    # 16-byte aligned, else cudaErrorInvalidValue)
     "bhw_outer_block": (_I, _P, _P, *_OUTER, _P),
     # mode, out, partials, npartials, bias, (table arguments), stream
     "bhw_outer_checksum": (_I, _P, _P, _L, _I, *_OUTER, _P),
@@ -72,9 +73,9 @@ _SIGNATURES = {
 #: host-side queries of a kernel's launch geometry: name -> (args, result)
 _QUERIES = {
     "bhw_outer_max_harmonics": ((), _I),
-    # rows, nl
-    "bhw_outer_npartials": ((_L, _I), _L),
-    "bhw_outer_checksum_depth": ((_L, _I), _L),
+    # mode, rows, nl, nk, np (on the current device)
+    "bhw_outer_npartials": ((_I, _L, _I, _I, _I), _L),
+    "bhw_outer_checksum_depth": ((_I, _L, _I, _I, _I), _L),
 }
 
 _lib = None

@@ -2,33 +2,47 @@
 // compensated-pair fast modes.
 //
 // Replaces blackman_harris_win_tpu/kernels/pallas/outerwin_kernel.py:
-//   make_checksum_fn       (_reduce_kernel over tile_window)      -> kInt
-//   make_checksum_fn_f32   (_reduce_kernel_f32)                   -> kF32
-//   make_checksum_fn_comp  (_reduce_kernel_comp over comp_tile)   -> kComp
-// with one templated tile generator and two epilogues: the checksum (the
-// port of those three kernels: the window is summed, never stored) and the
-// write-out (the samples of kernels/outerwin.py window_block_outer,
-// floatwin.py float_window_block and compwin.py comp_window_block).
+//   make_checksum_fn       (_reduce_kernel over tile_window)      -> outer_kernel<kInt>
+//   make_checksum_fn_f32   (_reduce_kernel_f32)                   -> float_kernel<kF32>
+//   make_checksum_fn_comp  (_reduce_kernel_comp over comp_tile)   -> float_kernel<kComp>
+// each with two epilogues: the checksum (the port of those three kernels:
+// the window is summed, never stored) and the write-out (the samples of
+// kernels/outerwin.py window_block_outer, floatwin.py float_window_block and
+// compwin.py comp_window_block).
 //
 // Sample n = h * 2^m + lo.  The host builds, per configuration, an h-table
 // hi (nh, hc) and a lo-table lo (lr, nl), row-major, exactly as the JAX
 // package builds them:
 //   kInt, kF32: hi row = [ch_0..ch_{K-2} | sh_0..sh_{K-2}], lo = [cl ; sl];
-//   kComp:      hi row = [hic (4C) | hip (2P)], lo = [loc (6C) ; lop (2P)].
+//   kComp:      hi row = [hic (4C) | hip (2P)], lo = [loc (6C) ; lop (2P)];
+//               a compensated harmonic's four h values (ch_hi, ch_lo, sh_hi,
+//               sh_lo) are one aligned float4 of the row, a plain one's
+//               (ch, sh) one float2.
 //
-// Design: one thread per lo lane.  A thread loads its lane's lo values into
-// registers once (2(K-1) values, or 6C + 2P <= 42 for comp) and walks h
-// rows; the block stages kRows h rows (at most 28 values each) in shared
-// memory per step, since every lane of a row reads the same h values.  The
-// lo table is not staged: the comp table is 6C x 2048 x 4 B = 192 KB at
-// BH-7, m = 11.
-//
-// What bounds it on the H100: arithmetic issue.  Per sample and harmonic,
-// kInt costs two 64-bit products, a subtract, a round and a 32-bit add
-// (about 8-10 instructions; 64-bit multiplies are emulated), kF32 two FMAs
-// (12 per sample at BH-7), kComp 12 multiply/add.  Memory traffic is the
-// 4-8 output bytes per sample in the write-out and nothing in the
-// checksum.
+// The float kernels (float_kernel).  What bounds them on the H100: the
+// write-outs store 4 (f32) or 8 (comp) bytes per sample, 268 or 537 MB at
+// 2^26 samples, against 2 FFMA per harmonic (f32) or 28 FFMA per sample
+// (comp at BH-7); so the write-outs are bound by bytes and the checksums,
+// which store nothing, by FFMA issue.  The design keeps everything but the
+// FFMAs and the stores off the per-sample path:
+// - Harmonic counts are template parameters (f32: K-1 = 1..7; comp: the
+//   catalog's (C, P) = (1,0) (2,0) (3,0) (3,1) (4,2)); every loop is unrolled
+//   and every per-lane array index is a compile-time constant, so the lane
+//   values stay in registers.  Other comp counts, and lane counts that are
+//   not a multiple of 4, take one instantiation per mode with runtime counts
+//   (loops to kMaxH with guards, one lane a thread).
+// - Each thread owns V = 4 consecutive lo lanes (all in or all out of
+//   [0, nl), as nl % 4 == 0 there): their lo values are loaded
+//   into registers once per block (6C + 2P per lane for comp), and each h
+//   value read from shared memory serves V samples.
+// - A block walks a contiguous range of h rows, sized from the row count and
+//   what fits on the card at once (SMs x resident blocks), so the lane loads
+//   are amortized over hundreds of samples a thread.  The h rows pass
+//   through a double-buffered cp.async ring of kFRows rows, each row padded
+//   to a multiple of 4 floats, read back as 16-byte loads.
+// - The write-out stores V consecutive samples as one 16-byte store (s and
+//   e to their own outputs for comp); the outputs must be 16-byte aligned
+//   (the C entry refuses others; the wrapper's fresh tensors are).
 //
 // Arithmetic:
 // - kInt: v = ch*cl - sh*sl in int64 (|v| < 2^61), (v + 2^(s-1)) >> s with
@@ -38,17 +52,26 @@
 //   saturate clamp.  At W = 32 saturate does nothing, as in the JAX
 //   package.  The checksum is a uint32 sum: warp, block, then atomicAdd,
 //   bit-exact in any order.
-// - kF32: acc = fma(-sh, sl, fma(ch, cl, acc)) per harmonic, written as
-//   explicit fmaf so that every instantiation computes the same bits.
-// - kComp: comp_tile's expression in comp_tile's order with round-to-
-//   nearest intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never
-//   contracts: s is exact on the 2^-22 grid either way, and e then equals
-//   the plain PyTorch version's bits.  No TwoSum here: the raw (s, e) pair
-//   is the contract and its normalization stays on the host.
-// - kF32/kComp checksums: per-thread running sums, a fixed block tree into
-//   one partial per block, and a second one-block kernel that sums the
+// - kF32: acc = fma(-sh, sl, fma(ch, cl, acc)) per harmonic, explicit fmaf.
+// - kComp: FFMA chains.  s = fma(-sh_hi, sl_hi, fma(ch_hi, cl_hi, s)): every
+//   product is a multiple of 2^-22 below 1 and every partial sum stays below
+//   2 (sum |a_k| < 1.9), so each FFMA's exact result is an f32 and s equals
+//   the plain version's bits under any order.  e takes the four correction
+//   products of a compensated harmonic as four FFMAs (ch_hi*cl_lo,
+//   ch_lo*cl_f, -sh_hi*sl_lo, -sh_lo*sl_f) and a plain harmonic's two as
+//   two: 4C + 2P roundings, each of a partial sum of those products, so of
+//   a value below E (outerwin_kernel.py comp_e_bound).  The plain version
+//   (comp_tile, JAX's order) rounds 8C + 4P times, so the two differ by at
+//   most (12C + 6P) E u, inside comp_e_bound's 2 (8C + 4P) E u; e is not
+//   the plain version's bits.  No TwoSum here: the raw (s, e) pair is the
+//   contract and its normalization stays on the host.
+// - Float checksums: per thread, one accumulator per lane (and per s and e)
+//   over a chunk of kFRows rows, folded (lanes as a tree, then s + e) into
+//   a chunk partial that is added to the thread's running sum; a fixed block
+//   tree into one partial per block; a second one-block kernel sums the
 //   partials in a fixed order and adds the bias.  No float atomics, so
-//   repeated calls return the same bits.
+//   repeated calls on one card return the same bits; bhw_outer_checksum_depth
+//   gives the longest addition chain.
 //
 // No allocation here: the wrapper passes the outputs and the partials.
 
@@ -60,12 +83,14 @@ namespace {
 
 typedef long long i64;
 
-constexpr int kThreads = 256;      // lo lanes per block
-constexpr int kRows = 32;          // h rows staged per block step
+constexpr int kThreads = 256;      // kInt: lo lanes per block
+constexpr int kRows = 32;          // kInt: h rows staged per block step
 constexpr int kMaxH = 7;           // harmonics a_1..a_7 (8 terms)
-constexpr int kMaxHiCols = 4 * kMaxH;
+constexpr int kMaxHiCols = 2 * kMaxH;
 constexpr i64 kMaxRowBlocks = 65535;
 constexpr int kFinalThreads = 256;
+constexpr int kFThreads = 128;     // float kernels: threads per block
+constexpr int kFRows = 32;         // float kernels: h rows per ring slot
 
 enum Mode : int { kInt = 0, kF32 = 1, kComp = 2 };
 
@@ -80,51 +105,25 @@ struct OuterParams {
   float a0f, a0lo;             // kF32: a0; kComp: a0_hi, a0_lo
 };
 
-template <int M> struct Elem { typedef float T; };
-template <> struct Elem<kInt> { typedef int T; };
+// --- kInt: one thread per lo lane, kRows h rows staged per block step ---
 
 // One lane's lo-table values, in registers (indices are compile-time after
 // unrolling).
-template <int M> struct Lanes;
-template <> struct Lanes<kInt> { int c[kMaxH], s[kMaxH]; };
-template <> struct Lanes<kF32> { float c[kMaxH], s[kMaxH]; };
-template <> struct Lanes<kComp> {
-  float chi[kMaxH], clo[kMaxH], cf[kMaxH], shi[kMaxH], slo[kMaxH], sf[kMaxH];
-  float pc[kMaxH], ps[kMaxH];
-};
+struct IntLanes { int c[kMaxH], s[kMaxH]; };
 
-template <int M>
-__device__ __forceinline__ void load_lanes(const OuterParams& p, int lane, Lanes<M>& L) {
-  typedef typename Elem<M>::T T;
-  const T* lo = static_cast<const T*>(p.lo) + lane;
+__device__ __forceinline__ void load_lanes(const OuterParams& p, int lane, IntLanes& L) {
+  const int* lo = static_cast<const int*>(p.lo) + lane;
   const i64 nl = p.nl;
-  if constexpr (M == kComp) {
 #pragma unroll
-    for (int k = 0; k < kMaxH; ++k) {
-      const bool c = k < p.nk, q = k < p.np;
-      const float* r = lo + (i64)(6 * k) * nl;
-      L.chi[k] = c ? __ldg(r) : 0.f;
-      L.clo[k] = c ? __ldg(r + nl) : 0.f;
-      L.cf[k] = c ? __ldg(r + 2 * nl) : 0.f;
-      L.shi[k] = c ? __ldg(r + 3 * nl) : 0.f;
-      L.slo[k] = c ? __ldg(r + 4 * nl) : 0.f;
-      L.sf[k] = c ? __ldg(r + 5 * nl) : 0.f;
-      const float* rp = lo + (i64)(6 * p.nk + 2 * k) * nl;
-      L.pc[k] = q ? __ldg(rp) : 0.f;
-      L.ps[k] = q ? __ldg(rp + nl) : 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kMaxH; ++k) {
-      const bool c = k < p.nk;
-      L.c[k] = c ? __ldg(lo + (i64)k * nl) : T(0);
-      L.s[k] = c ? __ldg(lo + (i64)(p.nk + k) * nl) : T(0);
-    }
+  for (int k = 0; k < kMaxH; ++k) {
+    const bool c = k < p.nk;
+    L.c[k] = c ? __ldg(lo + (i64)k * nl) : 0;
+    L.s[k] = c ? __ldg(lo + (i64)(p.nk + k) * nl) : 0;
   }
 }
 
 __device__ __forceinline__ int sample_int(const OuterParams& p, const int* h,
-                                          const Lanes<kInt>& L) {
+                                          const IntLanes& L) {
   const i64 half = 1ll << (p.shift - 1);
   unsigned acc = (unsigned)p.a0;
 #pragma unroll
@@ -146,130 +145,305 @@ __device__ __forceinline__ int sample_int(const OuterParams& p, const int* h,
   return (int)acc;
 }
 
-__device__ __forceinline__ float sample_f32(const OuterParams& p, const float* h,
-                                            const Lanes<kF32>& L) {
-  float acc = p.a0f;
-#pragma unroll
-  for (int k = 0; k < kMaxH; ++k) {
-    if (k < p.nk) {
-      acc = fmaf(h[k], L.c[k], acc);
-      acc = fmaf(-h[p.nk + k], L.s[k], acc);
+// grid.x covers the lo lanes, grid.y strides over runs of kRows h rows.
+// kSum = false: write samples to out0.  kSum = true: add the uint32 sum onto
+// *(unsigned*)sum_out.
+template <bool kSum>
+__global__ void __launch_bounds__(kThreads)
+outer_kernel(const OuterParams p, int* __restrict__ out0, void* __restrict__ sum_out) {
+  __shared__ int hs[kRows * kMaxHiCols];
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = lane < p.nl;
+  IntLanes L;
+  load_lanes(p, active ? lane : 0, L);
+  const int* hi = static_cast<const int*>(p.hi);
+  const i64 nruns = (p.rows + kRows - 1) / kRows;
+  unsigned isum = 0;
+  for (i64 run = blockIdx.y; run < nruns; run += gridDim.y) {
+    const i64 r0 = run * kRows;
+    const int nr = (int)(p.rows - r0 < kRows ? p.rows - r0 : kRows);
+    __syncthreads();  // the previous run's readers are done with hs
+    const int* src = hi + (p.h0 + r0) * p.hc;
+    for (int i = threadIdx.x; i < nr * p.hc; i += kThreads) hs[i] = __ldg(src + i);
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      const int v = sample_int(p, hs + r * p.hc, L);
+      if constexpr (kSum) {
+        if (active) isum += (unsigned)v;
+      } else if (active) {
+        out0[(r0 + r) * p.nl + lane] = v;
+      }
     }
   }
-  return acc;
+  if constexpr (kSum) {
+    for (int o = 16; o > 0; o >>= 1) isum += __shfl_down_sync(0xffffffffu, isum, o);
+    __shared__ unsigned warp_sum[kThreads / 32];
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (wl == 0) warp_sum[warp] = isum;
+    __syncthreads();
+    if (warp == 0) {
+      isum = wl < kThreads / 32 ? warp_sum[wl] : 0u;
+      for (int o = 16; o > 0; o >>= 1) isum += __shfl_down_sync(0xffffffffu, isum, o);
+      if (wl == 0) atomicAdd(static_cast<unsigned*>(sum_out), isum);
+    }
+  }
 }
 
-__device__ __forceinline__ float2 sample_comp(const OuterParams& p, const float* h,
-                                              const Lanes<kComp>& L) {
-  float s = p.a0f, e = p.a0lo;
+dim3 grid_of(i64 rows, int nl) {
+  const i64 runs = (rows + kRows - 1) / kRows;
+  return dim3((unsigned)((nl + kThreads - 1) / kThreads),
+              (unsigned)(runs < kMaxRowBlocks ? runs : kMaxRowBlocks));
+}
+
+// --- kF32 / kComp: V lanes a thread, a row range a block ---
+
+// The counts of one float instantiation.  kF32: NC = K-1, NP = 0.  kComp:
+// NC = C, NP = P.  NC < 0 takes the counts at run time (loops to kMaxH with
+// guards) and one lane a thread: it serves the comp counts no catalog
+// window has, and any lane count that is not a multiple of 4.
+template <int M, int NC, int NP>
+struct Shape {
+  static constexpr bool kRt = NC < 0;
+  static constexpr int kC = kRt ? kMaxH : NC;
+  static constexpr int kP = M == kF32 ? 0 : (kRt ? kMaxH : NP);
+  static constexpr int kPa = kP > 0 ? kP : 1;  // array extent
+  static constexpr int kHc = kRt ? 4 * kMaxH : (M == kF32 ? 2 * NC : 4 * NC + 2 * NP);
+  static constexpr int kHcp = (kHc + 3) / 4 * 4;  // shared-memory row stride
+  static constexpr int kV = kRt ? 1 : 4;
+  static_assert(kC + kP <= 2 * kMaxH && kPa >= 1, "harmonic counts");
+};
+
+// One thread's lo values, V lanes each, in registers.
+template <int M, class S> struct FLanes;
+template <class S> struct FLanes<kF32, S> { float c[S::kC][S::kV], s[S::kC][S::kV]; };
+template <class S> struct FLanes<kComp, S> {
+  float chi[S::kC][S::kV], clo[S::kC][S::kV], cf[S::kC][S::kV];
+  float shi[S::kC][S::kV], slo[S::kC][S::kV], sf[S::kC][S::kV];
+  float pc[S::kPa][S::kV], ps[S::kPa][S::kV];
+};
+
+template <int M, class S>
+__device__ __forceinline__ void load_flanes(const OuterParams& p, i64 lane0, FLanes<M, S>& L) {
+  const float* lo = static_cast<const float*>(p.lo);
+  const i64 nl = p.nl;
+  const int nc = S::kRt ? p.nk : S::kC;
 #pragma unroll
-  for (int k = 0; k < kMaxH; ++k) {
-    if (k < p.nk) {
-      const float chh = h[4 * k], chl = h[4 * k + 1];
-      const float shh = h[4 * k + 2], shl = h[4 * k + 3];
-      // exact on the 2^-22 grid
-      s = __fadd_rn(s, __fsub_rn(__fmul_rn(chh, L.chi[k]), __fmul_rn(shh, L.shi[k])));
-      e = __fadd_rn(e, __fsub_rn(
-                           __fadd_rn(__fmul_rn(chh, L.clo[k]), __fmul_rn(chl, L.cf[k])),
-                           __fadd_rn(__fmul_rn(shh, L.slo[k]), __fmul_rn(shl, L.sf[k]))));
+  for (int v = 0; v < S::kV; ++v) {
+    const float* col = lo + (lane0 + v < nl ? lane0 + v : nl - 1);
+#pragma unroll
+    for (int k = 0; k < S::kC; ++k) {
+      const bool on = !S::kRt || k < p.nk;
+      if constexpr (M == kF32) {
+        L.c[k][v] = on ? __ldg(col + k * nl) : 0.f;
+        L.s[k][v] = on ? __ldg(col + (nc + k) * nl) : 0.f;
+      } else {
+        const float* r = col + 6 * k * nl;
+        L.chi[k][v] = on ? __ldg(r) : 0.f;
+        L.clo[k][v] = on ? __ldg(r + nl) : 0.f;
+        L.cf[k][v] = on ? __ldg(r + 2 * nl) : 0.f;
+        L.shi[k][v] = on ? __ldg(r + 3 * nl) : 0.f;
+        L.slo[k][v] = on ? __ldg(r + 4 * nl) : 0.f;
+        L.sf[k][v] = on ? __ldg(r + 5 * nl) : 0.f;
+      }
+    }
+    if constexpr (M == kComp) {
+#pragma unroll
+      for (int k = 0; k < S::kP; ++k) {
+        const bool on = !S::kRt || k < p.np;
+        const float* r = col + (6 * nc + 2 * k) * nl;
+        L.pc[k][v] = on ? __ldg(r) : 0.f;
+        L.ps[k][v] = on ? __ldg(r + nl) : 0.f;
+      }
     }
   }
+}
+
+// The samples of one h row (shared memory, 16-byte aligned) at the V lanes:
+// x[v] (kF32: the sample; kComp: s) and y[v] (kComp: e).
+template <int M, class S>
+__device__ __forceinline__ void row_samples(const OuterParams& p, const float* __restrict__ h,
+                                            const FLanes<M, S>& L, float (&x)[S::kV],
+                                            float (&y)[S::kV]) {
+  if constexpr (M == kF32 && S::kRt) {
+    x[0] = p.a0f;
 #pragma unroll
-  for (int k = 0; k < kMaxH; ++k) {
-    if (k < p.np) {
-      const float* hp = h + 4 * p.nk + 2 * k;
-      e = __fadd_rn(e, __fsub_rn(__fmul_rn(hp[0], L.pc[k]), __fmul_rn(hp[1], L.ps[k])));
+    for (int k = 0; k < S::kC; ++k) {
+      if (k >= p.nk) break;
+      x[0] = fmaf(h[k], L.c[k][0], x[0]);
+      x[0] = fmaf(-h[p.nk + k], L.s[k][0], x[0]);
+    }
+  } else if constexpr (M == kF32) {
+    float hv[S::kHcp];
+#pragma unroll
+    for (int j = 0; j < S::kHcp / 4; ++j) {
+      const float4 t = reinterpret_cast<const float4*>(h)[j];
+      hv[4 * j] = t.x;
+      hv[4 * j + 1] = t.y;
+      hv[4 * j + 2] = t.z;
+      hv[4 * j + 3] = t.w;
+    }
+#pragma unroll
+    for (int v = 0; v < S::kV; ++v) x[v] = p.a0f;
+#pragma unroll
+    for (int k = 0; k < S::kC; ++k) {
+#pragma unroll
+      for (int v = 0; v < S::kV; ++v) {
+        x[v] = fmaf(hv[k], L.c[k][v], x[v]);
+        x[v] = fmaf(-hv[S::kC + k], L.s[k][v], x[v]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < S::kV; ++v) {
+      x[v] = p.a0f;
+      y[v] = p.a0lo;
+    }
+#pragma unroll
+    for (int k = 0; k < S::kC; ++k) {
+      if (S::kRt && k >= p.nk) break;
+      const float4 t = reinterpret_cast<const float4*>(h)[k];  // ch_hi ch_lo sh_hi sh_lo
+#pragma unroll
+      for (int v = 0; v < S::kV; ++v) {
+        x[v] = fmaf(t.x, L.chi[k][v], x[v]);  // exact on the 2^-22 grid
+        x[v] = fmaf(-t.z, L.shi[k][v], x[v]);
+        float e = fmaf(t.x, L.clo[k][v], y[v]);
+        e = fmaf(t.y, L.cf[k][v], e);
+        e = fmaf(-t.z, L.slo[k][v], e);
+        y[v] = fmaf(-t.w, L.sf[k][v], e);
+      }
+    }
+    const float* hp = h + 4 * (S::kRt ? p.nk : S::kC);
+#pragma unroll
+    for (int k = 0; k < S::kP; ++k) {
+      if (S::kRt && k >= p.np) break;
+      const float2 t = reinterpret_cast<const float2*>(hp)[k];  // ch sh
+#pragma unroll
+      for (int v = 0; v < S::kV; ++v) {
+        y[v] = fmaf(t.x, L.pc[k][v], y[v]);
+        y[v] = fmaf(-t.y, L.ps[k][v], y[v]);
+      }
     }
   }
-  return make_float2(s, e);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+template <int kN>
+__device__ __forceinline__ float tree_sum(const float (&a)[kN]) {
+  if constexpr (kN == 1) {
+    return a[0];
+  } else if constexpr (kN == 2) {
+    return a[0] + a[1];
+  } else {
+    static_assert(kN == 4, "tree_sum takes 1, 2 or 4 values");
+    return (a[0] + a[1]) + (a[2] + a[3]);
+  }
 }
 
 // Deterministic block sum (fixed tree) of one float per thread.
+template <int T>
 __device__ __forceinline__ float block_sum(float v, float* red) {
   red[threadIdx.x] = v;
   __syncthreads();
 #pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
+  for (int s = T / 2; s > 0; s >>= 1) {
     if ((int)threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
   return red[0];
 }
 
-// grid.x covers the lo lanes, grid.y strides over runs of kRows h rows.
-// kSum = false: write samples to out0 (and e to out1 for kComp).
-// kSum = true: kInt adds the uint32 sum onto *(unsigned*)sum_out; kF32 and
-// kComp write one partial per block to ((float*)sum_out)[block].
-template <int M, bool kSum>
-__global__ void __launch_bounds__(kThreads)
-outer_kernel(const OuterParams p, typename Elem<M>::T* __restrict__ out0,
-             float* __restrict__ out1, void* __restrict__ sum_out) {
-  typedef typename Elem<M>::T T;
-  __shared__ T hs[kRows * kMaxHiCols];
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = lane < p.nl;
-  Lanes<M> L;
-  load_lanes<M>(p, active ? lane : 0, L);
-  const T* hi = static_cast<const T*>(p.hi);
-  const i64 nruns = (p.rows + kRows - 1) / kRows;
-  unsigned isum = 0;
-  float fsum = 0.f, esum = 0.f;
-  for (i64 run = blockIdx.y; run < nruns; run += gridDim.y) {
-    const i64 r0 = run * kRows;
-    const int nr = (int)(p.rows - r0 < kRows ? p.rows - r0 : kRows);
-    __syncthreads();  // the previous run's readers are done with hs
-    const T* src = hi + (p.h0 + r0) * p.hc;
-    for (int i = threadIdx.x; i < nr * p.hc; i += kThreads) hs[i] = __ldg(src + i);
+// grid.x covers the lo lanes (kFThreads * V a block), grid.y the h rows in
+// ranges of rpb rows.  kSum = false: write samples to out0 (and e to out1
+// for kComp), V at a time.  kSum = true: write one partial per block to
+// partials[block].
+template <int M, int NC, int NP, bool kSum>
+__global__ void __launch_bounds__(kFThreads)
+float_kernel(const OuterParams p, float* __restrict__ out0, float* __restrict__ out1,
+             float* __restrict__ partials, i64 rpb) {
+  typedef Shape<M, NC, NP> S;
+  constexpr int V = S::kV;
+  __shared__ __align__(16) float hs[2][kFRows * S::kHcp];
+  const i64 lane0 = ((i64)blockIdx.x * kFThreads + threadIdx.x) * V;
+  FLanes<M, S> L;
+  load_flanes<M, S>(p, lane0, L);
+  // V = 4 only where nl % 4 == 0: a thread's lanes are all in or all out
+  const bool valid = lane0 < p.nl;
+
+  const int hc = S::kRt ? p.hc : S::kHc;
+  const i64 r_begin = (i64)blockIdx.y * rpb;
+  const i64 nrows = p.rows - r_begin < rpb ? p.rows - r_begin : rpb;
+  const int nchunks = (int)((nrows + kFRows - 1) / kFRows);
+  const float* src = static_cast<const float*>(p.hi) + (p.h0 + r_begin) * hc;
+  auto rows_of = [&](int c) {
+    return (int)(nrows - (i64)c * kFRows < kFRows ? nrows - (i64)c * kFRows : kFRows);
+  };
+  auto stage = [&](int c) {  // rows of chunk c into slot c & 1, rows padded to kHcp
+    const int nr = rows_of(c);
+    const float* s = src + (i64)c * kFRows * hc;
+    float* d = hs[c & 1];
+    for (int i = threadIdx.x; i < nr * hc; i += kFThreads) {
+      const int r = i / hc;
+      cp_async4(d + r * S::kHcp + (i - r * hc), s + i);
+    }
+    cp_commit();
+  };
+
+  float run = 0.f;
+  stage(0);
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      stage(c + 1);  // its slot's readers passed the previous chunk's barrier
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
     __syncthreads();
-    for (int r = 0; r < nr; ++r) {
-      const T* h = hs + r * p.hc;
-      const i64 o = (r0 + r) * p.nl + lane;
-      if constexpr (M == kInt) {
-        const int v = sample_int(p, h, L);
-        if constexpr (kSum) {
-          if (active) isum += (unsigned)v;
-        } else if (active) {
-          out0[o] = v;
+    const float* buf = hs[c & 1];
+    const i64 r0 = r_begin + (i64)c * kFRows;
+    const int nr = rows_of(c);
+    float cx[V], cy[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) cx[v] = cy[v] = 0.f;
+#pragma unroll 1
+    for (int r = 0; valid && r < nr; ++r) {
+      float x[V], y[V];
+      row_samples<M, S>(p, buf + r * S::kHcp, L, x, y);
+      if constexpr (kSum) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          cx[v] += x[v];
+          if constexpr (M == kComp) cy[v] += y[v];
         }
-      } else if constexpr (M == kF32) {
-        const float v = sample_f32(p, h, L);
-        if constexpr (kSum) {
-          if (active) fsum += v;
-        } else if (active) {
-          out0[o] = v;
-        }
+      } else if constexpr (V == 4) {
+        // the intrinsic keeps the 16-byte store (st.global.v4): nvcc splits
+        // a plain float4 assignment here into four 4-byte stores
+        const i64 o = (r0 + r) * p.nl + lane0;
+        __stwb(reinterpret_cast<float4*>(out0 + o), make_float4(x[0], x[1], x[2], x[3]));
+        if constexpr (M == kComp)
+          __stwb(reinterpret_cast<float4*>(out1 + o), make_float4(y[0], y[1], y[2], y[3]));
       } else {
-        const float2 v = sample_comp(p, h, L);
-        if constexpr (kSum) {
-          if (active) {
-            fsum += v.x;
-            esum += v.y;
-          }
-        } else if (active) {
-          out0[o] = v.x;
-          out1[o] = v.y;
-        }
+        const i64 o = (r0 + r) * p.nl + lane0;
+        out0[o] = x[0];
+        if constexpr (M == kComp) out1[o] = y[0];
       }
     }
+    if constexpr (kSum) {
+      const float part = M == kComp ? tree_sum(cx) + tree_sum(cy) : tree_sum(cx);
+      run += part;
+    }
+    __syncthreads();  // every reader is done with slot c & 1
   }
   if constexpr (kSum) {
-    if constexpr (M == kInt) {
-      for (int o = 16; o > 0; o >>= 1) isum += __shfl_down_sync(0xffffffffu, isum, o);
-      __shared__ unsigned warp_sum[kThreads / 32];
-      const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      if (wl == 0) warp_sum[warp] = isum;
-      __syncthreads();
-      if (warp == 0) {
-        isum = wl < kThreads / 32 ? warp_sum[wl] : 0u;
-        for (int o = 16; o > 0; o >>= 1) isum += __shfl_down_sync(0xffffffffu, isum, o);
-        if (wl == 0) atomicAdd(static_cast<unsigned*>(sum_out), isum);
-      }
-    } else {
-      __shared__ float red[kThreads];
-      const float total = block_sum(fsum + esum, red);
-      if (threadIdx.x == 0)
-        static_cast<float*>(sum_out)[(i64)blockIdx.y * gridDim.x + blockIdx.x] = total;
-    }
+    __shared__ float red[kFThreads];
+    const float total = block_sum<kFThreads>(run, red);
+    if (threadIdx.x == 0) partials[(i64)blockIdx.y * gridDim.x + blockIdx.x] = total;
   }
 }
 
@@ -290,18 +464,81 @@ finalize_kernel(const float* __restrict__ partials, i64 n, int bias,
   if (threadIdx.x == 0) *out = (float)bias + red[0];
 }
 
+typedef void (*FloatFn)(const OuterParams, float*, float*, float*, i64);
+
+struct FloatKernel {
+  FloatFn fn;
+  int v;  // lanes a thread
+};
+
+template <int M, int NC, int NP, bool kSum>
+FloatKernel fk() {
+  return {float_kernel<M, NC, NP, kSum>, Shape<M, NC, NP>::kV};
+}
+
+// The instantiation for a mode, its counts (validated by make_params) and
+// the lane count.
+template <bool kSum>
+FloatKernel pick(int mode, int nk, int np, int nl) {
+  if (nl % 4) return mode == kF32 ? fk<kF32, -1, 0, kSum>() : fk<kComp, -1, -1, kSum>();
+  if (mode == kF32) {
+    switch (nk) {
+      case 1: return fk<kF32, 1, 0, kSum>();
+      case 2: return fk<kF32, 2, 0, kSum>();
+      case 3: return fk<kF32, 3, 0, kSum>();
+      case 4: return fk<kF32, 4, 0, kSum>();
+      case 5: return fk<kF32, 5, 0, kSum>();
+      case 6: return fk<kF32, 6, 0, kSum>();
+      default: return fk<kF32, 7, 0, kSum>();
+    }
+  }
+  if (np == 0 && nk == 1) return fk<kComp, 1, 0, kSum>();  // hann, hamming
+  if (np == 0 && nk == 2) return fk<kComp, 2, 0, kSum>();  // blackman, bh3
+  if (np == 0 && nk == 3) return fk<kComp, 3, 0, kSum>();  // bh4, nuttall, blackman_nuttall
+  if (np == 1 && nk == 3) return fk<kComp, 3, 1, kSum>();  // bh5, flattop1, flattop2
+  if (np == 2 && nk == 4) return fk<kComp, 4, 2, kSum>();  // bh7
+  return fk<kComp, -1, -1, kSum>();
+}
+
+struct FloatGeom {
+  dim3 grid;
+  i64 rpb;  // h rows a block walks
+};
+
+// Lane blocks to cover nl, and row blocks so that the grid fills the card
+// once (SMs x resident blocks of this instantiation), each a contiguous
+// range of rpb rows.
+cudaError_t float_geom(const FloatKernel& k, i64 rows, int nl, FloatGeom* g) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.fn, kFThreads, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const i64 lanes = (i64)kFThreads * k.v;
+  const i64 gx = (nl + lanes - 1) / lanes;
+  i64 gy = (i64)sms * per_sm / gx;
+  if (gy < 1) gy = 1;
+  g->rpb = (rows + gy - 1) / gy;
+  gy = (rows + g->rpb - 1) / g->rpb;
+  g->grid = dim3((unsigned)gx, (unsigned)gy);
+  return cudaSuccess;
+}
+
+// The harmonic counts a mode takes.
+bool valid_counts(int mode, int nk, int np) {
+  if (nk < 0 || np < 0) return false;
+  if (mode == kComp) return nk + np >= 1 && nk + np <= kMaxH;
+  return (mode == kInt || mode == kF32) && nk >= 1 && nk <= kMaxH && np == 0;
+}
+
 bool make_params(OuterParams* P, int mode, const void* hi, const void* lo, i64 h0,
                  i64 rows, int nl, int hc, int nk, int np, int a0, int shift, int w,
                  int saturate, float a0f, float a0lo) {
-  if (!hi || !lo || h0 < 0 || rows < 1 || nl < 1 || nk < 0 || np < 0) return false;
-  if (mode == kComp) {
-    if (nk + np < 1 || nk + np > kMaxH || hc != 4 * nk + 2 * np) return false;
-  } else if (mode == kInt || mode == kF32) {
-    if (nk < 1 || nk > kMaxH || np != 0 || hc != 2 * nk) return false;
-    if (mode == kInt && (shift < 30 || shift > 31 || w < 2)) return false;
-  } else {
-    return false;
-  }
+  if (!hi || !lo || h0 < 0 || rows < 1 || nl < 1 || !valid_counts(mode, nk, np)) return false;
+  if (hc != (mode == kComp ? 4 * nk + 2 * np : 2 * nk)) return false;
+  if (mode == kInt && (shift < 30 || shift > 31 || w < 2)) return false;
   P->hi = hi;
   P->lo = lo;
   P->h0 = h0;
@@ -319,17 +556,13 @@ bool make_params(OuterParams* P, int mode, const void* hi, const void* lo, i64 h
   return true;
 }
 
-dim3 grid_of(i64 rows, int nl) {
-  const i64 runs = (rows + kRows - 1) / kRows;
-  return dim3((unsigned)((nl + kThreads - 1) / kThreads),
-              (unsigned)(runs < kMaxRowBlocks ? runs : kMaxRowBlocks));
-}
-
 i64 log2_of(i64 v) {
   i64 r = 0;
   while ((1ll << r) < v) ++r;
   return r;
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -338,29 +571,39 @@ extern "C" {
 // Most harmonics (terms - 1) the kernels take.
 int bhw_outer_max_harmonics() { return kMaxH; }
 
-// Blocks of a launch over `rows` h rows of `nl` lanes: the number of f32
-// partials a kF32/kComp checksum needs.
-i64 bhw_outer_npartials(i64 rows, int nl) {
-  const dim3 g = grid_of(rows, nl);
-  return (i64)g.x * g.y;
+// Blocks of a kF32/kComp checksum launch over `rows` h rows of `nl` lanes on
+// the current device: the number of f32 partials it needs.  kInt needs none
+// (0); -1 for arguments the kernels do not take or a failed device query.
+i64 bhw_outer_npartials(int mode, i64 rows, int nl, int nk, int np) {
+  if (mode == kInt) return 0;
+  FloatGeom g;
+  if (rows < 1 || nl < 1 || !valid_counts(mode, nk, np) ||
+      float_geom(pick<true>(mode, nk, np, nl), rows, nl, &g) != cudaSuccess)
+    return -1;
+  return (i64)g.grid.x * g.grid.y;
 }
 
-// Longest chain of f32 additions any term passes through in a kF32/kComp
-// checksum over `rows` h rows of `nl` lanes: the thread's running sums over
-// its rows, s + e, the block tree, the finalize thread's run over partials,
-// the finalize tree and the bias.  The sum's error is at most
-// gamma(depth) * sum |terms|.
-i64 bhw_outer_checksum_depth(i64 rows, int nl) {
-  const dim3 g = grid_of(rows, nl);
-  const i64 runs = (rows + kRows - 1) / kRows;
-  const i64 rows_per_thread = kRows * ((runs + g.y - 1) / g.y);
-  const i64 npart = (i64)g.x * g.y;
-  return rows_per_thread + 1 + log2_of(kThreads) + (npart + kFinalThreads - 1) / kFinalThreads +
-         log2_of(kFinalThreads) + 1;
+// Longest chain of f32 additions any term (bias included) passes through in
+// a kF32/kComp checksum over `rows` h rows of `nl` lanes on the current
+// device: a lane's chunk accumulator (kFRows rows), the tree over V lanes,
+// s + e (kComp), the running sum over the chunks of a block's row range, the
+// block tree, the finalize thread's run over partials, the finalize tree
+// and the bias.  The sum's error is at most gamma(depth) * sum |terms|.
+// -1 as bhw_outer_npartials.
+i64 bhw_outer_checksum_depth(int mode, i64 rows, int nl, int nk, int np) {
+  const i64 npart = bhw_outer_npartials(mode, rows, nl, nk, np);
+  if (npart < 1) return -1;
+  const FloatKernel k = pick<true>(mode, nk, np, nl);
+  FloatGeom g;
+  if (float_geom(k, rows, nl, &g) != cudaSuccess) return -1;
+  const i64 chunks = (g.rpb + kFRows - 1) / kFRows;
+  return kFRows + log2_of(k.v) + (mode == kComp) + chunks + log2_of(kFThreads) +
+         (npart + kFinalThreads - 1) / kFinalThreads + log2_of(kFinalThreads) + 1;
 }
 
 // Write-out: samples of h rows [h0, h0 + rows) to out0 (int32 for kInt,
 // float32 otherwise; sample (h - h0) * nl + lo), and e to out1 for kComp.
+// kF32/kComp outputs must be 16-byte aligned.
 int bhw_outer_block(int mode, void* out0, float* out1, const void* hi, const void* lo,
                     i64 h0, i64 rows, int nl, int hc, int nk, int np, int a0, int shift,
                     int w, int saturate, float a0f, float a0lo, void* stream) {
@@ -369,21 +612,24 @@ int bhw_outer_block(int mode, void* out0, float* out1, const void* hi, const voi
       !make_params(&P, mode, hi, lo, h0, rows, nl, hc, nk, np, a0, shift, w, saturate,
                    a0f, a0lo))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid = grid_of(P.rows, P.nl);
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == kInt)
-    outer_kernel<kInt, false><<<grid, kThreads, 0, s>>>(P, (int*)out0, nullptr, nullptr);
-  else if (mode == kF32)
-    outer_kernel<kF32, false><<<grid, kThreads, 0, s>>>(P, (float*)out0, nullptr, nullptr);
-  else
-    outer_kernel<kComp, false><<<grid, kThreads, 0, s>>>(P, (float*)out0, out1, nullptr);
+  if (mode == kInt) {
+    outer_kernel<false><<<grid_of(P.rows, P.nl), kThreads, 0, s>>>(P, (int*)out0, nullptr);
+    return (int)cudaGetLastError();
+  }
+  if (!aligned16(out0) || (mode == kComp && !aligned16(out1))) return (int)cudaErrorInvalidValue;
+  const FloatKernel k = pick<false>(mode, nk, np, P.nl);
+  FloatGeom g;
+  const cudaError_t e = float_geom(k, P.rows, P.nl, &g);
+  if (e != cudaSuccess) return (int)e;
+  k.fn<<<g.grid, kFThreads, 0, s>>>(P, (float*)out0, out1, nullptr, g.rpb);
   return (int)cudaGetLastError();
 }
 
 // Checksum over h rows [h0, h0 + rows).  kInt: *out (uint32) holds the bias
 // on entry and the sum is added to it; partials and bias are unused.
-// kF32/kComp: partials holds npartials floats (one per block of the launch;
-// the count must match), and *out (float) = bias + sum.
+// kF32/kComp: partials holds npartials floats (bhw_outer_npartials; the
+// count must match), and *out (float) = bias + sum.
 int bhw_outer_checksum(int mode, void* out, float* partials, i64 npartials, int bias,
                        const void* hi, const void* lo, i64 h0, i64 rows, int nl, int hc,
                        int nk, int np, int a0, int shift, int w, int saturate, float a0f,
@@ -392,18 +638,18 @@ int bhw_outer_checksum(int mode, void* out, float* partials, i64 npartials, int 
   if (!out || !make_params(&P, mode, hi, lo, h0, rows, nl, hc, nk, np, a0, shift, w,
                            saturate, a0f, a0lo))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid = grid_of(P.rows, P.nl);
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == kInt) {
-    outer_kernel<kInt, true><<<grid, kThreads, 0, s>>>(P, nullptr, nullptr, out);
+    outer_kernel<true><<<grid_of(P.rows, P.nl), kThreads, 0, s>>>(P, nullptr, out);
     return (int)cudaGetLastError();
   }
-  if (!partials || npartials != (i64)grid.x * grid.y) return (int)cudaErrorInvalidValue;
-  if (mode == kF32)
-    outer_kernel<kF32, true><<<grid, kThreads, 0, s>>>(P, nullptr, nullptr, partials);
-  else
-    outer_kernel<kComp, true><<<grid, kThreads, 0, s>>>(P, nullptr, nullptr, partials);
-  const cudaError_t err = cudaGetLastError();
+  const FloatKernel k = pick<true>(mode, nk, np, P.nl);
+  FloatGeom g;
+  cudaError_t err = float_geom(k, P.rows, P.nl, &g);
+  if (err != cudaSuccess) return (int)err;
+  if (!partials || npartials != (i64)g.grid.x * g.grid.y) return (int)cudaErrorInvalidValue;
+  k.fn<<<g.grid, kFThreads, 0, s>>>(P, nullptr, nullptr, partials, g.rpb);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   finalize_kernel<<<1, kFinalThreads, 0, s>>>(partials, npartials, bias, (float*)out);
   return (int)cudaGetLastError();

@@ -10,8 +10,9 @@ n = h*2^m + lo:
 - f32 (``floatwin``): a0 + sum_k (ch*cl - sh*sl) in float32;
 - comp (``compwin``): the raw (s, e) compensated pair.
 
-One templated CUDA tile generator (``csrc/outerwin_kernel.cu``) serves them
-with two epilogues:
+``csrc/outerwin_kernel.cu`` serves them with two tile generators (the int
+one; the f32/comp one with compile-time harmonic counts, four lo lanes a
+thread and FFMA chains) and two epilogues:
 
 - write-out: ``outer_block``, ``outer_block_f32``, ``outer_block_comp``
   store the samples (the generators of ``outerwin``/``floatwin``/``compwin``
@@ -22,6 +23,11 @@ with two epilogues:
   ``make_checksum_fn_comp``).  The int sum is exact mod 2^32 in any order;
   the f32 and comp sums go through per-block partials and a fixed-order
   second pass, so repeated calls return the same bits.
+
+The comp kernels' s is the plain version's bits; their e (FFMA chains, half
+the roundings of the plain version's JAX order) lies within
+:func:`comp_e_bound` of the plain e, and their f32 samples within
+:func:`f32_pair_bound` of the plain ones.
 
 Each wrapper runs its plain PyTorch version for the CPU and launches its
 kernel for a CUDA device; there is no fallback between them.  The tables are
@@ -306,7 +312,10 @@ def _checksum_fn(name: str, t: _Tiles, rows: int, device: torch.device):
     if device.type == "cpu":
         return lambda bias: _checksum_plain(t, rows, bias)
     _check_kernel(t)
-    npart = _build.lib().bhw_outer_npartials(nh, t.lo.shape[1])
+    with torch.cuda.device(device):  # the launch geometry is the card's
+        npart = _build.lib().bhw_outer_npartials(t.mode, nh, t.lo.shape[1], t.nk, t.npl)
+    if npart < 0:
+        raise RuntimeError(f"{name}: no launch geometry for these tables")
 
     def checksum(bias):
         bias = wrap(int(bias), 32)
@@ -385,9 +394,13 @@ def f32_pair_bound(coeffs) -> float:
 
 def comp_e_bound(coeffs, g: int = GRID_BITS, thresh: float = DEFAULT_THRESH) -> float:
     """Bound on |e - e'| between two evaluation orders of the comp mode's
-    correction accumulator.  Per compensated harmonic: 8 roundings (4 mul,
-    2 add, 1 sub, 1 accumulate) of values at most E; per plain harmonic 4.
-    E bounds |e| and every intermediate: |a0_lo| <= 2^-(g+1) plus, per
+    correction accumulator, each rounding at most 8 times per compensated
+    harmonic and 4 times per plain one, each time a value at most E:
+    2 (8C + 4P) E u.  The plain version (JAX's order) rounds that often (4
+    mul, 2 add, 1 sub, 1 accumulate; 2 mul, sub, accumulate); the kernel's
+    FFMA chains round 4C + 2P times, so kernel and plain differ by at most
+    (12C + 6P) E u, inside the bound.  E bounds |e| and every intermediate
+    (each is a partial sum of the products): |a0_lo| <= 2^-(g+1) plus, per
     compensated harmonic, 2 * ((|a_k| + 2^-(g+1)) * 2^-(g+1) + 2^-(g+1))
     (hi * lo-part and lo-part * f32 value, cos and sin; lo-parts are at most
     2^-(g+1)), and 2|a_k| per plain harmonic."""
@@ -406,12 +419,25 @@ def sum_bound(depth: int, sum_abs: float) -> float:
     return depth * _U / (1 - depth * _U) * sum_abs
 
 
-def checksum_depth(nh: int, nl: int) -> int:
+def checksum_depth(name_or_coeffs, pw: int, m: int = 11, comp: bool = False,
+                   device=None) -> int:
     """Longest chain of f32 additions any term (bias included) passes
-    through in the f32 and comp checksum kernels over nh h rows of nl lanes,
-    as the kernel source derives it from its launch geometry (CUDA only: it
-    asks the built library)."""
-    return _build.lib().bhw_outer_checksum_depth(nh, nl)
+    through in the f32 (``comp=False``) or comp checksum kernel over the
+    full period of ``name_or_coeffs`` at (pw, m) on ``device``, as the kernel
+    source derives it from its launch geometry (CUDA only: it asks the built
+    library, and the geometry follows the card)."""
+    device = _build.resolve_device(device)
+    coeffs = _resolve_coeffs(name_or_coeffs)
+    if comp:
+        t = _comp_tiles(coeffs, pw, m, GRID_BITS, DEFAULT_THRESH, device)
+    else:
+        t = _f32_tiles(coeffs, pw, m, device)
+    with torch.cuda.device(device):
+        depth = _build.lib().bhw_outer_checksum_depth(t.mode, t.hi.shape[0], t.lo.shape[1],
+                                                      t.nk, t.npl)
+    if depth < 0:
+        raise RuntimeError("no launch geometry for these tables")
+    return depth
 
 
 def checksum_plain_depth(nh: int, nl: int, rows: int, comp: bool = False) -> int:

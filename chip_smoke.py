@@ -59,14 +59,19 @@ line of their own, per call of 16 queued), beside its bound (the least
 time the card could take: bytes over 3.35 TB/s or operations over the
 peak rate of their type, the larger; integer operations at the issue
 rate, one per lane per cycle) and, where one PyTorch call computes the
-same function, that call's time.  The window kernel is timed on each
+same function, that call's time (``torch.clone`` for the copy; for the f32
+and comp write-outs ``torch.addmm`` and ``torch.baddbmm`` built from the
+port's tables with TF32 off, gated as their kernels are before they are
+timed; the port never calls them); the four float outer kernels' device
+time under torch.profiler is printed beside their times.  The window kernel is timed on each
 datapath it has at the timed size (2^26 samples: HLS and RTL BH-7 W=32 on
 ``r2s``, the analyzer's BH-4 W=17 saturate window on ``i32``), each beside
 its operation bound; the build prints each kernel's ptxas registers and,
 where ``cuobjdump`` exists, the SASS instructions of one unrolled CORDIC
 iteration per datapath, of the bulk-copy ring's main loop, of the Taylor
-kernels' run walk per sample and of the stage-1 kernel's FFT body, with
-their local-memory instructions.
+kernels' run walk per sample, of the stage-1 kernel's FFT body and of one
+row of each f32/comp outer instantiation's walk (its FFMA, LDS and STG),
+with their local-memory instructions.
 
 Exits non-zero, printing no result, if torch sees no CUDA device or any
 phase fails.  The last line is the JSON object
@@ -500,6 +505,9 @@ def _print_sass(lib_path) -> None:
         if "taylor_" in name or "welch_stage1_kernel" in name:
             _print_block_sass(name, body)
             continue
+        if "float_kernel" in name:
+            _print_float_sass(name, body)
+            continue
         if "window_block_kernel" not in name:
             continue
         dp = next((v for k, v in _WINDOW_INSTANCES.items() if k in name), name)
@@ -555,6 +563,119 @@ def _print_block_sass(name: str, body: str) -> None:
               "local-memory instructions")
 
 
+def _print_float_sass(name: str, body: str) -> None:
+    """An f32/comp outer kernel instantiation's SASS: its instruction count,
+    its local-memory instructions, and the FFMA, LDS and STG instructions of
+    one pass of its row walk (the innermost loop that holds FFMAs: one h row
+    at the thread's V lanes, V = 4, or 1 in the runtime-count
+    instantiations)."""
+    import re
+
+    m = re.search(r"float_kernelILi(\d)ELi(n?\d)ELi(n?\d)ELb([01])E", name)
+    if not m:
+        print(f"sass float_kernel: unrecognised instantiation {name[:80]}")
+        return
+    mode, nc, npl, summed = m.groups()
+    runtime = nc.startswith("n")  # NC = -1: the runtime-count instantiation
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    addr = [int(a, 16) for a, _ in ins]
+    loops = [(int(b.group(1), 16), a) for a, (_, text) in zip(addr, ins)
+             if (b := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)) and int(b.group(1), 16) < a]
+    count = {}
+    for lo, hi in sorted(loops, key=lambda span: span[1] - span[0]):
+        texts = [t for a, (_, t) in zip(addr, ins) if lo <= a <= hi]
+        if any(re.search(r"\bFFMA\b", t) for t in texts):
+            count = {k: sum(1 for t in texts if re.search(rf"\b{k}", t))
+                     for k in ("FFMA", "LDS", "STG")}
+            count["instructions"] = len(texts)
+            break
+    local = sum(1 for _, t in ins if re.search(r"\b(LDL|STL)", t))
+    what = ("f32 K-1=" + ("runtime" if runtime else nc) if mode == "1"
+            else "comp (C,P)=" + ("runtime" if runtime else f"({nc},{npl})"))
+    lanes = 1 if runtime else 4
+    walk = (", ".join(f"{v} {k}" for k, v in count.items()) if count else "not found")
+    print(f"sass float_kernel {what} {'checksum' if summed == '1' else 'write-out'}: "
+          f"{len(ins)} instructions; one row of the walk ({lanes} samples): {walk}; "
+          f"{local} local-memory instructions")
+
+
+def _library_outer(name: str, pw: int, m: int, dev):
+    """The PyTorch calls that compute the f32 window and the raw comp pair
+    from the port's own tables, each one call (timed beside the write-out
+    kernels as their yardstick; the port never calls them), with TF32 off:
+
+    - f32: ``torch.addmm(a0, [ch | -sh], [cl ; sl])``, (nh, nl);
+    - comp: ``torch.baddbmm`` over a batch of two with the bias (a0_hi,
+      a0_lo): the s batch pairs ch_hi with cl_hi and sh_hi with -sl_hi (the
+      other columns zero), the e batch ch_hi with cl_lo, ch_lo with cl_f,
+      sh_hi with -sl_lo, sh_lo with -sl_f and each plain (ch, sh) with
+      (cl, -sl); s and e are the two halves of one (2, nh, nl) output.
+
+    Returns (f32 fn, comp fn): the window flat as the write-out lays it out,
+    and the pair as a (2, n) tensor."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
+    from blackman_harris_win_tpu_torch.kernels.compwin import DEFAULT_THRESH, GRID_BITS
+    from blackman_harris_win_tpu_torch.kernels.floatwin import _resolve_coeffs
+    from blackman_harris_win_tpu_torch.pipeline.spectral import _full_fp32
+
+    coeffs = _resolve_coeffs(name)
+    tf = ok._f32_tiles(coeffs, pw, m, dev)
+    a_f = torch.cat([tf.hi[:, :tf.nk], -tf.hi[:, tf.nk:]], dim=1).contiguous()
+    bias_f = torch.full((1, 1), tf.a0, dtype=torch.float32, device=dev)
+    tc = ok._comp_tiles(coeffs, pw, m, GRID_BITS, DEFAULT_THRESH, dev)
+    c, lo = tc.nk, tc.lo
+    zero = torch.zeros_like(lo[0])
+    rows_s, rows_e = [], []
+    for j in range(c):
+        cl_hi, cl_lo, cl_f, sl_hi, sl_lo, sl_f = lo[6 * j:6 * j + 6]
+        rows_s += [cl_hi, zero, -sl_hi, zero]
+        rows_e += [cl_lo, cl_f, -sl_lo, -sl_f]
+    for j in range(tc.npl):
+        rows_s += [zero, zero]
+        rows_e += [lo[6 * c + 2 * j], -lo[6 * c + 2 * j + 1]]
+    keep = torch.zeros(tc.hi.shape[1], dtype=torch.float32, device=dev)
+    keep[0:4 * c:4] = 1.0
+    keep[2:4 * c:4] = 1.0
+    a_c = torch.stack([tc.hi * keep, tc.hi]).contiguous()
+    b_c = torch.stack([torch.stack(rows_s), torch.stack(rows_e)]).contiguous()
+    bias_c = torch.tensor([tc.a0, tc.a0lo], dtype=torch.float32, device=dev).view(2, 1, 1)
+
+    def f32():
+        with _full_fp32():
+            return torch.addmm(bias_f, a_f, tf.lo).view(-1)
+
+    def comp():
+        with _full_fp32():
+            return torch.baddbmm(bias_c, a_c, b_c).view(2, -1)
+
+    return f32, comp
+
+
+def _device_ms(fn, calls: int = 5) -> float:
+    """Device time per call of ``fn`` under torch.profiler: every CUDA
+    kernel and copy it ran, summed, over ``calls`` calls after a warm-up.
+    No device time fails the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    _require(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3 / calls
+
+
 def _kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
                    mat_bytes: int) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
@@ -567,7 +688,11 @@ def _kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     k1 = n_terms - 1
-    f32, comp = float_window_flops(n, n_terms), comp_window_flops(n, "bh7")
+    # the fewest float32 operations per sample (an FMA counts two): f32, two
+    # FMAs per harmonic; comp, 6 FMAs per compensated harmonic (2 for s, 4
+    # for e) and 2 per plain one: comp_window_flops less its 6 for the host's
+    # TwoSum, which no kernel does
+    f32, comp = float_window_flops(n, n_terms), comp_window_flops(n, "bh7") - 6 * n
     return {
         "window_block": _bound(4 * n, n * _cordic_ops(n_terms, 32)),
         "window_checksum": _bound(4, 4 * n * (_cordic_ops(n_terms, 32) + 1)),
@@ -890,11 +1015,11 @@ def main(argv=None) -> int:
     _require(err_f64 < 1.5e-6, f"f32 window vs float64 golden {err_f64:.3e} >= 1.5e-6")
     print(f"f32 window: vs plain {err_fb:.3e} (<= op-count bound {f32_bound:.3e}); "
           f"vs float64 golden {err_f64:.3e} (< 1.5e-6)")
-    depth = ok.checksum_depth(nrows, 1 << m)
     err_fc = _gate_float_checksum(
         "f32 checksum", chk_f32_fn, chk_f32, bias,
         lambda b: ok.checksum_plain_f32("bh7", pw, m, 256, b, device=dev),
-        (win_f32,), (f32_plain,), depth, ok.checksum_plain_depth(nrows, 1 << m, 256))
+        (win_f32,), (f32_plain,), ok.checksum_depth("bh7", pw, m, device=dev),
+        ok.checksum_plain_depth(nrows, 1 << m, 256))
     del f32_plain
 
     s_plain, e_plain = ok.outer_block_comp_plain("bh7", pw, m, GRID_BITS, DEFAULT_THRESH, 0,
@@ -906,7 +1031,7 @@ def main(argv=None) -> int:
     err_ccp = _gate_float_checksum(
         "comp checksum", chk_comp_fn, chk_comp, bias,
         lambda b: ok.checksum_plain_comp("bh7", pw, m, 256, b, device=dev),
-        (win_s, win_e), (s_plain, e_plain), depth,
+        (win_s, win_e), (s_plain, e_plain), ok.checksum_depth("bh7", pw, m, comp=True, device=dev),
         ok.checksum_plain_depth(nrows, 1 << m, 256, comp=True))
     del s_plain, e_plain
     pair64 = win_s.double() + win_e.double()
@@ -923,6 +1048,22 @@ def main(argv=None) -> int:
           f"s + e vs float64 golden {err_pair:.3e} (< 5e-9); normalize_pair exact and "
           "non-overlapping across N/4")
     del pair64
+    # the library yardsticks, gated as their kernels are before they are timed
+    lib_f32, lib_comp = _library_outer("bh7", pw, m, dev)
+    err_lf = float((lib_f32() - ok.outer_block_f32_plain("bh7", pw, m, 0, nrows,
+                                                         device=dev)).abs().max())
+    _require(err_lf <= f32_bound, f"torch.addmm f32 window vs plain {err_lf:.3e} > {f32_bound:.3e}")
+    pair_lib = lib_comp()
+    s_plain, e_plain = ok.outer_block_comp_plain("bh7", pw, m, GRID_BITS, DEFAULT_THRESH, 0,
+                                                 nrows, device=dev)
+    err_le = float((pair_lib[1] - e_plain).abs().max())
+    _require(torch.equal(pair_lib[0], s_plain) and err_le <= e_bound,
+             f"torch.baddbmm comp pair: s bit-equal {torch.equal(pair_lib[0], s_plain)}, e vs "
+             f"plain {err_le:.3e} (bound {e_bound:.3e})")
+    del pair_lib, s_plain, e_plain
+    print(f"library calls: torch.addmm f32 window vs plain {err_lf:.3e} (<= {f32_bound:.3e}); "
+          f"torch.baddbmm comp pair s bit-equal to plain, e vs plain {err_le:.3e} "
+          f"(<= {e_bound:.3e}); TF32 off")
 
     # --- the TAYLOR source: gates ---
     for cfg in tay_cfgs:
@@ -1143,12 +1284,27 @@ def main(argv=None) -> int:
     # queued calls, which hides the host's launch latency, is printed beside
     t["materialize"] = (_time_ms(lambda: materialize(m21)),
                         _time_ms(lambda: materialize_plain(m21)))
-    lib_ms = {"materialize": _time_ms(lambda: torch.clone(m21))}
+    lib_ms = {"materialize": _time_ms(lambda: torch.clone(m21)),
+              "outer_block_f32": _time_ms(lib_f32), "outer_block_comp": _time_ms(lib_comp)}
+    # the four float outer kernels' device time (torch.profiler) beside their
+    # one-call-alone time, and the library calls'
+    dev_ms = {"outer_block_f32": _device_ms(lambda: float_window("bh7", pw, device=dev)),
+              "outer_checksum_f32": _device_ms(lambda: chk_f32_fn(0)),
+              "outer_block_comp": _device_ms(lambda: comp_window_pair("bh7", pw, device=dev)),
+              "outer_checksum_comp": _device_ms(lambda: chk_comp_fn(0)),
+              "torch.addmm": _device_ms(lib_f32), "torch.baddbmm": _device_ms(lib_comp)}
     queued = {k: _time_batch_ms(lambda _, f=f: f(m21)) for k, f in (
         ("kernel", materialize), ("plain", materialize_plain), ("torch.clone", torch.clone))}
     for name, (ms, plain_ms) in t.items():
         print(f"time {label} {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms)")
     print(f"time {label} materialize library call torch.clone: {lib_ms['materialize']:.3f} ms")
+    for k, call in (("outer_block_f32", "torch.addmm"), ("outer_block_comp", "torch.baddbmm")):
+        print(f"time {label} {k} library call {call}: {lib_ms[k]:.3f} ms one call alone, "
+              f"{dev_ms[call]:.4f} ms device time")
+    for k in ("outer_block_f32", "outer_checksum_f32", "outer_block_comp", "outer_checksum_comp"):
+        print(f"time {label} {k}: {dev_ms[k]:.4f} ms device time (torch.profiler, per call of "
+              f"5; a checksum's finalize kernel included), {t[k][0]:.3f} ms "
+              f"{'per call of 16 queued' if 'checksum' in k else 'one call alone'}")
     print(f"time {label} materialize per call of 16 queued: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in queued.items()))
     mat_bytes = 2 * m21.numel() * m21.element_size()
@@ -1211,7 +1367,7 @@ def main(argv=None) -> int:
         for k in ("outer_block", "outer_checksum", "outer_block_f32", "outer_checksum_f32",
                   "outer_block_comp", "outer_checksum_comp")))
     # the no-fusion f32 op models of the float modes (FMA pairs count 4 ops)
-    gflops_f32 = float_window_flops(n, 8) / t["outer_checksum_f32"][0] / 1e6
+    gflops_f32 = float_window_flops(n, len(q7)) / t["outer_checksum_f32"][0] / 1e6
     gflops_comp = comp_window_flops(n, "bh7") / t["outer_checksum_comp"][0] / 1e6
     print(f"rates {label}: outer_checksum_f32 {gflops_f32:.1f} GFLOP/s, "
           f"outer_checksum_comp {gflops_comp:.1f} GFLOP/s (no-fusion op models)")

@@ -1,8 +1,8 @@
 """Time the port's ``materialize`` copy, its window-kernel datapaths, its
-stage-1 kernel and its Taylor checksum on one card, each beside what it is
-compared with in the same process.
+stage-1 kernel, its Taylor checksum and its f32/comp outer kernels on one
+card, each beside what it is compared with in the same process.
 
-    python3 probe_kernel_variants.py [--rounds N] [--against DIR]
+    python3 probe_kernel_variants.py [--rounds N] [--against DIR] [--only SECTION]
 
 1. ``materialize`` (``csrc/barrier_kernel.cu``) on the DDC's (2, 2^26)
    float32 mixer-sized array, against ``torch.clone``: through the port's
@@ -24,17 +24,28 @@ compared with in the same process.
 
 3. ``welch_stage1`` (``csrc/welchfft_kernel.cu``) at the analyzer's size
    (nfft 2^20, 255 frames over 128 * 2^20 samples) through its wrapper and,
-   with ``--against DIR``, the ``bhw_welch_stage1`` of DIR's source (the
-   parent's direct DFT-matrix kernel takes the DFT matrix where the port's
-   takes the FFT-128 roots); outputs within 1e-5 of each other's maximum;
+   with ``--against DIR``, the ``bhw_welch_stage1`` of DIR's source (given
+   the FFT-128 roots as the port's, or the DFT matrix where DIR's kernel is
+   the earlier direct DFT-matrix one); outputs within 1e-5 of each other's maximum;
    and the wrapper's host time per call.
 4. ``taylor_checksum`` (``csrc/taylor_kernel.cu``) over 2^26 samples at
    pw=26, W=16/LS=10 and W=32/LS=12: through the wrapper, through its C
    entry and, with ``--against DIR``, through DIR's ``bhw_taylor_checksum``;
    per call of 16 queued, all sums equal; and the host time per call of the
    wrapper and of each C entry.
+5. The f32 and comp outer kernels (``csrc/outerwin_kernel.cu``: the
+   write-outs ``outer_block_f32``/``outer_block_comp`` and the checksums
+   ``outer_checksum_f32``/``outer_checksum_comp``) at the main path's shapes
+   (BH-7, pw=26, m=11) through their C entries, with ``--against DIR``
+   beside DIR's, and each write-out beside the PyTorch call that computes
+   the same window (``torch.addmm`` for f32, ``torch.baddbmm`` for the comp
+   pair, TF32 off); outputs compared (f32 within twice ``f32_pair_bound``
+   of each other, comp s bit-equal and e within twice ``comp_e_bound``, the
+   checksums within their derived sum bounds), then one call alone and per
+   call of 16 queued, in turns.
 
-Prints one line per measurement with the card's name and power limit, and
+``--only materialize|window|welch|taylor|outer`` runs one section.  Prints
+one line per measurement with the card's name and power limit, and
 as its last line one JSON object with every time (ms, median over the
 rounds).  Exits non-zero without a CUDA device.
 """
@@ -49,6 +60,8 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+from chip_smoke import _device_ms, _library_outer
 
 
 def _build_one(root: Path, source: str, tag: str):
@@ -90,28 +103,6 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, calls: int = 5) -> float:
-    """Device time per call of ``fn`` under torch.profiler: every CUDA
-    kernel and copy it ran, summed, over ``calls`` calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / calls
-
-
 def _host_us(fn, calls: int = 50) -> float:
     """Host time per call of ``fn`` in microseconds: ``calls`` calls on
     the host clock, the device work they queue finished outside it."""
@@ -144,9 +135,12 @@ def _in_turns(fns: dict, rounds: int, measure) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--only", choices=("materialize", "window", "welch", "taylor", "outer"),
+                    default=None, help="run one section (default: all)")
     ap.add_argument("--against", type=Path, default=None,
-                    help="a checkout of another revision whose materialize, welch_stage1 "
-                         "and taylor_checksum kernels are timed beside the port's")
+                    help="a checkout of another revision whose materialize, welch_stage1, "
+                         "taylor_checksum and f32/comp outer kernels are timed beside the "
+                         "port's")
     args = ap.parse_args(argv)
 
     import torch
@@ -155,25 +149,33 @@ def main(argv=None) -> int:
         print("probe: torch sees no CUDA device", file=sys.stderr)
         return 1
     from blackman_harris_win_tpu_torch import _build
-    from blackman_harris_win_tpu_torch.core.config import WindowSpec
-    from blackman_harris_win_tpu_torch.kernels import window_kernel as wk
-    from blackman_harris_win_tpu_torch.kernels.barrier import materialize
-    from blackman_harris_win_tpu_torch.kernels.window import rtl_cordic_coeffs
-    from blackman_harris_win_tpu_torch.windows import catalog
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     label = f"[{smi.splitlines()[0]}]"
     print(smi.splitlines()[0])
-    lib = _build.lib()
+    _build.lib()
     result = {"device": smi.splitlines()[0]}
 
-    # --- 1. materialize on a (2, 2^26) float32 array ---
+    stream = _build.stream_of(dev)
+    for name, section in SECTIONS.items():
+        if args.only in (None, name):
+            section(args, dev, label, stream, result)
+    print(json.dumps(result))
+    return 0
+
+
+def _probe_materialize(args, dev, label, stream, result) -> None:
+    """Section 1: the copy on a (2, 2^26) float32 array."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels.barrier import materialize
+
     x = torch.randn(2, 1 << 26, device=dev)
     nbytes = x.numel() * x.element_size()
-    stream = _build.stream_of(dev)
-    entries = {"port, C entry": lib.bhw_materialize}
+    entries = {"port, C entry": _build.lib().bhw_materialize}
     if args.against is not None:
         entries[f"{args.against.name}, C entry"] = _build_other(args.against)
     outs = {k: torch.empty_like(x) for k in entries}
@@ -218,6 +220,19 @@ def main(argv=None) -> int:
     for k, us in host.items():
         print(f"time {label} materialize host time per call, {k}: {us:.1f} us")
     result["materialize"]["host us"] = host
+
+
+def _probe_window(args, dev, label, stream, result) -> None:
+    """Section 2: the window kernel's datapaths at 2^26 samples."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import window_kernel as wk
+    from blackman_harris_win_tpu_torch.kernels.window import rtl_cordic_coeffs
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    lib = _build.lib()
     n = 1 << 26
     q7, q4 = catalog.get("bh7").quantized(32), catalog.get("bh4").quantized(17)
     cfgs = {
@@ -251,10 +266,6 @@ def main(argv=None) -> int:
         for k, ms in tw.items():
             print(f"time {label} window_block {label_cfg} datapath {k}: {ms:.3f} ms")
         result["window_block"][label_cfg] = tw
-    _probe_welch(args, dev, label, stream, result)
-    _probe_taylor(args, dev, label, stream, result)
-    print(json.dumps(result))
-    return 0
 
 
 def _probe_welch(args, dev, label, stream, result) -> None:
@@ -270,7 +281,12 @@ def _probe_welch(args, dev, label, stream, result) -> None:
     fns = {"port, wrapper": lambda: wf.welch_stage1_fused(x, win, nfft)}
     if args.against is not None:
         fn = _build_one(args.against, "welchfft_kernel.cu", "other").bhw_welch_stage1
-        m0r, m0i, t1r, t1i = wf._tables_on(nfft, 128, dev)
+        # DIR's kernel takes the FFT-128 roots (as the port's) or, before the
+        # FFT-128, the direct DFT matrix
+        src = (args.against / "blackman_harris_win_tpu_torch" / "csrc"
+               / "welchfft_kernel.cu").read_text()
+        m0r, m0i, t1r, t1i = (wf._kernel_tables_on(nfft, dev) if "roots_r" in src
+                              else wf._tables_on(nfft, 128, dev))
         out_r, out_i = torch.empty_like(ref_r), torch.empty_like(ref_i)
 
         def other():
@@ -338,6 +354,109 @@ def _probe_taylor(args, dev, label, stream, result) -> None:
             print(f"time {label} taylor_checksum W={w} LS={ls} host time per call, {k}: "
                   f"{us:.1f} us")
         result["taylor_checksum"][f"w{w}"] = {**t, "host us": host}
+
+
+def _probe_outer(args, dev, label, stream, result) -> None:
+    """Section 5: the f32 and comp outer kernels (write-out and checksum) at
+    the main path's shapes (BH-7, pw=26, m=11) through their C entries,
+    beside DIR's and beside the PyTorch calls that compute the same windows
+    (``chip_smoke._library_outer``); every output compared first."""
+    import re
+
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
+    from blackman_harris_win_tpu_torch.kernels.compwin import DEFAULT_THRESH, GRID_BITS
+    from blackman_harris_win_tpu_torch.kernels.floatwin import _resolve_coeffs
+
+    pw, m = 26, 11
+    nh, nl = 1 << (pw - m), 1 << m
+    coeffs = _resolve_coeffs("bh7")
+    tiles = {"f32": ok._f32_tiles(coeffs, pw, m, dev),
+             "comp": ok._comp_tiles(coeffs, pw, m, GRID_BITS, DEFAULT_THRESH, dev)}
+    libs = {"port, C entry": _build.lib()}
+    old_query = False
+    if args.against is not None:
+        src = args.against / "blackman_harris_win_tpu_torch" / "csrc" / "outerwin_kernel.cu"
+        other = _build_one(args.against, "outerwin_kernel.cu", "other")
+        # the geometry queries took (rows, nl) before the float kernels took
+        # their own launch geometry
+        sig = re.search(r"bhw_outer_npartials\(([^)]*)\)", src.read_text())
+        old_query = sig is not None and sig.group(1).count(",") == 1
+        for q in ("bhw_outer_npartials", "bhw_outer_checksum_depth"):
+            fn = getattr(other, q)
+            fn.argtypes = ([ctypes.c_longlong, ctypes.c_int] if old_query
+                           else list(_build._QUERIES[q][0]))
+            fn.restype = ctypes.c_longlong
+        libs[f"{args.against.name}, C entry"] = other
+
+    def query(lib, q, t):
+        if old_query and lib is not libs["port, C entry"]:
+            return getattr(lib, q)(nh, nl)
+        return getattr(lib, q)(t.mode, nh, nl, t.nk, t.npl)
+
+    lib_f32, lib_comp = _library_outer("bh7", pw, m, dev)
+    library = {"f32": ("torch.addmm", lib_f32), "comp": ("torch.baddbmm", lib_comp)}
+    result["outer"] = {}
+    for mode, t in tiles.items():
+        c_args = ok._c_args(t, 0, nh)
+        comp = mode == "comp"
+        outs = {k: torch.empty(2 if comp else 1, nh * nl, device=dev) for k in libs}
+        sums = {k: torch.empty((), device=dev) for k in libs}
+        parts = {k: torch.empty(query(lib, "bhw_outer_npartials", t), device=dev)
+                 for k, lib in libs.items()}
+
+        def block(k):
+            o = outs[k]
+            rc = libs[k].bhw_outer_block(t.mode, o[0].data_ptr(), o[1].data_ptr() if comp else None,
+                                         *c_args, stream)
+            if rc:
+                raise RuntimeError(f"outer_block_{mode} {k}: CUDA error {rc}")
+
+        def checksum(k):
+            rc = libs[k].bhw_outer_checksum(t.mode, sums[k].data_ptr(), parts[k].data_ptr(),
+                                            parts[k].numel(), 0, *c_args, stream)
+            if rc:
+                raise RuntimeError(f"outer_checksum_{mode} {k}: CUDA error {rc}")
+
+        ref = "port, C entry"
+        for k in libs:
+            block(k)
+            checksum(k)
+        call, lib_fn = library[mode]
+        want = lib_fn().view(2 if comp else 1, -1)
+        bound = ok.comp_e_bound("bh7") if comp else ok.f32_pair_bound("bh7")
+        sum_abs = float(outs[ref].double().abs().sum())
+        for k, o in [*outs.items(), (call, want)]:
+            if comp and not torch.equal(o[0], outs[ref][0]):
+                raise RuntimeError(f"outer_block_comp {k}: s differs from the port's")
+            err = float((o[-1] - outs[ref][-1]).abs().max())
+            if err > 2 * bound:  # each within its bound of the plain version
+                raise RuntimeError(f"outer_block_{mode} {k}: {err} from the port's")
+        for k in libs:
+            depth = query(libs[k], "bhw_outer_checksum_depth", t)
+            diff = float((outs[k] - outs[ref]).double().abs().sum())
+            tol = 2 * ok.sum_bound(max(depth, query(libs[ref], "bhw_outer_checksum_depth", t)),
+                                   sum_abs) + diff
+            if abs(float(sums[k]) - float(sums[ref])) > tol:
+                raise RuntimeError(f"outer_checksum_{mode} {k}: {float(sums[k])} vs "
+                                   f"{float(sums[ref])} (> {tol})")
+        print(f"outer {mode} bh7 pw26 m11: write-outs and checksums of "
+              f"{', '.join(libs)} and {call} agree")
+        result["outer"][mode] = {}
+        for kind, fns in (("block", {**{k: (lambda k=k: block(k)) for k in libs}, call: lib_fn}),
+                          ("checksum", {k: (lambda k=k: checksum(k)) for k in libs})):
+            for how, measure in (("alone", lambda f: _event_ms(f, 1)),
+                                 ("per call of 16 queued", lambda f: _event_ms(f, 16))):
+                tt = _in_turns(fns, args.rounds, measure)
+                for k, ms in tt.items():
+                    print(f"time {label} outer_{kind}_{mode} bh7 2^26 {how}, {k}: {ms:.4f} ms")
+                result["outer"][mode][f"{kind} {how}"] = tt
+
+
+SECTIONS = {"materialize": _probe_materialize, "window": _probe_window,
+            "welch": _probe_welch, "taylor": _probe_taylor, "outer": _probe_outer}
 
 
 if __name__ == "__main__":

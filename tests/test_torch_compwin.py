@@ -174,6 +174,92 @@ class TestCompChecksum:
             pk.make_checksum_fn_comp("bh7", 12, m=7, rows=24, device="cpu")
 
 
+def _ffma(a, b, c):
+    """An FFMA emulated: the product of two f32 values is exact in float64,
+    the sum with c rounds once there and once more to f32.  That double
+    rounding can miss the correctly rounded f32 by at most 2^-53 |a b + c|
+    on top of the f32 rounding's 2^-24 |a b + c|."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(
+        np.float32)
+
+
+def emulate_comp_row(t, h: int):
+    """The comp kernels' (s, e) of h row ``h`` at every lo lane, in their
+    evaluation order: FFMA chains, s = fma(-sh_hi, sl_hi, fma(ch_hi, cl_hi,
+    s)) and e through the four corrections of each compensated harmonic
+    (ch_hi cl_lo, ch_lo cl_f, -sh_hi sl_lo, -sh_lo sl_f), then two FFMAs per
+    plain harmonic.  ``t``: the tables as the kernel takes them
+    (``outerwin_kernel._comp_tiles``)."""
+    hi, lo = t.hi[h].numpy(), t.lo.numpy()
+    nl = lo.shape[1]
+    s = np.full(nl, np.float32(t.a0), np.float32)
+    e = np.full(nl, np.float32(t.a0lo), np.float32)
+    for k in range(t.nk):
+        chh, chl, shh, shl = hi[4 * k:4 * k + 4]
+        cl_hi, cl_lo, cl_f, sl_hi, sl_lo, sl_f = lo[6 * k:6 * k + 6]
+        s = _ffma(chh, cl_hi, s)
+        s = _ffma(-shh, sl_hi, s)
+        e = _ffma(chh, cl_lo, e)
+        e = _ffma(chl, cl_f, e)
+        e = _ffma(-shh, sl_lo, e)
+        e = _ffma(-shl, sl_f, e)
+    for k in range(t.npl):
+        ch, sh = hi[4 * t.nk + 2 * k:4 * t.nk + 2 * k + 2]
+        e = _ffma(ch, lo[6 * t.nk + 2 * k], e)
+        e = _ffma(-sh, lo[6 * t.nk + 2 * k + 1], e)
+    return s, e
+
+
+def _seam_rows(nh: int) -> list[int]:
+    return sorted({0, nh // 4 - 1, nh // 4, nh // 4 + 1, nh // 2, 3 * nh // 4, nh - 1})
+
+
+class TestKernelOrderEmulation:
+    """The comp kernels' FFMA chains, emulated in numpy: s bit-equal to the
+    plain version (``comp_tile``) and to the JAX package's comp tiles, e
+    within ``comp_e_bound`` of both (the chains round 4C + 2P times, the
+    plain version 8C + 4P; with the emulation's double-rounding slack of
+    2^-53 per rounding the sum stays under the bound's 2 (8C + 4P) E u), at
+    the seam rows.  Against JAX at the small pw its own tests use; at pw=24
+    against the port's plain version."""
+
+    NAMES = ["bh7", "bh4", "bh5", "hamming", "flattop2"]
+
+    @pytest.mark.parametrize("name", NAMES)
+    def test_matches_plain_and_jax(self, name):
+        pw, m = 14, 7
+        t = pk._comp_tiles(pc._resolve_coeffs(name), pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH,
+                           torch.device("cpu"))
+        bound = pk.comp_e_bound(name)
+        for h in _seam_rows(1 << (pw - m)):
+            s, e = emulate_comp_row(t, h)
+            ps, pe = pk.outer_block_comp_plain(name, pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, h, 1,
+                                               device="cpu")
+            js, je = (np.asarray(v) for v in jc.comp_window_block(h << m, 1, name, pw, m=m))
+            np.testing.assert_array_equal(s, ps.numpy())
+            np.testing.assert_array_equal(s, js)
+            assert np.abs(e - pe.numpy()).max() <= bound
+            assert np.abs(e - je).max() <= bound
+
+    @pytest.mark.parametrize("name", NAMES)
+    def test_pw24_matches_plain(self, name):
+        pw, m = 24, 11
+        t = pk._comp_tiles(pc._resolve_coeffs(name), pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH,
+                           torch.device("cpu"))
+        gold_n = np.concatenate([(h << m) + np.arange(1 << m) for h in _seam_rows(1 << (pw - m))])
+        got_s, got_e = [], []
+        for h in _seam_rows(1 << (pw - m)):
+            s, e = emulate_comp_row(t, h)
+            ps, pe = pk.outer_block_comp_plain(name, pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, h, 1,
+                                               device="cpu")
+            np.testing.assert_array_equal(s, ps.numpy())
+            assert np.abs(e - pe.numpy()).max() <= pk.comp_e_bound(name)
+            got_s.append(s)
+            got_e.append(e)
+        gold = float_window_value(name, gold_n, 1 << pw)
+        assert np.abs(_pair64(np.concatenate(got_s), np.concatenate(got_e)) - gold).max() < 5e-9
+
+
 class TestAnalyzerCompMode:
     @pytest.mark.parametrize("fft_mode", ["rfft", "packed", "mxu"])
     def test_matches_jax_per_bin(self, fft_mode):

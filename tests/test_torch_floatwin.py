@@ -171,6 +171,67 @@ class TestF32Checksum:
         assert str(ours.value) == str(theirs.value)
 
 
+def _ffma(a, b, c):
+    """An FFMA emulated: the product of two f32 values is exact in float64,
+    the sum with c rounds once there and once more to f32 (at most 2^-53
+    |a b + c| beyond the f32 rounding's 2^-24 |a b + c|)."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(
+        np.float32)
+
+
+def emulate_f32_row(t, h: int):
+    """The f32 kernels' samples of h row ``h`` at every lo lane, in their
+    evaluation order: acc = fma(-sh, sl, fma(ch, cl, acc)) per harmonic from
+    a0.  ``t``: the tables as the kernel takes them
+    (``outerwin_kernel._f32_tiles``)."""
+    hi, lo = t.hi[h].numpy(), t.lo.numpy()
+    acc = np.full(lo.shape[1], np.float32(t.a0), np.float32)
+    for k in range(t.nk):
+        acc = _ffma(hi[k], lo[k], acc)
+        acc = _ffma(-hi[t.nk + k], lo[t.nk + k], acc)
+    return acc
+
+
+def _seam_rows(nh: int) -> list[int]:
+    return sorted({0, nh // 4 - 1, nh // 4, nh // 4 + 1, nh // 2, 3 * nh // 4, nh - 1})
+
+
+class TestKernelOrderEmulation:
+    """The f32 kernels' FFMA order, emulated in numpy, within
+    ``f32_pair_bound`` of the plain version and of the JAX package's blocks
+    at the seam rows (the kernel rounds 2(K-1) times, the plain version
+    4(K-1), the bound allows 8(K-1); the emulation's double rounding adds at
+    most 2^-53 per rounding); against JAX at the small pw its own tests use,
+    at pw=24 against the port's plain version."""
+
+    NAMES = ["bh7", "bh4", "bh5", "hamming", "flattop2"]
+
+    @pytest.mark.parametrize("name", NAMES)
+    def test_matches_plain_and_jax(self, name):
+        pw, m = 14, 7
+        t = pk._f32_tiles(pf._resolve_coeffs(name), pw, m, torch.device("cpu"))
+        bound = pk.f32_pair_bound(name)
+        gold = float_window_value(name, np.arange(1 << pw), 1 << pw)
+        for h in _seam_rows(1 << (pw - m)):
+            got = emulate_f32_row(t, h)
+            plain = pk.outer_block_f32_plain(name, pw, m, h, 1, device="cpu").numpy()
+            jax_blk = np.asarray(jf.float_window_block(h << m, 1, name, pw, m=m))
+            assert np.abs(got - plain).max() <= bound
+            assert np.abs(got - jax_blk).max() <= bound
+            assert np.abs(got - gold[h << m:(h + 1) << m]).max() < 1.5e-6
+
+    @pytest.mark.parametrize("name", NAMES)
+    def test_pw24_matches_plain(self, name):
+        pw, m = 24, 11
+        t = pk._f32_tiles(pf._resolve_coeffs(name), pw, m, torch.device("cpu"))
+        for h in _seam_rows(1 << (pw - m)):
+            got = emulate_f32_row(t, h)
+            plain = pk.outer_block_f32_plain(name, pw, m, h, 1, device="cpu").numpy()
+            assert np.abs(got - plain).max() <= pk.f32_pair_bound(name)
+            gold = float_window_value(name, (h << m) + np.arange(1 << m), 1 << pw)
+            assert np.abs(got - gold).max() < 1.5e-6
+
+
 class TestAnalyzerFloatMode:
     @pytest.mark.parametrize("fft_mode", ["rfft", "packed", "mxu"])
     def test_matches_jax_per_bin(self, fft_mode):

@@ -249,13 +249,13 @@ def test_outer_int_checksum_kernel_matches_plain(cuda, name, w, overflow, pw, m)
         assert int(got) == int(plain(bias)) == want
 
 
-def _check_checksum_against_plain(n, m, got, win_k, win_p, plain, comp=False):
+def _check_checksum_against_plain(depth_k, n, m, got, win_k, win_p, plain, comp=False):
     """f32/comp checksum kernel results ``got`` (at bias 0 and 5) against the
     float64 sum of its terms (the write-out ``win_k``: the checksum kernel
     computes each sample with the write-out's device code) within its
-    derived bound, and against its plain version within that bound plus
-    sum |w_k - w_p| plus the plain sum's own bound (rows = 8)."""
-    depth_k = ok.checksum_depth(n >> m, 1 << m)
+    derived bound (``depth_k``, the kernel's addition depth), and against
+    its plain version within that bound plus sum |w_k - w_p| plus the plain
+    sum's own bound (rows = 8)."""
     depth_p = ok.checksum_plain_depth(n >> m, 1 << m, 8, comp=comp)
     exact = sum(float(w.double().sum()) for w in win_k)
     abs_k = sum(float(w.double().abs().sum()) for w in win_k)
@@ -283,7 +283,7 @@ def test_outer_f32_block_and_checksum_kernels(cuda, name, pw, m, bf16):
     assert torch.equal(c0, c0b)  # deterministic: no float atomics
     assert float(c5) == float(np.float32(float(c0) + 5.0))  # bias added last
     _check_checksum_against_plain(
-        n, m, (c0, c5), (got,), (plain,),
+        ok.checksum_depth(name, pw, m, device=cuda), n, m, (c0, c5), (got,), (plain,),
         lambda b: ok.checksum_plain_f32(name, pw, m, 8, b, table_dtype=tdt, device=cuda))
 
 
@@ -315,8 +315,149 @@ def test_outer_comp_checksum_kernel(cuda, name, pw, m):
     assert torch.equal(c0, fn(0))
     assert float(c5) == float(np.float32(float(c0) + 5.0))
     _check_checksum_against_plain(
-        n, m, (c0, c5), (s, e), (ps, pe),
-        lambda b: ok.checksum_plain_comp(name, pw, m, 8, b, device=cuda), comp=True)
+        ok.checksum_depth(name, pw, m, comp=True, device=cuda), n, m, (c0, c5), (s, e),
+        (ps, pe), lambda b: ok.checksum_plain_comp(name, pw, m, 8, b, device=cuda), comp=True)
+
+
+# the float kernels' geometry: V = 4 lanes a thread, a row range a block,
+# compile-time (C, P) for the catalog and a runtime-count instantiation
+# for the rest
+
+def _comp_counts(coeffs, thresh=pc.DEFAULT_THRESH):
+    c = sum(1 for a in pc._resolve_coeffs(coeffs)[1:] if abs(a) >= thresh)
+    return c, len(pc._resolve_coeffs(coeffs)) - 1 - c
+
+
+def _check_float_blocks(cuda, coeffs, pw, m, h0, rows, thresh=pc.DEFAULT_THRESH):
+    """The f32 and comp write-outs of rows [h0, h0 + rows) against their
+    plain versions on the card: f32 within f32_pair_bound, comp s bit-equal
+    and e within comp_e_bound."""
+    got = ok.outer_block_f32(coeffs, pw, m, h0, rows, device=cuda)
+    want = ok.outer_block_f32_plain(coeffs, pw, m, h0, rows, device=cuda)
+    assert got.shape == (rows << m,)
+    assert float((got - want).abs().max()) <= ok.f32_pair_bound(coeffs)
+    s, e = ok.outer_block_comp(coeffs, pw, m, pc.GRID_BITS, thresh, h0, rows, device=cuda)
+    ps, pe = ok.outer_block_comp_plain(coeffs, pw, m, pc.GRID_BITS, thresh, h0, rows,
+                                       device=cuda)
+    assert torch.equal(s, ps)
+    assert float((e - pe).abs().max()) <= ok.comp_e_bound(coeffs, thresh=thresh)
+
+
+@pytest.mark.parametrize("name", ["bh7", "bh4", "hamming"])
+@pytest.mark.parametrize("h0,rows", [(5, 77), (1, 1), (0, 127), (3, 125)])
+def test_float_block_kernels_odd_row_ranges(cuda, name, h0, rows):
+    # pw=18, m=11: 128 rows; ranges off row 0, of odd length, one row
+    _check_float_blocks(cuda, name, 18, 11, h0, rows)
+
+
+@pytest.mark.parametrize("m", [0, 1, 2, 5, 9])
+def test_float_kernels_ragged_lanes(cuda, m):
+    # nl = 2^m < 512 lanes a block: the edge is masked (m <= 1: scalar stores)
+    pw, n = 12, 1 << 12
+    _check_float_blocks(cuda, "bh7", pw, m, 0, n >> m)
+    _check_float_blocks(cuda, "bh4", pw, m, 3, (n >> m) - 5)
+    for comp in (False, True):
+        make = ok.make_checksum_fn_comp if comp else ok.make_checksum_fn_f32
+        fn = make("bh7", pw, m=m, rows=1, device=cuda)
+        win = (ok.outer_block_comp("bh7", pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, 0, n >> m,
+                                   device=cuda) if comp
+               else (ok.outer_block_f32("bh7", pw, m, 0, n >> m, device=cuda),))
+        exact = sum(float(w.double().sum()) for w in win)
+        bound = ok.sum_bound(ok.checksum_depth("bh7", pw, m, comp=comp, device=cuda),
+                             sum(float(w.double().abs().sum()) for w in win))
+        assert abs(float(fn(0)) - exact) <= bound
+
+
+@pytest.mark.parametrize("name", catalog.names())
+def test_float_kernels_each_catalog_instantiation(cuda, name):
+    # every catalog window's (C, P) (hann/hamming (1,0) .. bh7 (4,2)) and
+    # K-1: write-out and checksum against plain
+    pw, m = 14, 7
+    n = 1 << pw
+    assert _comp_counts(name) in {(1, 0), (2, 0), (3, 0), (3, 1), (4, 2)}
+    _check_float_blocks(cuda, name, pw, m, 0, n >> m)
+    f32 = ok.outer_block_f32(name, pw, m, 0, n >> m, device=cuda)
+    f32_p = ok.outer_block_f32_plain(name, pw, m, 0, n >> m, device=cuda)
+    fn = ok.make_checksum_fn_f32(name, pw, m=m, rows=8, device=cuda)
+    _check_checksum_against_plain(
+        ok.checksum_depth(name, pw, m, device=cuda), n, m, (fn(0), fn(5)), (f32,), (f32_p,),
+        lambda b: ok.checksum_plain_f32(name, pw, m, 8, b, device=cuda))
+    s, e = pc.comp_window_pair(name, pw, m=m, device=cuda)
+    ps, pe = ok.outer_block_comp_plain(name, pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, 0, n >> m,
+                                       device=cuda)
+    fc = ok.make_checksum_fn_comp(name, pw, m=m, rows=8, device=cuda)
+    _check_checksum_against_plain(
+        ok.checksum_depth(name, pw, m, comp=True, device=cuda), n, m, (fc(0), fc(5)), (s, e),
+        (ps, pe), lambda b: ok.checksum_plain_comp(name, pw, m, 8, b, device=cuda), comp=True)
+
+
+@pytest.mark.parametrize("coeffs,thresh", [
+    ("bh4", 1.1),  # (0, 3): nothing compensated
+    ((0.3, 0.25, 0.2, 0.1, 0.05, 0.04, 0.03, 0.03), pc.DEFAULT_THRESH),  # (7, 0), 8 terms
+    ((0.4, 0.3, 0.005, 0.2, 0.004), pc.DEFAULT_THRESH),  # (2, 2), interleaved
+])
+def test_comp_kernels_runtime_count_instantiation(cuda, coeffs, thresh):
+    _check_float_blocks(cuda, coeffs, 14, 7, 2, 101, thresh=thresh)
+
+
+def test_float_kernels_pw31(cuda):
+    # pw = 31 at m = 11: 2^20 rows.  Seam rows against plain; the checksums
+    # repeat their bits and hold against the float64 sum of the write-out,
+    # taken 2^14 rows at a time
+    pw, m = 31, 11
+    nh = 1 << (pw - m)
+    for h0 in (0, nh // 4 - 1, nh // 2 - 2, 3 * nh // 4 - 1, nh - 4):
+        _check_float_blocks(cuda, "bh7", pw, m, h0, 4)
+    step = 1 << 14
+    for comp in (False, True):
+        make = ok.make_checksum_fn_comp if comp else ok.make_checksum_fn_f32
+        fn = make("bh7", pw, m=m, rows=256, device=cuda)
+        c0 = fn(0)
+        assert torch.equal(c0, fn(0))
+        exact = sum_abs = 0.0
+        for h0 in range(0, nh, step):
+            win = (ok.outer_block_comp("bh7", pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, h0, step,
+                                       device=cuda) if comp
+                   else (ok.outer_block_f32("bh7", pw, m, h0, step, device=cuda),))
+            exact += sum(float(w.double().sum()) for w in win)
+            sum_abs += sum(float(w.double().abs().sum()) for w in win)
+        # the float64 running sum over 2^31-term chunks: 2^-53 per addition
+        slack = 4 * (1 << pw) * 2.0**-53 * sum_abs
+        bound = ok.sum_bound(ok.checksum_depth("bh7", pw, m, comp=comp, device=cuda), sum_abs)
+        assert abs(float(c0) - exact) <= bound + slack, (float(c0), exact, bound)
+
+
+@pytest.mark.parametrize("name", ["bh7", "bh5", "hann"])
+def test_float_checksums_repeat_their_bits(cuda, name):
+    for make in (ok.make_checksum_fn_f32, ok.make_checksum_fn_comp):
+        fn = make(name, 20, m=11, rows=8, device=cuda)
+        first = fn(123457)
+        for _ in range(4):
+            assert torch.equal(fn(123457), first)
+
+
+def test_float_write_out_entry_refuses_unaligned_outputs(cuda):
+    # the float write-outs store 16 bytes: an output off a 16-byte boundary
+    # is refused (cudaErrorInvalidValue), an aligned one accepted
+    pw, m, rows = 12, 5, 8
+    lib, stream = _build.lib(), _build.stream_of(cuda)
+    buf = torch.zeros(2, (rows << m) + 4, device=cuda)
+    for comp in (False, True):
+        t = (ok._comp_tiles(pc._resolve_coeffs("bh7"), pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH,
+                            cuda) if comp
+             else ok._f32_tiles(pc._resolve_coeffs("bh7"), pw, m, cuda))
+
+        def block(a, b, t=t):
+            return lib.bhw_outer_block(t.mode, a, b, *ok._c_args(t, 0, rows), stream)
+
+        a, b = buf[0].data_ptr(), buf[1].data_ptr()
+        assert block(a, b) == 0
+        torch.cuda.synchronize()
+        for off in (4, 8, 12):
+            assert block(a + off, b) == 1
+            if comp:
+                assert block(a, b + off) == 1
+    assert int((buf[:, rows << m:] != 0).sum()) == 0
 
 
 def test_outer_wrappers_reject_what_the_kernels_do_not_take(cuda):
