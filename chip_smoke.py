@@ -37,7 +37,16 @@ user calls, at the repository's real sizes:
 9. STFT/WOLA round trips at the analyzer configuration (BH-4 W=17 pw=20
    saturate, nfft 2^20, hop 2^19, 32 * 2^20 samples) through the quantized
    pair (window kernel), the float pair (f32 outer write-out) and the comp
-   pair (comp outer write-out).
+   pair (comp outer write-out);
+10. the front end: the CLI (``blackman_harris_win_tpu_torch.__main__.main``)
+   in this process on the inputs above, each output through a ``.npy`` in a
+   temporary directory: ``gen`` at BH-7 W=32 pw=26 wrap in the exact,
+   outer, float and comp-pair modes and a TAYLOR Hamming W=16 window;
+   ``spectrum --fft-mode mxu`` at the analyzer configuration on 3's x as
+   ``.npy`` and as a raw i16 capture (through ``SampleSource``); ``ddc`` at
+   config 21 on 7's x; ``stft`` on 9's x; ``suggest``.  Then two child
+   processes prove the ``python -m`` route (``list --json``, a small
+   ``gen`` on the card).
 
 Every kernel's launch counter is zeroed just before each phase and read
 just after; a phase that did not launch a kernel of its path fails the run,
@@ -48,7 +57,9 @@ against the float64 golden on every sample, the spectral floors at pw=16,
 the analyzers against a float64 reference within the derived f32 budget,
 the DDC against a float64 FIR of its exact integer mixer products, the SDR
 tone offset and discriminator, the STFT round trips and frames of each
-pair's stft against the golden window, and each kernel against its plain
+pair's stft against the golden window, every front-end output bit for bit
+against the earlier phase's (the two spectra also within the analyzer's
+budget), and each kernel against its plain
 version on the card; torch.profiler breakdowns of one DDC call and of one
 fft_mode="mxu" analyzer call (stage-1 kernel, window kernel, GEMMs,
 elementwise and permute passes) must record device time.  Last, each kernel and its plain version are timed
@@ -71,7 +82,10 @@ where ``cuobjdump`` exists, the SASS instructions of one unrolled CORDIC
 iteration per datapath, of the bulk-copy ring's main loop, of the Taylor
 kernels' run walk per sample, of the stage-1 kernel's FFT body and of one
 row of each f32/comp outer instantiation's walk (its FFMA, LDS and STG),
-with their local-memory instructions.
+with their local-memory instructions.  Phase 10's wall time per subcommand
+(file I/O included), its host steps alone and the six mode rates of
+``windows/modes.py:MODE_GSPS`` are printed with the card's name and power
+limit.
 
 Exits non-zero, printing no result, if torch sees no CUDA device or any
 phase fails.  The last line is the JSON object
@@ -85,7 +99,9 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -449,6 +465,162 @@ def _stft_round_trips(x, spec, hop: int, dev) -> dict:
         y = inv(fwd(x))
         out[name] = (fwd, inv, float((y - x)[edge:-edge].abs().max()))
     return out
+
+
+#: the raw i16 capture of phase 10: x scaled by 2^12 and rounded (|x| < 8)
+I16_SCALE = 2.0**-12
+
+
+def _cli(argv: list) -> tuple[float, str]:
+    """One CLI command in this process, its stdout captured: (wall seconds,
+    file I/O included; stdout).  The CLI copies its result to the host, so
+    the device work has ended when it returns."""
+    import contextlib
+    import io
+
+    from blackman_harris_win_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    secs = time.perf_counter() - t0
+    _require(rc == 0, f"cli {' '.join(map(str, argv))}: exit {rc}")
+    return secs, buf.getvalue()
+
+
+def _front_end_inputs(tmp, x, x21, x_stft) -> dict:
+    """Phase 10's input files from the run's own inputs: the analyzer's x as
+    .npy and as a raw i16 capture, the DDC's and the STFT's x as .npy."""
+    import torch
+
+    xq = torch.clamp(torch.round(x / I16_SCALE), -32768, 32767).to(torch.int16)
+    paths = {"x": tmp / "x.npy", "x_i16": tmp / "x.i16", "x21": tmp / "x21.npy",
+             "x_stft": tmp / "x_stft.npy"}
+    for key, t in (("x", x), ("x21", x21), ("x_stft", x_stft)):
+        np.save(paths[key], t.cpu().numpy())
+    xq.cpu().numpy().astype("<i2").tofile(paths["x_i16"])
+    return paths
+
+
+def _front_end_phase(tmp, paths: dict) -> dict:
+    """Phase 10: the CLI in this process at the run's full sizes, each
+    output to a .npy in ``tmp`` and read back; returns label -> (wall
+    seconds, output array)."""
+    gen7 = ["gen", "bh7", "--phase-width", "26", "--data-width", "32", "--overflow", "wrap"]
+    spec4 = ["bh4", "--phase-width", "20", "--data-width", "17"]
+    runs = {
+        "gen exact": gen7,
+        "gen outer": gen7 + ["--mode", "outer"],
+        "gen float": gen7 + ["--mode", "float"],
+        "gen comp-pair": gen7 + ["--mode", "comp-pair"],
+        "gen taylor hamming": ["gen", "hamming", "--sin-type", "taylor", "--phase-width", "26",
+                               "--data-width", "16"],
+        "spectrum npy": ["spectrum", *spec4, "--fft-mode", "mxu", "--hop", "524288",
+                         "--input", paths["x"]],
+        "spectrum raw i16": ["spectrum", *spec4, "--fft-mode", "mxu", "--hop", "524288",
+                             "--input", paths["x_i16"], "--format", "i16",
+                             "--scale", repr(I16_SCALE)],
+        "ddc": ["ddc", "--input", paths["x21"], "--freq", "0.125", "--decim", "4", "--taps",
+                "64", "--phase-width", "20", "--data-width", "16", "--flavor", "dds48"],
+        "stft": ["stft", *spec4, "--input", paths["x_stft"]],
+    }
+    out = {}
+    for label, argv in runs.items():
+        f = tmp / "out.npy"
+        secs, _ = _cli(argv + ["--out", f])
+        out[label] = (secs, np.load(f))
+        f.unlink()
+    secs, text = _cli(["suggest", "hamming", "--consumer", "int", "--exactness", "bit-exact"])
+    out["suggest"] = (secs, json.loads(text))
+    return out
+
+
+def _front_end_gates(fe: dict, want: dict, spectra: dict, budget: float) -> None:
+    """Phase 10's outputs against the earlier phases': ``want`` label ->
+    array, bit for bit; ``spectra`` label -> (float64 reference, the same
+    path's output called directly), within ``budget`` per bin of the
+    reference, and bit-equal to the direct call or said not to be."""
+    for label, w in want.items():
+        got = fe[label][1]
+        _require(got.dtype == w.dtype and got.shape == w.shape and np.array_equal(got, w),
+                 f"cli {label}: {got.dtype}{got.shape} differs from the earlier phase's "
+                 f"{w.dtype}{w.shape}")
+        print(f"cli {label}: {got.dtype}{got.shape} bit-equal to the earlier phase's output")
+    for label, (ref, direct) in spectra.items():
+        got = fe[label][1].astype(np.float64)
+        rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        _require(rel < budget, f"cli {label}: per-bin rel err {rel:.3e} > {budget:.3e}")
+        same = np.array_equal(fe[label][1], direct)
+        print(f"cli {label}: per-bin rel vs float64 {rel:.3e} (< {budget:.3e}); "
+              + ("bit-equal to the direct call" if same else
+                 f"not bit-equal to the direct call (max rel "
+                 f"{float(np.max(np.abs(got - direct) / np.abs(ref))):.3e}: cuBLAS chose "
+                 "another algorithm)"))
+    s = fe["suggest"][1]
+    _require(s["mode"] == "taylor" and s["est_gsamp_s_64M_h100"] > 0,
+             f"cli suggest: {s}")
+    print(f"cli suggest hamming int bit-exact: {s}")
+
+
+def _front_end_pieces(tmp, paths: dict, win, pair) -> dict:
+    """Where phase 10's wall time goes: each host step of a CLI call alone
+    at its size, host clock; returns label -> seconds."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels.compwin import normalize_pair
+    from blackman_harris_win_tpu_torch.utils.io import SampleSource
+
+    def clock(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def ingest():
+        with SampleSource(paths["x_i16"], "i16", scale=I16_SCALE) as src:
+            return src.read_block(0, len(src))
+
+    secs = {}
+    secs["np.load of the 512 MB x.npy"], xh = clock(lambda: np.load(paths["x"]))
+    secs["host to card, 512 MB f32"], _ = clock(lambda: torch.from_numpy(xh).to(win.device))
+    secs["SampleSource i16 read_block, 128*2^20 samples"], _ = clock(ingest)
+    secs["card to host, 256 MB int32"], wh = clock(lambda: win.cpu().numpy())
+    f = tmp / "w.npy"
+    secs["np.save, 256 MB"], _ = clock(lambda: np.save(f, wh))
+    f.unlink()
+    sh, eh = pair[0].cpu().numpy(), pair[1].cpu().numpy()
+    secs["normalize_pair (numpy), 2^26 samples"], _ = clock(lambda: normalize_pair(sh, eh))
+    return secs
+
+
+def _module_route(tmp, dev) -> dict:
+    """The ``python -m`` route: ``list --json`` and a small ``gen`` on the
+    card in a child process; returns label -> wall seconds."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels.window import make_window
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    secs = {}
+    f = tmp / "w12.npy"
+    for label, args in (("list --json", ["list", "--json"]),
+                        ("gen bh4 pw12", ["gen", "bh4", "--phase-width", "12", "--out", str(f)])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "blackman_harris_win_tpu_torch", *args],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=str(Path(__file__).resolve().parent))
+        secs[label] = time.perf_counter() - t0
+        _require(r.returncode == 0, f"python -m ... {label}: exit {r.returncode}\n{r.stderr}")
+        if label == "list --json":
+            names = [row["name"] for row in json.loads(r.stdout)]
+            _require(names == catalog.names(), f"list --json names {names}")
+    want = make_window("bh4", WindowSpec(12, 17), device=dev).cpu().numpy()
+    _require(np.array_equal(np.load(f), want), "python -m gen bh4 pw12 differs from make_window")
+    print("python -m blackman_harris_win_tpu_torch: list --json names the catalog; gen bh4 "
+          "pw12 on the card bit-equal to make_window (" + torch.cuda.get_device_name(0) + ")")
+    return secs
 
 
 #: operations per (cos, sin) call of the TAYLOR generator: phase split (2),
@@ -932,6 +1104,15 @@ def main(argv=None) -> int:
     # STFT/WOLA round trips at the analyzer configuration
     stft_res = _counted(launched, "9 stft", ("window_block", "outer_block_f32", "outer_block_comp"),
                         lambda: _stft_round_trips(x_stft, spec4, hop, dev))
+    # the front end: the CLI in this process on the inputs above, at full size
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        paths = _front_end_inputs(Path(tmp), x, x21, x_stft)
+        fe = _counted(launched, "10 front end",
+                      ("window_block", "taylor_window_block", "outer_block", "outer_block_f32",
+                       "outer_block_comp", "welch_stage1", "materialize"),
+                      lambda: _front_end_phase(Path(tmp), paths))
+        fe_route = _module_route(Path(tmp), dev)
+        fe_pieces = _front_end_pieces(Path(tmp), paths, win_hls, (win_s, win_e))
     main_s = time.perf_counter() - t0
     print(f"main path: {main_s:.3f} s host clock (first call), launches {launched}")
     for name, c in launched.items():
@@ -1174,6 +1355,27 @@ def main(argv=None) -> int:
         _stft_frame_gate(name, fwd, x_stft, *plain4[name], gold4, nfft, hop, rng)
     del plain4, wq_plain, gold4
 
+    # --- the front end: gates ---
+    xq = torch.clamp(torch.round(x / I16_SCALE), -32768, 32767).to(torch.int16).float() * I16_SCALE
+    spectra = {
+        "spectrum npy": (ref.cpu().numpy(), ps_mxu.cpu().numpy()),
+        "spectrum raw i16": (_f64_welch(xq, win64, nfft, hop).cpu().numpy(),
+                             windowed_power_spectrum(xq, "bh4", spec4, hop=hop,
+                                                     fft_mode="mxu").cpu().numpy()),
+    }
+    del xq
+    _front_end_gates(fe, {
+        "gen exact": win_hls.cpu().numpy(),
+        "gen outer": win_outer.cpu().numpy(),
+        "gen float": win_f32.cpu().numpy(),
+        "gen comp-pair": np.stack(normalize_pair(win_s, win_e)),
+        "gen taylor hamming": tay_win["hamming"].cpu().numpy(),
+        "ddc": bb.cpu().numpy(),
+        "stft": stft_res["quantized"][0](x_stft).cpu().numpy(),
+    }, spectra, budget)
+    fe_secs = {k: v[0] for k, v in fe.items()}
+    del fe, spectra
+
     # --- 4. each kernel against its plain version on the card, timed ---
     plain_hls = window_values_plain(idx, q7, spec_hls)
     err_1a = int((plain_hls.long() - win_hls.long()).abs().max())
@@ -1358,6 +1560,18 @@ def main(argv=None) -> int:
     for k in ("hamming rtl", "bh7 taylor2"):  # torch ops on the card, no kernel
         ms = _time_ms(lambda k=k: make_window(k.split()[0], tay_specs[k], device=dev))
         print(f"time {label} taylor window {k} (torch ops, no kernel): {ms:.3f} ms")
+    for k, secs in fe_secs.items():
+        print(f"time {label} cli {k}: {secs:.3f} s wall (phase 10, in process, file I/O "
+              "included)")
+    for k, secs in fe_route.items():
+        print(f"time {label} cli python -m {k}: {secs:.3f} s wall (child process)")
+    print(f"time {label} cli pieces (host clock, each alone): " + "; ".join(
+        f"{k} {secs:.3f} s" for k, secs in fe_pieces.items()))
+    mode_ms = {"exact": t["window_block"][0], "rtl": t["window_block_rtl"][0],
+               "taylor": t["taylor_window_block blackman"][0], "outer": t["outer_block"][0],
+               "float": t["outer_block_f32"][0], "comp": t["outer_block_comp"][0]}
+    print(f"mode rates {label} (MODE_GSPS: 2^26 samples over one call alone, Gsamples/s): "
+          + json.dumps({k: round(n / ms / 1e6, 3) for k, ms in mode_ms.items()}))
     print(f"rates {label}: window_block {n / t['window_block'][0] / 1e3:.1f} "
           f"Msamples/s, window_checksum {4 * n / t['window_checksum'][0] / 1e3:.1f} "
           f"Msamples/s, analyzer mxu {nsamp / t['analyzer mxu vs rfft'][0] / 1e3:.1f} "

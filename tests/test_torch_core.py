@@ -46,6 +46,13 @@ PORT_MODULES = [
     "blackman_harris_win_tpu_torch.pipeline.channelizer",
     "blackman_harris_win_tpu_torch.pipeline.sdr",
     "blackman_harris_win_tpu_torch.pipeline.stft",
+    "blackman_harris_win_tpu_torch.windows.metrics",
+    "blackman_harris_win_tpu_torch.windows.design",
+    "blackman_harris_win_tpu_torch.windows.modes",
+    "blackman_harris_win_tpu_torch.windows.selector",
+    "blackman_harris_win_tpu_torch.utils.streaming",
+    "blackman_harris_win_tpu_torch.utils.io",
+    "blackman_harris_win_tpu_torch.__main__",
 ]
 
 

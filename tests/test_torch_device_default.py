@@ -7,6 +7,8 @@ plain version.  Pipeline functions given a tensor run where it lies."""
 import importlib
 import inspect
 import pkgutil
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 
 import blackman_harris_win_tpu_torch as port
 from blackman_harris_win_tpu_torch import _build
+from blackman_harris_win_tpu_torch.__main__ import main as cli_main
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import compwin, floatwin, outerwin
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
@@ -21,6 +24,7 @@ from blackman_harris_win_tpu_torch.kernels import taylor, taylor_kernel
 from blackman_harris_win_tpu_torch.kernels import window, window_kernel
 from blackman_harris_win_tpu_torch.pipeline import channelizer, ddc, demod, fir, sdr, spectral, stft
 from blackman_harris_win_tpu_torch.windows import catalog
+from blackman_harris_win_tpu_torch.windows.selector import WinSelector
 
 SPEC = WindowSpec(10, 17, overflow="saturate")
 Q4 = catalog.get("bh4").quantized(17)
@@ -31,6 +35,24 @@ QH = catalog.get("hamming").quantized(16)
 X = np.random.default_rng(0).normal(size=1024).astype(np.float32)
 PROTO = channelizer.design_prototype(4, 6)
 S = np.fft.rfft(X[:896].reshape(7, 128), n=256).astype(np.complex64)
+
+
+def _cli(*argv, **d):
+    """One CLI subcommand, ``--device`` from the keyword, its ``--out`` .npy
+    loaded back as a tensor.  The CLI exits with ``resolve_device``'s message
+    where the device does not exist; that exit is raised here as the
+    RuntimeError the entry-point test expects of every entry point."""
+    with tempfile.TemporaryDirectory() as tmp:
+        x, out = Path(tmp) / "x.npy", Path(tmp) / "out.npy"
+        np.save(x, X)
+        argv = [a.replace("X.npy", str(x)) for a in argv] + ["--out", str(out)]
+        if "device" in d:
+            argv += ["--device", d["device"]]
+        try:
+            cli_main(argv)
+        except SystemExit as ex:
+            raise RuntimeError(str(ex)) from ex
+        return torch.from_numpy(np.load(out))
 
 # entry point -> call taking the device keyword
 ENTRY_POINTS = {
@@ -95,6 +117,12 @@ ENTRY_POINTS = {
     "stft.quantized_stft_pair": lambda **d: stft.quantized_stft_pair("bh4", SPEC, **d)[2],
     "stft.float_stft_pair": lambda **d: stft.float_stft_pair("bh4", 10, **d)[2],
     "stft.comp_stft_pair": lambda **d: stft.comp_stft_pair("bh4", 10, **d)[2][0],
+    "selector.WinSelector.__call__": lambda **d: WinSelector("BH4TERM", 10, 17)(**d),
+    "cli.gen": lambda **d: _cli("gen", "bh4", "--phase-width", "8", **d),
+    "cli.spectrum": lambda **d: _cli("spectrum", "bh4", "--phase-width", "8", "--input", "X.npy",
+                                     **d),
+    "cli.ddc": lambda **d: _cli("ddc", "--input", "X.npy", "--freq", "0.125", "--taps", "16", **d),
+    "cli.stft": lambda **d: _cli("stft", "bh4", "--phase-width", "8", "--input", "X.npy", **d),
 }
 
 
@@ -132,9 +160,15 @@ def test_tensor_input_runs_where_it_lies():
 def _port_functions():
     for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
         mod = importlib.import_module(info.name)
-        for name, fn in vars(mod).items():
-            if inspect.isfunction(fn) and fn.__module__ == mod.__name__:
-                yield f"{info.name}.{name}", fn
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{info.name}.{name}", obj
+            elif inspect.isclass(obj):  # methods too: WinSelector.__call__
+                for mname, fn in vars(obj).items():
+                    if inspect.isfunction(fn):
+                        yield f"{info.name}.{name}.{mname}", fn
 
 
 def test_no_function_defaults_to_the_cpu():
@@ -144,4 +178,6 @@ def test_no_function_defaults_to_the_cpu():
         if p is not None and p.default is not inspect.Parameter.empty:
             found += 1
             assert p.default is None, f"{name} defaults to device={p.default!r}"
-    assert found >= len(ENTRY_POINTS)
+    # every entry point but the CLI's (its device is the --device option,
+    # held by the cli.* entries above) is a function or method found here
+    assert found >= len([k for k in ENTRY_POINTS if not k.startswith("cli.")])

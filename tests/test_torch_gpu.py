@@ -825,3 +825,63 @@ def test_ddc_on_the_card_matches_cpu_plain(cuda, flavor):
     u = 2.0**-24
     bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(x).max()
     assert float((got.cpu() - want).abs().max()) <= bound
+
+
+# --- the front end: the CLI's gen and WinSelector on the card ---
+
+GEN_CASES = [  # (gen arguments, kernels the card run launches)
+    (["bh7", "--phase-width", "16", "--data-width", "32", "--overflow", "wrap"],
+     ("window_block",)),
+    (["bh4", "--phase-width", "14", "--rounding", "rtl"], ("window_block",)),
+    (["hamming", "--phase-width", "16", "--data-width", "16", "--sin-type", "taylor"],
+     ("taylor_window_block",)),
+    (["bh7", "--phase-width", "16", "--data-width", "32", "--mode", "outer"], ("outer_block",)),
+    (["bh7", "--phase-width", "14", "--data-width", "32", "--mode", "taylor2"], ()),
+    (["bh7", "--phase-width", "16", "--mode", "float"], ("outer_block_f32",)),
+    (["bh7", "--phase-width", "16", "--mode", "comp"], ("outer_block_comp",)),
+    (["bh4", "--phase-width", "16", "--mode", "comp-pair"], ("outer_block_comp",)),
+]
+
+
+@pytest.mark.parametrize("args,kernels", GEN_CASES)
+def test_cli_gen_on_the_card_matches_cpu_plain(cuda, tmp_path, args, kernels):
+    from blackman_harris_win_tpu_torch.__main__ import main
+
+    f_card, f_cpu = tmp_path / "card.npy", tmp_path / "cpu.npy"
+    _build.reset_launches()
+    assert main(["gen", *args, "--out", str(f_card)]) == 0
+    assert all(_build.launches[k] == 1 for k in kernels), _build.launches
+    assert main(["gen", *args, "--out", str(f_cpu), "--device", "cpu"]) == 0
+    got, want = np.load(f_card), np.load(f_cpu)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    name = args[0]
+    if "float" in args:
+        assert np.abs(got.astype(np.float64) - want).max() <= ok.f32_pair_bound(name)
+    elif "comp" in args or "comp-pair" in args:
+        # s bit-equal, e within comp_e_bound; the folded hi rounds once more
+        pair = lambda w: w[0].astype(np.float64) + w[1] if w.ndim == 2 else w  # noqa: E731
+        slack = 0.0 if got.ndim == 2 else 2.0**-24
+        assert np.abs(pair(got) - pair(want)).max() <= ok.comp_e_bound(name) + slack
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("win_type,sin_type,rounding", [
+    ("BH7TERM", "CORDIC", "hls"), ("BH4TERM", "CORDIC", "rtl"),
+    ("HAMMING", "TAYLOR", "hls"), ("BH3TERM", "TAYLOR", "rtl")])
+def test_win_selector_on_the_card(cuda, win_type, sin_type, rounding):
+    from blackman_harris_win_tpu_torch.windows.selector import WinSelector
+
+    sel = WinSelector(win_type, 16, 32 if win_type == "BH7TERM" else 17, sin_type=sin_type,
+                      rounding=rounding, overflow="wrap")
+    _build.reset_launches()
+    got = sel()
+    kernel = {("CORDIC", "hls"): "window_block", ("CORDIC", "rtl"): "window_block",
+              ("TAYLOR", "hls"): "taylor_window_block"}.get((sin_type, rounding))
+    assert got.device == cuda and got.dtype == torch.int32
+    if kernel:
+        assert _build.launches[kernel] == 1
+    want = kw.window_samples(torch.arange(1 << 16), sel.coeffs_q, sel.spec)
+    assert torch.equal(got.cpu().long(), want)
+    idx = torch.tensor([0, 1, 16383, 16384, 16385, 32768, 49151, 65535])
+    assert torch.equal(sel(idx.to(cuda)).cpu(), want[idx])
