@@ -14,8 +14,8 @@
   materialization kernel (kernel 7) before the strided conv.
 
 The NCO and the mixer run in int64/int32 torch ops on the tensor's device;
-there is no NCO kernel (the JAX package has none either).  The sharded
-variant waits for the port's ``dist/``.
+there is no NCO kernel (the JAX package has none either).
+:func:`make_sharded_ddc` runs the DDC over a device mesh (``dist/``).
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import torch
 
 from .. import _build
 from ..core.config import CordicSpec
+from ..dist.halo import left_halo
+from ..dist.mesh import Mesh, from_rows, shard
 from ..kernels.cordic import cordic_sincos
 from .fir import decimating_fir, design_lowpass
 
@@ -109,3 +111,67 @@ def ddc(x, freq: float, decim: int, taps=64, phase_width: int = 20,
         return body
     seg = torch.cat([m2[..., t - halo:], m2[..., :halo]], dim=-1)
     return torch.cat([decimating_fir(seg, h, decim), body], dim=-1)
+
+
+def shard_mixer_ints(x_ext, n_first: int, t_total: int, fw: int, phase_width: int,
+                     data_width: int, flavor: str = "dds48"):
+    """The integer mixer of one shard of the sharded DDC: ``x_ext`` (float)
+    holds the global samples from index ``n_first`` on (below 0 for shard
+    0's circular halo), which wrap circularly (n < 0 -> n + T).  Quantizes
+    as :func:`ddc` does and returns the raw int32 (i, q) products.  The
+    indices are int64 (``i*B - halo`` may pass 2^31) and the NCO takes them
+    mod 2^32, as the JAX package's int32 lanes do."""
+    amp_in = float((1 << MIX_IN_BITS) - 1)
+    xq = torch.round(x_ext.to(torch.float32) * amp_in).to(torch.int32)
+    n = torch.arange(n_first, n_first + x_ext.shape[-1], dtype=torch.int64, device=xq.device)
+    n = torch.where(n < 0, n + t_total, n)
+    return mix_iq_int(xq, n, fw, phase_width, data_width, flavor)
+
+
+def make_sharded_ddc(mesh: Mesh, phase_width: int, data_width: int, freq: float, decim: int,
+                     taps=64, cutoff: float | None = None, window: str = "bh4",
+                     flavor: str = "dds48"):
+    """Sharded DDC over the mesh's 'blocks' axis (JAX: ``make_sharded_ddc``).
+
+    The step takes a global (T,) float stream split ('blocks',) and returns
+    the (2, T//decim) baseband I/Q as a ``Sharded`` split (None, 'blocks').
+    The halo is taken on the raw input (one ppermute of taps - decim
+    samples), before mixing: the NCO phase is closed-form per global index,
+    so each shard mixes its extended chunk at the circularly wrapped
+    indices, which is :func:`ddc`'s circular alignment.  The mixer integers
+    are those of the single-device NCO at the same indices; the output
+    agrees with :func:`ddc` to f32 accuracy.
+
+    ``flavor`` defaults to "dds48", as :func:`ddc` does.  (The JAX maker
+    defaults to "scaled" because XLA:CPU ran the dds48 graph slowly inside
+    ``shard_map``; the port has no such limit.)
+    """
+    fw = freq_word(freq, phase_width)
+    h = taps if hasattr(taps, "__len__") else design_lowpass(
+        int(taps), (cutoff if cutoff is not None else 0.8 / decim), window=window)
+    h = np.asarray(h)
+    halo = len(h) - decim
+    if halo < 0:
+        raise ValueError("decimation larger than filter not supported")
+    scale = float(np.float32(1.0 / (((1 << MIX_IN_BITS) - 1) * (1 << (data_width - 2)))))
+    nblocks = mesh.shape["blocks"]
+
+    def shard_out(x, tail, i):
+        b = x.shape[-1]
+        mi, mq = shard_mixer_ints(torch.cat([tail, x], dim=-1), i * b - halo,
+                                  b * nblocks, fw, phase_width, data_width, flavor)
+        return decimating_fir(torch.stack([mi, mq]).to(torch.float32) * scale, h, decim)
+
+    def step(x):
+        xs = shard(x, mesh, ("blocks",))
+        rows = []
+        for row in xs.shards:
+            if row[0].shape[-1] % decim:
+                raise ValueError("shard block must be a multiple of decim")
+            # the small halos first, then one shard's mixer at a time
+            row = [x.to(torch.float32) for x in row]
+            tails = left_halo(row, halo, circular=True) if halo else [x[..., :0] for x in row]
+            rows.append([shard_out(x, t, i) for i, (x, t) in enumerate(zip(row, tails))])
+        return from_rows(mesh, (None, "blocks"), rows)
+
+    return step

@@ -8,9 +8,8 @@
   frames times taps (a full-fp32 contraction) at small sizes, and a strided
   ``conv1d`` otherwise, behind the materialization barrier (kernel 7,
   ``kernels/barrier.py``) at bulk sizes.  cuDNN runs fp32 convolutions in
-  TF32 by default, so TF32 is turned off while these run (and restored after).
-
-The sharded variant waits for the port's ``dist/``.
+  TF32 by default, so TF32 is turned off while these run (and restored after);
+- :func:`make_sharded_decimating_fir` runs it over a device mesh (``dist/``).
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ import torch
 
 from .. import _build
 from ..core.config import WindowSpec
+from ..dist.halo import left_halo
+from ..dist.mesh import Mesh, from_rows, shard
 from ..kernels.barrier import materialize
 from ..kernels.window import window_samples
 from ..windows import catalog
@@ -83,3 +84,34 @@ def decimating_fir(x, taps, decim: int, device=None):
         x = materialize(x)
     y = torch.nn.functional.conv1d(x.reshape(-1, 1, t), taps.reshape(1, 1, -1), stride=decim)
     return y.reshape(lead + (y.shape[-1],))
+
+
+def make_sharded_decimating_fir(mesh: Mesh, taps, decim: int):
+    """Sharded decimating FIR over a (channels, blocks) mesh (JAX:
+    ``make_sharded_decimating_fir``).
+
+    The step takes a global (C, T) input split ('channels', 'blocks') and
+    returns a ``Sharded`` of the same split.  Each time shard prepends a
+    circular left halo of len(taps) - decim samples from its neighbour, so
+    output m is the tap window ending at global sample m*decim + decim - 1:
+    y[m] = sum_t h[t] x[(m*decim - (n_taps - decim) + t) mod T].  The block
+    length must be a multiple of ``decim``.
+    """
+    taps = np.asarray(taps)
+    halo = len(taps) - decim
+    if halo < 0:
+        raise ValueError("decimation larger than filter not supported")
+
+    def step(x):
+        xs = shard(x, mesh, ("channels", "blocks"))
+        rows = []
+        for row in xs.shards:
+            if row[0].shape[-1] % decim:
+                raise ValueError("shard block must be a multiple of decim")
+            # the small halos first, then one shard's extended chunk at a time
+            tails = left_halo(row, halo, circular=True) if halo else [x[..., :0] for x in row]
+            rows.append([decimating_fir(torch.cat([t, x], dim=-1), taps, decim)
+                         for x, t in zip(row, tails)])
+        return from_rows(mesh, ("channels", "blocks"), rows)
+
+    return step

@@ -19,7 +19,8 @@ Float matmuls here must run in full fp32: the functions below turn TF32 off
 after, as the JAX package pins ``Precision.HIGHEST`` per operation.
 
 Array-like ``x`` goes to ``device`` (default the card); a tensor runs where
-it lies.
+it lies.  :func:`make_sharded_welch` is the analyzer over a device mesh
+(``dist/``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ import torch
 
 from .. import _build
 from ..core.config import WindowSpec
+from ..dist.collectives import pmean
+from ..dist.halo import right_halo
+from ..dist.mesh import Mesh, from_rows, shard
+from ..kernels import window as _window
 from ..kernels.compwin import comp_window_pair
 from ..kernels.floatwin import float_window
 from ..kernels.welchfft_kernel import welch_stage1_fused
@@ -331,3 +336,73 @@ def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
     wq = window_block(coeffs_q, spec, 0, nfft, x.device)
     win = wq.to(torch.float32) * window_scale(spec, shift)
     return welch_power(x, win, nfft, hop, fft_mode)
+
+
+def _quantized_window_fn(spec: WindowSpec, coeffs_q, shift: int, nfft: int):
+    """win(device): the quantized float32 window of the sharded steps,
+    generated on a shard's device by ``kernels.window.window_block`` (the
+    window kernel for the CORDIC source) and scaled in float32."""
+    coeffs_q = tuple(int(c) for c in coeffs_q)
+    scale = float(np.float32(window_scale(spec, shift)))
+    return lambda device: (_window.window_block(0, nfft, coeffs_q, spec, device)
+                           .to(torch.float32) * scale)
+
+
+def make_sharded_welch(mesh: Mesh, spec: WindowSpec, coeffs_q, shift: int, nfft: int, hop: int,
+                       win_mode: str = "quantized", fft_mode: str = "rfft"):
+    """Build the sharded analyzer step (JAX: ``make_sharded_welch``).
+
+    The step takes a global x of shape (C, T) (a tensor, an array-like or a
+    ``Sharded``), split ('channels', 'blocks'), and returns the (C,
+    nfft//2+1) Welch spectrum as a ``Sharded`` with spec ('channels', None):
+    replicated over 'blocks'.
+
+    Per shard: the window is generated on the shard's device, the shard's
+    time chunk is framed with a circular right halo of nfft - hop samples
+    (one ppermute), its mean power is taken, and the powers are averaged
+    over 'blocks' by ``pmean``.  ``win_mode="quantized"`` generates the
+    window with ``kernels.window.window_block`` (the window kernel for the
+    CORDIC source); ``"float"`` with the f32 outer write-out and ``"comp"``
+    with the raw compensated pair, applied as ``fr*s + fr*e`` (for these two
+    pass the window's name or float coefficients in ``coeffs_q``;
+    ``shift`` is then unused).  Each shard's input is 2-D, so
+    ``fft_mode="mxu"`` runs the matmul stages on materialized frames (the
+    fused stage-1 kernel takes 1-D input only, in both packages).
+    """
+    halo = nfft - hop
+    if win_mode in ("float", "comp"):
+        if nfft != spec.n:
+            raise ValueError(f"{win_mode} win_mode needs nfft == 2^phase_width")
+        name_or_coeffs = _check_float_window_arg(coeffs_q)
+        if win_mode == "float":
+            def make_win(device):
+                return float_window(name_or_coeffs, spec.phase_width, device=device)
+        else:
+            def make_win(device):
+                return comp_window_pair(name_or_coeffs, spec.phase_width, device=device)
+    elif win_mode == "quantized":
+        make_win = _quantized_window_fn(spec, coeffs_q, shift, nfft)
+    else:
+        raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
+
+    def shard_power(x, head):
+        win = make_win(x.device)
+        xh = torch.cat([x, head], dim=-1)
+        if isinstance(win, tuple):  # the raw compensated (s, e) pair
+            fr = frames_view(xh, nfft, hop)
+            return frame_mean_power(fr * win[0] + fr * win[1], fft_mode)
+        return welch_power(xh, win, nfft, hop, fft_mode)
+
+    def step(x):
+        xs = shard(x, mesh, ("channels", "blocks"))
+        rows = []
+        for row in xs.shards:
+            b = row[0].shape[-1]
+            if b % hop:
+                raise ValueError(f"shard block {b} must be a multiple of hop {hop}")
+            # the small halos first, then one shard's frames at a time
+            heads = right_halo(row, halo, circular=True)
+            rows.append(pmean([shard_power(x, h) for x, h in zip(row, heads)]))
+        return from_rows(mesh, ("channels", None), rows)
+
+    return step

@@ -46,7 +46,30 @@ user calls, at the repository's real sizes:
    ``.npy`` and as a raw i16 capture (through ``SampleSource``); ``ddc`` at
    config 21 on 7's x; ``stft`` on 9's x; ``suggest``.  Then two child
    processes prove the ``python -m`` route (``list --json``, a small
-   ``gen`` on the card).
+   ``gen`` on the card);
+11. the sharded steps (``dist/``) on a mesh of four shards on the card,
+   ``make_mesh(blocks=4, devices=[card] * 4)``, and a 2x2 one (and, where
+   torch sees several cards, a mesh over distinct cards), at the sizes
+   above, each stage gated against the single-device result the earlier
+   phases hold: ``sharded_window`` HLS and RTL (1's and 2's windows, 0
+   LSB, one ``window_block`` launch a shard), ``sharded_window_range`` at
+   pw=31 over 4*2^20 samples around the peak (0 LSB against
+   ``window_block`` over the same range), the TAYLOR Blackman window (6's),
+   ``sharded_float_window`` and ``sharded_comp_window`` (4's write-outs,
+   bit for bit or within the outer kernels' derived bounds); the sharded
+   Welch on 3's x as (2, 64*2^20) on the 2x2 mesh (quantized with mxu and
+   rfft, float with mxu, comp with rfft), per bin within 32*2^-24*sqrt(nfft)
+   of a float64 reference on the circularly extended input; the sharded
+   STFT/WOLA on 9's x (the round trip < 2e-5 at every sample, the frames
+   against the single-device stft of the circularly extended input); the
+   sharded DDC on 7's x (mixer ints 0 LSB against the plain NCO at the
+   shard seams, the output within 7's FIR bound of ``ddc()`` and of a
+   float64 FIR around the seams, one ``materialize`` a shard); the sharded
+   SDR chain at config 5 (0 LSB against ``sdr_chain`` of the circularly
+   extended input, or differing only where the two channelizers round the
+   int I/Q differently).  Each stage's launches must be exactly one a shard
+   of its kernel; its wall time (CUDA events, median of 5 after a warm-up)
+   is printed beside the single-device call's.
 
 Every kernel's launch counter is zeroed just before each phase and read
 just after; a phase that did not launch a kernel of its path fails the run,
@@ -256,10 +279,12 @@ def _f64_welch(x, win64, nfft: int, hop: int, chunk: int = 32):
     return acc / frames.shape[0]
 
 
-def _counted(launched: dict, label: str, expect, fn):
+def _counted(launched: dict, label: str, expect, fn, exact: dict | None = None):
     """Run one phase of the main path with every launch counter zeroed just
     before it and read just after; each kernel in ``expect`` must have been
-    launched.  The counts add into ``launched``."""
+    launched, and where ``exact`` is given the launches must be exactly
+    those (kernel -> count, every other kernel none).  The counts add into
+    ``launched``."""
     import torch
 
     from blackman_harris_win_tpu_torch import _build
@@ -276,6 +301,9 @@ def _counted(launched: dict, label: str, expect, fn):
           f"{ {k: v for k, v in counts.items() if v} }")
     missing = [k for k in expect if not counts[k]]
     _require(not missing, f"phase {label}: kernels {missing} were not launched")
+    if exact is not None:
+        got = {k: v for k, v in counts.items() if v}
+        _require(got == exact, f"phase {label}: launches {got}, want exactly {exact}")
     return out
 
 
@@ -465,6 +493,339 @@ def _stft_round_trips(x, spec, hop: int, dev) -> dict:
         y = inv(fwd(x))
         out[name] = (fwd, inv, float((y - x)[edge:-edge].abs().max()))
     return out
+
+
+def _sharded_stage(launched: dict, label: str, name: str, exact: dict, run, single, gate,
+                   devices=()):
+    """One stage of phase 11: ``run()`` (the sharded step) counted with its
+    launches required to be exactly ``exact``, its output gated by
+    ``gate(out)`` (which returns what it checked), then the step and the
+    single-device call ``single()`` timed on the card (CUDA events, median
+    of 5 after a warm-up).  Where the mesh spans other ``devices``, the
+    current card's stream waits for theirs before the end event, so the
+    time covers every shard.  Returns (sharded ms, single-device ms)."""
+    import torch
+
+    def joined():
+        run()
+        for d in devices:
+            ev = torch.cuda.Event()
+            with torch.cuda.device(d):
+                ev.record()
+            torch.cuda.current_stream().wait_event(ev)
+
+    out = _counted(launched, f"11 {name}", tuple(exact), run, exact=exact)
+    msg = gate(out)
+    del out
+    t_sh, t_1 = _time_ms(joined), _time_ms(single)
+    print(f"sharded {label} {name}: sharded {t_sh:.3f} ms, single-device {t_1:.3f} ms "
+          f"(x{t_sh / t_1:.2f}); launches {exact or 'none'}; {msg}")
+    return t_sh, t_1
+
+
+def _sdr_sharded_gate(out, x, proto, n_ch: int, aw: int, nblocks: int) -> str:
+    """The sharded SDR chain against ``sdr_chain`` of the circularly
+    extended input: 0 LSB, or else every differing output must read a frame
+    whose int I/Q the two sides round differently, with the two channelizer
+    outputs within the f32 budget of each other (each branch an f32 dot
+    product of tpb terms, then the C-point DFT:
+    C B (2 gamma(tpb) + 2 gamma(3 log2 C + 2)), B = sum|h| max|x|)."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import polyphase_channelize
+    from blackman_harris_win_tpu_torch.pipeline.sdr import sdr_chain
+
+    t, halo = x.shape[-1], len(proto)
+    xe = torch.cat([x[-halo:], x])
+    want = sdr_chain(xe, proto, n_ch, angle_width=aw)
+    _require(out.shape == want.shape, f"sharded SDR shape {tuple(out.shape)}")
+    if torch.equal(out, want):
+        return f"{tuple(out.shape)} 0-LSB equal to sdr_chain of the circularly extended input"
+    tpb, u = halo // n_ch, 2.0**-24
+    gamma = lambda k: k * u / (1 - k * u)  # noqa: E731
+    budget = n_ch * float(np.abs(proto).sum()) * float(x.abs().max()) * (
+        2 * gamma(tpb) + 2 * gamma(3 * np.log2(n_ch) + 2))
+    y1 = polyphase_channelize(xe, proto, n_ch)
+    b, fb = t // nblocks, t // nblocks // n_ch
+    worst, ties = 0.0, 0
+    for i in range(nblocks):
+        xh = xe[i * b:i * b + b + halo]  # shard i's halo-extended chunk
+        yi, yr = polyphase_channelize(xh, proto, n_ch), y1[i * fb:i * fb + fb + 1]
+        worst = max(worst, float((yi - yr).abs().max()))
+        agree = ((torch.round(yi.real * 2.0**14) == torch.round(yr.real * 2.0**14))
+                 & (torch.round(yi.imag * 2.0**14) == torch.round(yr.imag * 2.0**14))).all(-1)
+        ok_rows = agree[1:] & agree[:-1]  # output n reads frames n and n + 1
+        ties += int((~ok_rows).sum())
+        _require(torch.equal(out[i * fb:(i + 1) * fb][ok_rows], want[i * fb:(i + 1) * fb][ok_rows]),
+                 f"sharded SDR shard {i}: differs where both sides' int I/Q agree")
+    _require(worst <= budget, f"sharded SDR channelizer vs single-device {worst:.3e} > {budget:.3e}")
+    n_diff = int((out != want).any(-1).sum())
+    return (f"{tuple(out.shape)} not bit-equal: {n_diff} of {out.shape[0]} output rows differ, all "
+            f"at {ties} rows whose int I/Q the two channelizers round differently (channelizer "
+            f"outputs within {worst:.3e} <= f32 budget {budget:.3e}); 0 LSB elsewhere")
+
+
+def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
+    """Phase 11: the sharded steps on meshes of four shards on the card,
+    ``make_mesh(blocks=4, devices=[dev] * 4)`` and a 2x2 one (and, where
+    torch sees several cards, a mesh over distinct cards), at the earlier
+    phases' full sizes, each gated against the single-device result those
+    phases hold (``r``).  Returns stage -> (sharded ms, single-device ms)."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.dist.generate import (
+        sharded_comp_window,
+        sharded_float_window,
+        sharded_window,
+        sharded_window_range,
+    )
+    from blackman_harris_win_tpu_torch.dist.mesh import make_mesh, unshard
+    from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
+    from blackman_harris_win_tpu_torch.kernels.compwin import comp_window_pair
+    from blackman_harris_win_tpu_torch.kernels.floatwin import float_window
+    from blackman_harris_win_tpu_torch.kernels.window import make_window
+    from blackman_harris_win_tpu_torch.kernels.window_kernel import window_block, window_values_plain
+    from blackman_harris_win_tpu_torch.pipeline.ddc import (
+        MIX_IN_BITS,
+        ddc,
+        freq_word,
+        make_sharded_ddc,
+        mix_iq_int,
+        shard_mixer_ints,
+    )
+    from blackman_harris_win_tpu_torch.pipeline.sdr import make_sharded_sdr_chain, sdr_chain
+    from blackman_harris_win_tpu_torch.pipeline.spectral import (
+        make_sharded_welch,
+        windowed_power_spectrum,
+    )
+    from blackman_harris_win_tpu_torch.pipeline.stft import (
+        make_sharded_istft,
+        make_sharded_stft,
+        stft,
+    )
+
+    t0 = time.perf_counter()
+    meshes = {"4 on one card": make_mesh(blocks=4, devices=[dev] * 4),
+              "2x2 on one card": make_mesh(blocks=2, channels=2, devices=[dev] * 4)}
+    ndev = torch.cuda.device_count()
+    if ndev >= 2:
+        k = 4 if ndev >= 4 else 2
+        meshes[f"{k} cards"] = make_mesh(blocks=k)
+    for mname, m in meshes.items():
+        _require(all(d.type == "cuda" for row in m.devices for d in row),
+                 f"mesh {mname}: holds a device that is not a card")
+    print("phase 11 meshes: " + "; ".join(
+        f"{k} {m.shape} on {[str(d) for row in m.devices for d in row]}" for k, m in meshes.items()))
+    res = {}
+
+    def stage(name, mesh_name, exact, run, single, gate):
+        others = {d for row in meshes[mesh_name].devices for d in row} - {dev}
+        res[f"{name} [{mesh_name}]"] = _sharded_stage(launched, label, f"{name} [{mesh_name}]",
+                                                      exact, run, single, gate, sorted(
+                                                          others, key=str))
+
+    def equal_to(want, what):
+        def gate(out):
+            got = unshard(out)
+            _require(torch.equal(got, want), f"sharded {what}: differs from the single-device "
+                     "result")
+            return f"{tuple(got.shape)} {got.dtype} bit-equal to {what} (0 LSB)"
+        return gate
+
+    # --- generation: no communication, one kernel launch per shard ---
+    q7, spec_hls, spec_rtl, gpw = r["q7"], r["spec_hls"], r["spec_rtl"], r["pw"]
+    gen_meshes = [k for k in meshes if k != "2x2 on one card"]
+    for mname in gen_meshes:
+        m = meshes[mname]
+        nb = m.shape["blocks"]
+        stage(f"gen hls bh7 w32 pw{gpw}", mname, {"window_block": nb},
+              lambda m=m: sharded_window(q7, spec_hls, m),
+              lambda: make_window("bh7", spec_hls, device=dev),
+              equal_to(r["win_hls"], "phase 1's window"))
+    m4 = meshes["4 on one card"]
+    stage(f"gen rtl bh7 w32 pw{gpw}", "4 on one card", {"window_block": 4},
+          lambda: sharded_window(r["q7_rtl"], spec_rtl, m4),
+          lambda: make_window("bh7", spec_rtl, coeffs=r["q7_rtl"], device=dev),
+          equal_to(r["win_rtl"], "phase 2's window"))
+    spec31 = WindowSpec(31, 32, overflow="wrap")
+    count = r["range_count"]
+    n0 = (1 << 30) - count // 2  # around the peak of the 2^31-point window
+    single31 = window_block(q7, spec31, n0, count, dev)
+    plain31 = window_values_plain(torch.arange(n0, n0 + count, device=dev), q7, spec31)
+    _require(torch.equal(single31, plain31), "pw=31 window_block vs plain on the card")
+    del plain31
+    stage(f"gen pw31 range bh7 w32 {count} around the peak", "4 on one card", {"window_block": 4},
+          lambda: sharded_window_range(q7, spec31, m4, n0, count),
+          lambda: window_block(q7, spec31, n0, count, dev),
+          equal_to(single31, "window_block over the same range (itself 0 LSB against the "
+                   "plain version on the card)"))
+    del single31
+    spec_tb = r["spec_taylor_blackman"]
+    q_tb = r["q_taylor_blackman"]
+    stage(f"gen taylor blackman w32 ls12 pw{gpw}", "4 on one card", {"taylor_window_block": 4},
+          lambda: sharded_window(q_tb, spec_tb, m4),
+          lambda: make_window("blackman", spec_tb, device=dev),
+          equal_to(r["win_taylor_blackman"], "phase 6's window"))
+
+    def float_gate(out):
+        got, want = unshard(out), r["win_f32"]
+        err, bound = float((got - want).abs().max()), ok.f32_pair_bound("bh7")
+        _require(err <= bound, f"sharded f32 window vs phase 4's: {err:.3e} > {bound:.3e}")
+        return (f"bit-equal to phase 4's write-out: {torch.equal(got, want)}; max |diff| "
+                f"{err:.3e} (<= f32_pair_bound {bound:.3e})")
+
+    stage(f"gen float bh7 pw{gpw}", "4 on one card", {"outer_block_f32": 4},
+          lambda: sharded_float_window("bh7", gpw, m4),
+          lambda: float_window("bh7", gpw, device=dev), float_gate)
+
+    def comp_gate(out):
+        s, e = (unshard(v) for v in out)
+        err, bound = float((e - r["win_e"]).abs().max()), ok.comp_e_bound("bh7")
+        _require(torch.equal(s, r["win_s"]) and err <= bound,
+                 f"sharded comp pair: s bit-equal {torch.equal(s, r['win_s'])}, e {err:.3e} "
+                 f"(bound {bound:.3e})")
+        return (f"s bit-equal to phase 4's; e bit-equal {torch.equal(e, r['win_e'])}, max "
+                f"|diff| {err:.3e} (<= comp_e_bound {bound:.3e})")
+
+    stage(f"gen comp bh7 pw{gpw}", "4 on one card", {"outer_block_comp": 4},
+          lambda: sharded_comp_window("bh7", gpw, m4),
+          lambda: comp_window_pair("bh7", gpw, device=dev), comp_gate)
+
+    # --- Welch: circular right halo, per-shard power, pmean over blocks ---
+    x, spec4, nfft, hop = r["x"], r["spec4"], r["nfft"], r["hop"]
+    x2 = x.view(2, -1)
+    halo = nfft - hop
+    budget = 32 * 2.0**-24 * np.sqrt(nfft)
+    refs = {k: torch.stack([_f64_welch(torch.cat([row, row[:halo]]), w64, nfft, hop)
+                            for row in x2]) for k, w64 in (("quantized", r["win64_q"]),
+                                                           ("golden", r["win64_f"]))}
+    welch_kernel = {"quantized": "window_block", "float": "outer_block_f32",
+                    "comp": "outer_block_comp"}
+    welch_runs = [("quantized", "mxu", "2x2 on one card"), ("quantized", "rfft", "2x2 on one card"),
+                  ("float", "mxu", "2x2 on one card"), ("comp", "rfft", "2x2 on one card")]
+    welch_runs += [("quantized", "rfft", k) for k in meshes if k.endswith("cards")]
+    for wm, fm, mname in welch_runs:
+        m = meshes[mname]
+        coeffs = r["q4_17"] if wm == "quantized" else "bh4"
+        step = make_sharded_welch(m, spec4, coeffs, r["shift4"], nfft, hop, win_mode=wm,
+                                  fft_mode=fm)
+        ref = refs["quantized" if wm == "quantized" else "golden"]
+
+        def welch_gate(out, ref=ref, label=f"{wm}/{fm}"):
+            got = unshard(out)
+            _require(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                     f"sharded welch {label}: output {tuple(got.shape)}")
+            rel = float(((got.double() - ref) / ref).abs().max())
+            _require(rel < budget, f"sharded welch {label}: per-bin rel {rel:.3e} > {budget:.3e}")
+            return (f"{tuple(got.shape)}, per-bin rel vs float64 of the circularly extended "
+                    f"input {rel:.3e} (< 32*2^-24*sqrt(nfft) = {budget:.3e})")
+
+        stage(f"welch {wm}/{fm} bh4 w17 nfft {nfft}, x {tuple(x2.shape)}", mname,
+              {welch_kernel[wm]: m.shape["blocks"] * m.shape["channels"]},
+              lambda step=step: step(x2),
+              lambda wm=wm, fm=fm: windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode=wm,
+                                                           fft_mode=fm),
+              welch_gate)
+    del refs
+
+    # --- STFT/WOLA at phase 9's configuration: frames stay on their shard ---
+    xs = r["x_stft"]
+    fwd = make_sharded_stft(m4, spec4, r["q4_17"], r["shift4"], nfft, hop)
+    inv = make_sharded_istft(m4, spec4, r["q4_17"], r["shift4"], nfft, hop)
+    fwd1, inv1, win4 = r["stft_pair"]
+
+    def stft_gate(out):
+        got = unshard(out)
+        want = stft(torch.cat([xs, xs[:halo]]).view(1, -1), win4, nfft, hop)
+        err = float((got - want).abs().max())
+        tol = budget * float(want.abs().max())
+        _require(got.shape == want.shape and err <= tol,
+                 f"sharded stft vs single-device: {err:.3e} > {tol:.3e}")
+        return (f"{tuple(got.shape)} frames vs single-device stft of the circularly extended "
+                f"input: bit-equal {torch.equal(got, want)}, max |diff| {err:.3e} (<= "
+                f"{budget:.3e} x max|S| = {tol:.3e})")
+
+    stage(f"stft quantized bh4 nfft {nfft} hop {hop}, {xs.numel()} samples", "4 on one card",
+          {"window_block": 4}, lambda: fwd(xs.view(1, -1)), lambda: fwd1(xs), stft_gate)
+    frames, frames1 = fwd(xs.view(1, -1)), fwd1(xs)
+
+    def wola_gate(out):
+        err = float((unshard(out).view(-1) - xs).abs().max())
+        _require(err < 2e-5, f"sharded WOLA round trip {err:.3e} >= 2e-5")
+        return f"round trip max |istft(stft(x)) - x| over every sample {err:.3e} (< 2e-5)"
+
+    stage("istft quantized (the round trip)", "4 on one card", {"window_block": 4},
+          lambda: inv(frames), lambda: inv1(frames1), wola_gate)
+    del frames, frames1
+
+    # --- the DDC, config 21: the halo on the raw input, the mixer per shard ---
+    x21, h21 = r["x21"], r["h21"]
+    fc, dec, pw, w = r["ddc_cfg"]
+    t = x21.shape[-1]
+    fw = freq_word(fc, pw)
+    amp_in = float((1 << MIX_IN_BITS) - 1)
+    xq21 = torch.round(x21 * amp_in).to(torch.int32)
+    mi, mq = mix_iq_int(xq21, torch.arange(t, device=dev), fw, pw, w)
+    max_m = float(torch.maximum(mi.abs().max(), mq.abs().max())) / (amp_in * (1 << (w - 2)))
+    del mi, mq
+    n_taps = len(h21)
+    ddc_halo, u = n_taps - dec, 2.0**-24
+    k = n_taps + 4
+    fir_bound = k * u / (1 - k * u) * float(np.abs(h21).sum()) * max_m
+    h64 = torch.from_numpy(np.asarray(h21, np.float64)).to(dev)
+    for mname in gen_meshes:
+        m = meshes[mname]
+        nb = m.shape["blocks"]
+        b = t // nb
+
+        def ddc_gate(out, nb=nb, b=b):
+            got = unshard(out, device=dev)
+            bb = r["bb"]
+            err_1 = float((got - bb).abs().max())
+            _require(got.shape == bb.shape and err_1 <= fir_bound,
+                     f"sharded DDC vs ddc(): {err_1:.3e} > {fir_bound:.3e}")
+            # the mixer ints of each shard's extended chunk at its seam, 0 LSB
+            # against the single-device plain NCO on the CPU
+            for i in range(nb):
+                first = i * b - ddc_halo - 64
+                idx = torch.arange(first, first + 256, device=dev) % t
+                si, sq = shard_mixer_ints(x21[idx], first, t, fw, pw, w, "dds48")
+                pi, pq = mix_iq_int(xq21[idx].cpu(), idx.cpu(), fw, pw, w, device="cpu")
+                _require(torch.equal(si.cpu(), pi) and torch.equal(sq.cpu(), pq),
+                         f"sharded DDC shard {i}: mixer ints at its seam differ from the plain NCO")
+            # outputs around every seam against the float64 circular FIR of the
+            # exact mixer ints: y[j] = sum_t h[t] m[(j*decim - halo + t) mod T]
+            nout = t // dec
+            j = torch.cat([torch.arange(i * b // dec - 1024, i * b // dec + 1024, device=dev)
+                           for i in range(nb)]) % nout
+            idx = (j[:, None] * dec - ddc_halo + torch.arange(n_taps, device=dev)) % t
+            ii, qq = mix_iq_int(xq21[idx.reshape(-1)], idx.reshape(-1), fw, pw, w)
+            m64 = torch.stack([ii, qq]).double().reshape(2, -1, n_taps) / (amp_in * (1 << (w - 2)))
+            err_64 = float((got[:, j].double() - m64 @ h64).abs().max())
+            _require(err_64 <= fir_bound, f"sharded DDC vs float64 FIR at the seams: "
+                     f"{err_64:.3e} > {fir_bound:.3e}")
+            return (f"{tuple(got.shape)}; mixer ints at the {nb} seams 0 LSB against the plain "
+                    f"NCO on the CPU; vs ddc() {err_1:.3e}, vs float64 circular FIR of the exact "
+                    f"mixer ints at {len(j)} outputs around the seams {err_64:.3e} (each <= "
+                    f"gamma(n_taps+4) x sum|h| x max|m| = {fir_bound:.3e}); bit-equal to ddc(): "
+                    f"{torch.equal(got, bb)}")
+
+        step = make_sharded_ddc(m, pw, w, fc, dec, taps=h21, flavor="dds48")
+        stage(f"ddc config 21 ({t} samples, dds48 pw{pw} w{w}, decim {dec}, {n_taps} taps)", mname,
+              {"materialize": nb}, lambda step=step: step(x21),
+              lambda: ddc(x21, fc, dec, taps=h21, phase_width=pw, data_width=w, flavor="dds48"),
+              ddc_gate)
+    del xq21
+
+    # --- the SDR chain, config 5: a left halo of one prototype length ---
+    x5, proto5, c5, tpb5, aw = r["x_sdr5"], r["proto5"], r["c5"], r["tpb5"], r["aw"]
+    sdr4 = make_sharded_sdr_chain(m4, c5, tpb5, angle_width=aw)
+    stage(f"sdr config 5 ({c5} ch x {tpb5} taps, {x5.numel()} samples)", "4 on one card", {},
+          lambda: sdr4(x5), lambda: sdr_chain(x5, proto5, c5, angle_width=aw),
+          lambda out: _sdr_sharded_gate(unshard(out), x5, proto5, c5, aw, 4))
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s host clock, gates and timing included")
+    return res
 
 
 #: the raw i16 capture of phase 10: x scaled by 2^12 and rounded (|x| < 8)
@@ -947,6 +1308,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=20260516,
                     help="seed of the random gate blocks and the analyzer input")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1376,6 +1738,21 @@ def main(argv=None) -> int:
     fe_secs = {k: v[0] for k, v in fe.items()}
     del fe, spectra
 
+    # --- 11. the sharded steps on meshes over the card: counted, gated, timed ---
+    win4 = wq.to(torch.float32) * float(np.float32(window_scale(spec4, d4.shift)))
+    _sharded_phase(launched, dev, f"[{smi}]", {
+        "q7": q7, "q7_rtl": q7_rtl, "spec_hls": spec_hls, "spec_rtl": spec_rtl,
+        "win_hls": win_hls, "win_rtl": win_rtl, "spec_taylor_blackman": tay_specs["blackman"],
+        "q_taylor_blackman": catalog.get("blackman").quantized(32),
+        "win_taylor_blackman": tay_win["blackman"], "win_f32": win_f32, "win_s": win_s,
+        "win_e": win_e, "x": x, "spec4": spec4, "nfft": nfft, "hop": hop, "win64_q": win64,
+        "win64_f": win64_4, "q4_17": d4.quantized(17), "shift4": d4.shift, "x_stft": x_stft,
+        "stft_pair": (stft_res["quantized"][0], stft_res["quantized"][1], win4), "bb": bb,
+        "x21": x21, "h21": h21, "ddc_cfg": (fc21, dec21, pw21, w21), "x_sdr5": x_sdr5,
+        "proto5": proto5, "c5": c5, "tpb5": tpb5, "aw": aw, "pw": pw, "range_count": 4 << 20})
+    del win4
+    print(f"main path with phase 11: launches {launched}")
+
     # --- 4. each kernel against its plain version on the card, timed ---
     plain_hls = window_values_plain(idx, q7, spec_hls)
     err_1a = int((plain_hls.long() - win_hls.long()).abs().max())
@@ -1626,6 +2003,7 @@ def main(argv=None) -> int:
                         "library_ms": lib_ms.get(name)})
         print(f"bound {label} {name}: {bound_ms:.4f} ms ({bound_by}); measured {t[key][0]:.3f} ms,"
               f" roofline share {bound_ms / t[key][0]:.1%}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s host clock in all, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -885,3 +885,157 @@ def test_win_selector_on_the_card(cuda, win_type, sin_type, rounding):
     assert torch.equal(got.cpu().long(), want)
     idx = torch.tensor([0, 1, 16383, 16384, 16385, 32768, 49151, 65535])
     assert torch.equal(sel(idx.to(cuda)).cpu(), want[idx])
+
+
+# --- the sharded steps (dist/) on meshes of four shards on the card ---
+
+
+def _card_mesh(cuda, blocks=4, channels=1):
+    from blackman_harris_win_tpu_torch.dist.mesh import make_mesh
+
+    return make_mesh(blocks=blocks, channels=channels, devices=[cuda] * (blocks * channels))
+
+
+SHARDED_GEN = {  # case -> (window, spec, rtl coefficients, kernel)
+    "cordic hls": ("bh7", WindowSpec(16, 32, overflow="wrap"), False, "window_block"),
+    "cordic rtl": ("bh7", WindowSpec(16, 32, rounding="rtl", overflow="wrap"), True,
+                   "window_block"),
+    "taylor hls": ("blackman", WindowSpec(16, 32, sin_type="taylor", lut_size=12,
+                                          overflow="wrap"), False, "taylor_window_block"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_GEN))
+def test_sharded_generation_on_the_card(cuda, case):
+    from blackman_harris_win_tpu_torch.dist.generate import sharded_window
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+
+    name, spec, rtl, kernel = SHARDED_GEN[case]
+    q = _coeffs(name, spec.data_width, "rtl" if rtl else "hls")
+    _build.reset_launches()
+    s = sharded_window(q, spec, _card_mesh(cuda))
+    assert _build.launches[kernel] == 4
+    assert all(t.device == cuda for row in s.shards for t in row)
+    want = kw.window_samples(torch.arange(spec.n), q, spec)
+    assert torch.equal(unshard(s).cpu().long(), want)
+
+
+def test_sharded_float_and_comp_windows_on_the_card(cuda):
+    from blackman_harris_win_tpu_torch.dist.generate import (
+        _float_split,
+        sharded_comp_window,
+        sharded_float_window,
+    )
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+
+    pw = 16
+    _, m, _ = _float_split(pw, 4)
+    _build.reset_launches()
+    f = unshard(sharded_float_window("bh7", pw, _card_mesh(cuda))).cpu()
+    s, e = (unshard(v).cpu() for v in sharded_comp_window("bh7", pw, _card_mesh(cuda)))
+    assert _build.launches["outer_block_f32"] == 4 and _build.launches["outer_block_comp"] == 4
+    fp = ok.outer_block_f32_plain("bh7", pw, m, 0, 1 << (pw - m), device="cpu")
+    assert float((f - fp).abs().max()) <= ok.f32_pair_bound("bh7")
+    sp, ep = ok.outer_block_comp_plain("bh7", pw, m, pc.GRID_BITS, pc.DEFAULT_THRESH, 0,
+                                       1 << (pw - m), device="cpu")
+    assert torch.equal(s, sp) and float((e - ep).abs().max()) <= ok.comp_e_bound("bh7")
+
+
+@pytest.mark.parametrize("win_mode,fft_mode", [("quantized", "rfft"), ("quantized", "mxu"),
+                                               ("float", "mxu"), ("comp", "rfft")])
+def test_sharded_welch_on_the_card(cuda, win_mode, fft_mode):
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+
+    spec = WindowSpec(10, 17, overflow="saturate")
+    nfft, hop = spec.n, spec.n // 2
+    d = catalog.get("bh4")
+    coeffs = d.quantized(17) if win_mode == "quantized" else "bh4"
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 16 * nfft)).astype(np.float32))
+    _build.reset_launches()
+    got = unshard(sp.make_sharded_welch(_card_mesh(cuda, 2, 2), spec, coeffs, d.shift, nfft, hop,
+                                        win_mode=win_mode, fft_mode=fft_mode)(x.to(cuda))).cpu()
+    kernel = {"quantized": "window_block", "float": "outer_block_f32",
+              "comp": "outer_block_comp"}[win_mode]
+    assert _build.launches[kernel] == 4 and _build.launches["welch_stage1"] == 0
+    xe = torch.cat([x, x[:, :nfft - hop]], dim=-1)
+    want = sp.windowed_power_spectrum(xe, coeffs, spec, hop=hop, win_mode=win_mode,
+                                      fft_mode=fft_mode, device="cpu")
+    budget = 32 * 2.0**-24 * np.sqrt(nfft)
+    assert float(((got.double() - want.double()) / want.double()).abs().max()) < budget
+
+
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+def test_sharded_ddc_on_the_card(cuda, flavor):
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+
+    t = 1 << 16
+    x = np.random.default_rng(5).normal(size=t).astype(np.float32)
+    h = pfir.design_lowpass(64, 0.2)
+    step = pddc.make_sharded_ddc(_card_mesh(cuda), 20, 16, 1 / 8, 4, taps=h, flavor=flavor)
+    got = unshard(step(torch.from_numpy(x).to(cuda))).cpu()
+    want = pddc.ddc(x, 1 / 8, 4, taps=h, flavor=flavor, device="cpu")
+    # the same mixer ints on both sides (the NCO is 0 LSB on the card), two
+    # f32 64-tap FIRs: <= 2 gamma(64) sum|h| max|m|
+    u = 2.0**-24
+    bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(x).max()
+    assert got.shape == want.shape and float((got - want).abs().max()) <= bound
+    # each shard's mixer ints at its seam, against the CPU plain NCO
+    fw, b, halo = pddc.freq_word(1 / 8, 20), t // 4, 60
+    for i in range(4):
+        first = i * b - halo - 16
+        idx = np.arange(first, first + 64) % t
+        gi, gq = pddc.shard_mixer_ints(torch.from_numpy(x[idx]).to(cuda), first, t, fw, 20, 16,
+                                       flavor)
+        xq = torch.round(torch.from_numpy(x[idx]) * ((1 << pddc.MIX_IN_BITS) - 1)).to(torch.int32)
+        wi, wq = pddc.mix_iq_int(xq, torch.from_numpy(idx), fw, 20, 16, flavor, device="cpu")
+        assert torch.equal(gi.cpu(), wi) and torch.equal(gq.cpu(), wq)
+
+
+def test_sharded_steps_over_distinct_cards(cuda):
+    """Where torch sees several cards: generation, the Welch halo + pmean,
+    the DDC and the WOLA round trip on a mesh over distinct cards, each
+    shard on its own card, against the single-device results (halos and
+    reductions cross cards by peer copies)."""
+    from blackman_harris_win_tpu_torch.dist.generate import sharded_window
+    from blackman_harris_win_tpu_torch.dist.mesh import make_mesh, unshard
+    from blackman_harris_win_tpu_torch.pipeline import stft as pstft
+
+    ncards = torch.cuda.device_count()
+    if ncards < 2:
+        pytest.skip(f"needs two or more cards; torch sees {ncards}")
+    k = 4 if ncards >= 4 else 2
+    mesh = make_mesh(blocks=k)
+    cards = [d for row in mesh.devices for d in row]
+    assert len(set(cards)) == k and all(d.type == "cuda" for d in cards)
+    spec = WindowSpec(16, 32, overflow="wrap")
+    q = catalog.get("bh7").quantized(32)
+    s = sharded_window(q, spec, mesh)
+    assert [t.device for t in s.row()] == cards
+    assert torch.equal(unshard(s).cpu().long(), kw.window_samples(torch.arange(spec.n), q, spec))
+
+    wspec = WindowSpec(10, 17, overflow="saturate")
+    nfft, hop = wspec.n, wspec.n // 2
+    d = catalog.get("bh4")
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 8 * k * nfft)).astype(np.float32))
+    got = unshard(sp.make_sharded_welch(mesh, wspec, d.quantized(17), d.shift, nfft, hop)(
+        x.to(cuda))).cpu()
+    want = sp.windowed_power_spectrum(torch.cat([x, x[:, :nfft - hop]], dim=-1), "bh4", wspec,
+                                      hop=hop, device="cpu")
+    assert float(((got.double() - want.double()) / want.double()).abs().max()) < (
+        32 * 2.0**-24 * np.sqrt(nfft))
+
+    fwd = pstft.make_sharded_stft(mesh, wspec, d.quantized(17), d.shift, nfft, hop)
+    inv = pstft.make_sharded_istft(mesh, wspec, d.quantized(17), d.shift, nfft, hop)
+    frames = fwd(x.to(cuda))
+    assert [t.device for t in frames.row()] == cards
+    assert float((unshard(inv(frames)).cpu() - x).abs().max()) < 2e-5
+
+    t = k << 14
+    xd = np.random.default_rng(9).normal(size=t).astype(np.float32)
+    h = pfir.design_lowpass(64, 0.2)
+    got = unshard(pddc.make_sharded_ddc(mesh, 20, 16, 1 / 8, 4, taps=h)(
+        torch.from_numpy(xd).to(cuda))).cpu()
+    want = pddc.ddc(xd, 1 / 8, 4, taps=h, device="cpu")
+    u = 2.0**-24
+    bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(xd).max()
+    assert float((got - want).abs().max()) <= bound
