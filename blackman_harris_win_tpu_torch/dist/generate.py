@@ -16,7 +16,8 @@ goes through the kernel the single-device path uses on its device:
 Every route computes the JAX package's ``window_samples`` values; integer
 blocks are int32, as ``kernels.window.window_block`` returns them.  A
 result replicated over the other mesh axis is computed on every device
-that holds it, as ``shard_map`` does.
+that holds it, as ``shard_map`` does.  Where the mesh spans processes, each
+process computes the shards of its own cells only.
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ from ..kernels.outerwin import DEFAULT_SPLIT
 from ..kernels.taylor import taylor_window_range
 from ..kernels.window import window_samples
 from ..kernels.window_kernel import window_block
-from .collectives import axis_index
-from .mesh import Mesh, Sharded
+from .mesh import Mesh, Sharded, local_map
 
 
 def _taylor_fast_ok(coeffs_q, spec: WindowSpec, block: int) -> bool:
@@ -74,14 +74,13 @@ def window_shard_fn(coeffs_q, spec: WindowSpec, block: int):
 
 
 def _generate(mesh: Mesh, axis: str, gen) -> Sharded:
-    """Run ``gen(i, device)`` on every mesh cell, i its index along
-    ``axis``: a :class:`Sharded` with spec (axis,)."""
-    grid = mesh.devices
-    if axis == "channels":
-        cols = [[gen(c, d) for c, d in zip(axis_index(col), col)] for col in zip(*grid)]
-        return Sharded(mesh, (axis,), tuple(zip(*cols)))
-    return Sharded(mesh, (axis,),
-                   tuple(tuple(gen(b, d) for b, d in zip(axis_index(row), row)) for row in grid))
+    """Run ``gen(i, device)`` on every mesh cell this process holds, i its
+    index along ``axis``: a :class:`Sharded` with spec (axis,)."""
+    nb = mesh.shape["blocks"]
+    return Sharded(mesh, (axis,), tuple(
+        tuple(local_map(gen, [c] * nb if axis == "channels" else range(nb),
+                        [mesh.cell(c, b) for b in range(nb)]))
+        for c in range(mesh.shape["channels"])))
 
 
 def sharded_window(coeffs_q, spec: WindowSpec, mesh: Mesh, axis: str = "blocks") -> Sharded:
@@ -133,5 +132,6 @@ def sharded_comp_window(name_or_coeffs, pw: int, mesh: Mesh,
     block, m, rows = _float_split(pw, mesh.shape[axis])
     pairs = _generate(mesh, axis, lambda i, device: comp_window_block(
         i * block, rows, name_or_coeffs, pw, m=m, device=device))
-    return tuple(Sharded(mesh, pairs.spec, tuple(tuple(p[k] for p in row) for row in pairs.shards))
+    return tuple(Sharded(mesh, pairs.spec, tuple(tuple(local_map(lambda p: p[k], row))
+                                                 for row in pairs.shards))
                  for k in (0, 1))

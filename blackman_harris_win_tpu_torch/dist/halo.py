@@ -5,8 +5,9 @@ The overlap-save and overlap-add stages need samples of the neighbouring
 time shard: frames straddle shard boundaries.  Each function takes the
 list of one 'blocks' row's shards (the JAX function's operand, per axis
 index) and returns a list, by one :func:`~.collectives.ppermute` of the
-last or first ``halo`` samples along the last axis.  Window generation
-needs none of this.
+last or first ``halo`` samples along the last axis.  Where the row spans
+processes, a shard of another process is a ``Remote`` placeholder, in and
+out.  Window generation needs none of this.
 """
 
 from __future__ import annotations
@@ -14,13 +15,14 @@ from __future__ import annotations
 import torch
 
 from .collectives import axis_size, ppermute
+from .mesh import local_map
 
 
 def left_halo(shards: list, halo: int, circular: bool = False) -> list:
     """The last ``halo`` samples of each shard's left (previous) neighbour;
     shard 0 receives zeros (the stream's start) unless ``circular``."""
     n = axis_size(shards)
-    tails = [x[..., -halo:] for x in shards]
+    tails = local_map(lambda x: x[..., -halo:], shards)
     # shard i sends its tail to i + 1
     return ppermute(tails, [(i, (i + 1) % n) for i in range(n if circular else n - 1)])
 
@@ -31,7 +33,7 @@ def right_halo(shards: list, halo: int, circular: bool = True) -> list:
     stream: the same frame count on every shard for Welch averaging);
     otherwise the last shard receives zeros."""
     n = axis_size(shards)
-    heads = [x[..., :halo] for x in shards]
+    heads = local_map(lambda x: x[..., :halo], shards)
     return ppermute(heads, [((i + 1) % n, i) for i in range(n if circular else n - 1)])
 
 
@@ -41,7 +43,8 @@ def with_right_halo(shards: list, halo: int, circular: bool = True) -> list:
     neighbour's head.  ``halo == 0`` returns the shards as they are."""
     if halo == 0:
         return list(shards)
-    return [torch.cat([x, h], dim=-1) for x, h in zip(shards, right_halo(shards, halo, circular))]
+    return local_map(lambda x, h: torch.cat([x, h], dim=-1), shards,
+                     right_halo(shards, halo, circular))
 
 
 def with_left_halo(shards: list, halo: int, circular: bool = False) -> list:
@@ -51,4 +54,5 @@ def with_left_halo(shards: list, halo: int, circular: bool = False) -> list:
     shards as they are."""
     if halo == 0:
         return list(shards)
-    return [torch.cat([h, x], dim=-1) for x, h in zip(shards, left_halo(shards, halo, circular))]
+    return local_map(lambda x, h: torch.cat([h, x], dim=-1), shards,
+                     left_halo(shards, halo, circular))

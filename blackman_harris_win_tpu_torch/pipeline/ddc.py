@@ -26,7 +26,7 @@ import torch
 from .. import _build
 from ..core.config import CordicSpec
 from ..dist.halo import left_halo
-from ..dist.mesh import Mesh, from_rows, shard
+from ..dist.mesh import Mesh, from_rows, local_map, shard
 from ..kernels.cordic import cordic_sincos
 from .fir import decimating_fir, design_lowpass
 
@@ -156,7 +156,7 @@ def make_sharded_ddc(mesh: Mesh, phase_width: int, data_width: int, freq: float,
     scale = float(np.float32(1.0 / (((1 << MIX_IN_BITS) - 1) * (1 << (data_width - 2)))))
     nblocks = mesh.shape["blocks"]
 
-    def shard_out(x, tail, i):
+    def shard_out(i, x, tail):
         b = x.shape[-1]
         mi, mq = shard_mixer_ints(torch.cat([tail, x], dim=-1), i * b - halo,
                                   b * nblocks, fw, phase_width, data_width, flavor)
@@ -164,14 +164,15 @@ def make_sharded_ddc(mesh: Mesh, phase_width: int, data_width: int, freq: float,
 
     def step(x):
         xs = shard(x, mesh, ("blocks",))
+        if xs.piece().shape[-1] % decim:
+            raise ValueError("shard block must be a multiple of decim")
         rows = []
         for row in xs.shards:
-            if row[0].shape[-1] % decim:
-                raise ValueError("shard block must be a multiple of decim")
             # the small halos first, then one shard's mixer at a time
-            row = [x.to(torch.float32) for x in row]
-            tails = left_halo(row, halo, circular=True) if halo else [x[..., :0] for x in row]
-            rows.append([shard_out(x, t, i) for i, (x, t) in enumerate(zip(row, tails))])
+            row = local_map(lambda x: x.to(torch.float32), row)
+            tails = (left_halo(row, halo, circular=True) if halo
+                     else local_map(lambda x: x[..., :0], row))
+            rows.append(local_map(shard_out, range(nblocks), row, tails))
         return from_rows(mesh, (None, "blocks"), rows)
 
     return step

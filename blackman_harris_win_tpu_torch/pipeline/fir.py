@@ -20,7 +20,7 @@ import torch
 from .. import _build
 from ..core.config import WindowSpec
 from ..dist.halo import left_halo
-from ..dist.mesh import Mesh, from_rows, shard
+from ..dist.mesh import Mesh, from_rows, local_map, shard
 from ..kernels.barrier import materialize
 from ..kernels.window import window_samples
 from ..windows import catalog
@@ -104,14 +104,15 @@ def make_sharded_decimating_fir(mesh: Mesh, taps, decim: int):
 
     def step(x):
         xs = shard(x, mesh, ("channels", "blocks"))
+        if xs.piece().shape[-1] % decim:
+            raise ValueError("shard block must be a multiple of decim")
         rows = []
         for row in xs.shards:
-            if row[0].shape[-1] % decim:
-                raise ValueError("shard block must be a multiple of decim")
             # the small halos first, then one shard's extended chunk at a time
-            tails = left_halo(row, halo, circular=True) if halo else [x[..., :0] for x in row]
-            rows.append([decimating_fir(torch.cat([t, x], dim=-1), taps, decim)
-                         for x, t in zip(row, tails)])
+            tails = (left_halo(row, halo, circular=True) if halo
+                     else local_map(lambda x: x[..., :0], row))
+            rows.append(local_map(lambda x, t: decimating_fir(torch.cat([t, x], dim=-1), taps,
+                                                              decim), row, tails))
         return from_rows(mesh, ("channels", "blocks"), rows)
 
     return step

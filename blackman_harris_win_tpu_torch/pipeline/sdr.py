@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..dist.halo import left_halo
-from ..dist.mesh import Mesh, from_rows, shard
+from ..dist.mesh import Mesh, from_rows, local_map, shard
 from .channelizer import design_prototype, polyphase_channelize
 from .demod import fm_demod_conj
 
@@ -52,7 +52,7 @@ def make_sharded_sdr_chain(mesh: Mesh, n_channels: int, taps_per_branch: int,
 
     def step(x):
         xs = shard(x, mesh, ("blocks",))
-        rows = [[shard_out(x, t) for x, t in zip(row, left_halo(row, halo, circular=True))]
+        rows = [local_map(shard_out, row, left_halo(row, halo, circular=True))
                 for row in xs.shards]
         return from_rows(mesh, ("blocks",), rows)
 

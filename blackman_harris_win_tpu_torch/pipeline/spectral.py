@@ -35,12 +35,11 @@ from .. import _build
 from ..core.config import WindowSpec
 from ..dist.collectives import pmean
 from ..dist.halo import right_halo
-from ..dist.mesh import Mesh, from_rows, shard
+from ..dist.mesh import Mesh, from_rows, local_map, shard
 from ..kernels import window as _window
 from ..kernels.compwin import comp_window_pair
 from ..kernels.floatwin import float_window
 from ..kernels.welchfft_kernel import welch_stage1_fused
-from ..kernels.window_kernel import window_block
 from ..windows import catalog
 
 
@@ -299,6 +298,39 @@ def _mxu_packed_mean_power(fr):
     return 0.5 * (pk[..., :k] + pk_rev[..., :k]) / nf
 
 
+@_full_fp32()
+def rfft_power_split(x, fft_mode: str = "rfft", device=None):
+    """``|rfft(x)|**2`` through one half-length complex FFT (JAX:
+    ``rfft_power_split``): the even/odd split z[m] = x[2m] + j x[2m+1]
+    (length N/2), Z = fft(z); with E(k) = (Z(k) + Z*(-k))/2 and O(k) =
+    (Z(k) - Z*(-k))/(2j), X(k) = E(k) + e^{-2 pi j k / N} O(k) for k < N/2
+    and X(N/2) = E(0) - O(0).  The twiddles are float32, as in JAX (bin
+    error ~2e-7 relative).  x: (..., N) float32, N even; returns (...,
+    N//2+1) float32.  ``fft_mode``: ``"rfft"`` takes ``torch.fft.fft`` for
+    the half-length FFT, ``"mxu"`` the matmul DFT stages (:func:`mxu_cfft`,
+    N/2 a power of two >= 256).  Array-like ``x`` goes to ``device``
+    (default the card); a tensor runs where it lies."""
+    x = _build.as_tensor(x, device=device)
+    n = x.shape[-1]
+    if n % 2:
+        raise ValueError("rfft_power_split needs an even length")
+    m = n // 2
+    if fft_mode == "mxu":
+        zf = torch.complex(*mxu_cfft(x[..., 0::2], x[..., 1::2]))
+    else:
+        zf = torch.fft.fft(torch.complex(x[..., 0::2], x[..., 1::2]), dim=-1)
+    # Z*(-k)
+    zrc = torch.conj(torch.cat([zf[..., :1], torch.flip(zf[..., 1:], dims=(-1,))], dim=-1))
+    e = 0.5 * (zf + zrc)
+    o = -0.5j * (zf - zrc)
+    ang = np.float32(np.pi) * (torch.arange(m, dtype=torch.float32, device=x.device)
+                               / np.float32(m))
+    tw = torch.complex(torch.cos(ang), -torch.sin(ang))
+    p = (e + tw * o).abs() ** 2
+    pny = (e[..., :1] - o[..., :1]).abs() ** 2  # the Nyquist bin
+    return torch.cat([p, pny], dim=-1)
+
+
 def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
                             win_mode: str = "quantized",
                             fft_mode: str = "rfft", device=None):
@@ -307,7 +339,9 @@ def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
     goes to ``device`` (default the card); a tensor runs where it lies.
 
     ``win_mode="quantized"`` reproduces the reference's integer window
-    datapath, then scales to float for the FFT.  ``win_mode="float"``
+    datapath (``kernels.window.window_block``: the CORDIC or TAYLOR/HLS
+    window kernel, TAYLOR RTL and taylor2 in torch ops), then scales to
+    float for the FFT.  ``win_mode="float"``
     generates the window natively in float32 (``kernels/floatwin.py``) and
     runs the same Welch path, so 1-D CUDA input at ``fft_mode="mxu"`` reaches
     the fused stage-1 kernel.  ``win_mode="comp"`` generates the raw
@@ -333,7 +367,7 @@ def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
         coeffs_q, shift = d.quantized(spec.data_width), d.shift
     else:
         coeffs_q, shift = tuple(name_or_coeffs), 1
-    wq = window_block(coeffs_q, spec, 0, nfft, x.device)
+    wq = _window.window_block(0, nfft, coeffs_q, spec, x.device)
     win = wq.to(torch.float32) * window_scale(spec, shift)
     return welch_power(x, win, nfft, hop, fft_mode)
 
@@ -395,14 +429,14 @@ def make_sharded_welch(mesh: Mesh, spec: WindowSpec, coeffs_q, shift: int, nfft:
 
     def step(x):
         xs = shard(x, mesh, ("channels", "blocks"))
+        b = xs.piece().shape[-1]
+        if b % hop:
+            raise ValueError(f"shard block {b} must be a multiple of hop {hop}")
         rows = []
         for row in xs.shards:
-            b = row[0].shape[-1]
-            if b % hop:
-                raise ValueError(f"shard block {b} must be a multiple of hop {hop}")
             # the small halos first, then one shard's frames at a time
             heads = right_halo(row, halo, circular=True)
-            rows.append(pmean([shard_power(x, h) for x, h in zip(row, heads)]))
+            rows.append(pmean(local_map(shard_power, row, heads)))
         return from_rows(mesh, ("channels", None), rows)
 
     return step

@@ -31,7 +31,7 @@ from .. import _build
 from ..core.config import WindowSpec
 from ..dist.collectives import axis_size, ppermute
 from ..dist.halo import right_halo
-from ..dist.mesh import Mesh, from_rows, shard
+from ..dist.mesh import Mesh, from_rows, local_map, shard
 from .spectral import _float_dtype, _quantized_window_fn, frames_view, window_scale
 
 
@@ -179,14 +179,14 @@ def make_sharded_stft(mesh: Mesh, spec: WindowSpec, coeffs_q, shift: int, nfft: 
 
     def step(x):
         xs = shard(x, mesh, ("channels", "blocks"))
+        b = xs.piece().shape[-1]
+        if b % hop:
+            raise ValueError(f"shard block {b} must be a multiple of hop {hop}")
         rows = []
         for row in xs.shards:
-            b = row[0].shape[-1]
-            if b % hop:
-                raise ValueError(f"shard block {b} must be a multiple of hop {hop}")
             heads = right_halo(row, halo, circular=True)
-            rows.append([stft(torch.cat([x, h], dim=-1), make_win(x.device), nfft, hop)
-                         for x, h in zip(row, heads)])
+            rows.append(local_map(lambda x, h: stft(torch.cat([x, h], dim=-1), make_win(x.device),
+                                                    nfft, hop), row, heads))
         return from_rows(mesh, ("channels", "blocks", None), rows)
 
     return step
@@ -224,18 +224,19 @@ def make_sharded_istft(mesh: Mesh, spec: WindowSpec, coeffs_q, shift: int, nfft:
         den = (win * ws).reshape(nfft // hop, hop).sum(dim=0)  # (hop,)
         return ola[..., :b], ola[..., b:], den
 
+    def wola_out(part, recv):
+        body, _, den = part
+        y = torch.cat([body[..., :halo] + recv, body[..., halo:]], dim=-1)
+        return _wola_divide(y, den.repeat(y.shape[-1] // hop))
+
     def step(s):
         ss = shard(s, mesh, ("channels", "blocks", None))
         rows = []
         for row in ss.shards:
-            parts = [body_and_tail(s) for s in row]
+            parts = local_map(body_and_tail, row)
             n = axis_size(row)
-            recv = ppermute([p[1] for p in parts], [(i, (i + 1) % n) for i in range(n)])
-            out = []
-            for (body, _, den), r in zip(parts, recv):
-                y = torch.cat([body[..., :halo] + r, body[..., halo:]], dim=-1)
-                out.append(_wola_divide(y, den.repeat(y.shape[-1] // hop)))
-            rows.append(out)
+            recv = ppermute(local_map(lambda p: p[1], parts), [(i, (i + 1) % n) for i in range(n)])
+            rows.append(local_map(wola_out, parts, recv))
         return from_rows(mesh, ("channels", "blocks"), rows)
 
     return step

@@ -69,7 +69,24 @@ user calls, at the repository's real sizes:
    extended input, or differing only where the two channelizers round the
    int I/Q differently).  Each stage's launches must be exactly one a shard
    of its kernel; its wall time (CUDA events, median of 5 after a warm-up)
-   is printed beside the single-device call's.
+   is printed beside the single-device call's;
+12. the sharded steps across two processes on the card: two children of
+   this script (``--child``, started with ``sys.executable``, each with a
+   timeout) come up over gloo on localhost through
+   ``dist.multihost.initialize`` and load the kernels the parent built.
+   On mesh A, ``pod_mesh(channels=1, local_devices=[card] * 2)`` (process p
+   holds blocks 2p and 2p+1), they run phase 11's stages at its sizes:
+   ``sharded_window`` HLS BH-7 W=32 pw=26, the quantized Welch (mxu and
+   rfft) on 3's x as (1, 128*2^20), the STFT/WOLA round trip on 9's x, the
+   DDC on 7's x; on mesh B, ``pod_mesh(channels=2)`` (process p holds
+   channel row p), a ``psum`` over 'channels' of 9's x as (2, 16*2^20).
+   Each child's local shards must be bit-equal to the same step on a
+   one-process mesh of ``[card] * 4`` of the same shape, each stage must
+   launch its kernel exactly once a local shard in each child (four times
+   in the one-process run), and the one-process outputs are held to phase
+   11's references (phase 1's window, the float64 Welch, the round trip,
+   ``ddc()`` within the FIR bound); each stage's wall time (host clock,
+   median of 5) in each process is printed beside the one-process time.
 
 Every kernel's launch counter is zeroed just before each phase and read
 just after; a phase that did not launch a kernel of its path fails the run,
@@ -127,28 +144,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-
-#: NVIDIA H100 SXM peaks (data sheet): device memory bytes/s and float32
-#: FLOP/s outside the tensor cores
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
-#: int32 operations/s: the issue rate, one instruction per lane per cycle
-#: (128 lanes per SM), half the float32 rate, which counts an FMA as two.
-#: Shifts, logic and compares issue on the ALU pipe (64 lanes) at half this;
-#: adds and multiplies also issue as IMAD on the FMA pipe, so a mix of both
-#: pipes reaches it.  A CORDIC iteration's 6 operations hold 3 that only the
-#: ALU pipe takes (2 shifts, the sign test), which at half the rate take as
-#: long as 6 at this one: the iterations' bound is the same under either
-#: count.
-INT32_OPS = F32_FLOPS / 2
-
-
-def _bound(nbytes: float, ops: float = 0.0, rate: float = INT32_OPS) -> tuple[float, str]:
-    """The least time (ms) the card could take: bytes over the memory rate
-    or operations over their peak rate, the larger, and which one it is."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -766,13 +761,9 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
     fw = freq_word(fc, pw)
     amp_in = float((1 << MIX_IN_BITS) - 1)
     xq21 = torch.round(x21 * amp_in).to(torch.int32)
-    mi, mq = mix_iq_int(xq21, torch.arange(t, device=dev), fw, pw, w)
-    max_m = float(torch.maximum(mi.abs().max(), mq.abs().max())) / (amp_in * (1 << (w - 2)))
-    del mi, mq
+    fir_bound = _ddc_fir_bound(xq21, h21, fw, pw, w)
     n_taps = len(h21)
-    ddc_halo, u = n_taps - dec, 2.0**-24
-    k = n_taps + 4
-    fir_bound = k * u / (1 - k * u) * float(np.abs(h21).sum()) * max_m
+    ddc_halo = n_taps - dec
     h64 = torch.from_numpy(np.asarray(h21, np.float64)).to(dev)
     for mname in gen_meshes:
         m = meshes[mname]
@@ -826,6 +817,248 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
           lambda out: _sdr_sharded_gate(unshard(out), x5, proto5, c5, aw, 4))
     print(f"phase 11: {time.perf_counter() - t0:.1f} s host clock, gates and timing included")
     return res
+
+
+def _ddc_fir_bound(xq21, h21, fw: int, pw: int, w: int) -> float:
+    """The DDC gates' f32 FIR bound, gamma(n_taps + 4) x sum|h| x max|m|, m
+    the scaled mixer output of the quantized input ``xq21``."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.pipeline.ddc import MIX_IN_BITS, mix_iq_int
+
+    amp_in = float((1 << MIX_IN_BITS) - 1)
+    mi, mq = mix_iq_int(xq21, torch.arange(xq21.shape[-1], device=xq21.device), fw, pw, w)
+    max_m = float(torch.maximum(mi.abs().max(), mq.abs().max())) / (amp_in * (1 << (w - 2)))
+    k, u = len(h21) + 4, 2.0**-24
+    return k * u / (1 - k * u) * float(np.abs(h21).sum()) * max_m
+
+
+def _seeded_inputs(seed: int, dev):
+    """The main path's random inputs, drawn in this order from one generator
+    seeded with ``--seed``: the analyzer's x (phase 3), the DDC's x21
+    (phase 7), the STFT's x (phase 9) and the SDR chain's (phase 8)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(k, generator=gen, device=dev, dtype=torch.float32)
+                 for k in (128 << 20, 1 << 26, 32 << 20, 16 << 22))
+
+
+def _mp_steps(mesh_a, mesh_b, x, x21, x_stft) -> list:
+    """Phase 12's steps, in the order every process runs them: (name, the
+    kernel each shard launches once or None, step() -> Sharded).  Phase
+    11's stages at its sizes on mesh A, (1, 4); a psum over 'channels' of
+    x_stft as (2, 16 * 2^20) on mesh B, (2, 2)."""
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.dist.collectives import psum
+    from blackman_harris_win_tpu_torch.dist.generate import sharded_window
+    from blackman_harris_win_tpu_torch.dist.mesh import from_rows, shard
+    from blackman_harris_win_tpu_torch.pipeline.ddc import make_sharded_ddc
+    from blackman_harris_win_tpu_torch.pipeline.fir import design_lowpass
+    from blackman_harris_win_tpu_torch.pipeline.spectral import make_sharded_welch
+    from blackman_harris_win_tpu_torch.pipeline.stft import make_sharded_istft, make_sharded_stft
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    q7, spec_hls = catalog.get("bh7").quantized(32), WindowSpec(26, 32, overflow="wrap")
+    d4, spec4 = catalog.get("bh4"), WindowSpec(20, 17, overflow="saturate")
+    nfft, hop = spec4.n, 1 << 19
+    welch = {fm: make_sharded_welch(mesh_a, spec4, d4.quantized(17), d4.shift, nfft, hop,
+                                    fft_mode=fm) for fm in ("mxu", "rfft")}
+    fwd = make_sharded_stft(mesh_a, spec4, d4.quantized(17), d4.shift, nfft, hop)
+    inv = make_sharded_istft(mesh_a, spec4, d4.quantized(17), d4.shift, nfft, hop)
+    frames = {}
+
+    def stft_step():
+        frames["s"] = fwd(x_stft.view(1, -1))
+        return frames["s"]
+
+    ddc_step = make_sharded_ddc(mesh_a, 20, 16, 1 / 8, 4, taps=design_lowpass(64, 0.8 / 4),
+                                flavor="dds48")
+
+    def psum_step():
+        xs = shard(x_stft.view(2, -1), mesh_b, ("channels", "blocks"))
+        nc, nb = mesh_b.shape["channels"], mesh_b.shape["blocks"]
+        cols = [psum([xs.shards[c][b] for c in range(nc)]) for b in range(nb)]
+        return from_rows(mesh_b, (None, "blocks"), [[cols[b][c] for b in range(nb)]
+                                                   for c in range(nc)])
+
+    return [
+        ("gen hls bh7 w32 pw26", "window_block", lambda: sharded_window(q7, spec_hls, mesh_a)),
+        (f"welch quantized/mxu bh4 w17 nfft {nfft}, x (1, {x.numel()})", "window_block",
+         lambda: welch["mxu"](x.view(1, -1))),
+        (f"welch quantized/rfft bh4 w17 nfft {nfft}, x (1, {x.numel()})", "window_block",
+         lambda: welch["rfft"](x.view(1, -1))),
+        (f"stft quantized bh4 nfft {nfft} hop {hop}, {x_stft.numel()} samples", "window_block",
+         stft_step),
+        ("istft quantized (the round trip)", "window_block", lambda: inv(frames["s"])),
+        (f"ddc config 21 ({x21.numel()} samples, dds48 pw20 w16, decim 4, 64 taps)",
+         "materialize", lambda: ddc_step(x21)),
+        (f"psum over channels, x {tuple(x_stft.view(2, -1).shape)} (2x2)", None, psum_step),
+    ]
+
+
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` in ms, the card synchronized after
+    each call, over ``reps`` calls after one warm-up call: a call of a step
+    across processes includes its waits on the others."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _mp_child(port: int, rank: int, out_dir: str, seed: int) -> int:
+    """One of phase 12's two processes on the card: started over gloo
+    through ``multihost.initialize``, it loads the kernels the parent built,
+    runs :func:`_mp_steps` on meshes from ``pod_mesh(local_devices=[card] *
+    2)`` (each stage's launches counted from zero), times each step, writes
+    its local shards to ``out_dir/rank{rank}.pt`` and prints ``MP12 {json}``."""
+    from datetime import timedelta
+
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.dist import multihost
+
+    dev = torch.device("cuda", 0)
+    multihost.initialize(backend="gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                         rank=rank, timeout=timedelta(seconds=120))
+    _require(_build.build()[2] == 0.0, "a phase 12 process compiled the kernels")
+    meshes = [multihost.pod_mesh(channels=c, local_devices=[dev] * 2) for c in (1, 2)]
+    x, x21, x_stft, _ = _seeded_inputs(seed, dev)
+    tensors, launches, ms = {}, {}, {}
+    for name, _, step in _mp_steps(*meshes, x, x21, x_stft):
+        _build.reset_launches()
+        out = step()
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in _build.launches.items() if v}
+        tensors.update({f"{name}/{c},{b}": t.cpu() for (c, b), t in out.local_shards().items()})
+        del out
+        ms[name] = _wall_ms(step)
+    torch.save(tensors, Path(out_dir) / f"rank{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("MP12 " + json.dumps({"rank": rank, "launches": launches, "ms": ms}), flush=True)
+    return 0
+
+
+def _multiprocess_phase(launched: dict, dev, label: str, r: dict, seed: int) -> None:
+    """Phase 12: the sharded steps across two processes on the card.  Two
+    children of this script (``--child``) come up over gloo on localhost and
+    run :func:`_mp_steps` on mesh A, ``pod_mesh(channels=1)`` (process p
+    holds blocks 2p and 2p+1), and mesh B, ``pod_mesh(channels=2)`` (process
+    p holds channel row p).  Their local shards must be bit-equal to the
+    same steps on one-process meshes of ``[card] * 4`` of the same shapes,
+    and each stage must launch its kernel exactly once per local shard; the
+    one-process outputs are held to phase 11's references.  A child that
+    fails or outlives its timeout fails the run."""
+    import socket
+
+    import torch
+
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+    from blackman_harris_win_tpu_torch.dist.multihost import pod_mesh
+    from blackman_harris_win_tpu_torch.pipeline.ddc import MIX_IN_BITS, freq_word
+    from blackman_harris_win_tpu_torch.pipeline.stft import stft
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--child", str(port), str(k), tmp,
+             "--seed", str(seed)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k in range(2)]
+        outs, deadline = [], time.monotonic() + 300
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for k, (p, (out, err)) in enumerate(zip(procs, outs)):
+            _require(p.returncode == 0, f"phase 12 process {k} failed ({p.returncode}):\n"
+                     f"{out[-4000:]}\n{err[-4000:]}")
+        results = [json.loads(next(s for s in out.splitlines() if s.startswith("MP12 "))[5:])
+                   for out, _ in outs]
+        shards = [torch.load(Path(tmp) / f"rank{k}.pt", weights_only=True) for k in range(2)]
+    print(f"phase 12 processes: came up, ran and exited in {time.perf_counter() - t0:.1f} s")
+
+    mesh_a = pod_mesh(channels=1, local_devices=[dev] * 4)
+    mesh_b = pod_mesh(channels=2, local_devices=[dev] * 4)
+    x, x21, x_stft = r["x"], r["x21"], r["x_stft"]
+    nfft, hop = r["nfft"], r["hop"]
+    halo, budget = nfft - hop, 32 * 2.0**-24 * np.sqrt(nfft)
+    welch64 = _f64_welch(torch.cat([x, x[:halo]]), r["win64_q"], nfft, hop)
+    fc, dec, pw, w = r["ddc_cfg"]
+    xq21 = torch.round(x21 * float((1 << MIX_IN_BITS) - 1)).to(torch.int32)
+    fir_bound = _ddc_fir_bound(xq21, r["h21"], freq_word(fc, pw), pw, w)
+    del xq21
+
+    def gate(name, one):
+        """The one-process output against phase 11's references."""
+        got = unshard(one)
+        if name.startswith("gen"):
+            _require(torch.equal(got, r["win_hls"]), "phase 12 generation vs phase 1's window")
+            return "bit-equal to phase 1's window"
+        if name.startswith("welch"):
+            rel = float(((got[0].double() - welch64) / welch64).abs().max())
+            _require(rel < budget, f"phase 12 {name}: per-bin rel {rel:.3e} > {budget:.3e}")
+            return f"per-bin rel vs float64 {rel:.3e} (< {budget:.3e})"
+        if name.startswith("stft"):
+            want = stft(torch.cat([x_stft, x_stft[:halo]]).view(1, -1), r["stft_pair"][2], nfft,
+                        hop)
+            err = float((got - want).abs().max())
+            _require(err <= budget * float(want.abs().max()), f"phase 12 stft {err:.3e}")
+            return f"vs single-device stft of the circular input {err:.3e}"
+        if name.startswith("istft"):
+            err = float((got.view(-1) - x_stft).abs().max())
+            _require(err < 2e-5, f"phase 12 WOLA round trip {err:.3e}")
+            return f"round trip {err:.3e} (< 2e-5)"
+        if name.startswith("ddc"):
+            err = float((got - r["bb"]).abs().max())
+            _require(err <= fir_bound, f"phase 12 ddc vs ddc(): {err:.3e} > {fir_bound:.3e}")
+            return f"vs ddc() {err:.3e} (<= {fir_bound:.3e})"
+        xb = x_stft.view(2, -1)
+        _require(torch.equal(got[0], xb[0] + xb[1]), "phase 12 psum vs the sum of the rows")
+        return "bit-equal to the sum of the two channel rows"
+
+    for name, kernel, step in _mp_steps(mesh_a, mesh_b, x, x21, x_stft):
+        exact = {kernel: 4} if kernel else {}
+        one = _counted(launched, f"12 {name} [one process]", tuple(exact), step, exact=exact)
+        per_process = {kernel: 2} if kernel else {}
+        for k, res in enumerate(results):
+            _require(res["launches"][name] == per_process,
+                     f"phase 12 {name}: process {k} launched {res['launches'][name]}, want "
+                     f"{per_process}")
+            for kern, v in res["launches"][name].items():
+                launched[kern] += v
+            mine = {key: t for key, t in shards[k].items() if key.startswith(name + "/")}
+            _require(len(mine) == 2, f"phase 12 {name}: process {k} holds {len(mine)} shards")
+            for key, t in mine.items():
+                c, b = (int(v) for v in key.rsplit("/", 1)[1].split(","))
+                got, ref = t.to(dev), one.shards[c][b]
+                _require(torch.equal(got, ref),
+                         f"phase 12 {name}: process {k} shard ({c}, {b}) differs from the "
+                         f"one-process mesh's (max |diff| {float((got - ref).abs().max()):.3e})")
+        msg = gate(name, one)
+        del one
+        t_one = _wall_ms(step)
+        print(f"multiprocess {label} {name}: process 0 {results[0]['ms'][name]:.3f} ms, process "
+              f"1 {results[1]['ms'][name]:.3f} ms, one process {t_one:.3f} ms (host clock, median "
+              f"of 5); launches a process {per_process or 'none'}; both processes' shards "
+              f"bit-equal to the one-process mesh's; {msg}")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s host clock, gates and timing included")
 
 
 #: the raw i16 capture of phase 10: x scaled by 2^12 and rounded (|x| < 8)
@@ -982,21 +1215,6 @@ def _module_route(tmp, dev) -> dict:
     print("python -m blackman_harris_win_tpu_torch: list --json names the catalog; gen bh4 "
           "pw12 on the card bit-equal to make_window (" + torch.cuda.get_device_name(0) + ")")
     return secs
-
-
-#: operations per (cos, sin) call of the TAYLOR generator: phase split (2),
-#: quadrant (1), ROM index (1), the tay1 correction (2 products, 2 shifts,
-#: 2 adds), the quadrant steering (2 negations, 2 selects)
-TAYLOR_OPS = 14
-
-
-def _cordic_ops(n_terms: int, iters: int) -> int:
-    """Operations per window sample of the CORDIC generators: per harmonic,
-    ``iters`` iterations of 2 shifts, 3 adds/subtracts and a sign test, plus
-    the phase product and mask, the quadrant fix, a_k * cos, its shift and
-    the accumulate (6); per sample the wrap or clamp (4).  Each counts as
-    one operation whatever its width, so the bound stays low."""
-    return (n_terms - 1) * (6 * iters + 6) + 4
 
 
 #: the window kernels' instantiations: mangled-name fragment -> datapath
@@ -1209,48 +1427,6 @@ def _device_ms(fn, calls: int = 5) -> float:
     return us / 1e3 / calls
 
 
-def _kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
-                   mat_bytes: int) -> dict:
-    """name -> (bound ms, "bytes" | "operations") of each kernel at the main
-    path's shapes: each input read once, each output written once (tables
-    and scalars are negligible); integer operations at INT32_OPS, float32
-    ones at F32_FLOPS."""
-    from blackman_harris_win_tpu_torch.kernels.compwin import comp_window_flops
-    from blackman_harris_win_tpu_torch.kernels.floatwin import float_window_flops
-
-    nf = (nsamp - nfft) // hop + 1
-    npair = (nf + 1) // 2
-    k1 = n_terms - 1
-    # the fewest float32 operations per sample (an FMA counts two): f32, two
-    # FMAs per harmonic; comp, 6 FMAs per compensated harmonic (2 for s, 4
-    # for e) and 2 per plain one: comp_window_flops less its 6 for the host's
-    # TwoSum, which no kernel does
-    f32, comp = float_window_flops(n, n_terms), comp_window_flops(n, "bh7") - 6 * n
-    return {
-        "window_block": _bound(4 * n, n * _cordic_ops(n_terms, 32)),
-        "window_checksum": _bound(4, 4 * n * (_cordic_ops(n_terms, 32) + 1)),
-        # the work the function needs, not the kernel's direct DFT-matrix
-        # product: per packed pair, the window products (2 nfft), an FFT-128
-        # of each of the nfft/128 columns (5 * 128 * log2(128) flops) and
-        # the stage-1 twiddle (6 flops per element)
-        "welch_stage1": _bound(4 * nsamp + 4 * nfft + 8 * npair * nfft,
-                               npair * (2 * nfft + nfft // 128 * 5 * 128 * 7 + 6 * nfft),
-                               F32_FLOPS),
-        # per harmonic: 2 products, subtract, round, shift, accumulate
-        "outer_block": _bound(4 * n, n * (6 * k1 + 2)),
-        "outer_checksum": _bound(4, n * (6 * k1 + 3)),
-        "outer_block_f32": _bound(4 * n, f32, F32_FLOPS),
-        "outer_checksum_f32": _bound(4, f32 + n, F32_FLOPS),
-        "outer_block_comp": _bound(8 * n, comp, F32_FLOPS),
-        "outer_checksum_comp": _bound(8, comp + 2 * n, F32_FLOPS),
-        "taylor_sincos_block": _bound(8 * n, n * TAYLOR_OPS),
-        "taylor_checksum": _bound(4, n * (TAYLOR_OPS + 2)),
-        # Blackman: two generator calls, a_k * cos, shift, accumulate, wrap
-        "taylor_window_block": _bound(4 * n, n * (2 * (TAYLOR_OPS + 3) + 2)),
-        "materialize": _bound(2 * mat_bytes),
-    }
-
-
 #: device-time groups of the two profiled calls, in match order: name ->
 #: substrings of a kernel's name (lower case); the rest is the last group
 DDC_GROUPS = {"materialize": ("materialize",),
@@ -1307,6 +1483,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20260516,
                     help="seed of the random gate blocks and the analyzer input")
+    # one of phase 12's processes: PORT RANK OUT_DIR
+    ap.add_argument("--child", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1315,6 +1493,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.child:
+        return _mp_child(int(args.child[0]), int(args.child[1]), args.child[2], args.seed)
 
     from blackman_harris_win_tpu_torch import _build
     from blackman_harris_win_tpu_torch.core.config import WindowSpec
@@ -1354,6 +1534,7 @@ def main(argv=None) -> int:
         window_scale,
         windowed_power_spectrum,
     )
+    from blackman_harris_win_tpu_torch.utils import profiling
     from blackman_harris_win_tpu_torch.utils.spectral import window_sidelobe_db
     from blackman_harris_win_tpu_torch.windows import catalog
 
@@ -1386,12 +1567,8 @@ def main(argv=None) -> int:
     spec_rtl = WindowSpec(pw, w, rounding="rtl", overflow="wrap")
     spec4 = WindowSpec(20, 17, overflow="saturate")
     nfft, hop, nsamp = spec4.n, 1 << 19, 128 << 20
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    x = torch.randn(nsamp, generator=gen, device=dev, dtype=torch.float32)
-    x21 = torch.randn(1 << 26, generator=gen, device=dev, dtype=torch.float32)
-    x_stft = torch.randn(32 << 20, generator=gen, device=dev, dtype=torch.float32)
     c5, tpb5 = 16, 8  # bench_all config 5: noise through a 16-channel bank
-    x_sdr5 = torch.randn(c5 << 22, generator=gen, device=dev, dtype=torch.float32)
+    x, x21, x_stft, x_sdr5 = _seeded_inputs(args.seed, dev)
     torch.cuda.synchronize()
 
     launched = dict.fromkeys(_build.launches, 0)
@@ -1740,7 +1917,7 @@ def main(argv=None) -> int:
 
     # --- 11. the sharded steps on meshes over the card: counted, gated, timed ---
     win4 = wq.to(torch.float32) * float(np.float32(window_scale(spec4, d4.shift)))
-    _sharded_phase(launched, dev, f"[{smi}]", {
+    sharded_refs = {
         "q7": q7, "q7_rtl": q7_rtl, "spec_hls": spec_hls, "spec_rtl": spec_rtl,
         "win_hls": win_hls, "win_rtl": win_rtl, "spec_taylor_blackman": tay_specs["blackman"],
         "q_taylor_blackman": catalog.get("blackman").quantized(32),
@@ -1749,9 +1926,13 @@ def main(argv=None) -> int:
         "win64_f": win64_4, "q4_17": d4.quantized(17), "shift4": d4.shift, "x_stft": x_stft,
         "stft_pair": (stft_res["quantized"][0], stft_res["quantized"][1], win4), "bb": bb,
         "x21": x21, "h21": h21, "ddc_cfg": (fc21, dec21, pw21, w21), "x_sdr5": x_sdr5,
-        "proto5": proto5, "c5": c5, "tpb5": tpb5, "aw": aw, "pw": pw, "range_count": 4 << 20})
-    del win4
+        "proto5": proto5, "c5": c5, "tpb5": tpb5, "aw": aw, "pw": pw, "range_count": 4 << 20}
+    _sharded_phase(launched, dev, f"[{smi}]", sharded_refs)
     print(f"main path with phase 11: launches {launched}")
+    # --- 12. the sharded steps across two processes on the card ---
+    _multiprocess_phase(launched, dev, f"[{smi}]", sharded_refs, args.seed)
+    del win4, sharded_refs
+    print(f"main path with phase 12: launches {launched}")
 
     # --- 4. each kernel against its plain version on the card, timed ---
     plain_hls = window_values_plain(idx, q7, spec_hls)
@@ -1895,7 +2076,8 @@ def main(argv=None) -> int:
                            ("window_block_rtl", "r2s", q7_rtl, spec_rtl),
                            ("window_block_i32", "i32", q4_17, spec17)):
         iters = sp.data_width - (sp.rounding == "rtl")
-        b_ms, b_by = _bound(4 * n, n * _cordic_ops(len(q), iters))
+        b_ms, b_by = profiling.bound(4 * n, profiling.cordic_window_int_ops(
+            n, len(q), sp.data_width, sp.rounding))
         print(f"bound {label} {key} ({sp.rounding} W={sp.data_width} {len(q)} terms, datapath "
               f"{dp}, {iters} iterations): {b_ms:.4f} ms ({b_by}); measured {t[key][0]:.3f} ms, "
               f"roofline share {b_ms / t[key][0]:.1%}")
@@ -1966,7 +2148,8 @@ def main(argv=None) -> int:
         f"{k} {n / t[k][0] / 1e3:.1f} Msamples/s" for k in t if k.startswith("taylor")))
 
     src = "blackman_harris_win_tpu_torch/csrc/"
-    bounds = _kernel_bounds(n, len(q7), nsamp, nfft, hop, m21.numel() * m21.element_size())
+    bounds = profiling.kernel_bounds(n, len(q7), nsamp, nfft, hop,
+                                     m21.numel() * m21.element_size())
     err_mat = ddc_res["mat_err"]
     tpu = "blackman_harris_win_tpu/kernels/pallas/"
     rows = [  # name, source, replaces, timing key, max abs err

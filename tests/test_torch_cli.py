@@ -265,6 +265,25 @@ class TestSpectrum:
         assert p.shape == j.shape == (257,)
         assert _max_rel(p, j) < _budget(512)
 
+    @pytest.mark.parametrize("sin_type,rounding,name", [
+        ("taylor", "hls", "hann"), ("taylor", "rtl", "blackman"), ("taylor2", "hls", "bh4")])
+    @pytest.mark.parametrize("fft_mode", ["rfft", "mxu"])
+    def test_sin_type(self, tmp_path, capsys, sin_type, rounding, name, fft_mode):
+        """``--sin-type taylor|taylor2``: the window from the TAYLOR source
+        (HLS and RTL) and taylor2, as the JAX CLI writes it."""
+        x = np.random.default_rng(12).normal(size=9 * 1024).astype(np.float32)
+        inp = _save(tmp_path, x)
+        fj, fp = tmp_path / "j.npy", tmp_path / "p.npy"
+        # the TAYLOR LUT must be narrower than every harmonic's phase (pw - 1)
+        args = ["spectrum", name, "--phase-width", "11", "--data-width", "16", "--sin-type",
+                sin_type, "--rounding", rounding, "--lut-size", "8", "--input", inp,
+                "--fft-mode", fft_mode, "--out"]
+        assert _run(jmain, args + [str(fj)], capsys)[0] == 0
+        assert _run(pmain, args + [str(fp), *CPU], capsys)[0] == 0
+        p, j = np.load(fp), np.load(fj)
+        assert p.shape == j.shape == (1025,)
+        assert _max_rel(p, j) < _budget(2048)
+
     def test_tone_to_stdout(self, tmp_path, capsys):
         x = np.sin(2 * np.pi * 0.25 * np.arange(4096)).astype(np.float32)
         (rj, oj, _), (rp, op, _) = _both(["spectrum", "bh4", "--phase-width", "10",

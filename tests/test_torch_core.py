@@ -52,6 +52,13 @@ PORT_MODULES = [
     "blackman_harris_win_tpu_torch.windows.selector",
     "blackman_harris_win_tpu_torch.utils.streaming",
     "blackman_harris_win_tpu_torch.utils.io",
+    "blackman_harris_win_tpu_torch.utils.profiling",
+    "blackman_harris_win_tpu_torch.dist.mesh",
+    "blackman_harris_win_tpu_torch.dist.collectives",
+    "blackman_harris_win_tpu_torch.dist.halo",
+    "blackman_harris_win_tpu_torch.dist.generate",
+    "blackman_harris_win_tpu_torch.dist.multihost",
+    "blackman_harris_win_tpu_torch.dist.dryrun",
     "blackman_harris_win_tpu_torch.__main__",
 ]
 

@@ -114,6 +114,7 @@ ENTRY_POINTS = {
     "spectral.welch_power": lambda **d: spectral.welch_power(X, np.hanning(256), 256, 128, **d),
     "spectral.windowed_power_spectrum":
         lambda **d: spectral.windowed_power_spectrum(X, "bh4", WindowSpec(8, 17), **d),
+    "spectral.rfft_power_split": lambda **d: spectral.rfft_power_split(X, **d),
     "stft.quantized_stft_pair": lambda **d: stft.quantized_stft_pair("bh4", SPEC, **d)[2],
     "stft.float_stft_pair": lambda **d: stft.float_stft_pair("bh4", 10, **d)[2],
     "stft.comp_stft_pair": lambda **d: stft.comp_stft_pair("bh4", 10, **d)[2][0],

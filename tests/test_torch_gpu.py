@@ -489,6 +489,29 @@ def test_analyzer_float_modes_run_the_kernels(cuda, win_mode, fft_mode, kernels)
     assert rel < 32 * 2.0**-24 * np.sqrt(nfft), rel
 
 
+@pytest.mark.parametrize("sin_type,rounding,name,kernel", [
+    ("taylor", "hls", "blackman", "taylor_window_block"),
+    ("taylor", "rtl", "hann", None),
+    ("taylor2", "hls", "bh4", None),
+])
+def test_analyzer_taylor_sources_on_the_card(cuda, sin_type, rounding, name, kernel):
+    """The quantized analyzer's window through ``kernels.window.window_block``:
+    TAYLOR HLS launches the Taylor window kernel once, TAYLOR RTL and
+    taylor2 run in torch ops; the spectrum matches the CPU plain path."""
+    spec = WindowSpec(13, 16, sin_type=sin_type, rounding=rounding, lut_size=10)
+    nfft = spec.n
+    x = np.random.default_rng(6).normal(size=nfft * 9).astype(np.float32)
+    _build.reset_launches()
+    got = sp.windowed_power_spectrum(torch.from_numpy(x).to(cuda), name, spec).cpu()
+    want = dict.fromkeys(_build.launches, 0)
+    if kernel:
+        want[kernel] = 1
+    assert _build.launches == want
+    ref = sp.windowed_power_spectrum(x, name, spec, device="cpu")
+    rel = float(((got.double() - ref.double()).abs() / ref.double().abs()).max())
+    assert rel < 32 * 2.0**-24 * np.sqrt(nfft), rel
+
+
 # --- the TAYLOR source (csrc/taylor_kernel.cu) ---
 
 TAYLOR_SINCOS_CASES = [  # (pw, w, ls): ROM in shared memory up to LS=14
@@ -1039,3 +1062,36 @@ def test_sharded_steps_over_distinct_cards(cuda):
     u = 2.0**-24
     bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(xd).max()
     assert float((got - want).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sharded_steps_across_processes_on_cards(cuda, tmp_path, backend):
+    """``tests/torch_multiproc_child.py`` on the cards: with gloo, two
+    processes on card 0 (card tensors staged through the host); with nccl,
+    one process a card (needs two or more).  Every process's shards of
+    generation, the Welch analyzer, the STFT/WOLA pair and the channel psum,
+    on mesh A (channels=1) and mesh B (channels=2), bit-equal to the same
+    steps on a one-process mesh of the same devices."""
+    import torch_multiproc_child as child
+
+    from blackman_harris_win_tpu_torch.dist.mesh import make_mesh
+
+    ncards = torch.cuda.device_count()
+    if backend == "nccl" and ncards < 2:
+        pytest.skip(f"nccl takes one card a process; torch sees {ncards}")
+    nprocs = min(ncards, 8) if backend == "nccl" else 2
+    while 8 % nprocs:
+        nprocs -= 1
+    per, device = 8 // nprocs, "own" if backend == "nccl" else "card0"
+    results = child.spawn(nprocs, per, tmp_path, backend, device, timeout=300)
+    devs = [d for r in range(nprocs) for d in child.local_devices(device, r, per)]
+    for label, channels in (("a", 1), ("b", 2)):
+        one = child.steps(make_mesh(blocks=8 // channels, channels=channels, devices=devs))
+        for r in results:
+            for name, s in one.items():
+                held = {k: t for k, t in r["tensors"].items()
+                        if k.startswith(f"{label}/{name}/")}
+                assert len(held) == per
+                for key, t in held.items():
+                    c, b = (int(v) for v in key.rsplit("/", 1)[1].split(","))
+                    assert torch.equal(t, s.shards[c][b].cpu()), key

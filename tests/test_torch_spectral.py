@@ -372,3 +372,84 @@ class TestAnalyzer:
             sp.windowed_power_spectrum(x, "bh4", spec, win_mode="nope")
         with pytest.raises(ValueError):
             sp.frame_mean_power(torch.zeros(2, 256), "nope")
+
+
+class TestNonCordicWindows:
+    """The quantized analyzer with the TAYLOR source (HLS and RTL) and
+    taylor2: the window comes from ``kernels.window.window_block``, the same
+    values as JAX's ``window_samples``."""
+
+    CASES = [("taylor", "hls", "hann"), ("taylor", "hls", "blackman"),
+             ("taylor", "rtl", "hann"), ("taylor", "rtl", "blackman"),
+             ("taylor2", "hls", "hann"), ("taylor2", "hls", "blackman"),
+             ("taylor2", "hls", "bh4"), ("taylor2", "hls", "bh7")]
+
+    @pytest.mark.parametrize("sin_type,rounding,name", CASES)
+    @pytest.mark.parametrize("fft_mode", ["rfft", "mxu"])
+    def test_matches_jax_and_f64(self, sin_type, rounding, name, fft_mode):
+        spec = WindowSpec(12, 16, sin_type=sin_type, rounding=rounding)
+        nfft, hop = spec.n, spec.n // 2
+        x = _signal(hop * 7, 53)
+        got = sp.windowed_power_spectrum(torch.from_numpy(x), name, spec,
+                                         fft_mode=fft_mode).numpy()
+        jspec = jconfig.WindowSpec(**vars(spec))
+        want_jax = np.asarray(jsp.windowed_power_spectrum(jnp.asarray(x), name, jspec,
+                                                          fft_mode=fft_mode))
+        d = catalog.get(name)
+        wq = np.asarray(jkw.window_samples(np.arange(nfft), d.quantized(16), jspec), np.float64)
+        ref = _f64_welch(x, wq * sp.window_scale(spec, d.shift), nfft, hop)
+        assert got.shape == (nfft // 2 + 1,)
+        assert _max_rel(got, ref) < _budget(nfft)
+        assert _max_rel(got, want_jax) < _budget(nfft)
+
+    @pytest.mark.parametrize("sin_type,rounding,name", [("taylor", "hls", "bh4"),
+                                                        ("taylor2", "rtl", "hann")])
+    def test_what_jax_refuses_the_port_refuses(self, sin_type, rounding, name):
+        spec = WindowSpec(12, 16, sin_type=sin_type, rounding=rounding)
+        x = _signal(4096 * 2, 54)
+        with pytest.raises((ValueError, NotImplementedError)):
+            jsp.windowed_power_spectrum(jnp.asarray(x), name, jconfig.WindowSpec(**vars(spec)))
+        with pytest.raises((ValueError, NotImplementedError)):
+            sp.windowed_power_spectrum(torch.from_numpy(x), name, spec)
+
+
+class TestRfftPowerSplit:
+    """The twin of ``tests/test_spectral.py``'s ``rfft_power_split`` cases,
+    against float64 and the JAX function."""
+
+    @pytest.mark.parametrize("n", [128, 4096])
+    def test_matches_rfft_power(self, n):
+        x = np.random.default_rng(11).normal(size=(3, n)).astype(np.float32)
+        got = sp.rfft_power_split(torch.from_numpy(x))
+        assert got.dtype == torch.float32 and got.shape == (3, n // 2 + 1)
+        ref = np.abs(np.fft.rfft(x.astype(np.float64), axis=-1)) ** 2
+        assert _max_rel(got.numpy(), ref, per_bin=False) < 2e-6
+        want = np.asarray(jsp.rfft_power_split(jnp.asarray(x)))
+        assert _max_rel(got.numpy(), want, per_bin=False) < 2e-6
+
+    def test_mxu(self):
+        x = np.random.default_rng(10).normal(size=(2, 2048)).astype(np.float32)
+        got = sp.rfft_power_split(x, "mxu", device="cpu").numpy()
+        ref = np.abs(np.fft.rfft(x.astype(np.float64), axis=-1)) ** 2
+        assert _max_rel(got, ref, per_bin=False) < 2e-6
+        want = np.asarray(jsp.rfft_power_split(jnp.asarray(x), "mxu"))
+        assert _max_rel(got, want, per_bin=False) < 2e-6
+
+    def test_odd_length_rejected(self):
+        with pytest.raises(ValueError, match="even"):
+            sp.rfft_power_split(np.zeros(127, np.float32), device="cpu")
+
+    def test_tf32_is_turned_off(self, monkeypatch):
+        seen = []
+        mm = torch.tensordot
+
+        def spy(*a, **k):
+            seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            return mm(*a, **k)
+
+        monkeypatch.setattr(torch, "tensordot", spy)
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+        sp.rfft_power_split(torch.ones(1024), "mxu")
+        assert seen and all(f == (False, False) for f in seen)
+        assert torch.backends.cuda.matmul.allow_tf32
