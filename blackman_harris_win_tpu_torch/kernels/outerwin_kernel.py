@@ -10,9 +10,10 @@ n = h*2^m + lo:
 - f32 (``floatwin``): a0 + sum_k (ch*cl - sh*sl) in float32;
 - comp (``compwin``): the raw (s, e) compensated pair.
 
-``csrc/outerwin_kernel.cu`` serves them with two tile generators (the int
-one; the f32/comp one with compile-time harmonic counts, four lo lanes a
-thread and FFMA chains) and two epilogues:
+``csrc/outerwin_kernel.cu`` serves them with two tile generators on one
+geometry (compile-time harmonic counts, four lo lanes a thread, a row range
+a block): the int one (compile-time shift, two 64-bit integer products per
+harmonic) and the f32/comp one (FFMA chains), each with two epilogues:
 
 - write-out: ``outer_block``, ``outer_block_f32``, ``outer_block_comp``
   store the samples (the generators of ``outerwin``/``floatwin``/``compwin``
@@ -340,8 +341,8 @@ def make_checksum_fn(coeffs_q, spec: WindowSpec, m: int = 11, rows: int = 128,
     """``fn(bias)`` -> 0-d int32 tensor on ``device``: the int32-wrap sum of
     all 2^pw int outer-product samples plus ``bias`` (replaces the Pallas
     ``make_checksum_fn``).  ``fn(b) == fn(0) + b`` mod 2^32.  ``rows`` must
-    divide 2^(pw-m); it is the plain version's tile (the kernel steps its own
-    32 rows per block; the sum is exact in any order)."""
+    divide 2^(pw-m); it is the plain version's tile (the kernel walks its own
+    row ranges; the sum is exact in any order)."""
     check_split(spec.phase_width, m)
     device = _build.resolve_device(device)
     t = _int_tiles(check_int_coeffs(coeffs_q), spec, m, device)

@@ -32,16 +32,18 @@ from dataclasses import dataclass
 from .catalog import get
 
 #: generation rate per mode, Gsamples/s: 2^26 samples over the kernel's
-#: CUDA-event time, one call alone (``chip_smoke.py``'s mode rates, run A
-#: in PERF.md §5; NVIDIA H100 80GB HBM3, power limit 700.00 W).  exact /
-#: rtl: ``window_block`` HLS / RTL BH-7 W=32; taylor: ``taylor_window_block``
-#: Blackman W=32; outer / float / comp: ``outer_block`` / ``outer_block_f32``
-#: / ``outer_block_comp`` at BH-7 pw=26 m=11.
+#: CUDA-event time, one call alone (``chip_smoke.py``'s mode rates, PERF.md
+#: §5: outer from the run after its kernel's redesign, the others from the
+#: front end's first run; NVIDIA H100 80GB HBM3, power limit 700.00 W).
+#: exact / rtl: ``window_block`` HLS / RTL BH-7 W=32; taylor:
+#: ``taylor_window_block`` Blackman W=32; outer / float / comp:
+#: ``outer_block`` / ``outer_block_f32`` / ``outer_block_comp`` at BH-7
+#: pw=26 m=11.
 MODE_GSPS = {
     "exact": 7.512,
     "rtl": 7.816,
     "taylor": 293.554,
-    "outer": 152.609,
+    "outer": 325.847,
     "float": 394.127,
     "comp": 250.526,
 }

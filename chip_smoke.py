@@ -113,16 +113,19 @@ rate, one per lane per cycle) and, where one PyTorch call computes the
 same function, that call's time (``torch.clone`` for the copy; for the f32
 and comp write-outs ``torch.addmm`` and ``torch.baddbmm`` built from the
 port's tables with TF32 off, gated as their kernels are before they are
-timed; the port never calls them); the four float outer kernels' device
-time under torch.profiler is printed beside their times.  The window kernel is timed on each
+timed; the port never calls them); the six outer kernels' device time
+under torch.profiler is printed beside their times.  The window kernel is timed on each
 datapath it has at the timed size (2^26 samples: HLS and RTL BH-7 W=32 on
 ``r2s``, the analyzer's BH-4 W=17 saturate window on ``i32``), each beside
 its operation bound; the build prints each kernel's ptxas registers and,
 where ``cuobjdump`` exists, the SASS instructions of one unrolled CORDIC
 iteration per datapath, of the bulk-copy ring's main loop, of the Taylor
 kernels' run walk per sample, of the stage-1 kernel's FFT body and of one
-row of each f32/comp outer instantiation's walk (its FFMA, LDS and STG),
-with their local-memory instructions.  Phase 10's wall time per subcommand
+row of each outer instantiation's walk (f32/comp: its FFMA, LDS and STG;
+int: its IMAD.WIDE, IADD3, LEA.HI, SHF, LDS and STG), with their
+local-memory instructions; an int instantiation with local-memory
+instructions, or whose ptxas line shows a stack frame or spills, fails the
+run.  Phase 10's wall time per subcommand
 (file I/O included), its host steps alone and the six mode rates of
 ``windows/modes.py:MODE_GSPS`` are printed with the card's name and power
 limit.
@@ -137,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -1231,7 +1235,6 @@ def _print_sass(lib_path) -> None:
     and the length of its main loop, one pass of which moves one stage (the
     widest backward branch).  Needs ``cuobjdump``; prints that it is missing
     otherwise.  The Taylor and stage-1 kernels: see ``_print_block_sass``."""
-    import re
     import shutil
     from pathlib import Path
 
@@ -1258,6 +1261,9 @@ def _print_sass(lib_path) -> None:
             continue
         if "float_kernel" in name:
             _print_float_sass(name, body)
+            continue
+        if "int_kernel" in name:
+            _print_int_sass(name, body)
             continue
         if "window_block_kernel" not in name:
             continue
@@ -1286,7 +1292,6 @@ def _print_block_sass(name: str, body: str) -> None:
     is a lane's run walk over kG samples, one generator (window: the first
     harmonic's), so its length over kG is the walk's instructions per sample
     and generator; in the stage-1 kernel it is the FFT-128's unrolled body."""
-    import re
 
     ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
     targets = {int(m.group(1), 16) for _, text in ins
@@ -1314,20 +1319,12 @@ def _print_block_sass(name: str, body: str) -> None:
               "local-memory instructions")
 
 
-def _print_float_sass(name: str, body: str) -> None:
-    """An f32/comp outer kernel instantiation's SASS: its instruction count,
-    its local-memory instructions, and the FFMA, LDS and STG instructions of
-    one pass of its row walk (the innermost loop that holds FFMAs: one h row
-    at the thread's V lanes, V = 4, or 1 in the runtime-count
-    instantiations)."""
-    import re
+def _row_walk(body: str, marker: str, least: int, keys: tuple) -> tuple[int, dict, int]:
+    """An outer kernel instantiation's SASS: (instruction count, the counts
+    of ``keys`` in one pass of its row walk, local-memory instructions).  The
+    row walk is the innermost loop (backward branch) that holds at least
+    ``least`` instructions matching ``marker``; ``{}`` where none does."""
 
-    m = re.search(r"float_kernelILi(\d)ELi(n?\d)ELi(n?\d)ELb([01])E", name)
-    if not m:
-        print(f"sass float_kernel: unrecognised instantiation {name[:80]}")
-        return
-    mode, nc, npl, summed = m.groups()
-    runtime = nc.startswith("n")  # NC = -1: the runtime-count instantiation
     ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
     addr = [int(a, 16) for a, _ in ins]
     loops = [(int(b.group(1), 16), a) for a, (_, text) in zip(addr, ins)
@@ -1335,19 +1332,66 @@ def _print_float_sass(name: str, body: str) -> None:
     count = {}
     for lo, hi in sorted(loops, key=lambda span: span[1] - span[0]):
         texts = [t for a, (_, t) in zip(addr, ins) if lo <= a <= hi]
-        if any(re.search(r"\bFFMA\b", t) for t in texts):
-            count = {k: sum(1 for t in texts if re.search(rf"\b{k}", t))
-                     for k in ("FFMA", "LDS", "STG")}
+        if sum(1 for t in texts if re.search(marker, t)) >= least:
+            count = {k: sum(1 for t in texts if re.search(rf"\b{re.escape(k)}", t))
+                     for k in keys}
             count["instructions"] = len(texts)
             break
     local = sum(1 for _, t in ins if re.search(r"\b(LDL|STL)", t))
+    return len(ins), count, local
+
+
+def _print_float_sass(name: str, body: str) -> None:
+    """An f32/comp outer kernel instantiation's SASS: its instruction count,
+    its local-memory instructions, and the FFMA, LDS and STG instructions of
+    one pass of its row walk (the innermost loop that holds FFMAs: one h row
+    at the thread's V lanes, V = 4, or 1 in the runtime-count
+    instantiations)."""
+
+    m = re.search(r"float_kernelILi(\d)ELi(n?\d)ELi(n?\d)ELb([01])E", name)
+    if not m:
+        print(f"sass float_kernel: unrecognised instantiation {name[:80]}")
+        return
+    mode, nc, npl, summed = m.groups()
+    runtime = nc.startswith("n")  # NC = -1: the runtime-count instantiation
+    n_ins, count, local = _row_walk(body, r"\bFFMA\b", 1, ("FFMA", "LDS", "STG"))
     what = ("f32 K-1=" + ("runtime" if runtime else nc) if mode == "1"
             else "comp (C,P)=" + ("runtime" if runtime else f"({nc},{npl})"))
     lanes = 1 if runtime else 4
     walk = (", ".join(f"{v} {k}" for k, v in count.items()) if count else "not found")
     print(f"sass float_kernel {what} {'checksum' if summed == '1' else 'write-out'}: "
-          f"{len(ins)} instructions; one row of the walk ({lanes} samples): {walk}; "
+          f"{n_ins} instructions; one row of the walk ({lanes} samples): {walk}; "
           f"{local} local-memory instructions")
+
+
+def _print_int_sass(name: str, body: str) -> None:
+    """An int outer kernel instantiation's SASS: its instruction count, its
+    local-memory instructions (a run with any fails), and the IMAD.WIDE,
+    IADD3 (with IADD3.X), LEA.HI (the funnel shift and accumulate), SHF,
+    LDS and STG instructions of one pass of its row walk (the innermost loop
+    with two IMAD.WIDE a harmonic and lane: one h row at the thread's V = 4
+    lanes, or one lane and up to 7 harmonics in the runtime-count
+    instantiation), with the IMAD.WIDE and all instructions per harmonic
+    and sample."""
+
+    m = re.search(r"int_kernelILi(n?\d)ELi(\d+)ELb([01])E", name)
+    if not m:
+        print(f"sass int_kernel: unrecognised instantiation {name[:80]}")
+        return
+    nk, shift, summed = m.groups()
+    runtime = nk.startswith("n")  # NK = -1: the runtime-count instantiation
+    k, lanes = (7, 1) if runtime else (int(nk), 4)
+    n_ins, count, local = _row_walk(body, r"\bIMAD\.WIDE\b", 2 * k * lanes,
+                                    ("IMAD.WIDE", "IADD3", "LEA.HI", "SHF", "LDS", "STG"))
+    what = "K-1=runtime s=runtime" if runtime else f"K-1={nk} s={shift}"
+    walk = (", ".join(f"{v} {key}" for key, v in count.items()) if count else "not found")
+    if count and not runtime:
+        walk += (f"; per harmonic and sample {count['IMAD.WIDE'] / (k * lanes):.2f} IMAD.WIDE, "
+                 f"{count['instructions'] / (k * lanes):.2f} instructions")
+    print(f"sass int_kernel {what} {'checksum' if summed == '1' else 'write-out'}: "
+          f"{n_ins} instructions; one row of the walk ({lanes} samples): {walk}; "
+          f"{local} local-memory instructions")
+    _require(local == 0, f"int_kernel {what}: {local} local-memory instructions")
 
 
 def _library_outer(name: str, pw: int, m: int, dev):
@@ -1547,15 +1591,28 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {kind}")
     print(smi)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f"maximum SM clock: {clock.strip().splitlines()[0]}")
     path, log, secs = _build.build()
     _build.lib()
     print(f"build: {secs:.1f} s -> {path.name}")
     fn = "?"
+    int_kernels = 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line.strip()
         elif "Used" in line or "spill" in line:
             print(f"  ptxas {fn}: {line.split('info    :')[-1].strip()}")
+            if "int_kernel" in fn and "spill" in line:  # the int kernels may not spill
+                int_kernels += 1
+                _require(re.search(r"\b0 bytes stack frame, 0 bytes spill stores, "
+                                   r"0 bytes spill loads", line) is not None,
+                         f"ptxas {fn}: {line.strip()}")
+    if not log:
+        print("ptxas: the library was built before this run, no ptxas lines")
+    _require(not log or int_kernels == 30,
+             f"ptxas reported {int_kernels} int_kernel instantiations, want 30")
     _print_sass(path)
 
     # --- 2. the main path, counted ---
@@ -2046,9 +2103,12 @@ def main(argv=None) -> int:
                         _time_ms(lambda: materialize_plain(m21)))
     lib_ms = {"materialize": _time_ms(lambda: torch.clone(m21)),
               "outer_block_f32": _time_ms(lib_f32), "outer_block_comp": _time_ms(lib_comp)}
-    # the four float outer kernels' device time (torch.profiler) beside their
+    # the six outer kernels' device time (torch.profiler) beside their
     # one-call-alone time, and the library calls'
-    dev_ms = {"outer_block_f32": _device_ms(lambda: float_window("bh7", pw, device=dev)),
+    dev_ms = {"outer_block": _device_ms(
+                  lambda: window_block_outer(0, nrows, q7, spec_hls, m=m, device=dev)),
+              "outer_checksum": _device_ms(lambda: chk_outer_fn(0)),
+              "outer_block_f32": _device_ms(lambda: float_window("bh7", pw, device=dev)),
               "outer_checksum_f32": _device_ms(lambda: chk_f32_fn(0)),
               "outer_block_comp": _device_ms(lambda: comp_window_pair("bh7", pw, device=dev)),
               "outer_checksum_comp": _device_ms(lambda: chk_comp_fn(0)),
@@ -2061,9 +2121,10 @@ def main(argv=None) -> int:
     for k, call in (("outer_block_f32", "torch.addmm"), ("outer_block_comp", "torch.baddbmm")):
         print(f"time {label} {k} library call {call}: {lib_ms[k]:.3f} ms one call alone, "
               f"{dev_ms[call]:.4f} ms device time")
-    for k in ("outer_block_f32", "outer_checksum_f32", "outer_block_comp", "outer_checksum_comp"):
+    for k in ("outer_block", "outer_checksum", "outer_block_f32", "outer_checksum_f32",
+              "outer_block_comp", "outer_checksum_comp"):
         print(f"time {label} {k}: {dev_ms[k]:.4f} ms device time (torch.profiler, per call of "
-              f"5; a checksum's finalize kernel included), {t[k][0]:.3f} ms "
+              f"5; a float checksum's finalize kernel included), {t[k][0]:.3f} ms "
               f"{'per call of 16 queued' if 'checksum' in k else 'one call alone'}")
     print(f"time {label} materialize per call of 16 queued: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in queued.items()))

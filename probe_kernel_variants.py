@@ -1,6 +1,6 @@
 """Time the port's ``materialize`` copy, its window-kernel datapaths, its
-stage-1 kernel, its Taylor checksum and its f32/comp outer kernels on one
-card, each beside what it is compared with in the same process.
+stage-1 kernel, its Taylor checksum and its int/f32/comp outer kernels on
+one card, each beside what it is compared with in the same process.
 
     python3 probe_kernel_variants.py [--rounds N] [--against DIR] [--only SECTION]
 
@@ -33,14 +33,16 @@ card, each beside what it is compared with in the same process.
    entry and, with ``--against DIR``, through DIR's ``bhw_taylor_checksum``;
    per call of 16 queued, all sums equal; and the host time per call of the
    wrapper and of each C entry.
-5. The f32 and comp outer kernels (``csrc/outerwin_kernel.cu``: the
-   write-outs ``outer_block_f32``/``outer_block_comp`` and the checksums
-   ``outer_checksum_f32``/``outer_checksum_comp``) at the main path's shapes
-   (BH-7, pw=26, m=11) through their C entries, with ``--against DIR``
-   beside DIR's, and each write-out beside the PyTorch call that computes
-   the same window (``torch.addmm`` for f32, ``torch.baddbmm`` for the comp
-   pair, TF32 off); outputs compared (f32 within twice ``f32_pair_bound``
-   of each other, comp s bit-equal and e within twice ``comp_e_bound``, the
+5. The int, f32 and comp outer kernels (``csrc/outerwin_kernel.cu``: the
+   write-outs ``outer_block``/``outer_block_f32``/``outer_block_comp`` and
+   the checksums ``outer_checksum``/``outer_checksum_f32``/
+   ``outer_checksum_comp``) at the main path's shapes (BH-7, pw=26, m=11;
+   int W=32 wrap) through their C entries, with ``--against DIR`` beside
+   DIR's, and each float write-out beside the PyTorch call that computes the
+   same window (``torch.addmm`` for f32, ``torch.baddbmm`` for the comp
+   pair, TF32 off; no call computes the int window); outputs compared (int
+   samples and sums equal, f32 within twice ``f32_pair_bound`` of each
+   other, comp s bit-equal and e within twice ``comp_e_bound``, the float
    checksums within their derived sum bounds), then one call alone and per
    call of 16 queued, in turns.
 
@@ -357,23 +359,28 @@ def _probe_taylor(args, dev, label, stream, result) -> None:
 
 
 def _probe_outer(args, dev, label, stream, result) -> None:
-    """Section 5: the f32 and comp outer kernels (write-out and checksum) at
-    the main path's shapes (BH-7, pw=26, m=11) through their C entries,
-    beside DIR's and beside the PyTorch calls that compute the same windows
-    (``chip_smoke._library_outer``); every output compared first."""
+    """Section 5: the int, f32 and comp outer kernels (write-out and
+    checksum) at the main path's shapes (BH-7, pw=26, m=11) through their C
+    entries, beside DIR's and beside the PyTorch calls that compute the same
+    float windows (``chip_smoke._library_outer``); every output compared
+    first."""
     import re
 
     import torch
 
     from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
     from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
     from blackman_harris_win_tpu_torch.kernels.compwin import DEFAULT_THRESH, GRID_BITS
     from blackman_harris_win_tpu_torch.kernels.floatwin import _resolve_coeffs
+    from blackman_harris_win_tpu_torch.windows import catalog
 
     pw, m = 26, 11
     nh, nl = 1 << (pw - m), 1 << m
     coeffs = _resolve_coeffs("bh7")
-    tiles = {"f32": ok._f32_tiles(coeffs, pw, m, dev),
+    tiles = {"int": ok._int_tiles(catalog.get("bh7").quantized(32),
+                                  WindowSpec(pw, 32, overflow="wrap"), m, dev),
+             "f32": ok._f32_tiles(coeffs, pw, m, dev),
              "comp": ok._comp_tiles(coeffs, pw, m, GRID_BITS, DEFAULT_THRESH, dev)}
     libs = {"port, C entry": _build.lib()}
     old_query = False
@@ -401,59 +408,74 @@ def _probe_outer(args, dev, label, stream, result) -> None:
     result["outer"] = {}
     for mode, t in tiles.items():
         c_args = ok._c_args(t, 0, nh)
-        comp = mode == "comp"
-        outs = {k: torch.empty(2 if comp else 1, nh * nl, device=dev) for k in libs}
-        sums = {k: torch.empty((), device=dev) for k in libs}
+        comp, integer = mode == "comp", mode == "int"
+        dt = torch.int32 if integer else torch.float32
+        outs = {k: torch.empty(2 if comp else 1, nh * nl, dtype=dt, device=dev) for k in libs}
+        # the int checksum adds onto *out: zero it for the comparison
+        sums = {k: torch.zeros((), dtype=dt, device=dev) for k in libs}
         parts = {k: torch.empty(query(lib, "bhw_outer_npartials", t), device=dev)
                  for k, lib in libs.items()}
+
+        name = "" if integer else f"_{mode}"
 
         def block(k):
             o = outs[k]
             rc = libs[k].bhw_outer_block(t.mode, o[0].data_ptr(), o[1].data_ptr() if comp else None,
                                          *c_args, stream)
             if rc:
-                raise RuntimeError(f"outer_block_{mode} {k}: CUDA error {rc}")
+                raise RuntimeError(f"outer_block{name} {k}: CUDA error {rc}")
 
         def checksum(k):
-            rc = libs[k].bhw_outer_checksum(t.mode, sums[k].data_ptr(), parts[k].data_ptr(),
+            rc = libs[k].bhw_outer_checksum(t.mode, sums[k].data_ptr(),
+                                            parts[k].data_ptr() if parts[k].numel() else None,
                                             parts[k].numel(), 0, *c_args, stream)
             if rc:
-                raise RuntimeError(f"outer_checksum_{mode} {k}: CUDA error {rc}")
+                raise RuntimeError(f"outer_checksum{name} {k}: CUDA error {rc}")
 
         ref = "port, C entry"
         for k in libs:
             block(k)
             checksum(k)
-        call, lib_fn = library[mode]
-        want = lib_fn().view(2 if comp else 1, -1)
-        bound = ok.comp_e_bound("bh7") if comp else ok.f32_pair_bound("bh7")
-        sum_abs = float(outs[ref].double().abs().sum())
-        for k, o in [*outs.items(), (call, want)]:
-            if comp and not torch.equal(o[0], outs[ref][0]):
-                raise RuntimeError(f"outer_block_comp {k}: s differs from the port's")
-            err = float((o[-1] - outs[ref][-1]).abs().max())
-            if err > 2 * bound:  # each within its bound of the plain version
-                raise RuntimeError(f"outer_block_{mode} {k}: {err} from the port's")
-        for k in libs:
-            depth = query(libs[k], "bhw_outer_checksum_depth", t)
-            diff = float((outs[k] - outs[ref]).double().abs().sum())
-            tol = 2 * ok.sum_bound(max(depth, query(libs[ref], "bhw_outer_checksum_depth", t)),
-                                   sum_abs) + diff
-            if abs(float(sums[k]) - float(sums[ref])) > tol:
-                raise RuntimeError(f"outer_checksum_{mode} {k}: {float(sums[k])} vs "
-                                   f"{float(sums[ref])} (> {tol})")
-        print(f"outer {mode} bh7 pw26 m11: write-outs and checksums of "
-              f"{', '.join(libs)} and {call} agree")
+        blocks = {k: (lambda k=k: block(k)) for k in libs}
+        if integer:
+            want = int(outs[ref].sum(dtype=torch.int64)) & 0xFFFFFFFF
+            want -= (want >> 31) << 32
+            for k in libs:
+                if not torch.equal(outs[k], outs[ref]) or int(sums[k]) != want:
+                    raise RuntimeError(f"outer int {k}: differs from the port's")
+            print(f"outer int bh7 pw26 m11: write-outs and checksums of {', '.join(libs)} "
+                  "equal")
+        else:
+            call, lib_fn = library[mode]
+            want = lib_fn().view(2 if comp else 1, -1)
+            bound = ok.comp_e_bound("bh7") if comp else ok.f32_pair_bound("bh7")
+            sum_abs = float(outs[ref].double().abs().sum())
+            for k, o in [*outs.items(), (call, want)]:
+                if comp and not torch.equal(o[0], outs[ref][0]):
+                    raise RuntimeError(f"outer_block_comp {k}: s differs from the port's")
+                err = float((o[-1] - outs[ref][-1]).abs().max())
+                if err > 2 * bound:  # each within its bound of the plain version
+                    raise RuntimeError(f"outer_block_{mode} {k}: {err} from the port's")
+            for k in libs:
+                depth = query(libs[k], "bhw_outer_checksum_depth", t)
+                diff = float((outs[k] - outs[ref]).double().abs().sum())
+                tol = 2 * ok.sum_bound(max(depth, query(libs[ref], "bhw_outer_checksum_depth",
+                                                        t)), sum_abs) + diff
+                if abs(float(sums[k]) - float(sums[ref])) > tol:
+                    raise RuntimeError(f"outer_checksum_{mode} {k}: {float(sums[k])} vs "
+                                       f"{float(sums[ref])} (> {tol})")
+            print(f"outer {mode} bh7 pw26 m11: write-outs and checksums of "
+                  f"{', '.join(libs)} and {call} agree")
+            blocks[call] = lib_fn
         result["outer"][mode] = {}
-        for kind, fns in (("block", {**{k: (lambda k=k: block(k)) for k in libs}, call: lib_fn}),
+        for kind, fns in (("block", blocks),
                           ("checksum", {k: (lambda k=k: checksum(k)) for k in libs})):
             for how, measure in (("alone", lambda f: _event_ms(f, 1)),
                                  ("per call of 16 queued", lambda f: _event_ms(f, 16))):
                 tt = _in_turns(fns, args.rounds, measure)
                 for k, ms in tt.items():
-                    print(f"time {label} outer_{kind}_{mode} bh7 2^26 {how}, {k}: {ms:.4f} ms")
+                    print(f"time {label} outer_{kind}{name} bh7 2^26 {how}, {k}: {ms:.4f} ms")
                 result["outer"][mode][f"{kind} {how}"] = tt
-
 
 SECTIONS = {"materialize": _probe_materialize, "window": _probe_window,
             "welch": _probe_welch, "taylor": _probe_taylor, "outer": _probe_outer}

@@ -213,7 +213,13 @@ OUTER_INT_CASES = [  # (window, W, overflow, pw, m)
     ("bh7", 32, "wrap", 16, 11),
     ("bh7", 32, "saturate", 16, 11),
     ("bh4", 18, "saturate", 15, 6),
-    ("hann", 17, "wrap", 13, 5),  # 32 lanes: fewer than a block's 256
+    ("hann", 17, "wrap", 13, 5),  # 32 lanes: fewer than a block's 512
+    ("bh4", 32, "wrap", 14, 7),  # |a_k| >= 2^29: guard 0, shift 30
+    ("bh3", 32, "saturate", 13, 6),  # K = 3, guard 0, the W = 32 no-op
+    ("bh5", 24, "saturate", 13, 5),  # K = 5
+    ("nuttall", 32, "wrap", 12, 2),  # 4 lanes: one thread
+    ("hann", 17, "wrap", 9, 1),  # nl % 4 != 0: the runtime-count kernel
+    ("bh7", 18, "saturate", 8, 0),
 ]
 
 
@@ -247,6 +253,39 @@ def test_outer_int_checksum_kernel_matches_plain(cuda, name, w, overflow, pw, m)
         got = fn(bias)
         assert got.dtype == torch.int32 and got.device == cuda
         assert int(got) == int(plain(bias)) == want
+
+
+@pytest.mark.parametrize("name,w,overflow,pw,m", OUTER_INT_CASES)
+@pytest.mark.parametrize("h0,rows", [(1, 3), (5, 37)])
+def test_outer_int_block_kernel_odd_row_ranges(cuda, name, w, overflow, pw, m, h0, rows):
+    # row ranges off row 0, of lengths that are not a multiple of the
+    # 32-row ring slot
+    spec = WindowSpec(pw, w, overflow=overflow)
+    q = catalog.get(name).quantized(w)
+    rows = min(rows, ((1 << pw) >> m) - h0)
+    got = ok.outer_block_int(q, spec, m, h0, rows, device=cuda)
+    assert got.shape == (rows << m,)
+    assert torch.equal(got.cpu(), ok.outer_block_int_plain(q, spec, m, h0, rows, device="cpu"))
+
+
+def test_outer_int_write_out_entry_refuses_unaligned_outputs(cuda):
+    # the int write-out stores 16 bytes: an output off a 16-byte boundary is
+    # refused (cudaErrorInvalidValue), an aligned one accepted
+    pw, m, rows = 12, 5, 8
+    spec = WindowSpec(pw, 32, overflow="wrap")
+    q = catalog.get("bh7").quantized(32)
+    t = ok._int_tiles(q, spec, m, cuda)
+    lib, stream = _build.lib(), _build.stream_of(cuda)
+    buf = torch.zeros((rows << m) + 4, dtype=torch.int32, device=cuda)
+    assert lib.bhw_outer_block(t.mode, buf.data_ptr(), None, *ok._c_args(t, 0, rows),
+                               stream) == 0
+    torch.cuda.synchronize()
+    want = ok.outer_block_int_plain(q, spec, m, 0, rows, device="cpu")
+    assert torch.equal(buf[:rows << m].cpu(), want)
+    for off in (4, 8, 12):
+        assert lib.bhw_outer_block(t.mode, buf.data_ptr() + off, None,
+                                   *ok._c_args(t, 0, rows), stream) == 1
+    assert int((buf[rows << m:] != 0).sum()) == 0
 
 
 def _check_checksum_against_plain(depth_k, n, m, got, win_k, win_p, plain, comp=False):

@@ -29,6 +29,16 @@ CASES = [  # (window, W, overflow)
     ("bh7", 32, "saturate"),  # saturate is a no-op at W = 32 in this mode
     ("bh4", 18, "saturate"),
     ("hann", 17, "wrap"),
+    ("bh4", 32, "wrap"),  # |a_k| >= 2^29: guard 0, shift 30
+    ("bh3", 32, "saturate"),  # K = 3, guard 0, the W = 32 no-op
+    ("bh5", 24, "saturate"),  # K = 5
+]
+
+# lo axes narrower than the kernel's 4 lanes a thread (m <= 1), and m = 2
+NARROW_CASES = [  # (window, W, overflow, pw, m)
+    ("nuttall", 32, "wrap", 12, 2),
+    ("hann", 17, "wrap", 9, 1),
+    ("bh7", 18, "saturate", 8, 0),
 ]
 
 
@@ -100,6 +110,76 @@ class TestMulsubShift30:
             mulsub_shift30(torch.tensor([1, -(1 << 30)]), 1, 1, 1)
 
 
+def _folded(ch, cl, sh, sl, shift):
+    """csrc/outerwin_kernel.cu's per-harmonic term in numpy: the low 32 bits
+    of (ch*cl + 2^(s-1) + sh*(-sl)) shifted right logically by s, from an
+    int64 d (|d| < 2^62), as uint64 values below 2^32."""
+    d = ch * cl + (1 << (shift - 1)) + sh * -sl
+    assert np.abs(d).max() < 1 << 62
+    return (d.view(np.uint64) >> np.uint64(shift)) & np.uint64(0xFFFFFFFF)
+
+
+def _kernel_tile(ch, sh, cl, sl, a0, shift, spec):
+    """The int kernel's tile in numpy, in its order: the uint32 accumulate of
+    a0 and the folded terms, then its W-step (sign extension from 32 - sw
+    bits, then a clamp to [lo, hi]; skipped at W = 32)."""
+    acc = np.full((ch.shape[0], cl.shape[1]), a0 & 0xFFFFFFFF, np.uint64)
+    for k in range(ch.shape[1]):
+        acc = (acc + _folded(ch[:, k:k + 1], cl[k], sh[:, k:k + 1], sl[k], shift)) \
+            & np.uint64(0xFFFFFFFF)
+    x = acc.astype(np.uint32)
+    w, sat = spec.data_width, spec.overflow == "saturate"
+    if w >= 32:
+        return x.view(np.int32)
+    sw = 0 if sat else 32 - w
+    hi = (1 << (w - 1)) - 1 if sat else (1 << 31) - 1
+    e = (x << np.uint32(sw)).view(np.int32) >> np.int32(sw)
+    return np.clip(e, -hi - 1, hi).astype(np.int32)
+
+
+class TestKernelArithmetic:
+    """The int kernel's arithmetic, emulated on the CPU: its folded
+    per-harmonic term against JAX ``mulsub_shift30`` mod 2^32, and its tile
+    (uint32 accumulate and W-step) against JAX ``tile_window``."""
+
+    @pytest.mark.parametrize("shift", [30, 31])
+    def test_folded_term_equals_jax_mulsub_shift30(self, shift):
+        rng = np.random.default_rng(40 + shift)
+        top = (1 << 30) - 1
+        a, c, b, d = (rng.integers(-top, top + 1, size=50000) for _ in range(4))
+        # products whose difference has remainder exactly 2^(s-1) mod 2^s: the
+        # rounding tie; d = 1 and b chosen from a*c, kept below 2^30
+        ta, tc = rng.integers(-top, top + 1, size=(2, 4096))
+        tb = (ta * tc - (1 << (shift - 1))) % (1 << shift)
+        tb = np.where(tb > top, tb - (1 << shift), tb)
+        keep = np.abs(tb) <= top
+        edges = np.array([top, -top, 0, 1, -1, 1 << 29, -(1 << 29)], np.int64)
+        grid = np.array(np.meshgrid(edges, edges, edges, edges)).reshape(4, -1)
+        a, c, b, d = (np.concatenate(v) for v in zip(
+            (a, c, b, d), (ta[keep], tc[keep], tb[keep], np.ones(keep.sum(), np.int64)),
+            grid))
+        tie = (a * c - b * d) % (1 << shift) == 1 << (shift - 1)
+        assert tie.sum() > 4000
+        got = _folded(a, c, b, d, shift)
+        want = np.asarray(jlimb.mulsub_shift30(
+            *(jnp.asarray(x.astype(np.int32)) for x in (a, c, b, d)),
+            round=True, shift=shift)).astype(np.int64)
+        np.testing.assert_array_equal(got, want.astype(np.uint64) & np.uint64(0xFFFFFFFF))
+
+    @pytest.mark.parametrize("name,w,overflow,pw,m",
+                             [(*c, 12, 6) for c in CASES] + NARROW_CASES)
+    def test_kernel_tile_equals_jax_tile_window(self, name, w, overflow, pw, m):
+        spec = WindowSpec(pw, w, overflow=overflow)
+        q = catalog.get(name).quantized(w)
+        hi, lo, guard = po._tables(q, pw, m)
+        parts = [hi[:, :, 0].T.copy(), hi[:, :, 1].T.copy(), lo[:, :, 0].copy(),
+                 lo[:, :, 1].copy()]
+        got = _kernel_tile(*(x.astype(np.int64) for x in parts), q[0], 30 + guard, spec)
+        want = np.asarray(jk.tile_window(*(jnp.asarray(x) for x in parts), q[0], guard,
+                                         _jspec(spec)))
+        np.testing.assert_array_equal(got, want)
+
+
 class TestWindowBlockOuter:
     @pytest.mark.parametrize("name,w,overflow", CASES)
     def test_full_period_0_lsb(self, name, w, overflow):
@@ -126,6 +206,15 @@ class TestWindowBlockOuter:
         np.testing.assert_array_equal(
             po.window_block_outer(last, rows, q, spec, m=m, device="cpu").numpy(),
             np.asarray(jo.window_block_outer(last, rows, q, _jspec(spec), m=m)))
+
+    @pytest.mark.parametrize("name,w,overflow,pw,m", NARROW_CASES)
+    def test_narrow_lo_full_period_0_lsb(self, name, w, overflow, pw, m):
+        spec = WindowSpec(pw, w, overflow=overflow)
+        q = catalog.get(name).quantized(w)
+        got = po.window_block_outer(0, 1 << (pw - m), q, spec, m=m, device="cpu")
+        want = np.asarray(jo.window_block_outer(0, 1 << (pw - m), q, _jspec(spec), m=m))
+        assert got.dtype == torch.int32 and got.shape == (1 << pw,)
+        np.testing.assert_array_equal(got.numpy(), want)
 
     def test_w32_saturate_is_a_no_op(self):
         pw, m = 13, 6
@@ -185,19 +274,30 @@ class TestWindowBlockOuter:
             pk.make_checksum_fn(q, spec, m=6, rows=8, device="cuda")
 
 
+def _check_checksum_against_pallas(name, w, overflow, pw, m):
+    spec = WindowSpec(pw, w, overflow=overflow)
+    q = catalog.get(name).quantized(w)
+    fn = pk.make_checksum_fn(q, spec, m=m, rows=32, device="cpu")
+    jfn = jk.make_checksum_fn(q, _jspec(spec), m=m, rows=32, interpret=True)
+    ref = _int32_sum(po.window_block_outer(0, 1 << (pw - m), q, spec, m=m, device="cpu").numpy())
+    for bias in (0, 9):
+        got = fn(bias)
+        assert got.dtype == torch.int32 and got.shape == ()
+        want = ((ref + bias + (1 << 31)) % (1 << 32)) - (1 << 31)
+        assert int(got) == int(jfn(jnp.int32(bias))) == want
+
+
 class TestIntChecksum:
-    @pytest.mark.parametrize("name,w,overflow", [("bh7", 32, "wrap"), ("bh4", 18, "saturate")])
+    @pytest.mark.parametrize("name,w,overflow", [
+        ("bh7", 32, "wrap"), ("bh4", 18, "saturate"),
+        ("bh4", 32, "wrap"), ("bh3", 32, "saturate"), ("bh5", 24, "saturate"),
+    ])
     def test_plain_bit_equal_to_pallas_interpret(self, name, w, overflow):
-        pw, m = 14, 7
-        spec = WindowSpec(pw, w, overflow=overflow)
-        q = catalog.get(name).quantized(w)
-        fn = pk.make_checksum_fn(q, spec, m=m, rows=32, device="cpu")
-        jfn = jk.make_checksum_fn(q, _jspec(spec), m=m, rows=32, interpret=True)
-        ref = _int32_sum(po.window_block_outer(0, 1 << (pw - m), q, spec, m=m, device="cpu").numpy())
-        for bias in (0, 9):
-            got = fn(bias)
-            assert got.dtype == torch.int32 and got.shape == ()
-            assert int(got) == int(jfn(jnp.int32(bias))) == ref + bias
+        _check_checksum_against_pallas(name, w, overflow, 14, 7)
+
+    @pytest.mark.parametrize("name,w,overflow,pw,m", NARROW_CASES)
+    def test_narrow_lo_plain_bit_equal_to_pallas_interpret(self, name, w, overflow, pw, m):
+        _check_checksum_against_pallas(name, w, overflow, pw, m)
 
     def test_int32_wrap_of_bias(self):
         spec = WindowSpec(12, 32, overflow="wrap")
