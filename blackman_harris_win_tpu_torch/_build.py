@@ -38,10 +38,11 @@ launches = {
     "outer_block": 0, "outer_block_f32": 0, "outer_block_comp": 0,
     "outer_checksum": 0, "outer_checksum_f32": 0, "outer_checksum_comp": 0,
     "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_checksum": 0,
-    "materialize": 0,
+    "materialize": 0, "ddc_mixer": 0,
 }
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 # the table arguments of the outer-product entry points: hi, lo, h0, rows,
 # nl, hc, nk, np, a0, shift, w, saturate, a0f, a0lo
 _OUTER = (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F)
@@ -69,6 +70,9 @@ _SIGNATURES = {
     "bhw_taylor_checksum": (_P, _L, _L, _P, _I, _I, _I, _I, _P),
     # dst, src, nbytes, stream
     "bhw_materialize": (_P, _P, _L, _P),
+    # out, x, rows, t, n0, period, fw, pw, w, flavor, lut, nlut, gain,
+    # zshift, oshift, scale, raw, stream
+    "bhw_ddc_mixer": (_P, _P, _L, _L, _L, _L, _U, _I, _I, _I, _P, _I, _L, _I, _I, _F, _I, _P),
 }
 #: host-side queries of a kernel's launch geometry: name -> (args, result)
 _QUERIES = {

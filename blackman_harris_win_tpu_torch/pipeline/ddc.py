@@ -13,9 +13,12 @@
 - The decimating lowpass is ``pipeline/fir.py``; its bulk branch runs the
   materialization kernel (kernel 7) before the strided conv.
 
-The NCO and the mixer run in int64/int32 torch ops on the tensor's device;
-there is no NCO kernel (the JAX package has none either).
-:func:`make_sharded_ddc` runs the DDC over a device mesh (``dist/``).
+On the card the quantizer, the NCO, the mixer and the f32 rescale are one
+kernel launch (:func:`mixer`, ``csrc/ddc_kernel.cu``; the JAX package
+leaves the same jnp to XLA's fusion); on the CPU they run as its plain
+version, :func:`mixer_plain`, built on :func:`nco_iq` and
+:func:`mix_iq_int` in int64/int32 torch ops.  :func:`make_sharded_ddc` runs
+the DDC over a device mesh (``dist/``).
 """
 
 from __future__ import annotations
@@ -27,11 +30,10 @@ from .. import _build
 from ..core.config import CordicSpec
 from ..dist.halo import left_halo
 from ..dist.mesh import Mesh, from_rows, local_map, shard
+from ..kernels import ddc_kernel
 from ..kernels.cordic import cordic_sincos
+from ..kernels.ddc_kernel import MIX_IN_BITS, check_mixer_width, mixer_scale
 from .fir import decimating_fir, design_lowpass
-
-#: input quantization of the integer mixer (ADC-like front end)
-MIX_IN_BITS = 15
 
 
 def freq_word(freq: float, phase_width: int) -> int:
@@ -62,14 +64,43 @@ def mix_iq_int(xq, n, fw: int, phase_width: int, data_width: int,
     global indices ``n``.  Returns the raw int32 (i, q) products (scale
     2^(W-2) x input scale); the product needs MIX_IN_BITS + (W-2) + 1 bits
     and must fit an int32 lane, so data_width <= 17."""
-    if MIX_IN_BITS + (data_width - 2) + 1 > 31:
-        raise ValueError(
-            f"mixer product needs {MIX_IN_BITS + data_width - 1} bits; "
-            f"use data_width <= {31 - MIX_IN_BITS + 1} for int32 lanes"
-        )
+    check_mixer_width(data_width)
     xq = _build.as_tensor(xq, torch.int32, device)
     c, ns = nco_iq(n, fw, phase_width, data_width, flavor, xq.device)
     return xq * c, xq * ns
+
+
+def mixer_plain(x: torch.Tensor, fw: int, phase_width: int, data_width: int,
+                flavor: str = "dds48", n0: int = 0, period: int = 0, raw: bool = False):
+    """Plain version of the DDC mixer kernel, in torch ops on ``x``'s
+    device: ``x`` (..., T) float32 quantized to MIX_IN_BITS (round half
+    even), mixed by :func:`mix_iq_int` at global indices n0 + i (an index
+    below 0 takes ``+ period``), then rescaled once to float32.  Returns the
+    (2, ..., T) float32 mixer output, or with ``raw`` the int32 (I, Q)."""
+    if not period:
+        n0 %= 1 << 32  # the NCO takes n mod 2^32
+    xq = torch.round(x * float((1 << MIX_IN_BITS) - 1)).to(torch.int32)
+    n = torch.arange(n0, n0 + x.shape[-1], dtype=torch.int64, device=x.device)
+    if period:
+        n = torch.where(n < 0, n + period, n)
+    m = torch.stack(mix_iq_int(xq, n, fw, phase_width, data_width, flavor))
+    return m if raw else m.to(torch.float32) * mixer_scale(data_width)
+
+
+def mixer(x, fw: int, phase_width: int, data_width: int, flavor: str = "dds48",
+          n0: int = 0, period: int = 0, raw: bool = False, device=None):
+    """The DDC's front half: quantize, NCO, integer mixer and f32 rescale of
+    a float stream (..., T) whose x[..., 0] has global index ``n0`` (an
+    index below 0 takes ``+ period``: the sharded DDC's circular halo).
+    Returns the (2, ..., T) float32 mixer output, or with ``raw`` the int32
+    (I, Q) products.  On a CUDA tensor it is one launch of the mixer kernel
+    (``kernels/ddc_kernel.py``), which raises for what it does not take; on
+    the CPU it is :func:`mixer_plain`.  A tensor runs on its device;
+    array-like input goes to ``device`` (default the card)."""
+    x = _build.as_tensor(x, torch.float32, device)
+    if x.device.type == "cpu":
+        return mixer_plain(x, fw, phase_width, data_width, flavor, n0, period, raw)
+    return ddc_kernel.mixer(x, fw, phase_width, data_width, flavor, n0, period, raw)
 
 
 def ddc(x, freq: float, decim: int, taps=64, phase_width: int = 20,
@@ -80,7 +111,8 @@ def ddc(x, freq: float, decim: int, taps=64, phase_width: int = 20,
 
     A tensor ``x`` runs on its device; array-like input goes to ``device``
     (default the card).  The input is quantized to MIX_IN_BITS, mixed with
-    the integer NCO, rescaled once to float32, and lowpass-decimated
+    the integer NCO, rescaled once to float32 (:func:`mixer`: one kernel
+    launch on the card), and lowpass-decimated
     (prototype: windowed sinc at ``cutoff`` fraction of Nyquist, default
     0.8/decim).  ``n0``: global index of x[..., 0] (streaming blocks).
     Output m is the tap window ending at input sample m*decim + decim - 1,
@@ -98,12 +130,7 @@ def ddc(x, freq: float, decim: int, taps=64, phase_width: int = 20,
     if halo < 0:
         raise ValueError("decimation larger than filter not supported")
 
-    amp_in = float((1 << MIX_IN_BITS) - 1)
-    xq = torch.round(x * amp_in).to(torch.int32)
-    n = n0 + torch.arange(t, dtype=torch.int64, device=x.device)
-    mi, mq = mix_iq_int(xq, n, fw, phase_width, data_width, flavor)
-    scale = float(np.float32(1.0 / (amp_in * (1 << (data_width - 2)))))
-    m2 = torch.stack([mi, mq]).to(torch.float32) * scale  # (2, ..., T)
+    m2 = mixer(x, fw, phase_width, data_width, flavor, n0=n0)  # (2, ..., T)
     # the main FIR runs on the unpadded stream; the halo//decim wrapped
     # outputs come from a short separate segment, as in the JAX package
     body = decimating_fir(m2, h, decim)
@@ -118,14 +145,13 @@ def shard_mixer_ints(x_ext, n_first: int, t_total: int, fw: int, phase_width: in
     """The integer mixer of one shard of the sharded DDC: ``x_ext`` (float)
     holds the global samples from index ``n_first`` on (below 0 for shard
     0's circular halo), which wrap circularly (n < 0 -> n + T).  Quantizes
-    as :func:`ddc` does and returns the raw int32 (i, q) products.  The
-    indices are int64 (``i*B - halo`` may pass 2^31) and the NCO takes them
-    mod 2^32, as the JAX package's int32 lanes do."""
-    amp_in = float((1 << MIX_IN_BITS) - 1)
-    xq = torch.round(x_ext.to(torch.float32) * amp_in).to(torch.int32)
-    n = torch.arange(n_first, n_first + x_ext.shape[-1], dtype=torch.int64, device=xq.device)
-    n = torch.where(n < 0, n + t_total, n)
-    return mix_iq_int(xq, n, fw, phase_width, data_width, flavor)
+    as :func:`ddc` does and returns the raw int32 (i, q) products (the
+    mixer kernel's raw entry on the card).  The indices are int64
+    (``i*B - halo`` may pass 2^31) and the NCO takes them mod 2^32, as the
+    JAX package's int32 lanes do."""
+    mi, mq = mixer(x_ext, fw, phase_width, data_width, flavor, n0=n_first, period=t_total,
+                   raw=True)
+    return mi, mq
 
 
 def make_sharded_ddc(mesh: Mesh, phase_width: int, data_width: int, freq: float, decim: int,
@@ -153,14 +179,14 @@ def make_sharded_ddc(mesh: Mesh, phase_width: int, data_width: int, freq: float,
     halo = len(h) - decim
     if halo < 0:
         raise ValueError("decimation larger than filter not supported")
-    scale = float(np.float32(1.0 / (((1 << MIX_IN_BITS) - 1) * (1 << (data_width - 2)))))
     nblocks = mesh.shape["blocks"]
 
     def shard_out(i, x, tail):
+        # one mixer launch a shard on its extended chunk
         b = x.shape[-1]
-        mi, mq = shard_mixer_ints(torch.cat([tail, x], dim=-1), i * b - halo,
-                                  b * nblocks, fw, phase_width, data_width, flavor)
-        return decimating_fir(torch.stack([mi, mq]).to(torch.float32) * scale, h, decim)
+        m2 = mixer(torch.cat([tail, x], dim=-1), fw, phase_width, data_width, flavor,
+                   n0=i * b - halo, period=b * nblocks)
+        return decimating_fir(m2, h, decim)
 
     def step(x):
         xs = shard(x, mesh, ("blocks",))

@@ -91,14 +91,29 @@ def outer_window_int_ops(n_samples: int, n_terms: int) -> int:
     return n_samples * ((n_terms - 1) * 6 + 2)
 
 
+def ddc_mixer_ops(data_width: int) -> int:
+    """Operations per sample of the DDC mixer kernel (``csrc/ddc_kernel.cu``):
+    the quantizer (scale product, round-to-int: 2), the phase (index add,
+    product, mask: 3), the pre-rotation (quadrant, low part, sign
+    extension, start-angle select, start x and y selects: 6), W CORDIC
+    iterations of 2 shifts, 3 adds/subtracts and a sign test, less the last
+    z step (6W - 1), the output shifts (2), the two mixer products (2) and
+    the rescale (2 conversions, 2 products: 4).  The dds48 flavor's 48-bit
+    state counts one operation a step, as every model here does."""
+    return 6 * data_width - 1 + 19
+
+
 def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
-                  mat_bytes: int) -> dict:
+                  mat_bytes: int, ddc_width: int = 16) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
     path's shapes (``chip_smoke.py``): each input read once, each output
     written once (tables and scalars are negligible); integer operations at
-    INT32_OPS, float32 ones at F32_FLOPS."""
+    INT32_OPS, float32 ones at F32_FLOPS.  ``mat_bytes`` is the DDC's (2, T)
+    float32 mixer output, which ``materialize`` copies and the DDC mixer
+    kernel writes from T float32 samples at data width ``ddc_width``."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
+    t_ddc = mat_bytes // 8
     # the fewest float32 operations per sample (an FMA counts two): f32, two
     # FMAs per harmonic; comp, 6 FMAs per compensated harmonic (2 for s, 4
     # for e) and 2 per plain one: comp_window_flops less its 6 for the host's
@@ -126,6 +141,7 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         # Blackman: two generator calls, a_k * cos, shift, accumulate, wrap
         "taylor_window_block": bound(4 * n, n * (2 * (TAYLOR_OPS + 3) + 2)),
         "materialize": bound(2 * mat_bytes),
+        "ddc_mixer": bound(4 * t_ddc + mat_bytes, t_ddc * ddc_mixer_ops(ddc_width)),
     }
 
 

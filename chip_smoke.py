@@ -28,9 +28,12 @@ user calls, at the repository's real sizes:
    RTL-contract TAYLOR Hamming window and a taylor2 BH-7 W=32 LS=12 window;
 7. the DDC at bench_all config 21: 2^26 float32 samples, fc = 1/8, decim 4,
    64 taps (``design_lowpass(64, 0.2)``), dds48 NCO at pw=20 W=16; its
-   decimating FIR takes the bulk branch, which runs the materialization
-   kernel (kernel 7) before the strided conv;
-8. the SDR chain (torch ops: it has no kernel of its own) at the multichip
+   quantizer, NCO, integer mixer and f32 rescale are one launch of the
+   mixer kernel (``ddc_mixer``), and its decimating FIR takes the bulk
+   branch, which runs the materialization kernel (kernel 7) before the
+   strided conv: exactly one launch of each;
+8. the SDR chain (torch ops: it has no kernel of its own and runs no DDC,
+   so no mixer launch) at the multichip
    dryrun's stage-4 configuration (4 channels, 6 taps per branch, AW=20)
    over a 2^22-sample tone, a latency check, and at bench_all config 5
    (16 channels, 8 taps per branch) over 16 * 2^22 noise samples;
@@ -64,11 +67,12 @@ user calls, at the repository's real sizes:
    against the single-device stft of the circularly extended input); the
    sharded DDC on 7's x (mixer ints 0 LSB against the plain NCO at the
    shard seams, the output within 7's FIR bound of ``ddc()`` and of a
-   float64 FIR around the seams, one ``materialize`` a shard); the sharded
-   SDR chain at config 5 (0 LSB against ``sdr_chain`` of the circularly
+   float64 FIR around the seams, one ``ddc_mixer`` and one ``materialize``
+   a shard; the mixer kernel's time at a shard's size and the sharded
+   call's device time are printed); the sharded SDR chain at config 5 (0 LSB against ``sdr_chain`` of the circularly
    extended input, or differing only where the two channelizers round the
    int I/Q differently).  Each stage's launches must be exactly one a shard
-   of its kernel; its wall time (CUDA events, median of 5 after a warm-up)
+   of each of its kernels; its wall time (CUDA events, median of 5 after a warm-up)
    is printed beside the single-device call's;
 12. the sharded steps across two processes on the card: two children of
    this script (``--child``, started with ``sys.executable``, each with a
@@ -82,8 +86,8 @@ user calls, at the repository's real sizes:
    channel row p), a ``psum`` over 'channels' of 9's x as (2, 16*2^20).
    Each child's local shards must be bit-equal to the same step on a
    one-process mesh of ``[card] * 4`` of the same shape, each stage must
-   launch its kernel exactly once a local shard in each child (four times
-   in the one-process run), and the one-process outputs are held to phase
+   launch each of its kernels exactly once a local shard in each child
+   (four times in the one-process run), and the one-process outputs are held to phase
    11's references (phase 1's window, the float64 Welch, the round trip,
    ``ddc()`` within the FIR bound); each stage's wall time (host clock,
    median of 5) in each process is printed beside the one-process time.
@@ -95,7 +99,10 @@ generation 0-LSB against the plain PyTorch version on the CPU on random and
 quadrant-seam blocks, the exact checksum identities, the float windows
 against the float64 golden on every sample, the spectral floors at pw=16,
 the analyzers against a float64 reference within the derived f32 budget,
-the DDC against a float64 FIR of its exact integer mixer products, the SDR
+the DDC against a float64 FIR of its exact integer mixer products, the DDC
+mixer kernel bit-equal to its plain version on phase 7's input and 0 LSB
+against the CPU plain version on random blocks (n0 up to 2^33) and around
+every quadrant seam at dds48 and scaled, pw 20/31/24, the SDR
 tone offset and discriminator, the STFT round trips and frames of each
 pair's stft against the golden window, every front-end output bit for bit
 against the earlier phase's (the two spectra also within the analyzer's
@@ -123,9 +130,12 @@ iteration per datapath, of the bulk-copy ring's main loop, of the Taylor
 kernels' run walk per sample, of the stage-1 kernel's FFT body and of one
 row of each outer instantiation's walk (f32/comp: its FFMA, LDS and STG;
 int: its IMAD.WIDE, IADD3, LEA.HI, SHF, LDS and STG), with their
-local-memory instructions; an int instantiation with local-memory
-instructions, or whose ptxas line shows a stack frame or spills, fails the
-run.  Phase 10's wall time per subcommand
+local-memory instructions, and of one CORDIC iteration of the DDC mixer
+kernel (its W=17 instantiation less its W=16 one); an int or a mixer
+instantiation whose ptxas line shows a stack frame or spills fails the run.
+The mixer kernel's time, its launches a DDC call, the DDC's device time
+and the torch-op NCO + mixer time (its plain version, a comparison row
+only) are printed for phases 7, 11 and 12, and phase 8's launches (none).  Phase 10's wall time per subcommand
 (file I/O included), its host steps alone and the six mode rates of
 ``windows/modes.py:MODE_GSPS`` are printed with the card's name and power
 limit.
@@ -400,6 +410,63 @@ def _ddc_gates(x, bb, h, fc: float, decim: int, pw: int, w: int, rng, dev) -> di
     return {"mat_err": mat_err, "fir_err": err, "fir_bound": bound, "f_meas": f_meas}
 
 
+def _ddc_mixer_gates(x21, fc: float, pw: int, w: int, rng, dev) -> float:
+    """The DDC mixer kernel against its plain version: on phase 7's input
+    (2^26 samples, dds48), its f32 output bit-equal to ``mixer_plain`` on the
+    card and its raw ints 0 LSB against ``mix_iq_int`` on the card; for
+    dds48 and scaled at (pw, W) in {(20, 16), (31, 17), (24, 12)}, four
+    random 4096-sample blocks starting anywhere in [0, 2^33) and, through
+    tuning words +1 and -1, the phases s-3 .. s+3 around each quadrant seam
+    s at indices from 0 and from 2^32 - 5 on, 0 LSB against the CPU plain
+    version.  Returns the largest |difference| seen."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels import ddc_kernel
+    from blackman_harris_win_tpu_torch.pipeline.ddc import (
+        MIX_IN_BITS,
+        freq_word,
+        mix_iq_int,
+        mixer_plain,
+    )
+
+    t = x21.shape[-1]
+    fw = freq_word(fc, pw)
+    got = ddc_kernel.mixer(x21, fw, pw, w, "dds48")
+    want = mixer_plain(x21, fw, pw, w, "dds48")
+    err = float((got - want).abs().max())
+    _require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+             f"ddc_mixer: f32 output differs from mixer_plain on the card ({err:.3e})")
+    del got, want
+    raw = ddc_kernel.mixer(x21, fw, pw, w, "dds48", raw=True)
+    xq = torch.round(x21 * float((1 << MIX_IN_BITS) - 1)).to(torch.int32)
+    mi, mq = mix_iq_int(xq, torch.arange(t, device=dev), fw, pw, w)
+    _require(torch.equal(raw[0], mi) and torch.equal(raw[1], mq),
+             "ddc_mixer: raw ints differ from mix_iq_int on the card")
+    del raw, xq, mi, mq
+    nblocks = 0
+    for flavor in ("dds48", "scaled"):
+        for pw_, w_ in ((20, 16), (31, 17), (24, 12)):
+            big = 1 << pw_
+            f0 = freq_word(0.2371, pw_) | 1
+            blocks = [(int(b), 4096, f0) for b in rng.integers(0, 1 << 33, size=4)]
+            for base in (0, 2**32 - 5):
+                for s in (0, big // 4, big // 2, 3 * big // 4):
+                    blocks += [(base + (s - 3 - base) % big, 7, 1),
+                               (base + (-(s + 3) - base) % big, 7, big - 1)]
+            for b0, n, f in blocks:
+                x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+                g = ddc_kernel.mixer(x.to(dev), f, pw_, w_, flavor, n0=b0, raw=True).cpu()
+                p = mixer_plain(x, f, pw_, w_, flavor, n0=b0, raw=True)
+                _require(torch.equal(g, p), f"ddc_mixer {flavor} pw={pw_} W={w_}: block at "
+                         f"{b0} (fw {f}) differs from the CPU plain version")
+                nblocks += 1
+    print(f"ddc_mixer: on the (2, {t}) config-21 mixer output bit-equal to mixer_plain on the "
+          f"card, raw ints 0 LSB against mix_iq_int; {nblocks} blocks (dds48 and scaled, pw 20/"
+          "31/24, W 16/17/12, random n0 in [0, 2^33), every quadrant seam +-3 from n0 0 and "
+          "2^32 - 5) 0 LSB against the CPU plain version")
+    return err
+
+
 def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=None) -> None:
     """The chain's output is its own discriminator over the card's
     channelizer output and lies in the angle range; the discriminator on
@@ -585,12 +652,14 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
     from blackman_harris_win_tpu_torch.kernels.floatwin import float_window
     from blackman_harris_win_tpu_torch.kernels.window import make_window
     from blackman_harris_win_tpu_torch.kernels.window_kernel import window_block, window_values_plain
+    from blackman_harris_win_tpu_torch.kernels import ddc_kernel
     from blackman_harris_win_tpu_torch.pipeline.ddc import (
         MIX_IN_BITS,
         ddc,
         freq_word,
         make_sharded_ddc,
         mix_iq_int,
+        mixer_plain,
         shard_mixer_ints,
     )
     from blackman_harris_win_tpu_torch.pipeline.sdr import make_sharded_sdr_chain, sdr_chain
@@ -623,6 +692,7 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
         res[f"{name} [{mesh_name}]"] = _sharded_stage(launched, label, f"{name} [{mesh_name}]",
                                                       exact, run, single, gate, sorted(
                                                           others, key=str))
+        return res[f"{name} [{mesh_name}]"]
 
     def equal_to(want, what):
         def gate(out):
@@ -807,10 +877,20 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
                     f"{torch.equal(got, bb)}")
 
         step = make_sharded_ddc(m, pw, w, fc, dec, taps=h21, flavor="dds48")
-        stage(f"ddc config 21 ({t} samples, dds48 pw{pw} w{w}, decim {dec}, {n_taps} taps)", mname,
-              {"materialize": nb}, lambda step=step: step(x21),
-              lambda: ddc(x21, fc, dec, taps=h21, phase_width=pw, data_width=w, flavor="dds48"),
-              ddc_gate)
+        t_sh, _ = stage(
+            f"ddc config 21 ({t} samples, dds48 pw{pw} w{w}, decim {dec}, {n_taps} taps)", mname,
+            {"materialize": nb, "ddc_mixer": nb}, lambda step=step: step(x21),
+            lambda: ddc(x21, fc, dec, taps=h21, phase_width=pw, data_width=w, flavor="dds48"),
+            ddc_gate)
+        # the mixer kernel at a shard's size (its extended chunk) beside
+        # its plain version
+        xs = x21[:b + ddc_halo]
+        k_ms = _time_ms(lambda: ddc_kernel.mixer(xs, fw, pw, w, "dds48"))
+        p_ms = _time_ms(lambda: mixer_plain(xs, fw, pw, w, "dds48"))
+        print(f"ddc_mixer {label} phase 11 [{mname}]: {nb} launches a call (one a shard); "
+              f"kernel {k_ms:.3f} ms a shard of {xs.numel()} samples, torch-op NCO + mixer "
+              f"{p_ms:.3f} ms (plain version, comparison only); the sharded DDC {t_sh:.3f} ms "
+              "a call (CUDA events, above)")
     del xq21
 
     # --- the SDR chain, config 5: a left halo of one prototype length ---
@@ -850,7 +930,7 @@ def _seeded_inputs(seed: int, dev):
 
 def _mp_steps(mesh_a, mesh_b, x, x21, x_stft) -> list:
     """Phase 12's steps, in the order every process runs them: (name, the
-    kernel each shard launches once or None, step() -> Sharded).  Phase
+    kernels each shard launches once, step() -> Sharded).  Phase
     11's stages at its sizes on mesh A, (1, 4); a psum over 'channels' of
     x_stft as (2, 16 * 2^20) on mesh B, (2, 2)."""
     from blackman_harris_win_tpu_torch.core.config import WindowSpec
@@ -887,17 +967,17 @@ def _mp_steps(mesh_a, mesh_b, x, x21, x_stft) -> list:
                                                    for c in range(nc)])
 
     return [
-        ("gen hls bh7 w32 pw26", "window_block", lambda: sharded_window(q7, spec_hls, mesh_a)),
-        (f"welch quantized/mxu bh4 w17 nfft {nfft}, x (1, {x.numel()})", "window_block",
+        ("gen hls bh7 w32 pw26", ("window_block",), lambda: sharded_window(q7, spec_hls, mesh_a)),
+        (f"welch quantized/mxu bh4 w17 nfft {nfft}, x (1, {x.numel()})", ("window_block",),
          lambda: welch["mxu"](x.view(1, -1))),
-        (f"welch quantized/rfft bh4 w17 nfft {nfft}, x (1, {x.numel()})", "window_block",
+        (f"welch quantized/rfft bh4 w17 nfft {nfft}, x (1, {x.numel()})", ("window_block",),
          lambda: welch["rfft"](x.view(1, -1))),
-        (f"stft quantized bh4 nfft {nfft} hop {hop}, {x_stft.numel()} samples", "window_block",
+        (f"stft quantized bh4 nfft {nfft} hop {hop}, {x_stft.numel()} samples", ("window_block",),
          stft_step),
-        ("istft quantized (the round trip)", "window_block", lambda: inv(frames["s"])),
+        ("istft quantized (the round trip)", ("window_block",), lambda: inv(frames["s"])),
         (f"ddc config 21 ({x21.numel()} samples, dds48 pw20 w16, decim 4, 64 taps)",
-         "materialize", lambda: ddc_step(x21)),
-        (f"psum over channels, x {tuple(x_stft.view(2, -1).shape)} (2x2)", None, psum_step),
+         ("ddc_mixer", "materialize"), lambda: ddc_step(x21)),
+        (f"psum over channels, x {tuple(x_stft.view(2, -1).shape)} (2x2)", (), psum_step),
     ]
 
 
@@ -1037,10 +1117,10 @@ def _multiprocess_phase(launched: dict, dev, label: str, r: dict, seed: int) -> 
         _require(torch.equal(got[0], xb[0] + xb[1]), "phase 12 psum vs the sum of the rows")
         return "bit-equal to the sum of the two channel rows"
 
-    for name, kernel, step in _mp_steps(mesh_a, mesh_b, x, x21, x_stft):
-        exact = {kernel: 4} if kernel else {}
+    for name, kernels, step in _mp_steps(mesh_a, mesh_b, x, x21, x_stft):
+        exact = dict.fromkeys(kernels, 4)
         one = _counted(launched, f"12 {name} [one process]", tuple(exact), step, exact=exact)
-        per_process = {kernel: 2} if kernel else {}
+        per_process = dict.fromkeys(kernels, 2)
         for k, res in enumerate(results):
             _require(res["launches"][name] == per_process,
                      f"phase 12 {name}: process {k} launched {res['launches'][name]}, want "
@@ -1062,6 +1142,9 @@ def _multiprocess_phase(launched: dict, dev, label: str, r: dict, seed: int) -> 
               f"1 {results[1]['ms'][name]:.3f} ms, one process {t_one:.3f} ms (host clock, median "
               f"of 5); launches a process {per_process or 'none'}; both processes' shards "
               f"bit-equal to the one-process mesh's; {msg}")
+        if "ddc_mixer" in kernels:
+            print(f"ddc_mixer {label} phase 12: 2 launches a call in each process (one a local "
+                  f"shard), 4 in one process")
     print(f"phase 12: {time.perf_counter() - t0:.1f} s host clock, gates and timing included")
 
 
@@ -1245,8 +1328,15 @@ def _print_sass(lib_path) -> None:
     r = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                        timeout=300)
     funcs = re.split(r"\n\s*Function : ", r.stdout)[1:]
+    mixer = {}  # (flavor, W) -> (instructions, local-memory instructions), f32 output
     for body in funcs:
         name = body.split("\n", 1)[0].strip()
+        m = re.search(r"ddc_mixer_kernelILi([01])ELi(\d+)ELb0E", name)
+        if m:
+            ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
+            mixer[(("dds48", "scaled")[int(m.group(1))], int(m.group(2)))] = (
+                len(ins), sum(bool(re.search(r"\b(LDL|STL)\b", i)) for i in ins))
+            continue
         if "materialize_bulk_kernel" in name:
             at = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
             spans = [int(a, 16) - int(m.group(1), 16) for a, text in at
@@ -1278,6 +1368,12 @@ def _print_sass(lib_path) -> None:
         per = f"{float(np.median(gaps)) / 2:.1f}" if gaps else "not found"
         print(f"sass window_block {dp}: {len(ins)} instructions; one unrolled CORDIC iteration "
               f"of one chain ~ {per} instructions")
+    for flavor in ("dds48", "scaled"):  # W=17 unrolls one iteration more than W=16
+        if (flavor, 16) in mixer and (flavor, 17) in mixer:
+            (n16, l16), (n17, l17) = mixer[(flavor, 16)], mixer[(flavor, 17)]
+            print(f"sass ddc_mixer {flavor} (f32 output): W=16 {n16} instructions, W=17 {n17}; "
+                  f"one CORDIC iteration {n17 - n16} instructions; local-memory instructions "
+                  f"{l16}, {l17}")
 
 
 #: csrc/taylor_kernel.cu: the Regime template values, and kG, the samples a
@@ -1473,7 +1569,7 @@ def _device_ms(fn, calls: int = 5) -> float:
 
 #: device-time groups of the two profiled calls, in match order: name ->
 #: substrings of a kernel's name (lower case); the rest is the last group
-DDC_GROUPS = {"materialize": ("materialize",),
+DDC_GROUPS = {"ddc_mixer": ("ddc_mixer",), "materialize": ("materialize",),
               "FIR (conv, gemm)": ("conv", "cudnn", "gemm", "xmma", "cutlass", "gemv", "dot"),
               "elementwise": ()}
 ANALYZER_GROUPS = {"welch_stage1": ("welch_stage1",),
@@ -1571,7 +1667,8 @@ def main(argv=None) -> int:
         window_values_plain,
     )
     from blackman_harris_win_tpu_torch.pipeline.channelizer import design_prototype
-    from blackman_harris_win_tpu_torch.pipeline.ddc import MIX_IN_BITS, ddc, freq_word, mix_iq_int
+    from blackman_harris_win_tpu_torch.kernels.ddc_kernel import mixer as ddc_mixer
+    from blackman_harris_win_tpu_torch.pipeline.ddc import ddc, freq_word, mixer_plain
     from blackman_harris_win_tpu_torch.pipeline.fir import decimating_fir, design_lowpass
     from blackman_harris_win_tpu_torch.pipeline.sdr import sdr_chain
     from blackman_harris_win_tpu_torch.pipeline.spectral import (
@@ -1598,21 +1695,23 @@ def main(argv=None) -> int:
     _build.lib()
     print(f"build: {secs:.1f} s -> {path.name}")
     fn = "?"
-    int_kernels = 0
+    in_registers = {"int_kernel": 0, "ddc_mixer_kernel": 0}  # may not spill
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line.strip()
         elif "Used" in line or "spill" in line:
             print(f"  ptxas {fn}: {line.split('info    :')[-1].strip()}")
-            if "int_kernel" in fn and "spill" in line:  # the int kernels may not spill
-                int_kernels += 1
+            family = next((k for k in in_registers if k in fn), None)
+            if family and "spill" in line:
+                in_registers[family] += 1
                 _require(re.search(r"\b0 bytes stack frame, 0 bytes spill stores, "
                                    r"0 bytes spill loads", line) is not None,
                          f"ptxas {fn}: {line.strip()}")
     if not log:
         print("ptxas: the library was built before this run, no ptxas lines")
-    _require(not log or int_kernels == 30,
-             f"ptxas reported {int_kernels} int_kernel instantiations, want 30")
+    want_inst = {"int_kernel": 30, "ddc_mixer_kernel": 40}
+    _require(not log or in_registers == want_inst,
+             f"ptxas reported {in_registers} instantiations, want {want_inst}")
     _print_sass(path)
 
     # --- 2. the main path, counted ---
@@ -1683,9 +1782,9 @@ def main(argv=None) -> int:
     # the DDC, bench_all config 21
     fc21, dec21, pw21, w21 = 1 / 8, 4, 20, 16
     h21 = design_lowpass(64, 0.8 / dec21)
-    bb = _counted(launched, "7 ddc", ("materialize",),
+    bb = _counted(launched, "7 ddc", ("ddc_mixer", "materialize"),
                   lambda: ddc(x21, fc21, dec21, taps=h21, phase_width=pw21, data_width=w21,
-                              flavor="dds48"))
+                              flavor="dds48"), exact={"ddc_mixer": 1, "materialize": 1})
     # the SDR chain: dryrun stage 4's configuration over 2^22 samples (a
     # latency check with the tone gate) and bench_all config 5
     n_ch, tpb, aw, offset = 4, 6, 20, 0.005
@@ -1705,7 +1804,7 @@ def main(argv=None) -> int:
         paths = _front_end_inputs(Path(tmp), x, x21, x_stft)
         fe = _counted(launched, "10 front end",
                       ("window_block", "taylor_window_block", "outer_block", "outer_block_f32",
-                       "outer_block_comp", "welch_stage1", "materialize"),
+                       "outer_block_comp", "welch_stage1", "materialize", "ddc_mixer"),
                       lambda: _front_end_phase(Path(tmp), paths))
         fe_route = _module_route(Path(tmp), dev)
         fe_pieces = _front_end_pieces(Path(tmp), paths, win_hls, (win_s, win_e))
@@ -1919,6 +2018,7 @@ def main(argv=None) -> int:
     _require(bb.shape == (2, (1 << 26) // dec21) and bool(torch.isfinite(bb).all()),
              f"DDC output is not finite of shape (2, 2^26/{dec21})")
     ddc_res = _ddc_gates(x21, bb, h21, fc21, dec21, pw21, w21, rng, dev)
+    err_mixer = _ddc_mixer_gates(x21, fc21, pw21, w21, rng, dev)
     _require(sdr_out.shape == ((1 << 22) // n_ch - tpb, n_ch), "SDR output shape")
     _sdr_gates("dryrun 4x6", x_sdr, sdr_out, proto, n_ch, aw, offset, rng)
     _require(sdr5_out.shape == ((c5 << 22) // c5 - tpb5, c5), "SDR config 5 output shape")
@@ -2083,20 +2183,19 @@ def main(argv=None) -> int:
                                                      win_mode="comp", fft_mode="rfft")),
         ),
     }
+    dev_ms = {}
     # the analyzer's device time by kernel (phase 3's call), for the matmul tail
     _profile(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu"),
              f"{label} analyzer mxu", ANALYZER_GROUPS)
+    # the DDC's quantizer, NCO, integer mixer and f32 rescale: the kernel
+    # and its plain version in torch ops (a comparison row only)
+    fw21 = freq_word(fc21, pw21)
+    t["ddc_mixer"] = (_time_ms(lambda: ddc_mixer(x21, fw21, pw21, w21, "dds48")),
+                      _time_ms(lambda: mixer_plain(x21, fw21, pw21, w21, "dds48")))
+    t_scaled = _time_ms(lambda: ddc_mixer(x21, fw21, pw21, w21, "scaled"))
+    q_mixer = _time_batch_ms(lambda _: ddc_mixer(x21, fw21, pw21, w21, "dds48"))
     # the barrier kernel on the DDC's own mixer output, (2, 2^26) f32
-    amp_in = float((1 << MIX_IN_BITS) - 1)
-    n21 = torch.arange(1 << 26, device=dev)
-
-    def mixer():  # the DDC's NCO, integer mixer and f32 rescale
-        xq = torch.round(x21 * amp_in).to(torch.int32)
-        mi, mq = mix_iq_int(xq, n21, freq_word(fc21, pw21), pw21, w21)
-        return torch.stack([mi, mq]).to(torch.float32) * float(
-            np.float32(1.0 / (amp_in * (1 << (w21 - 2)))))
-
-    m21 = mixer()
+    m21 = ddc_mixer(x21, fw21, pw21, w21, "dds48")
     # one call per event pair, as the DDC makes it; the per-call time of 16
     # queued calls, which hides the host's launch latency, is printed beside
     t["materialize"] = (_time_ms(lambda: materialize(m21)),
@@ -2105,7 +2204,7 @@ def main(argv=None) -> int:
               "outer_block_f32": _time_ms(lib_f32), "outer_block_comp": _time_ms(lib_comp)}
     # the six outer kernels' device time (torch.profiler) beside their
     # one-call-alone time, and the library calls'
-    dev_ms = {"outer_block": _device_ms(
+    dev_ms |= {"outer_block": _device_ms(
                   lambda: window_block_outer(0, nrows, q7, spec_hls, m=m, device=dev)),
               "outer_checksum": _device_ms(lambda: chk_outer_fn(0)),
               "outer_block_f32": _device_ms(lambda: float_window("bh7", pw, device=dev)),
@@ -2153,7 +2252,8 @@ def main(argv=None) -> int:
     seg21 = torch.cat([m21[..., -halo21:], m21[..., :halo21]], dim=-1)
     t_ddc = {
         "ddc (whole call)": _time_ms(run_ddc),
-        "NCO + mixer + rescale (torch ops)": _time_ms(mixer),
+        "ddc_mixer kernel": t["ddc_mixer"][0],
+        "NCO + mixer + rescale (torch ops, comparison only)": t["ddc_mixer"][1],
         "materialize kernel": t["materialize"][0],
         "conv1d body (cuDNN, fp32)": _time_ms(lambda: torch.nn.functional.conv1d(
             mat21.reshape(-1, 1, 1 << 26), taps21, stride=dec21)),
@@ -2163,10 +2263,18 @@ def main(argv=None) -> int:
     print(f"time {label} DDC 2^26 samples, decim {dec21}, 64 taps, dds48 pw={pw21} W={w21}: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in t_ddc.items())
           + f"; {(1 << 26) / t_ddc['ddc (whole call)'] / 1e3:.1f} Msamples/s in")
-    _profile(run_ddc, f"{label} ddc", DDC_GROUPS)
+    prof_ddc = _profile(run_ddc, f"{label} ddc", DDC_GROUPS)
+    print(f"ddc_mixer {label} phase 7 (DDC config 21, 2^26 samples, dds48 pw={pw21} W={w21}): "
+          f"{counts['ddc_mixer']} launch(es) on the counted main path, 1 a DDC call; kernel "
+          f"{t['ddc_mixer'][0]:.3f} ms one call alone, {q_mixer:.3f} ms per call of 16 queued "
+          f"(scaled flavor {t_scaled:.3f} ms); torch-op NCO + mixer {t['ddc_mixer'][1]:.3f} ms "
+          f"(comparison only); the DDC's device time {prof_ddc['busy']:.3f} ms of "
+          f"{prof_ddc['wall']:.3f} ms wall")
     t_sdr = _time_ms(lambda: sdr_chain(x_sdr, proto, n_ch, angle_width=aw))
     print(f"time {label} SDR chain latency check, 2^22 samples, 4 channels x 6 taps, AW=20 "
           f"(torch ops, no kernel): {t_sdr:.3f} ms")
+    print(f"ddc_mixer {label} phase 8: 0 launches a call: the SDR chain (channelizer + "
+          "discriminator) runs no DDC")
     t_sdr5 = _time_ms(lambda: sdr_chain(x_sdr5, proto5, c5, angle_width=aw))
     print(f"time {label} SDR chain bench_all config 5, 16*2^22 samples, 16 channels x 8 taps, "
           f"AW=20 (torch ops, no kernel): {t_sdr5:.3f} ms; "
@@ -2210,10 +2318,10 @@ def main(argv=None) -> int:
 
     src = "blackman_harris_win_tpu_torch/csrc/"
     bounds = profiling.kernel_bounds(n, len(q7), nsamp, nfft, hop,
-                                     m21.numel() * m21.element_size())
+                                     m21.numel() * m21.element_size(), ddc_width=w21)
     err_mat = ddc_res["mat_err"]
     tpu = "blackman_harris_win_tpu/kernels/pallas/"
-    rows = [  # name, source, replaces, timing key, max abs err
+    rows = [  # name, source, replaces (under tpu unless a full path), timing key, max abs err
         ("window_block", "window_kernel.cu", "window_kernel.py:378", "window_block", err_1a),
         ("window_checksum", "window_kernel.cu", "window_kernel.py:378", "window_checksum",
          err_1b),
@@ -2236,12 +2344,16 @@ def main(argv=None) -> int:
         ("taylor_checksum", "taylor_kernel.cu", "taylor_kernel.py:71", "taylor_checksum w32",
          err_tck),
         ("materialize", "barrier_kernel.cu", "barrier.py:31", "materialize", err_mat),
+        # no pallas_call: the jnp of nco_iq / mix_iq_int and ddc()'s front half
+        ("ddc_mixer", "ddc_kernel.cu", "blackman_harris_win_tpu/pipeline/ddc.py:49", "ddc_mixer",
+         err_mixer),
     ]
     kernels = []
     for name, source, replaces, key, err in rows:
         bound_ms, bound_by = bounds[name]
         kernels.append({"name": name, "route": "cuda", "source": src + source,
-                        "replaces": tpu + replaces, "launches": counts[name],
+                        "replaces": replaces if replaces.startswith("blackman") else tpu + replaces,
+                        "launches": counts[name],
                         "max_abs_err": err, "ms": t[key][0], "plain_ms": t[key][1],
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib_ms.get(name)})

@@ -16,6 +16,7 @@ from blackman_harris_win_tpu_torch import _build
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import compwin as pc
 from blackman_harris_win_tpu_torch.kernels.barrier import materialize, materialize_plain
+from blackman_harris_win_tpu_torch.kernels import ddc_kernel as dk
 from blackman_harris_win_tpu_torch.kernels import outerwin as po
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
@@ -887,6 +888,157 @@ def test_ddc_on_the_card_matches_cpu_plain(cuda, flavor):
     u = 2.0**-24
     bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(x).max()
     assert float((got.cpu() - want).abs().max()) <= bound
+
+
+
+# --- the DDC mixer kernel (csrc/ddc_kernel.cu) ---
+
+MIXER_CASES = [(f, pw, w) for f in ("dds48", "scaled") for pw in (16, 20, 24, 31)
+               for w in (12, 16, 17)]
+
+
+def _mixer_blocks(n0, pw, fw, t=1 << 16):
+    """A run of t samples at n0; and, at tuning words +1 and -1 (consecutive
+    indices step the phase by +-1), phases s-3 .. s+3 around each seam s in
+    {0, N/4, N/2, 3N/4}, at indices at or just past n0."""
+    big = 1 << pw
+    out = [(n0, t, fw)]
+    for s in (0, big // 4, big // 2, 3 * big // 4):
+        out.append((n0 + (s - 3 - n0) % big, 7, 1))
+        out.append((n0 + (-(s + 3) - n0) % big, 7, big - 1))
+    return out
+
+
+@pytest.mark.parametrize("n0", [0, 2**32 - 5, 2**32 + 3])
+@pytest.mark.parametrize("flavor,pw,w", MIXER_CASES)
+def test_ddc_mixer_kernel_ints_match_plain(cuda, flavor, pw, w, n0):
+    rng = np.random.default_rng(pw * 100 + w + n0 % 7)
+    fw = pddc.freq_word(0.2371, pw) | 1
+    for b0, t, f in _mixer_blocks(n0, pw, fw):
+        x = rng.uniform(-1, 1, t).astype(np.float32)
+        _build.reset_launches()
+        got = dk.mixer(torch.from_numpy(x).to(cuda), f, pw, w, flavor, n0=b0, raw=True)
+        assert _build.launches["ddc_mixer"] == 1
+        want = pddc.mixer(torch.from_numpy(x), f, pw, w, flavor, n0=b0, raw=True)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want), (b0, t, f)
+
+
+@pytest.mark.parametrize("shape", [(1 << 20,), (3, 5, 1000), (2, 257), (1, 1), (70000, 3)])
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+def test_ddc_mixer_kernel_f32_matches_plain(cuda, flavor, shape):
+    # bit-equal f32 output, batch dims, rows that are not a multiple of the
+    # block, more rows than the grid's row groups; exact halves of the input
+    # product (round half even) in the first row
+    rng = np.random.default_rng(sum(shape))
+    x = rng.uniform(-1, 1, shape).astype(np.float32)
+    k = np.arange(min(shape[-1], 512))
+    x.reshape(-1, shape[-1])[0, :len(k)] = np.float32((k - 256 + 0.5) / 32767.0)
+    pw, w, n0 = 24, 17, 2**32 - 5
+    fw = pddc.freq_word(0.3333, pw)
+    _build.reset_launches()
+    got = pddc.mixer(torch.from_numpy(x).to(cuda), fw, pw, w, flavor, n0=n0)
+    assert _build.launches["ddc_mixer"] == 1
+    want = pddc.mixer(torch.from_numpy(x), fw, pw, w, flavor, n0=n0)
+    assert got.shape == (2, *shape) and got.dtype == torch.float32
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("view", ["offset", "strided"])
+def test_ddc_mixer_kernel_views(cuda, view):
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, 4099).astype(np.float32))
+    xd = x.to(cuda)
+    got = pddc.mixer(xd[3:] if view == "offset" else xd[::3], 1000, 20, 16, n0=17)
+    want = pddc.mixer(x[3:] if view == "offset" else x[::3], 1000, 20, 16, n0=17)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_ddc_mixer_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="phase_width"):
+        dk.mixer(x, 1, 32, 16)
+    with pytest.raises(ValueError, match="int32 lanes"):
+        dk.mixer(x, 1, 20, 18)
+    with pytest.raises(ValueError, match="data_width"):
+        dk.mixer(x, 1, 20, 7)
+    with pytest.raises(ValueError, match="flavor"):
+        dk.mixer(x, 1, 20, 16, "hls")
+    with pytest.raises(TypeError, match="float32"):
+        dk.mixer(x.double(), 1, 20, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dk.mixer(x.cpu(), 1, 20, 16)
+    _build.reset_launches()
+    assert dk.mixer(torch.zeros(2, 0, device=cuda), 1, 20, 16).shape == (2, 2, 0)
+    assert _build.launches["ddc_mixer"] == 0
+
+
+def _no_torch_op_nco(monkeypatch):
+    """Record every call of the plain NCO's CORDIC (the torch-op route)."""
+    calls = []
+    real = pddc.cordic_sincos
+    monkeypatch.setattr(pddc, "cordic_sincos",
+                        lambda *a, **k: calls.append(a[1]) or real(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+def test_ddc_call_is_one_mixer_launch(cuda, monkeypatch, flavor):
+    calls = _no_torch_op_nco(monkeypatch)
+    t = 1 << 22
+    x = np.random.default_rng(6).normal(size=t).astype(np.float32)
+    h = pfir.design_lowpass(64, 0.2)
+    _build.reset_launches()
+    got = pddc.ddc(torch.from_numpy(x).to(cuda), 1 / 8, 4, taps=h, flavor=flavor)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {"ddc_mixer": 1, "materialize": 1}
+    assert not calls
+    # the mixer output the FIR takes is bit-equal to the CPU plain version's
+    m2 = pddc.mixer(torch.from_numpy(x).to(cuda), pddc.freq_word(1 / 8, 20), 20, 16, flavor)
+    want = pddc.mixer(torch.from_numpy(x), pddc.freq_word(1 / 8, 20), 20, 16, flavor)
+    assert torch.equal(m2.cpu(), want)
+    assert got.shape == (2, t // 4)
+
+
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+def test_sharded_ddc_is_one_mixer_launch_a_shard(cuda, monkeypatch, flavor):
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+
+    calls = _no_torch_op_nco(monkeypatch)
+    t = 1 << 18
+    x = np.random.default_rng(7).normal(size=t).astype(np.float32)
+    h = pfir.design_lowpass(64, 0.2)
+    step = pddc.make_sharded_ddc(_card_mesh(cuda), 20, 16, 1 / 8, 4, taps=h, flavor=flavor)
+    _build.reset_launches()
+    got = unshard(step(torch.from_numpy(x).to(cuda))).cpu()
+    assert _build.launches["ddc_mixer"] == 4 and not calls
+    want = pddc.ddc(x, 1 / 8, 4, taps=h, flavor=flavor, device="cpu")
+    u = 2.0**-24
+    bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(x).max()
+    assert got.shape == want.shape and float((got - want).abs().max()) <= bound
+
+
+def test_sdr_chain_on_the_card_runs_no_mixer(cuda):
+    # the SDR chain is channelizer + discriminator: no DDC, so no mixer
+    # launch; its discriminator on the card equals the CPU plain version on
+    # the card's int I/Q
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import (
+        design_prototype,
+        polyphase_channelize,
+    )
+    from blackman_harris_win_tpu_torch.pipeline.demod import fm_demod_conj
+    from blackman_harris_win_tpu_torch.pipeline.sdr import sdr_chain
+
+    n_ch, aw = 4, 20
+    proto = design_prototype(n_ch, 6)
+    x = torch.cos(2 * np.pi * (1 / n_ch + 0.005) * torch.arange(1 << 16, dtype=torch.float64))
+    xd = x.to(torch.float32).to(cuda)
+    _build.reset_launches()
+    out = sdr_chain(xd, proto, n_ch, angle_width=aw)
+    torch.cuda.synchronize()
+    assert not any(_build.launches.values())
+    y = polyphase_channelize(xd, proto, n_ch)
+    i = torch.round(y.real * 2.0**14).to(torch.int32).mT.cpu()
+    q = torch.round(y.imag * 2.0**14).to(torch.int32).mT.cpu()
+    assert torch.equal(out.cpu(), fm_demod_conj(i, q, 16, aw).mT)
 
 
 # --- the front end: the CLI's gen and WinSelector on the card ---

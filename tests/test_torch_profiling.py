@@ -19,7 +19,7 @@ PERF_BOUNDS = {
     "window_block": (2.388, 3), "window_checksum": (9.560, 3), "welch_stage1": (0.482, 3),
     "outer_checksum": (0.0781, 4), "outer_block": (0.0801, 4),
     "outer_checksum_f32": (0.0250, 4), "outer_checksum_comp": (0.0581, 4),
-    "taylor_checksum": (0.0321, 4), "materialize": (0.3205, 4),
+    "taylor_checksum": (0.0321, 4), "materialize": (0.3205, 4), "ddc_mixer": (0.2404, 4),
 }
 
 
