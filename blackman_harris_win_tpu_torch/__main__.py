@@ -219,7 +219,6 @@ def _generate(args, spec, coeffs_q, device):
     """The window of ``gen --mode``, as one host numpy array: every mode
     runs on ``device`` and copies to the host once."""
     import numpy as np
-    import torch
 
     if args.mode == "float":
         from .kernels.floatwin import float_window
@@ -238,10 +237,9 @@ def _generate(args, spec, coeffs_q, device):
         m = min(11, spec.phase_width - 1)
         win = window_block_outer(0, spec.n >> m, coeffs_q, spec, m=m, device=device)
     elif args.mode == "taylor2":
-        from .kernels.fastwin import window_values_fast
+        from .kernels.fastwin_kernel import window_block
 
-        n = torch.arange(spec.n, dtype=torch.int64, device=device)
-        win = window_values_fast(n, coeffs_q, spec).to(torch.int32)
+        win = window_block(coeffs_q, spec, 0, spec.n, device)
     else:
         from .kernels.window import make_window
 

@@ -38,11 +38,12 @@ launches = {
     "outer_block": 0, "outer_block_f32": 0, "outer_block_comp": 0,
     "outer_checksum": 0, "outer_checksum_f32": 0, "outer_checksum_comp": 0,
     "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_checksum": 0,
-    "materialize": 0, "ddc_mixer": 0,
+    "materialize": 0, "ddc_mixer": 0, "cordic_atan2": 0, "fm_demod": 0,
+    "taylor2_window_block": 0,
 }
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_U = ctypes.c_uint
+_U, _D = ctypes.c_uint, ctypes.c_double
 # the table arguments of the outer-product entry points: hi, lo, h0, rows,
 # nl, hc, nk, np, a0, shift, w, saturate, a0f, a0lo
 _OUTER = (_P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F)
@@ -73,6 +74,16 @@ _SIGNATURES = {
     # out, x, rows, t, n0, period, fw, pw, w, flavor, lut, nlut, gain,
     # zshift, oshift, scale, raw, stream
     "bhw_ddc_mixer": (_P, _P, _L, _L, _L, _L, _U, _I, _I, _I, _P, _I, _L, _I, _I, _F, _I, _P),
+    # out, y, x, n, elem, lut, aw, p, input_width, convention, stream
+    "bhw_cordic_atan2": (_P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _P),
+    # out, i, q, rows, t, (i strides), (q strides), elem, mode, lut, aw,
+    # input_width, drop, shift, stream
+    "bhw_fm_demod": (_P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _P, _I, _I, _I, _I, _P),
+    # out, y, batches, nf, c, elem, iq_scale, lut, aw, drop, shift, stream
+    "bhw_fm_demod_iq": (_P, _P, _L, _L, _L, _I, _D, _P, _I, _I, _I, _P),
+    # out (16-byte aligned), n0, count, rom, pw, w, ls, coeffs, nterms,
+    # p_hi, p_lo, saturate, stream
+    "bhw_taylor2_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _U, _U, _I, _P),
 }
 #: host-side queries of a kernel's launch geometry: name -> (args, result)
 _QUERIES = {

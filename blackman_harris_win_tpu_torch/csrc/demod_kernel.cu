@@ -1,0 +1,359 @@
+// The vectoring-mode CORDIC atan2 and the FM discriminators built on it, on
+// Hopper (sm_90a).
+//
+// Replaces the jnp of blackman_harris_win_tpu/kernels/cordic.py:275
+// _atan2_core, :320 cordic_atan2 and :343 atan2_fixed, and of
+// pipeline/demod.py:30 fm_demod_phase and :38 fm_demod_conj (no pallas_call:
+// XLA fuses the unrolled iterations into one loop).  In eager torch the
+// same work is some 12 int64 launches an iteration over the whole input
+// (kernels/cordic.py's plain version); here it is one launch.  Three front
+// ends over one device function (atan2_word):
+//
+//   atan2_kernel      elementwise cordic_atan2 / atan2_fixed on int32 or
+//                     int64 (y, x) of one shape, int64 out;
+//   demod_int_kernel  fm_demod_conj / fm_demod_phase from integer I/Q
+//                     (rows, T) with any strides, read in place, to
+//                     (rows, T-1) int64;
+//   demod_iq_kernel   sdr_chain's discriminator from the complex64 (or
+//                     complex128) channelizer output (batches, nf, C): the
+//                     quantizer rint(re * iq_scale) (round half to even, as
+//                     torch.round then .to(int32)), then fm_demod_conj,
+//                     written as (batches, nf-1, C) int64 in the (frame,
+//                     channel) layout: no transpose, no int64 copy.
+//
+// The datapath (src/cordic_atan2.vhd:146-219, model/golden.py:cordic_atan2):
+// the quadrant from bit input_width-1 of x and y, the one's-complement abs
+// of their low AW-1 bits, AW-1 iterations on an iw = AW+P bit state that
+// wraps after every add, z stepped by LUT_ATAN_PI[i] >> (49-AW-P), then
+// wrap(z >> P, AW) and the quadrant fix of either convention.
+//
+// What bounds it on the H100: the iterations.  At the SDR chain's AW=20 a
+// discriminator output needs 8 bytes read (its complex64 sample; the
+// neighbour's is the next output's) and 8 written, against 19 iterations
+// of some 10 integer operations: at 3.35 TB/s and the int32 issue rate the
+// operations take about 1.4 times as long as the bytes
+// (utils/profiling.py:fm_demod_conj_ops).  So the design keeps an
+// iteration short:
+//
+// - The state sits at the top of a word: X = x << (B - iw) for a B-bit
+//   word (B = 32 while iw <= 32, else 64).  An add of two such words wraps
+//   at iw bits by itself, so the reference's per-add wrap costs nothing;
+//   the shifted operand (X >> i) has its low B-iw bits cleared (one AND), so
+//   no fraction bit carries into the state.  The wrap does fire: with P=1
+//   the state reaches 1.16 * 2^(iw-1) near |x| == |y| (the CORDIC gain 1.647
+//   times sqrt 2), and tests/test_torch_demod_kernel.py holds a case where
+//   it does.
+// - Steering by d = +-1 (the sign of y, or 1): x + d*(y >> i) is one IMAD in
+//   the 32-bit word; the 64-bit word negates by xor and subtract instead.
+// - z needs no wrap: |z| <= sum lut[i] < 0.56 * 2^(iw-1) on every path.
+// - The iterations unroll at compile time up to the word's most (31 or 48)
+//   and stop at AW-1 by a uniform branch: every shift count is an
+//   immediate and lut[i] a constant-bank operand.
+// - All wrapping adds, negations and the 32-bit conjugate products are done
+//   in unsigned types (signed overflow is undefined); right shifts of
+//   negative values are arithmetic under nvcc.
+//
+// Grids: atan2 and the complex front end walk their outputs in a grid-
+// stride loop, one output a thread, so each warp's loads and stores are
+// coalesced (the I/Q front end reads frame f and f+1 of a channel, C
+// samples apart: the second read hits L1/L2).  demod_int puts a row on
+// blockIdx.y and T on blockIdx.x; in phase mode a block of kThreads threads
+// computes kThreads angles and writes the kThreads-1 differences between
+// them, so each angle is computed once (plus one a block).
+
+#include <climits>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+typedef long long i64;
+typedef unsigned long long u64;
+
+constexpr int kThreads = 256;
+constexpr int kMaxLut = 48;  // LUT_ATAN_PI entries: AW - 1 <= 48
+
+enum Convention : int { kCordic = 0, kFixed = 1 };  // cordic_atan2, atan2_fixed
+enum Mode : int { kConj = 0, kPhase = 1 };          // fm_demod_conj, fm_demod_phase
+
+struct Params {
+  i64 lut[kMaxLut];  // LUT_ATAN_PI[i] >> (49 - AW - P), i < AW - 1
+  int aw;            // angle width AW
+  int p;             // guard bits P
+  int in_sign;       // min(input_width, 64) - 1: the quadrant's bit
+  int convention;
+  int drop;          // fm_demod_conj: the re-quantization shift to <= 15 bits
+  int shift;         // fm_demod_conj: products >> shift into the engine's range
+  double iq_scale;   // demod_iq: the quantizer's gain
+};
+
+template <typename S> struct Word;
+template <> struct Word<int> {
+  typedef unsigned U;
+  static constexpr int kBits = 32;
+  static constexpr int kMaxIter = 31;  // AW - 1 with iw = AW + P <= 32
+};
+template <> struct Word<i64> {
+  typedef u64 U;
+  static constexpr int kBits = 64;
+  static constexpr int kMaxIter = kMaxLut;  // AW - 1 with AW + P <= 49
+};
+
+// the angle of (x, y), an AW-bit word in an int64, of the convention
+// (y and x arrive sign-extended to int64, whatever they were read as)
+template <typename S>
+__device__ __forceinline__ i64 atan2_word(i64 y, i64 x, const Params& P) {
+  typedef typename Word<S>::U U;
+  constexpr int B = Word<S>::kBits;
+  const int sh = B - (P.aw + P.p);
+  const i64 sx = (x >> P.in_sign) & 1, sy = (y >> P.in_sign) & 1;
+  const int quadrant = (int)((sx << 1) | sy);
+  const i64 mask_lo = (1ll << (P.aw - 1)) - 1;
+  const U keep = ~(U)0 << sh;
+  U xs = (U)((x ^ -sx) & mask_lo) << sh;  // one's-complement abs, low AW-1 bits
+  U ys = (U)((y ^ -sy) & mask_lo) << sh;
+  U z = 0;
+  const int niter = P.aw - 1;
+#pragma unroll
+  for (int i = 0; i < Word<S>::kMaxIter; ++i) {
+    if (i >= niter) break;
+    const U xi = (U)((S)xs >> i) & keep, yi = (U)((S)ys >> i) & keep;
+    const U lut = (U)(S)P.lut[i];
+    if constexpr (B == 32) {
+      const U d = (U)(((S)ys >> (B - 1)) | 1);  // +1 for y >= 0, -1 below
+      xs += d * yi;
+      ys -= d * xi;
+      z -= d * lut;
+    } else {
+      const U m = (U)((S)ys >> (B - 1));  // 0 for y >= 0, all ones below
+      xs += (yi ^ m) - m;
+      ys -= (xi ^ m) - m;
+      z -= (lut ^ m) - m;
+    }
+  }
+  // dat_phi = wrap(z >> P, AW): z is an iw-bit value, so its arithmetic
+  // shift in the word is exact
+  const U phi = (U)((S)z >> P.p);
+  const U pi_half = (U)1 << (P.aw - 2), pi_u = (U)1 << (P.aw - 1);
+  U out;
+  if (P.convention == kCordic) {
+    out = quadrant == 0 ? phi : quadrant == 1 ? phi + pi_half : quadrant == 2 ? 0 - phi
+                                                                              : phi - pi_half;
+  } else {  // base = -phi
+    out = quadrant == 0 ? 0 - phi : quadrant == 1 ? phi : quadrant == 2 ? pi_u + phi
+                                                                        : 0 - phi - pi_u;
+  }
+  const int up = 64 - P.aw;
+  return (i64)((u64)out << up) >> up;  // wrap to AW bits
+}
+
+// the conjugate-product discriminator of samples (i0, q0) -> (i1, q1):
+// atan2_fixed(im >> shift, re >> shift, AW, AW), products in wrapping
+// 32-bit arithmetic on the inputs re-quantized by >> drop
+template <typename S>
+__device__ __forceinline__ i64 conj_word(i64 i0, i64 q0, i64 i1, i64 q1, const Params& P) {
+  const unsigned a0 = (unsigned)(i0 >> P.drop), b0 = (unsigned)(q0 >> P.drop);
+  const unsigned a1 = (unsigned)(i1 >> P.drop), b1 = (unsigned)(q1 >> P.drop);
+  const int re = (int)(a1 * a0 + b1 * b0);
+  const int im = (int)(b1 * a0 - a1 * b0);
+  return atan2_word<S>((i64)(im >> P.shift), (i64)(re >> P.shift), P);
+}
+
+template <typename T, typename S>
+__global__ void __launch_bounds__(kThreads)
+atan2_kernel(i64* __restrict__ out, const T* __restrict__ y, const T* __restrict__ x, i64 n,
+             const Params P) {
+  for (i64 e = (i64)blockIdx.x * kThreads + threadIdx.x; e < n; e += (i64)gridDim.x * kThreads) {
+    out[e] = atan2_word<S>((i64)__ldg(y + e), (i64)__ldg(x + e), P);
+  }
+}
+
+// strides are in elements: row r, sample t of i at i[r * ir + t * it]
+struct Layout {
+  i64 rows, t;
+  i64 ir, it, qr, qt;
+};
+
+template <typename T, typename S, int MODE>
+__global__ void __launch_bounds__(kThreads)
+demod_int_kernel(i64* __restrict__ out, const T* __restrict__ i, const T* __restrict__ q,
+                 const Layout L, const Params P) {
+  __shared__ i64 phi[kThreads];
+  const i64 tout = L.t - 1;
+  for (i64 r = blockIdx.y; r < L.rows; r += gridDim.y) {
+    const T* ir = i + r * L.ir;
+    const T* qr = q + r * L.qr;
+    i64* o = out + r * tout;
+    if constexpr (MODE == kConj) {
+      const i64 j = (i64)blockIdx.x * kThreads + threadIdx.x;
+      if (j < tout) {
+        o[j] = conj_word<S>((i64)__ldg(ir + j * L.it), (i64)__ldg(qr + j * L.qt),
+                            (i64)__ldg(ir + (j + 1) * L.it), (i64)__ldg(qr + (j + 1) * L.qt), P);
+      }
+    } else {
+      // this block's angles at t0 + k, k < kThreads; output j = t0 + k - 1
+      // for k >= 1 is phase_wrap(phi[k] - phi[k-1])
+      const i64 t0 = (i64)blockIdx.x * (kThreads - 1);
+      const i64 t = t0 + threadIdx.x;
+      if (t < L.t) phi[threadIdx.x] = atan2_word<S>((i64)__ldg(qr + t * L.qt),
+                                                   (i64)__ldg(ir + t * L.it), P);
+      __syncthreads();
+      if (threadIdx.x > 0 && t < L.t) {
+        const u64 half = 1ull << (P.aw - 1), full = 1ull << P.aw;
+        const u64 d = (u64)phi[threadIdx.x] - (u64)phi[threadIdx.x - 1];
+        o[t - 1] = (i64)((d + half) & (full - 1)) - (i64)half;
+      }
+      __syncthreads();  // phi is reused by the next row
+    }
+  }
+}
+
+bool fill(Params& P, const i64* lut, int aw, int p, int input_width, int convention, int drop,
+          int shift, double iq_scale) {
+  if (aw < 2 || p < 0 || aw + p > 49 || input_width < 1 || input_width > 64) return false;
+  if (drop < 0 || drop > 63 || shift < 0 || shift > 31) return false;
+  if (convention != kCordic && convention != kFixed) return false;
+  for (int k = 0; k < kMaxLut; ++k) P.lut[k] = k < aw - 1 ? lut[k] : 0;
+  P.aw = aw;
+  P.p = p;
+  P.in_sign = input_width - 1;
+  P.convention = convention;
+  P.drop = drop;
+  P.shift = shift;
+  P.iq_scale = iq_scale;
+  return true;
+}
+
+// blocks of a grid-stride walk over n items: enough to fill the card
+unsigned stride_blocks(i64 n) {
+  const i64 want = (n + kThreads - 1) / kThreads;
+  return (unsigned)(want < (1 << 20) ? (want > 0 ? want : 1) : (1 << 20));
+}
+
+// the quantizer of sdr_chain: rint(v * iq_scale) to int32 in the
+// channelizer's precision, one rounding of the product as torch's
+__device__ __forceinline__ int quantize(float v, const Params& P) {
+  return __float2int_rn(__fmul_rn(v, (float)P.iq_scale));
+}
+__device__ __forceinline__ int quantize(double v, const Params& P) {
+  return __double2int_rn(__dmul_rn(v, P.iq_scale));
+}
+
+template <typename C, typename S>
+__global__ void __launch_bounds__(kThreads)
+demod_iq_kernel(i64* __restrict__ out, const C* __restrict__ y, i64 batches, i64 nf, i64 c,
+                const Params P) {
+  const i64 per = (nf - 1) * c;  // outputs a batch
+  for (i64 b = blockIdx.y; b < batches; b += gridDim.y) {
+    const C* yb = y + b * nf * c;
+    i64* ob = out + b * per;
+    for (i64 e = (i64)blockIdx.x * kThreads + threadIdx.x; e < per;
+         e += (i64)gridDim.x * kThreads) {
+      const C z0 = yb[e], z1 = yb[e + c];
+      ob[e] = conj_word<S>(quantize(z0.x, P), quantize(z0.y, P), quantize(z1.x, P),
+                           quantize(z1.y, P), P);
+    }
+  }
+}
+
+template <typename S>
+int launch_iq(int elem, i64* out, const void* y, i64 batches, i64 nf, i64 c, const Params& P,
+              cudaStream_t st) {
+  const dim3 grid(stride_blocks((nf - 1) * c), (unsigned)(batches < 65535 ? batches : 65535));
+  if (elem == 8) {
+    demod_iq_kernel<float2, S><<<grid, kThreads, 0, st>>>(out, (const float2*)y, batches, nf, c, P);
+  } else {
+    demod_iq_kernel<double2, S><<<grid, kThreads, 0, st>>>(out, (const double2*)y, batches, nf, c,
+                                                          P);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_atan2(int elem, i64* out, const void* y, const void* x, i64 n, const Params& P,
+                 cudaStream_t st) {
+  const unsigned g = stride_blocks(n);
+  if (elem == 4) {
+    atan2_kernel<int, S><<<g, kThreads, 0, st>>>(out, (const int*)y, (const int*)x, n, P);
+  } else {
+    atan2_kernel<i64, S><<<g, kThreads, 0, st>>>(out, (const i64*)y, (const i64*)x, n, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename S>
+int launch_demod(int mode, i64* out, const void* i, const void* q, const Layout& L,
+                 const Params& P, cudaStream_t st) {
+  const i64 per_block = mode == kPhase ? kThreads - 1 : kThreads;
+  const i64 bx = (L.t - 1 + per_block - 1) / per_block;
+  if (bx > INT_MAX) return (int)cudaErrorInvalidValue;
+  const unsigned by = (unsigned)(L.rows < 65535 ? L.rows : 65535);
+  const dim3 grid((unsigned)bx, by);
+  if (mode == kPhase) {
+    demod_int_kernel<T, S, kPhase><<<grid, kThreads, 0, st>>>(out, (const T*)i, (const T*)q, L, P);
+  } else {
+    demod_int_kernel<T, S, kConj><<<grid, kThreads, 0, st>>>(out, (const T*)i, (const T*)q, L, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// out: n int64; y, x: n int32 (elem = 4) or int64 (elem = 8), contiguous.
+// lut: the AW-1 z steps LUT_ATAN_PI[i] >> (49 - AW - P).
+int bhw_cordic_atan2(void* out, const void* y, const void* x, i64 n, int elem, const i64* lut,
+                     int aw, int p, int input_width, int convention, void* stream) {
+  Params P;
+  if (!fill(P, lut, aw, p, input_width, convention, 0, 0, 0.0) || n < 1 ||
+      (elem != 4 && elem != 8)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  return aw + p <= 32 ? launch_atan2<int>(elem, (i64*)out, y, x, n, P, st)
+                      : launch_atan2<i64>(elem, (i64*)out, y, x, n, P, st);
+}
+
+// out: (rows, t - 1) int64, contiguous; i, q: (rows, t) int32 (elem = 4) or
+// int64 (elem = 8) at element strides (ir, it) and (qr, qt).  mode 0:
+// fm_demod_conj (input_width 15 after >> drop, atan2 at AW with P = 1 on
+// the products >> shift); mode 1: fm_demod_phase (atan2_fixed at
+// input_width, then phase_wrap of the differences).
+int bhw_fm_demod(void* out, const void* i, const void* q, i64 rows, i64 t, i64 ir, i64 it, i64 qr,
+                 i64 qt, int elem, int mode, const i64* lut, int aw, int input_width, int drop,
+                 int shift, void* stream) {
+  Params P;
+  const int iw = mode == kConj ? aw : input_width;  // conj: atan2 reads the products at AW
+  if (!fill(P, lut, aw, 1, iw, kFixed, drop, shift, 0.0) || rows < 1 || t < 2 ||
+      (elem != 4 && elem != 8) || (mode != kConj && mode != kPhase)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout L{rows, t, ir, it, qr, qt};
+  const cudaStream_t st = (cudaStream_t)stream;
+  i64* o = (i64*)out;
+  if (aw + 1 <= 32) {
+    return elem == 4 ? launch_demod<int, int>(mode, o, i, q, L, P, st)
+                     : launch_demod<i64, int>(mode, o, i, q, L, P, st);
+  }
+  return elem == 4 ? launch_demod<int, i64>(mode, o, i, q, L, P, st)
+                   : launch_demod<i64, i64>(mode, o, i, q, L, P, st);
+}
+
+// out: (batches, nf - 1, c) int64; y: (batches, nf, c) complex64 (elem = 8)
+// or complex128 (elem = 16), both contiguous.  The quantizer rint(. *
+// iq_scale) to int32, then fm_demod_conj at AW (drop, shift as above).
+int bhw_fm_demod_iq(void* out, const void* y, i64 batches, i64 nf, i64 c, int elem,
+                    double iq_scale, const i64* lut, int aw, int drop, int shift, void* stream) {
+  Params P;
+  if (!fill(P, lut, aw, 1, aw, kFixed, drop, shift, iq_scale) || batches < 1 || nf < 2 || c < 1 ||
+      (elem != 8 && elem != 16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  return aw + 1 <= 32 ? launch_iq<int>(elem, (i64*)out, y, batches, nf, c, P, st)
+                      : launch_iq<i64>(elem, (i64*)out, y, batches, nf, c, P, st);
+}
+
+}  // extern "C"

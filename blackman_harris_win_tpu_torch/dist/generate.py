@@ -9,6 +9,7 @@ goes through the kernel the single-device path uses on its device:
 - CORDIC: ``kernels.window_kernel.window_block`` (kernel 1a);
 - TAYLOR/HLS where :func:`_taylor_fast_ok` holds: ``taylor_window_range``
   (the Taylor window kernel);
+- taylor2: ``kernels.fastwin_kernel.window_block`` (the taylor2 kernel);
 - float32: ``float_window_block`` (the f32 outer write-out kernel);
   compensated pair: ``comp_window_block`` (the comp outer write-out);
 - anything else: ``window_samples`` in torch ops on the shard's device.
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import WindowSpec
+from ..kernels import fastwin_kernel
 from ..kernels.compwin import comp_window_block
 from ..kernels.floatwin import float_window_block
 from ..kernels.outerwin import DEFAULT_SPLIT
@@ -57,6 +59,9 @@ def _range_fn(coeffs_q, spec: WindowSpec, n0: int, block: int):
                                                      device)
     if spec.sin_type == "cordic":
         return lambda i, device: window_block(coeffs_q, spec, n0 + i * block, block, device)
+    if spec.sin_type == "taylor2":
+        return lambda i, device: fastwin_kernel.window_block(coeffs_q, spec, n0 + i * block,
+                                                             block, device)
 
     def gen(i, device):
         start = n0 + i * block

@@ -9,7 +9,9 @@ int64 lanes hold every state (at most 48 bits, or cmodel's unwrapped
 64-bit C state) exactly, so the JAX package's int32 two-limb datapaths have
 no counterpart here.  Phases are taken mod 2^phase_width; any input shape.
 These functions are the plain reference math of the window kernel
-(``window_kernel.py``) and the DDC's NCO (``pipeline/ddc.py``).
+(``window_kernel.py``) and the DDC's NCO (``pipeline/ddc.py``).  The atan2
+(``cordic_atan2``, ``atan2_fixed``) dispatches by device: the atan2 kernel
+(``demod_kernel.py``) for a CUDA tensor, its plain version here otherwise.
 """
 
 from __future__ import annotations
@@ -237,6 +239,24 @@ def _atan2_core(y, x, input_width: int, angle_width: int, precision: int):
     return quadrant, wrap(z >> p, aw)
 
 
+def _on_card(*vs) -> bool:
+    return any(isinstance(v, torch.Tensor) and v.device.type == "cuda" for v in vs)
+
+
+def _atan2(y, x, input_width: int, angle_width: int, precision: int, convention: str):
+    """Dispatch by device: a CUDA tensor (either input; the other goes to
+    its card) launches the atan2 kernel, anything else runs the plain
+    version in torch ops."""
+    if _on_card(y, x):
+        from .demod_kernel import atan2
+
+        dev = (y if _on_card(y) else x).device
+        return atan2(torch.as_tensor(y, device=dev), torch.as_tensor(x, device=dev),
+                     input_width, angle_width, precision, convention)
+    plain = cordic_atan2_plain if convention == "cordic" else atan2_fixed_plain
+    return plain(y, x, input_width, angle_width, precision)
+
+
 def cordic_atan2(y, x, input_width: int, angle_width: int, precision: int = 1):
     """Bit-exact vectorized ``src/cordic_atan2.vhd``.  Angle scale:
     pi == 2^(AW-1).
@@ -244,8 +264,23 @@ def cordic_atan2(y, x, input_width: int, angle_width: int, precision: int = 1):
     Faithful to the reference's quadrant fix (vhd:204-219), whose output
     convention is NON-standard: Q1(x,y>0) -> -theta; Q2 -> pi-theta;
     Q3 -> pi/2-theta; Q4 -> theta-3pi/2.  Use :func:`atan2_fixed` for the
-    standard atan2(y, x) convention with the same datapath.
+    standard atan2(y, x) convention with the same datapath.  On a CUDA
+    tensor: the atan2 kernel (``demod_kernel.atan2``).
     """
+    return _atan2(y, x, input_width, angle_width, precision, "cordic")
+
+
+def atan2_fixed(y, x, input_width: int, angle_width: int, precision: int = 1):
+    """Standard-convention atan2(y, x) on the reference datapath: returns
+    the angle in (-pi, pi], scaled pi == 2^(AW-1).  Same iteration core as
+    :func:`cordic_atan2`; only the quadrant reconstruction differs.  On a
+    CUDA tensor: the atan2 kernel (``demod_kernel.atan2``)."""
+    return _atan2(y, x, input_width, angle_width, precision, "fixed")
+
+
+def cordic_atan2_plain(y, x, input_width: int, angle_width: int, precision: int = 1):
+    """Plain version of :func:`cordic_atan2` in int64 torch ops, on the
+    inputs' device."""
     q, dat_phi = _atan2_core(y, x, input_width, angle_width, precision)
     phi_pi = 1 << (angle_width - 2)
     out = torch.where(q == 0, dat_phi,
@@ -254,10 +289,9 @@ def cordic_atan2(y, x, input_width: int, angle_width: int, precision: int = 1):
     return wrap(out, angle_width)
 
 
-def atan2_fixed(y, x, input_width: int, angle_width: int, precision: int = 1):
-    """Standard-convention atan2(y, x) on the reference datapath: returns
-    the angle in (-pi, pi], scaled pi == 2^(AW-1).  Same iteration core as
-    :func:`cordic_atan2`; only the quadrant reconstruction differs."""
+def atan2_fixed_plain(y, x, input_width: int, angle_width: int, precision: int = 1):
+    """Plain version of :func:`atan2_fixed` in int64 torch ops, on the
+    inputs' device."""
     q, dat_phi = _atan2_core(y, x, input_width, angle_width, precision)
     base = -dat_phi  # +atan(|y|/|x|)
     pi_u = 1 << (angle_width - 1)

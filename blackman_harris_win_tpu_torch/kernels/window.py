@@ -16,8 +16,9 @@ device.  ``make_window`` and ``window_block`` produce contiguous blocks:
 
 - CORDIC: through ``window_kernel.window_block``;
 - TAYLOR, HLS: through ``taylor_kernel.window_block``;
-- TAYLOR RTL and taylor2 (no kernel in the JAX package either):
-  ``window_samples`` in torch ops on the requested device.
+- taylor2: through ``fastwin_kernel.window_block``;
+- TAYLOR RTL (no kernel in the JAX package either): ``window_samples`` in
+  torch ops on the requested device.
 
 A kernel wrapper runs the CUDA kernel for a CUDA device and its plain
 version on the CPU.
@@ -174,14 +175,18 @@ def window_block(n0: int, block_len: int, coeffs_q, spec: WindowSpec,
                  device=None):
     """A contiguous block [n0, n0+block_len) of the window as int32 on
     ``device`` — the streaming building block (no host ever needs the full
-    window).  CORDIC and TAYLOR/HLS go through their kernels' wrappers;
-    TAYLOR RTL and taylor2 run ``window_samples`` on ``device``."""
+    window).  CORDIC, TAYLOR/HLS and taylor2 go through their kernels'
+    wrappers; TAYLOR RTL runs ``window_samples`` on ``device``."""
     if spec.sin_type == "cordic":
         from .window_kernel import window_block as _block
 
         return _block(coeffs_q, spec, n0, block_len, device)
     if spec.sin_type == "taylor" and spec.rounding == "hls":
         from .taylor_kernel import window_block as _block
+
+        return _block(coeffs_q, spec, n0, block_len, device)
+    if spec.sin_type == "taylor2":
+        from .fastwin_kernel import window_block as _block
 
         return _block(coeffs_q, spec, n0, block_len, device)
     n0, block_len = int(n0), int(block_len)

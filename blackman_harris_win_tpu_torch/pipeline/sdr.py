@@ -15,7 +15,8 @@ import torch
 from ..dist.halo import left_halo
 from ..dist.mesh import Mesh, from_rows, local_map, shard
 from .channelizer import design_prototype, polyphase_channelize
-from .demod import fm_demod_conj
+from ..kernels.demod_kernel import IQ_WIDTH, iq_demod
+from .demod import fm_demod_conj_plain
 
 
 def sdr_chain(x, prototype, n_channels: int, angle_width: int = 20,
@@ -26,12 +27,22 @@ def sdr_chain(x, prototype, n_channels: int, angle_width: int = 20,
     instantaneous frequency per channel).
 
     ``iq_scale`` is a fixed quantization gain; size it so channel envelopes
-    stay within +-2^15.
+    stay within +-2^15.  On a card the quantizer and the discriminator are
+    one launch of the demod kernel (``demod_kernel.iq_demod``).
     """
     y = polyphase_channelize(x, prototype, n_channels, device)  # (nf, C)
+    if y.device.type == "cuda":
+        return iq_demod(y, angle_width, iq_scale)
+    return discriminate_plain(y, angle_width, iq_scale)
+
+
+def discriminate_plain(y, angle_width: int = 20, iq_scale: float = 2.0**14):
+    """Plain version of the chain's discriminator in torch ops, on ``y``'s
+    device: the channelizer output (..., nf, C) quantized to int32 I/Q,
+    then ``fm_demod_conj`` over each channel's frames -> (..., nf-1, C)."""
     i = torch.round(y.real * iq_scale).to(torch.int32)
     q = torch.round(y.imag * iq_scale).to(torch.int32)
-    return fm_demod_conj(i.mT, q.mT, 16, angle_width).mT  # (nf-1, C)
+    return fm_demod_conj_plain(i.mT, q.mT, IQ_WIDTH, angle_width).mT  # (nf-1, C)
 
 
 def make_sharded_sdr_chain(mesh: Mesh, n_channels: int, taps_per_branch: int,

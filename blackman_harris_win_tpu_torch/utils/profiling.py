@@ -103,17 +103,60 @@ def ddc_mixer_ops(data_width: int) -> int:
     return 6 * data_width - 1 + 19
 
 
+def atan2_ops(angle_width: int) -> int:
+    """Operations per angle of the vectoring CORDIC atan2
+    (``csrc/demod_kernel.cu``): the quadrant bits (2 shifts, 2 masks, 1
+    combine), the one's-complement abs of the low AW-1 bits (2 xors, 2
+    masks), AW-1 iterations of 2 shifts, 3 adds/subtracts and a sign test
+    (6, as :func:`cordic_ops` counts them; the AW+P bit wrap of x and y is
+    free with the state at the top of its word), then z >> P, the AW-bit
+    wrap (2) and the quadrant select (3)."""
+    return 6 * (angle_width - 1) + 15
+
+
+def fm_demod_conj_ops(angle_width: int) -> int:
+    """Operations per output of the conjugate-product discriminator from
+    complex samples, each sample quantized once and reused by the next
+    output: the quantizer of one complex sample (a product and a
+    round-to-int each of 2 values: 4), its re-quantizing shifts (2), the two
+    conjugate products (4 products, 2 adds), their shifts into the engine's
+    range (2), then one atan2."""
+    return 4 + 2 + 6 + 2 + atan2_ops(angle_width)
+
+
+def taylor2_window_ops(n_terms: int, p_lo: bool = True) -> int:
+    """Operations per sample of the taylor2 window (``csrc/fastwin_kernel.cu``):
+    per harmonic the phase product and mask (2), the quadrant and the low
+    part (2), the ROM index and the residual count (2), d (a product, and
+    with P_lo a product, shift and add: 1 or 4), dh and e (2), the two
+    correction products of the quadrant's cosine and their shifts (4), the
+    two subtracts (2), the quadrant steering (the cos/sin pick and the
+    negation: 3), a_k * cos, its shift and the accumulate (3); per sample
+    the W-bit wrap or clamp (2).  The cosine alone: the JAX function also
+    computes the sine, which no window term reads."""
+    return (n_terms - 1) * (21 + (3 if p_lo else 0)) + 2
+
+
 def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
-                  mat_bytes: int, ddc_width: int = 16) -> dict:
+                  mat_bytes: int, sdr_shape: tuple[int, int, int],
+                  ddc_width: int = 16) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
     path's shapes (``chip_smoke.py``): each input read once, each output
     written once (tables and scalars are negligible); integer operations at
     INT32_OPS, float32 ones at F32_FLOPS.  ``mat_bytes`` is the DDC's (2, T)
     float32 mixer output, which ``materialize`` copies and the DDC mixer
-    kernel writes from T float32 samples at data width ``ddc_width``."""
+    kernel writes from T float32 samples at data width ``ddc_width``.
+    ``sdr_shape`` = (frames, channels, AW) of the SDR chain's complex64
+    channelizer output, which ``fm_demod`` reads once and turns into
+    (frames - 1, channels) int64; ``cordic_atan2`` takes the int32 (Q, I)
+    of that output, one angle of each, int64 out.
+    ``taylor2_window_block`` writes the n-sample int32 window at n_terms
+    terms, at LS = 12 (its correction takes the P_lo term)."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
+    nf_sdr, c_sdr, aw_sdr = sdr_shape
+    n_iq, n_disc = nf_sdr * c_sdr, max(nf_sdr - 1, 0) * c_sdr
     # the fewest float32 operations per sample (an FMA counts two): f32, two
     # FMAs per harmonic; comp, 6 FMAs per compensated harmonic (2 for s, 4
     # for e) and 2 per plain one: comp_window_flops less its 6 for the host's
@@ -142,6 +185,9 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         "taylor_window_block": bound(4 * n, n * (2 * (TAYLOR_OPS + 3) + 2)),
         "materialize": bound(2 * mat_bytes),
         "ddc_mixer": bound(4 * t_ddc + mat_bytes, t_ddc * ddc_mixer_ops(ddc_width)),
+        "fm_demod": bound(8 * nf_sdr * c_sdr + 8 * n_disc, n_disc * fm_demod_conj_ops(aw_sdr)),
+        "cordic_atan2": bound(16 * n_iq, n_iq * atan2_ops(aw_sdr)),
+        "taylor2_window_block": bound(4 * n, n * taylor2_window_ops(n_terms)),
     }
 
 

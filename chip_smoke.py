@@ -24,19 +24,26 @@ user calls, at the repository's real sizes:
    (cos, sin) engine written out at W=16/LS=10 and W=32/LS=12, the in-kernel
    checksum of each (rows=64), the Blackman W=32 LS=12 wrap and Hamming W=16
    LS=10 saturate HLS windows through ``make_window`` (Taylor window
-   kernel); and, in torch ops on the card (no kernel exists for them), an
-   RTL-contract TAYLOR Hamming window and a taylor2 BH-7 W=32 LS=12 window;
+   kernel), the taylor2 BH-7 W=32 LS=12 wrap window through ``make_window``
+   (one launch of the taylor2 kernel ``taylor2_window_block``); and, in
+   torch ops on the card (no kernel exists for it), an RTL-contract TAYLOR
+   Hamming window;
 7. the DDC at bench_all config 21: 2^26 float32 samples, fc = 1/8, decim 4,
    64 taps (``design_lowpass(64, 0.2)``), dds48 NCO at pw=20 W=16; its
    quantizer, NCO, integer mixer and f32 rescale are one launch of the
    mixer kernel (``ddc_mixer``), and its decimating FIR takes the bulk
    branch, which runs the materialization kernel (kernel 7) before the
    strided conv: exactly one launch of each;
-8. the SDR chain (torch ops: it has no kernel of its own and runs no DDC,
-   so no mixer launch) at the multichip
-   dryrun's stage-4 configuration (4 channels, 6 taps per branch, AW=20)
-   over a 2^22-sample tone, a latency check, and at bench_all config 5
-   (16 channels, 8 taps per branch) over 16 * 2^22 noise samples;
+8. the SDR chain (the channelizer's grouped conv1d and FFT, then one
+   launch of the discriminator kernel ``fm_demod``, which quantizes the
+   channel I/Q and runs the conjugate-product CORDIC atan2; no DDC, so no
+   mixer launch) at the multichip dryrun's stage-4 configuration (4
+   channels, 6 taps per branch, AW=20) over a 2^22-sample tone, a latency
+   check, and at bench_all config 5 (16 channels, 8 taps per branch) over
+   16 * 2^22 noise samples: exactly one ``fm_demod`` launch a call; then
+   the demod module's other entry points on config 5's quantized channel
+   I/Q: ``atan2_fixed`` (one launch of ``cordic_atan2``) and
+   ``fm_demod_phase`` (one of ``fm_demod``);
 9. STFT/WOLA round trips at the analyzer configuration (BH-4 W=17 pw=20
    saturate, nfft 2^20, hop 2^19, 32 * 2^20 samples) through the quantized
    pair (window kernel), the float pair (f32 outer write-out) and the comp
@@ -44,7 +51,8 @@ user calls, at the repository's real sizes:
 10. the front end: the CLI (``blackman_harris_win_tpu_torch.__main__.main``)
    in this process on the inputs above, each output through a ``.npy`` in a
    temporary directory: ``gen`` at BH-7 W=32 pw=26 wrap in the exact,
-   outer, float and comp-pair modes and a TAYLOR Hamming W=16 window;
+   outer, float, comp-pair and taylor2 (LS=12) modes and a TAYLOR Hamming
+   W=16 window;
    ``spectrum --fft-mode mxu`` at the analyzer configuration on 3's x as
    ``.npy`` and as a raw i16 capture (through ``SampleSource``); ``ddc`` at
    config 21 on 7's x; ``stft`` on 9's x; ``suggest``.  Then two child
@@ -57,7 +65,8 @@ user calls, at the repository's real sizes:
    phases hold: ``sharded_window`` HLS and RTL (1's and 2's windows, 0
    LSB, one ``window_block`` launch a shard), ``sharded_window_range`` at
    pw=31 over 4*2^20 samples around the peak (0 LSB against
-   ``window_block`` over the same range), the TAYLOR Blackman window (6's),
+   ``window_block`` over the same range), the TAYLOR Blackman window and
+   the taylor2 BH-7 window (6's, one ``taylor2_window_block`` a shard),
    ``sharded_float_window`` and ``sharded_comp_window`` (4's write-outs,
    bit for bit or within the outer kernels' derived bounds); the sharded
    Welch on 3's x as (2, 64*2^20) on the 2x2 mesh (quantized with mxu and
@@ -69,7 +78,8 @@ user calls, at the repository's real sizes:
    shard seams, the output within 7's FIR bound of ``ddc()`` and of a
    float64 FIR around the seams, one ``ddc_mixer`` and one ``materialize``
    a shard; the mixer kernel's time at a shard's size and the sharded
-   call's device time are printed); the sharded SDR chain at config 5 (0 LSB against ``sdr_chain`` of the circularly
+   call's device time are printed); the sharded SDR chain at config 5
+   (one ``fm_demod`` a shard; 0 LSB against ``sdr_chain`` of the circularly
    extended input, or differing only where the two channelizers round the
    int I/Q differently).  Each stage's launches must be exactly one a shard
    of each of its kernels; its wall time (CUDA events, median of 5 after a warm-up)
@@ -103,13 +113,23 @@ the DDC against a float64 FIR of its exact integer mixer products, the DDC
 mixer kernel bit-equal to its plain version on phase 7's input and 0 LSB
 against the CPU plain version on random blocks (n0 up to 2^33) and around
 every quadrant seam at dds48 and scaled, pw 20/31/24, the SDR
-tone offset and discriminator, the STFT round trips and frames of each
+tone offset and discriminator (the config-5 output 0 LSB against the plain
+discriminator in torch ops on the card, and against the CPU plain version
+on random runs; the atan2 kernel in both conventions on int32 and int64
+words and the phase discriminator on random and seam blocks at AW
+16/20/24/31 P=1, AW 30 P=2 (32-bit words), AW 31 P=2 and AW 40 (64-bit
+words), 0 LSB against the CPU plain versions), the taylor2 window bit-equal
+to ``window_values_fast`` on the card over all 2^26 samples and its blocks
+at n0 0, N/4+-1, N/2, 3N/4, N-1 for LS 9/10/12/14, W 16/17/32, wrap and
+saturate, 0 LSB against the CPU plain version, the STFT round trips and
+frames of each
 pair's stft against the golden window, every front-end output bit for bit
 against the earlier phase's (the two spectra also within the analyzer's
 budget), and each kernel against its plain
-version on the card; torch.profiler breakdowns of one DDC call and of one
-fft_mode="mxu" analyzer call (stage-1 kernel, window kernel, GEMMs,
-elementwise and permute passes) must record device time.  Last, each kernel and its plain version are timed
+version on the card; torch.profiler breakdowns of one DDC call, of one
+config-5 SDR call (discriminator kernel, channelizer conv1d, FFT, the rest)
+and of one fft_mode="mxu" analyzer call (stage-1 kernel, window kernel,
+GEMMs, elementwise and permute passes) must record device time.  Last, each kernel and its plain version are timed
 with CUDA events (median of 5 after a warm-up; a checksum kernel's time is
 per call of 16 back-to-back calls with distinct biases; the copy kernel,
 its plain version and ``torch.clone`` are timed one call alone and, on a
@@ -131,11 +151,17 @@ kernels' run walk per sample, of the stage-1 kernel's FFT body and of one
 row of each outer instantiation's walk (f32/comp: its FFMA, LDS and STG;
 int: its IMAD.WIDE, IADD3, LEA.HI, SHF, LDS and STG), with their
 local-memory instructions, and of one CORDIC iteration of the DDC mixer
-kernel (its W=17 instantiation less its W=16 one); an int or a mixer
-instantiation whose ptxas line shows a stack frame or spills fails the run.
+kernel (its W=17 instantiation less its W=16 one), and of the atan2 and
+taylor2 kernels (the median branch-free block: one unrolled iteration, or
+one harmonic of one sample); an int, a mixer, an atan2/discriminator or a
+taylor2 instantiation whose ptxas line shows a stack frame or spills, or
+whose SASS holds local-memory instructions, fails the run.
 The mixer kernel's time, its launches a DDC call, the DDC's device time
 and the torch-op NCO + mixer time (its plain version, a comparison row
-only) are printed for phases 7, 11 and 12, and phase 8's launches (none).  Phase 10's wall time per subcommand
+only) are printed for phases 7, 11 and 12, and phase 8's (none).
+The SDR chain's time at config 5 is printed with its pieces (the
+channelizer, the discriminator kernel and its plain version).  Phase 10's
+wall time per subcommand
 (file I/O included), its host steps alone and the six mode rates of
 ``windows/modes.py:MODE_GSPS`` are printed with the card's name and power
 limit.
@@ -467,25 +493,33 @@ def _ddc_mixer_gates(x21, fc: float, pw: int, w: int, rng, dev) -> float:
     return err
 
 
-def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=None) -> None:
-    """The chain's output is its own discriminator over the card's
-    channelizer output and lies in the angle range; the discriminator on
-    the card is 0 LSB against its CPU plain version on the same int I/Q
-    (all of it, or a random run of ``frames`` outputs per channel); where
-    the input is a tone at channel 1 + ``offset``, that offset comes back
-    within 2e-3 (the dryrun's gate)."""
+def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=None) -> int:
+    """The chain's output (the discriminator kernel on the card's
+    channelizer output) is 0 LSB against the plain discriminator in torch
+    ops on the card over all of it, equals the discriminator kernel's
+    integer front end on the card's int I/Q, and lies in the angle range;
+    that front end is 0 LSB against its CPU plain version (all of it, or a
+    random run of ``frames`` outputs per channel); where the input is a
+    tone at channel 1 + ``offset``, that offset comes back within 2e-3 (the
+    dryrun's gate).  Returns the largest |kernel - plain|."""
     import torch
 
     from blackman_harris_win_tpu_torch.pipeline.channelizer import polyphase_channelize
     from blackman_harris_win_tpu_torch.pipeline.demod import fm_demod_conj
+    from blackman_harris_win_tpu_torch.pipeline.sdr import discriminate_plain
 
     y = polyphase_channelize(x, proto, n_ch)
+    want = discriminate_plain(y, aw)
+    err = int((out - want).abs().max())
+    _require(out.shape == want.shape and torch.equal(out, want),
+             f"SDR {label}: sdr_chain differs from the plain discriminator on the card ({err} LSB)")
+    del want
     i = torch.round(y.real * 2.0**14).to(torch.int32).mT
     q = torch.round(y.imag * 2.0**14).to(torch.int32).mT
     del y
     d_dev = fm_demod_conj(i, q, 16, aw)
-    _require(torch.equal(d_dev.mT, out), f"SDR {label}: sdr_chain differs from its own "
-             "discriminator")
+    _require(torch.equal(d_dev.mT, out), f"SDR {label}: sdr_chain differs from fm_demod_conj "
+             "on its int I/Q")
     half = 1 << (aw - 1)
     _require(int(out.min()) >= -half and int(out.max()) < half,
              f"SDR {label}: output outside [-2^{aw - 1}, 2^{aw - 1})")
@@ -494,8 +528,9 @@ def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=Non
     d_cpu = fm_demod_conj(i[:, a:a + nf + 1].cpu(), q[:, a:a + nf + 1].cpu(), 16, aw)
     _require(torch.equal(d_dev[:, a:a + nf].cpu(), d_cpu),
              f"SDR {label}: fm_demod_conj on the card differs from the CPU")
-    msg = (f"SDR {label}: output {tuple(out.shape)} in range; fm_demod_conj on the card 0-LSB "
-           f"equal to the CPU plain version on {d_cpu.numel()} discriminator outputs")
+    msg = (f"SDR {label}: output {tuple(out.shape)} in range, 0-LSB equal to the plain "
+           "discriminator on the card over all of it and to fm_demod_conj on its int I/Q, "
+           f"which is 0-LSB equal to the CPU plain version on {d_cpu.numel()} outputs")
     if offset is not None:
         f1 = float(out[:, 1].double().mean()) / (1 << aw)
         _require(abs(f1 - offset * n_ch) < 2e-3,
@@ -503,6 +538,100 @@ def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=Non
         msg += (f"; channel-1 offset {f1:.6f} (want {offset * n_ch}, |err| "
                 f"{abs(f1 - offset * n_ch):.2e} < 2e-3)")
     print(msg)
+    return err
+
+
+#: (AW, P) of the atan2 gates: 32-bit words (AW + P <= 32), then 64-bit ones
+ATAN2_GATE_WIDTHS = ((16, 1), (20, 1), (24, 1), (31, 1), (30, 2), (31, 2), (40, 1))
+
+
+def _demod_gates(dev, rng) -> int:
+    """The atan2 kernel in both conventions on int32 and int64 words, and
+    the discriminator kernel's phase and conj modes (one stream and four
+    rows), each 0 LSB against its CPU plain version, at every
+    ATAN2_GATE_WIDTHS width on random and seam words.  Returns the largest
+    |difference| seen."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.kernels import cordic
+    from blackman_harris_win_tpu_torch.kernels import demod_kernel as dmk
+    from blackman_harris_win_tpu_torch.pipeline import demod
+
+    plain = {"cordic": cordic.cordic_atan2_plain, "fixed": cordic.atan2_fixed_plain,
+             "phase": demod.fm_demod_phase_plain, "conj": demod.fm_demod_conj_plain}
+    worst, blocks = 0, 0
+
+    def held(got, want, what):
+        nonlocal worst, blocks
+        got = got.cpu()
+        worst = max(worst, int((got - want).abs().max()) if want.numel() else 0)
+        _require(got.shape == want.shape and torch.equal(got, want),
+                 f"{what}: differs from the CPU plain version")
+        blocks += 1
+
+    for aw, p in ATAN2_GATE_WIDTHS:
+        for iw in sorted({aw, 16}):
+            y, x = dmk.seam_words(iw, aw, rng, 4096)
+            yc, xc = torch.from_numpy(y), torch.from_numpy(x)
+            for dtype in (torch.int32, torch.int64) if iw <= 32 else (torch.int64,):
+                yd, xd = yc.to(dev, dtype), xc.to(dev, dtype)
+                for conv in ("cordic", "fixed"):
+                    held(dmk.atan2(yd, xd, iw, aw, p, conv), plain[conv](yc, xc, iw, aw, p),
+                         f"atan2 {conv} AW={aw} P={p} iw={iw} {dtype}")
+                if p == 1:  # the discriminators' datapath: P = 1
+                    n = len(x) // 4 * 4
+                    for mode in ("phase", "conj"):
+                        for i, q in ((xc, yc), (xc[:n].view(4, -1), yc[:n].view(4, -1))):
+                            held(dmk.fm_demod(i.to(dev, dtype), q.to(dev, dtype), iw, aw, mode),
+                                 plain[mode](i, q, iw, aw),
+                                 f"fm_demod {mode} AW={aw} iw={iw} {dtype} {tuple(i.shape)}")
+    print(f"atan2 / fm_demod kernels: {blocks} blocks (AW/P "
+          + ", ".join(f"{a}/{p}" for a, p in ATAN2_GATE_WIDTHS)
+          + "; cordic and fixed conventions, int32 and int64 words, random words and every "
+          "pair of the seams 0, +-1, +-(2^(AW-1)-1), bit iw-1 set; fm_demod phase and conj "
+          "modes on one stream and four rows) 0 LSB against the CPU plain versions")
+    return worst
+
+
+def _taylor2_gates(win, q7, spec, dev, rng) -> int:
+    """The taylor2 kernel: ``win`` (phase 6's BH-7 window at ``spec``)
+    bit-equal to ``window_values_fast`` on the card over every sample; then
+    blocks of 4099 samples at n0 in {0, N/4-1, N/4+1, N/2, 3N/4, N-1} and a
+    random one, for LS 9/10/12/14 x W 16/17/32 x wrap/saturate at pw 26,
+    0 LSB against the CPU plain version.  Returns the largest
+    |difference|."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import fastwin_kernel as fk
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    n = spec.n
+    want = fk.taylor2_window_plain(torch.arange(n, device=dev), q7, spec)
+    worst = int((want.long() - win.long()).abs().max())
+    _require(torch.equal(want, win), f"taylor2 kernel vs window_values_fast on the card: "
+             f"{worst} LSB")
+    del want
+    starts = [0, n // 4 - 1, n // 4 + 1, n // 2, 3 * n // 4, n - 1, int(rng.integers(n))]
+    blocks = 0
+    for ls in (9, 10, 12, 14):
+        for w in (16, 17, 32):
+            q = catalog.get("bh7").quantized(w)
+            for overflow in ("wrap", "saturate"):
+                sp = WindowSpec(spec.phase_width, w, sin_type="taylor2", lut_size=ls,
+                                overflow=overflow)
+                for n0 in starts:
+                    plain = fk.taylor2_window_plain(torch.arange(n0, n0 + 4099), q, sp)
+                    got = fk.window_block(q, sp, n0, 4099, dev).cpu()
+                    worst = max(worst, int((got.long() - plain.long()).abs().max()))
+                    _require(torch.equal(got, plain), f"taylor2 LS={ls} W={w} {overflow} "
+                             f"n0={n0}: differs from the CPU plain version")
+                    blocks += 1
+    print(f"taylor2 window bh7 w32 ls12 pw26: bit-equal to window_values_fast on the card over "
+          f"all {n} samples; {blocks} blocks of 4099 (LS 9/10/12/14, W 16/17/32, wrap and "
+          "saturate, n0 0, N/4+-1, N/2, 3N/4, N-1 and random) 0 LSB against the CPU plain "
+          "version")
+    return worst
 
 
 def _stft_frame_gate(name, fwd, x, dw_kernel: float, w_plain, gold, nfft: int, hop: int,
@@ -736,6 +865,11 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
           lambda: sharded_window(q_tb, spec_tb, m4),
           lambda: make_window("blackman", spec_tb, device=dev),
           equal_to(r["win_taylor_blackman"], "phase 6's window"))
+    spec_t2 = r["spec_taylor2"]
+    stage(f"gen taylor2 bh7 w32 ls12 pw{gpw}", "4 on one card", {"taylor2_window_block": 4},
+          lambda: sharded_window(q7, spec_t2, m4),
+          lambda: make_window("bh7", spec_t2, device=dev),
+          equal_to(r["win_taylor2"], "phase 6's taylor2 window"))
 
     def float_gate(out):
         got, want = unshard(out), r["win_f32"]
@@ -896,7 +1030,8 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
     # --- the SDR chain, config 5: a left halo of one prototype length ---
     x5, proto5, c5, tpb5, aw = r["x_sdr5"], r["proto5"], r["c5"], r["tpb5"], r["aw"]
     sdr4 = make_sharded_sdr_chain(m4, c5, tpb5, angle_width=aw)
-    stage(f"sdr config 5 ({c5} ch x {tpb5} taps, {x5.numel()} samples)", "4 on one card", {},
+    stage(f"sdr config 5 ({c5} ch x {tpb5} taps, {x5.numel()} samples)", "4 on one card",
+          {"fm_demod": 4},
           lambda: sdr4(x5), lambda: sdr_chain(x5, proto5, c5, angle_width=aw),
           lambda out: _sdr_sharded_gate(unshard(out), x5, proto5, c5, aw, 4))
     print(f"phase 11: {time.perf_counter() - t0:.1f} s host clock, gates and timing included")
@@ -1195,6 +1330,7 @@ def _front_end_phase(tmp, paths: dict) -> dict:
         "gen outer": gen7 + ["--mode", "outer"],
         "gen float": gen7 + ["--mode", "float"],
         "gen comp-pair": gen7 + ["--mode", "comp-pair"],
+        "gen taylor2": gen7 + ["--mode", "taylor2", "--lut-size", "12"],
         "gen taylor hamming": ["gen", "hamming", "--sin-type", "taylor", "--phase-width", "26",
                                "--data-width", "16"],
         "spectrum npy": ["spectrum", *spec4, "--fft-mode", "mxu", "--hop", "524288",
@@ -1352,6 +1488,10 @@ def _print_sass(lib_path) -> None:
         if "float_kernel" in name:
             _print_float_sass(name, body)
             continue
+        if any(k in name for k in ("atan2_kernel", "demod_int_kernel", "demod_iq_kernel",
+                                   "taylor2_window_kernel")):
+            _print_unrolled_sass(name, body)
+            continue
         if "int_kernel" in name:
             _print_int_sass(name, body)
             continue
@@ -1413,6 +1553,37 @@ def _print_block_sass(name: str, body: str) -> None:
         print(f"sass welch_stage1 ({'16-byte' if regs == ['4'] else '4-byte'} copies): "
               f"{len(ins)} instructions; longest branch-free block {longest}; {local} "
               "local-memory instructions")
+
+
+def _print_unrolled_sass(name: str, body: str) -> None:
+    """An atan2/discriminator or taylor2 instantiation's SASS: its
+    instruction count, its local-memory instructions (a run with any
+    fails) and the median length of its branch-free blocks.  Their loops
+    unroll at compile time and leave by a uniform branch at the runtime
+    count, so that block is one vectoring iteration (atan2, or two where
+    the compiler interleaves two outputs) or one harmonic of one sample
+    (taylor2)."""
+
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    targets = {int(m.group(1), 16) for _, text in ins
+               if (m := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text))}
+    runs, run = [], 0
+    for addr, text in ins:
+        if int(addr, 16) in targets and run:
+            runs.append(run)
+            run = 0
+        run += 1
+        if re.search(r"\b(BRA|EXIT|RET|BRX|JMP|CALL)\b", text):
+            runs.append(run)
+            run = 0
+    local = sum(1 for _, text in ins if re.search(r"\b(LDL|STL)", text))
+    m = re.search(r"(atan2_kernel|demod_int_kernel|demod_iq_kernel|taylor2_window_kernel)I"
+                  r"([^E]*E(?:[^E]*E)?)", name)
+    what = m.group(1) + "<" + m.group(2) + ">" if m else name[:60]
+    median = float(np.median([r for r in runs if r >= 4])) if any(r >= 4 for r in runs) else 0.0
+    print(f"sass {what}: {len(ins)} instructions; median branch-free block {median:.0f}; "
+          f"{local} local-memory instructions")
+    _require(local == 0, f"{what}: {local} local-memory instructions")
 
 
 def _row_walk(body: str, marker: str, least: int, keys: tuple) -> tuple[int, dict, int]:
@@ -1572,6 +1743,9 @@ def _device_ms(fn, calls: int = 5) -> float:
 DDC_GROUPS = {"ddc_mixer": ("ddc_mixer",), "materialize": ("materialize",),
               "FIR (conv, gemm)": ("conv", "cudnn", "gemm", "xmma", "cutlass", "gemv", "dot"),
               "elementwise": ()}
+SDR_GROUPS = {"fm_demod": ("demod",),
+              "channelizer conv1d": ("conv", "cudnn", "xmma", "depthwise", "implicit", "gemm"),
+              "fft": ("fft",), "elementwise or copy": ()}
 ANALYZER_GROUPS = {"welch_stage1": ("welch_stage1",),
                    "window_block": ("window_block",),
                    "GEMM": ("gemm", "xmma", "cutlass", "gemv", "dot", "cublas", "sm90_"),
@@ -1666,11 +1840,18 @@ def main(argv=None) -> int:
         window_checksum_plain,
         window_values_plain,
     )
-    from blackman_harris_win_tpu_torch.pipeline.channelizer import design_prototype
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import (
+        design_prototype,
+        polyphase_channelize,
+    )
+    from blackman_harris_win_tpu_torch.kernels.cordic import atan2_fixed, atan2_fixed_plain
     from blackman_harris_win_tpu_torch.kernels.ddc_kernel import mixer as ddc_mixer
+    from blackman_harris_win_tpu_torch.kernels import demod_kernel as dmk
+    from blackman_harris_win_tpu_torch.kernels import fastwin_kernel as fk
+    from blackman_harris_win_tpu_torch.pipeline.demod import fm_demod_phase, fm_demod_phase_plain
     from blackman_harris_win_tpu_torch.pipeline.ddc import ddc, freq_word, mixer_plain
     from blackman_harris_win_tpu_torch.pipeline.fir import decimating_fir, design_lowpass
-    from blackman_harris_win_tpu_torch.pipeline.sdr import sdr_chain
+    from blackman_harris_win_tpu_torch.pipeline.sdr import discriminate_plain, sdr_chain
     from blackman_harris_win_tpu_torch.pipeline.spectral import (
         window_scale,
         windowed_power_spectrum,
@@ -1695,7 +1876,9 @@ def main(argv=None) -> int:
     _build.lib()
     print(f"build: {secs:.1f} s -> {path.name}")
     fn = "?"
-    in_registers = {"int_kernel": 0, "ddc_mixer_kernel": 0}  # may not spill
+    # may not spill ("demod_int_kernel" before "int_kernel": the first match counts)
+    in_registers = {"demod_int_kernel": 0, "int_kernel": 0, "ddc_mixer_kernel": 0,
+                    "atan2_kernel": 0, "demod_iq_kernel": 0, "taylor2_window_kernel": 0}
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line.strip()
@@ -1709,7 +1892,8 @@ def main(argv=None) -> int:
                          f"ptxas {fn}: {line.strip()}")
     if not log:
         print("ptxas: the library was built before this run, no ptxas lines")
-    want_inst = {"int_kernel": 30, "ddc_mixer_kernel": 40}
+    want_inst = {"demod_int_kernel": 8, "int_kernel": 30, "ddc_mixer_kernel": 40,
+                 "atan2_kernel": 4, "demod_iq_kernel": 4, "taylor2_window_kernel": 2}
     _require(not log or in_registers == want_inst,
              f"ptxas reported {in_registers} instantiations, want {want_inst}")
     _print_sass(path)
@@ -1762,7 +1946,7 @@ def main(argv=None) -> int:
                                          fft_mode="rfft")))
     # the TAYLOR source, bench_all configs 16-18 (pw=26, 2^26 phases)
     tay_cfgs = ((16, 10), (32, 12))  # (W, LS)
-    tay_specs = {  # name -> spec: HLS through the kernel, RTL/taylor2 in torch ops
+    tay_specs = {  # name -> spec: HLS and taylor2 through their kernels, RTL in torch ops
         "blackman": WindowSpec(pw, 32, sin_type="taylor", lut_size=12, overflow="wrap"),
         "hamming": WindowSpec(pw, 16, sin_type="taylor", lut_size=10, overflow="saturate"),
         "hamming rtl": WindowSpec(pw, 16, sin_type="taylor", rounding="rtl", lut_size=10,
@@ -1777,8 +1961,8 @@ def main(argv=None) -> int:
                 {k: make_window(k.split()[0], sp, device=dev) for k, sp in tay_specs.items()})
 
     tay_cs, tay_fns, tay_chk, tay_win = _counted(
-        launched, "6 taylor", ("taylor_sincos_block", "taylor_checksum", "taylor_window_block"),
-        taylor_phase)
+        launched, "6 taylor", ("taylor_sincos_block", "taylor_checksum", "taylor_window_block",
+                               "taylor2_window_block"), taylor_phase)
     # the DDC, bench_all config 21
     fc21, dec21, pw21, w21 = 1 / 8, 4, 20, 16
     h21 = design_lowpass(64, 0.8 / dec21)
@@ -1793,9 +1977,19 @@ def main(argv=None) -> int:
     nn = torch.arange(1 << 22, device=dev, dtype=torch.float64)
     x_sdr = torch.cos(2 * np.pi * (1 / n_ch + offset) * nn).to(torch.float32)
     del nn
-    sdr_out, sdr5_out = _counted(launched, "8 sdr", (),
+    sdr_out, sdr5_out = _counted(launched, "8 sdr", ("fm_demod",),
                                  lambda: (sdr_chain(x_sdr, proto, n_ch, angle_width=aw),
-                                          sdr_chain(x_sdr5, proto5, c5, angle_width=aw)))
+                                          sdr_chain(x_sdr5, proto5, c5, angle_width=aw)),
+                                 exact={"fm_demod": 2})
+    # the demod module's other entry points on config 5's quantized channel
+    # I/Q: each channel's phase angle, and the phase-difference discriminator
+    y5 = polyphase_channelize(x_sdr5, proto5, c5)
+    i5 = torch.round(y5.real * 2.0**14).to(torch.int32)
+    q5 = torch.round(y5.imag * 2.0**14).to(torch.int32)
+    ang5, dph5 = _counted(launched, "8 demod entries", ("cordic_atan2", "fm_demod"),
+                          lambda: (atan2_fixed(q5, i5, 16, aw),
+                                   fm_demod_phase(i5.mT, q5.mT, 16, aw)),
+                          exact={"cordic_atan2": 1, "fm_demod": 1})
     # STFT/WOLA round trips at the analyzer configuration
     stft_res = _counted(launched, "9 stft", ("window_block", "outer_block_f32", "outer_block_comp"),
                         lambda: _stft_round_trips(x_stft, spec4, hop, dev))
@@ -1804,7 +1998,8 @@ def main(argv=None) -> int:
         paths = _front_end_inputs(Path(tmp), x, x21, x_stft)
         fe = _counted(launched, "10 front end",
                       ("window_block", "taylor_window_block", "outer_block", "outer_block_f32",
-                       "outer_block_comp", "welch_stage1", "materialize", "ddc_mixer"),
+                       "outer_block_comp", "welch_stage1", "materialize", "ddc_mixer",
+                       "taylor2_window_block"),
                       lambda: _front_end_phase(Path(tmp), paths))
         fe_route = _module_route(Path(tmp), dev)
         fe_pieces = _front_end_pieces(Path(tmp), paths, win_hls, (win_s, win_e))
@@ -2020,10 +2215,22 @@ def main(argv=None) -> int:
     ddc_res = _ddc_gates(x21, bb, h21, fc21, dec21, pw21, w21, rng, dev)
     err_mixer = _ddc_mixer_gates(x21, fc21, pw21, w21, rng, dev)
     _require(sdr_out.shape == ((1 << 22) // n_ch - tpb, n_ch), "SDR output shape")
-    _sdr_gates("dryrun 4x6", x_sdr, sdr_out, proto, n_ch, aw, offset, rng)
+    err_fm = _sdr_gates("dryrun 4x6", x_sdr, sdr_out, proto, n_ch, aw, offset, rng)
     _require(sdr5_out.shape == ((c5 << 22) // c5 - tpb5, c5), "SDR config 5 output shape")
-    _sdr_gates("config 5 16x8", x_sdr5, sdr5_out, proto5, c5, aw, None, rng, frames=1 << 16)
+    err_fm = max(err_fm, _sdr_gates("config 5 16x8", x_sdr5, sdr5_out, proto5, c5, aw, None, rng,
+                                    frames=1 << 16))
     del sdr5_out
+    # the demod entries of phase 8 against their plain versions on the card
+    err_atan = int((ang5 - atan2_fixed_plain(q5, i5, 16, aw)).abs().max())
+    err_ph = int((dph5 - fm_demod_phase_plain(i5.mT, q5.mT, 16, aw)).abs().max())
+    _require(err_atan == 0 and err_ph == 0, f"phase 8 demod entries vs plain on the card: "
+             f"atan2_fixed {err_atan} LSB, fm_demod_phase {err_ph} LSB")
+    print(f"phase 8 demod entries on config 5's I/Q {tuple(i5.shape)}: atan2_fixed and "
+          "fm_demod_phase 0-LSB equal to their plain versions on the card")
+    del ang5, dph5
+    err_d = _demod_gates(dev, rng)
+    err_atan, err_fm = max(err_atan, err_d), max(err_fm, err_ph, err_d)
+    err_t2 = _taylor2_gates(tay_win["bh7 taylor2"], q7, tay_specs["bh7 taylor2"], dev, rng)
     for name, (_, _, err) in stft_res.items():
         _require(err < 2e-5, f"STFT {name} pair: round trip interior max err {err:.3e} >= 2e-5")
     print("STFT/WOLA round trips, nfft 2^20 hop 2^19, 32*2^20 samples, interior max "
@@ -2066,6 +2273,7 @@ def main(argv=None) -> int:
         "gen float": win_f32.cpu().numpy(),
         "gen comp-pair": np.stack(normalize_pair(win_s, win_e)),
         "gen taylor hamming": tay_win["hamming"].cpu().numpy(),
+        "gen taylor2": tay_win["bh7 taylor2"].cpu().numpy(),
         "ddc": bb.cpu().numpy(),
         "stft": stft_res["quantized"][0](x_stft).cpu().numpy(),
     }, spectra, budget)
@@ -2078,7 +2286,8 @@ def main(argv=None) -> int:
         "q7": q7, "q7_rtl": q7_rtl, "spec_hls": spec_hls, "spec_rtl": spec_rtl,
         "win_hls": win_hls, "win_rtl": win_rtl, "spec_taylor_blackman": tay_specs["blackman"],
         "q_taylor_blackman": catalog.get("blackman").quantized(32),
-        "win_taylor_blackman": tay_win["blackman"], "win_f32": win_f32, "win_s": win_s,
+        "win_taylor_blackman": tay_win["blackman"], "spec_taylor2": tay_specs["bh7 taylor2"],
+        "win_taylor2": tay_win["bh7 taylor2"], "win_f32": win_f32, "win_s": win_s,
         "win_e": win_e, "x": x, "spec4": spec4, "nfft": nfft, "hop": hop, "win64_q": win64,
         "win64_f": win64_4, "q4_17": d4.quantized(17), "shift4": d4.shift, "x_stft": x_stft,
         "stft_pair": (stft_res["quantized"][0], stft_res["quantized"][1], win4), "bb": bb,
@@ -2187,6 +2396,22 @@ def main(argv=None) -> int:
     # the analyzer's device time by kernel (phase 3's call), for the matmul tail
     _profile(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu"),
              f"{label} analyzer mxu", ANALYZER_GROUPS)
+    # one config-5 SDR call by kernel group: where the chain's time goes now
+    prof_sdr = _profile(lambda: sdr_chain(x_sdr5, proto5, c5, angle_width=aw),
+                        f"{label} sdr config 5", SDR_GROUPS)
+    # the discriminator on config 5's channelizer output and the elementwise
+    # atan2 on its I/Q: each kernel and its plain version in torch ops
+    t["fm_demod"] = (_time_ms(lambda: dmk.iq_demod(y5, aw)),
+                     _time_ms(lambda: discriminate_plain(y5, aw)))
+    t["cordic_atan2"] = (_time_ms(lambda: atan2_fixed(q5, i5, 16, aw)),
+                         _time_ms(lambda: atan2_fixed_plain(q5, i5, 16, aw)))
+    t_phase5 = (_time_ms(lambda: fm_demod_phase(i5.mT, q5.mT, 16, aw)),
+                _time_ms(lambda: fm_demod_phase_plain(i5.mT, q5.mT, 16, aw)))
+    t_chan5 = _time_ms(lambda: polyphase_channelize(x_sdr5, proto5, c5))
+    # the taylor2 window: the kernel and its plain version
+    spec_t2 = tay_specs["bh7 taylor2"]
+    t["taylor2_window_block"] = (_time_ms(lambda: make_window("bh7", spec_t2, device=dev)),
+                                 _time_ms(lambda: fk.taylor2_window_plain(idx, q7, spec_t2)))
     # the DDC's quantizer, NCO, integer mixer and f32 rescale: the kernel
     # and its plain version in torch ops (a comparison row only)
     fw21 = freq_word(fc21, pw21)
@@ -2272,22 +2497,33 @@ def main(argv=None) -> int:
           f"{prof_ddc['wall']:.3f} ms wall")
     t_sdr = _time_ms(lambda: sdr_chain(x_sdr, proto, n_ch, angle_width=aw))
     print(f"time {label} SDR chain latency check, 2^22 samples, 4 channels x 6 taps, AW=20 "
-          f"(torch ops, no kernel): {t_sdr:.3f} ms")
+          f"(channelizer + fm_demod kernel): {t_sdr:.3f} ms")
     print(f"ddc_mixer {label} phase 8: 0 launches a call: the SDR chain (channelizer + "
           "discriminator) runs no DDC")
     t_sdr5 = _time_ms(lambda: sdr_chain(x_sdr5, proto5, c5, angle_width=aw))
     print(f"time {label} SDR chain bench_all config 5, 16*2^22 samples, 16 channels x 8 taps, "
-          f"AW=20 (torch ops, no kernel): {t_sdr5:.3f} ms; "
-          f"{(c5 << 22) / t_sdr5 / 1e3:.1f} Msamples/s in")
+          f"AW=20: {t_sdr5:.3f} ms; {(c5 << 22) / t_sdr5 / 1e3:.1f} Msamples/s in; pieces: "
+          f"channelizer (conv1d + FFT) {t_chan5:.3f} ms, fm_demod kernel {t['fm_demod'][0]:.3f} "
+          f"ms (plain discriminator in torch ops {t['fm_demod'][1]:.3f} ms, comparison only)")
+    n_out5 = (y5.shape[0] - 1) * c5
+    print(f"fm_demod {label}: {counts['fm_demod']} launch(es) on the counted main path "
+          f"(phases 8 and 11: 1 a chain call or shard, 1 for fm_demod_phase); on config 5's "
+          f"{tuple(y5.shape)} channelizer output {t['fm_demod'][0]:.3f} ms, "
+          f"{n_out5 / t['fm_demod'][0] / 1e6:.3f} Goutputs/s; fm_demod_phase on its I/Q {t_phase5[0]:.3f} ms (plain "
+          f"{t_phase5[1]:.3f} ms); cordic_atan2 (atan2_fixed) {t['cordic_atan2'][0]:.3f} ms "
+          f"(plain {t['cordic_atan2'][1]:.3f} ms); the SDR call's device time "
+          f"{prof_sdr['busy']:.3f} ms of {prof_sdr['wall']:.3f} ms wall")
+    print(f"time {label} taylor2_window_block bh7 w32 ls12 pw26 (make_window): "
+          f"{t['taylor2_window_block'][0]:.3f} ms, {n / t['taylor2_window_block'][0] / 1e6:.3f} "
+          f"Gsamples/s; plain window_values_fast {t['taylor2_window_block'][1]:.3f} ms")
     for name, (fwd, inv, _) in stft_res.items():
         spec_x = fwd(x_stft)
         t_f, t_i = _time_ms(lambda: fwd(x_stft)), _time_ms(lambda: inv(spec_x))
         print(f"time {label} STFT {name} pair, 32*2^20 samples, nfft 2^20 hop 2^19: "
               f"stft {t_f:.3f} ms, istft {t_i:.3f} ms")
         del spec_x
-    for k in ("hamming rtl", "bh7 taylor2"):  # torch ops on the card, no kernel
-        ms = _time_ms(lambda k=k: make_window(k.split()[0], tay_specs[k], device=dev))
-        print(f"time {label} taylor window {k} (torch ops, no kernel): {ms:.3f} ms")
+    ms = _time_ms(lambda: make_window("hamming", tay_specs["hamming rtl"], device=dev))
+    print(f"time {label} taylor window hamming rtl (torch ops, no kernel): {ms:.3f} ms")
     for k, secs in fe_secs.items():
         print(f"time {label} cli {k}: {secs:.3f} s wall (phase 10, in process, file I/O "
               "included)")
@@ -2318,7 +2554,8 @@ def main(argv=None) -> int:
 
     src = "blackman_harris_win_tpu_torch/csrc/"
     bounds = profiling.kernel_bounds(n, len(q7), nsamp, nfft, hop,
-                                     m21.numel() * m21.element_size(), ddc_width=w21)
+                                     m21.numel() * m21.element_size(), ddc_width=w21,
+                                     sdr_shape=(y5.shape[0], c5, aw))
     err_mat = ddc_res["mat_err"]
     tpu = "blackman_harris_win_tpu/kernels/pallas/"
     rows = [  # name, source, replaces (under tpu unless a full path), timing key, max abs err
@@ -2347,6 +2584,14 @@ def main(argv=None) -> int:
         # no pallas_call: the jnp of nco_iq / mix_iq_int and ddc()'s front half
         ("ddc_mixer", "ddc_kernel.cu", "blackman_harris_win_tpu/pipeline/ddc.py:49", "ddc_mixer",
          err_mixer),
+        # no pallas_call: the jnp of the vectoring atan2 and the discriminators
+        ("fm_demod", "demod_kernel.cu", "blackman_harris_win_tpu/pipeline/demod.py:38",
+         "fm_demod", err_fm),
+        ("cordic_atan2", "demod_kernel.cu", "blackman_harris_win_tpu/kernels/cordic.py:275",
+         "cordic_atan2", err_atan),
+        # no pallas_call: the jnp of cos_sin_taylor2 / window_values_fast
+        ("taylor2_window_block", "fastwin_kernel.cu",
+         "blackman_harris_win_tpu/kernels/fastwin.py:123", "taylor2_window_block", err_t2),
     ]
     kernels = []
     for name, source, replaces, key, err in rows:

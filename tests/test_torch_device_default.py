@@ -18,7 +18,7 @@ import blackman_harris_win_tpu_torch as port
 from blackman_harris_win_tpu_torch import _build
 from blackman_harris_win_tpu_torch.__main__ import main as cli_main
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
-from blackman_harris_win_tpu_torch.kernels import compwin, floatwin, outerwin
+from blackman_harris_win_tpu_torch.kernels import compwin, fastwin_kernel, floatwin, outerwin
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels import taylor, taylor_kernel
 from blackman_harris_win_tpu_torch.kernels import window, window_kernel
@@ -94,6 +94,8 @@ ENTRY_POINTS = {
     "taylor.taylor_window_range": lambda **d: taylor.taylor_window_range(0, 64, QH, TSPEC, **d),
     "taylor_kernel.sincos_block": lambda **d: taylor_kernel.sincos_block(0, 64, 10, 16, 6, **d)[0],
     "taylor_kernel.window_block": lambda **d: taylor_kernel.window_block(QH, TSPEC, 0, 64, **d),
+    "fastwin_kernel.window_block": lambda **d: fastwin_kernel.window_block(
+        Q7, SPEC32.with_(sin_type="taylor2", lut_size=10), 0, 64, **d),
     "taylor_kernel.checksum_range": lambda **d: taylor_kernel.checksum_range(0, 64, 10, 16, 6, **d),
     "taylor_kernel.make_checksum_fn_taylor":
         lambda **d: taylor_kernel.make_checksum_fn_taylor(10, 16, 6, 4, **d)(0, 1),

@@ -17,6 +17,8 @@ from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import compwin as pc
 from blackman_harris_win_tpu_torch.kernels.barrier import materialize, materialize_plain
 from blackman_harris_win_tpu_torch.kernels import ddc_kernel as dk
+from blackman_harris_win_tpu_torch.kernels import demod_kernel as dmk
+from blackman_harris_win_tpu_torch.kernels import fastwin_kernel as fk
 from blackman_harris_win_tpu_torch.kernels import outerwin as po
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
@@ -532,12 +534,13 @@ def test_analyzer_float_modes_run_the_kernels(cuda, win_mode, fft_mode, kernels)
 @pytest.mark.parametrize("sin_type,rounding,name,kernel", [
     ("taylor", "hls", "blackman", "taylor_window_block"),
     ("taylor", "rtl", "hann", None),
-    ("taylor2", "hls", "bh4", None),
+    ("taylor2", "hls", "bh4", "taylor2_window_block"),
 ])
 def test_analyzer_taylor_sources_on_the_card(cuda, sin_type, rounding, name, kernel):
     """The quantized analyzer's window through ``kernels.window.window_block``:
-    TAYLOR HLS launches the Taylor window kernel once, TAYLOR RTL and
-    taylor2 run in torch ops; the spectrum matches the CPU plain path."""
+    TAYLOR HLS launches the Taylor window kernel once, taylor2 its own
+    kernel once, TAYLOR RTL runs in torch ops; the spectrum matches the CPU
+    plain path."""
     spec = WindowSpec(13, 16, sin_type=sin_type, rounding=rounding, lut_size=10)
     nfft = spec.n
     x = np.random.default_rng(6).normal(size=nfft * 9).astype(np.float32)
@@ -731,8 +734,9 @@ def test_taylor_write_out_entries_refuse_unaligned_outputs(cuda):
 
 
 def test_taylor_torch_op_routes_launch_no_kernel(cuda):
-    # TAYLOR RTL and taylor2 run window_samples on the card, as JAX runs them
-    # in plain jnp; both land on the requested device
+    # TAYLOR RTL runs window_samples on the card, as JAX runs it in plain
+    # jnp; taylor2 is one launch of its own kernel; both land on the
+    # requested device
     cases = [("hamming", WindowSpec(12, 16, sin_type="taylor", rounding="rtl", lut_size=10)),
              ("bh7", WindowSpec(12, 32, sin_type="taylor2", lut_size=12, overflow="wrap"))]
     _build.reset_launches()
@@ -740,7 +744,8 @@ def test_taylor_torch_op_routes_launch_no_kernel(cuda):
         got = kw.make_window(name, spec, device=cuda)
         assert got.device == cuda
         assert torch.equal(got.cpu(), kw.make_window(name, spec, device="cpu"))
-    assert _build.launches == dict.fromkeys(_build.launches, 0)
+    want = dict.fromkeys(_build.launches, 0) | {"taylor2_window_block": 1}
+    assert _build.launches == want
 
 
 @pytest.mark.parametrize("sel", [1, 0])  # a known selector, an unknown one
@@ -1018,8 +1023,8 @@ def test_sharded_ddc_is_one_mixer_launch_a_shard(cuda, monkeypatch, flavor):
 
 def test_sdr_chain_on_the_card_runs_no_mixer(cuda):
     # the SDR chain is channelizer + discriminator: no DDC, so no mixer
-    # launch; its discriminator on the card equals the CPU plain version on
-    # the card's int I/Q
+    # launch, and one launch of the discriminator kernel; its output on the
+    # card equals the CPU plain version on the card's int I/Q
     from blackman_harris_win_tpu_torch.pipeline.channelizer import (
         design_prototype,
         polyphase_channelize,
@@ -1034,7 +1039,7 @@ def test_sdr_chain_on_the_card_runs_no_mixer(cuda):
     _build.reset_launches()
     out = sdr_chain(xd, proto, n_ch, angle_width=aw)
     torch.cuda.synchronize()
-    assert not any(_build.launches.values())
+    assert {k: v for k, v in _build.launches.items() if v} == {"fm_demod": 1}
     y = polyphase_channelize(xd, proto, n_ch)
     i = torch.round(y.real * 2.0**14).to(torch.int32).mT.cpu()
     q = torch.round(y.imag * 2.0**14).to(torch.int32).mT.cpu()
@@ -1050,7 +1055,8 @@ GEN_CASES = [  # (gen arguments, kernels the card run launches)
     (["hamming", "--phase-width", "16", "--data-width", "16", "--sin-type", "taylor"],
      ("taylor_window_block",)),
     (["bh7", "--phase-width", "16", "--data-width", "32", "--mode", "outer"], ("outer_block",)),
-    (["bh7", "--phase-width", "14", "--data-width", "32", "--mode", "taylor2"], ()),
+    (["bh7", "--phase-width", "14", "--data-width", "32", "--mode", "taylor2"],
+     ("taylor2_window_block",)),
     (["bh7", "--phase-width", "16", "--mode", "float"], ("outer_block_f32",)),
     (["bh7", "--phase-width", "16", "--mode", "comp"], ("outer_block_comp",)),
     (["bh4", "--phase-width", "16", "--mode", "comp-pair"], ("outer_block_comp",)),
@@ -1116,6 +1122,8 @@ SHARDED_GEN = {  # case -> (window, spec, rtl coefficients, kernel)
                    "window_block"),
     "taylor hls": ("blackman", WindowSpec(16, 32, sin_type="taylor", lut_size=12,
                                           overflow="wrap"), False, "taylor_window_block"),
+    "taylor2": ("bh7", WindowSpec(16, 32, sin_type="taylor2", lut_size=12, overflow="wrap"),
+                False, "taylor2_window_block"),
 }
 
 
@@ -1286,3 +1294,168 @@ def test_sharded_steps_across_processes_on_cards(cuda, tmp_path, backend):
                 for key, t in held.items():
                     c, b = (int(v) for v in key.rsplit("/", 1)[1].split(","))
                     assert torch.equal(t, s.shards[c][b].cpu()), key
+
+
+# --- the atan2 / FM discriminator kernel (csrc/demod_kernel.cu) ---
+
+#: (AW, P): 32-bit words (AW + P <= 32), then 64-bit words
+ATAN2_WIDTHS = [(16, 1), (20, 1), (24, 1), (31, 1), (30, 2), (32, 0), (2, 1), (31, 2), (40, 1),
+                (49, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("convention", ["cordic", "fixed"])
+@pytest.mark.parametrize("aw,p", ATAN2_WIDTHS)
+def test_atan2_kernel_matches_plain(cuda, aw, p, convention, dtype):
+    from blackman_harris_win_tpu_torch.kernels import cordic
+
+    plain = cordic.cordic_atan2_plain if convention == "cordic" else cordic.atan2_fixed_plain
+    public = cordic.cordic_atan2 if convention == "cordic" else cordic.atan2_fixed
+    cap = 32 if dtype == torch.int32 else 62
+    widths = sorted({min(aw, cap), min(aw + 3, cap), 12})
+    _build.reset_launches()
+    for iw in widths:
+        y, x = dmk.seam_words(iw, aw, np.random.default_rng(aw * 10 + p + iw), 1 << 15)
+        yd, xd = torch.from_numpy(y).to(cuda, dtype), torch.from_numpy(x).to(cuda, dtype)
+        want = plain(torch.from_numpy(y), torch.from_numpy(x), iw, aw, p)
+        assert torch.equal(dmk.atan2(yd, xd, iw, aw, p, convention).cpu(), want), iw
+        assert torch.equal(public(yd, xd, iw, aw, p).cpu(), want), iw
+    assert _build.launches["cordic_atan2"] == 2 * len(widths)
+
+
+def test_atan2_kernel_shapes(cuda):
+    from blackman_harris_win_tpu_torch.kernels import cordic
+
+    rng = np.random.default_rng(4)
+    y = rng.integers(-(1 << 15), 1 << 15, size=(3, 5, 7))
+    x = rng.integers(-(1 << 15), 1 << 15, size=(5, 1))  # broadcast
+    got = cordic.atan2_fixed(torch.from_numpy(y).to(cuda), torch.from_numpy(x).to(cuda), 16, 20)
+    want = cordic.atan2_fixed_plain(torch.from_numpy(y), torch.from_numpy(x), 16, 20)
+    assert got.shape == want.shape == (3, 5, 7) and torch.equal(got.cpu(), want)
+    assert dmk.atan2(torch.zeros(0, dtype=torch.int32, device=cuda),
+                     torch.zeros(0, dtype=torch.int32, device=cuda), 16, 20).shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("iw,aw", [(16, 20), (17, 20), (20, 24), (15, 16), (16, 31), (16, 40),
+                                   (30, 48)])
+@pytest.mark.parametrize("mode", ["conj", "phase"])
+def test_fm_demod_kernel_matches_plain(cuda, mode, iw, aw, dtype):
+    from blackman_harris_win_tpu_torch.pipeline import demod
+
+    plain = demod.fm_demod_conj_plain if mode == "conj" else demod.fm_demod_phase_plain
+    public = demod.fm_demod_conj if mode == "conj" else demod.fm_demod_phase
+    rng = np.random.default_rng(iw * aw)
+    lo, hi = -(1 << (iw - 1)), (1 << (iw - 1))
+    iq = torch.from_numpy(rng.integers(lo, hi, size=(2, 1031, 3)))
+    cases = [iq[:, :, 0], iq.mT, iq[:, :257, :].mT, iq[:, :2, 1], iq[:, :256, 2],
+             iq.permute(0, 2, 1).reshape(2, 3, 1031)]  # 1-D, strided rows, ragged tiles
+    _build.reset_launches()
+    for case in cases:
+        i, q = case[0], case[1]
+        want = plain(i, q, iw, aw)
+        got = dmk.fm_demod(i.to(cuda, dtype), q.to(cuda, dtype), iw, aw, mode)
+        assert got.shape == want.shape and torch.equal(got.cpu(), want), tuple(i.shape)
+        # the strided view as it lies on the card, and the public entry
+        id_, qd = case.to(cuda, dtype)
+        assert torch.equal(public(id_, qd, iw, aw).cpu(), want)
+    assert _build.launches["fm_demod"] == 2 * len(cases)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("aw,scale", [(20, 2.0**14), (16, 2.0**14), (24, 1000.0), (31, 2.0**14),
+                                      (40, 3.0e4)])
+def test_iq_demod_kernel_matches_plain(cuda, aw, scale, dtype):
+    from blackman_harris_win_tpu_torch.pipeline import sdr
+
+    rng = np.random.default_rng(aw)
+    y = rng.normal(size=(2, 700, 16)) + 1j * rng.normal(size=(2, 700, 16))
+    # exact halves of the quantizer's grid: round half to even on both sides
+    y[0, :50] = (rng.integers(-30000, 30000, (50, 16)) + 0.5) / scale
+    y = torch.from_numpy(y).to(dtype)
+    want = sdr.discriminate_plain(y, aw, scale)
+    _build.reset_launches()
+    got = dmk.iq_demod(y.to(cuda), aw, scale)
+    assert _build.launches["fm_demod"] == 1
+    assert got.shape == want.shape == (2, 699, 16) and torch.equal(got.cpu(), want)
+    # the plain version on the card agrees too
+    assert torch.equal(sdr.discriminate_plain(y.to(cuda), aw, scale).cpu(), want)
+
+
+def test_demod_kernels_refuse_what_they_do_not_take(cuda):
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="AW \\+ P"):
+        dmk.atan2(z, z, 16, 48, 2)
+    with pytest.raises(ValueError, match="input_width"):
+        dmk.fm_demod(z, z, 65, 20)
+    with pytest.raises(TypeError, match="complex64"):
+        dmk.iq_demod(torch.zeros((4, 2), dtype=torch.float32, device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dmk.fm_demod(z, z.cpu(), 16, 20)
+
+
+def test_sharded_sdr_chain_is_one_demod_launch_a_shard(cuda):
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import design_prototype
+    from blackman_harris_win_tpu_torch.pipeline.sdr import make_sharded_sdr_chain, sdr_chain
+
+    c, tpb = 8, 8
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=c * 4096).astype(np.float32))
+    _build.reset_launches()
+    out = unshard(make_sharded_sdr_chain(_card_mesh(cuda), c, tpb)(x.to(cuda)))
+    assert {k: v for k, v in _build.launches.items() if v} == {"fm_demod": 4}
+    halo = c * tpb
+    want = sdr_chain(torch.cat([x[-halo:], x]), design_prototype(c, tpb), c)
+    assert out.shape == want.shape
+    # exact where both channelizers quantize alike; here the same f32 ops
+    assert float((out.cpu() != want).any(-1).double().mean()) <= 0.02
+
+
+# --- the taylor2 window kernel (csrc/fastwin_kernel.cu) ---
+
+TAYLOR2_CASES = [  # (coeffs or name, pw, w, ls, overflow)
+    ("bh7", 26, 32, 12, "wrap"),  # the main path's window
+    ("bh7", 16, 32, 12, "wrap"),
+    ("bh4", 20, 17, 10, "saturate"),
+    ("bh4", 20, 16, 9, "wrap"),
+    ("bh7", 31, 32, 9, "wrap"),  # rb = 20: no P_lo term
+    ("bh7", 30, 32, 9, "saturate"),  # rb = 19: the P_lo term; W = 32 saturate clamps nothing
+    ("bh7", 32, 32, 12, "wrap"),  # the 32-bit phase ceiling
+    ("bh4", 12, 24, 12, "wrap"),  # rb < 0: ROM only
+    ("bh4", 14, 24, 12, "wrap"),  # rb = 0
+    ("bh7", 26, 32, 14, "wrap"),  # the 128 KB ROM
+    (((1 << 14) - 1,) * 3, 12, 16, 10, "saturate"),  # the W < 32 clamp
+    (((1 << 14) - 1,) * 3, 12, 16, 10, "wrap"),
+]
+
+
+@pytest.mark.parametrize("win,pw,w,ls,overflow", TAYLOR2_CASES)
+def test_taylor2_kernel_matches_plain(cuda, win, pw, w, ls, overflow):
+    spec = WindowSpec(pw, w, sin_type="taylor2", lut_size=ls, overflow=overflow)
+    q = catalog.get(win).quantized(w) if isinstance(win, str) else win
+    big = 1 << pw
+    n = _spots(pw, np.random.default_rng(pw * 100 + w + ls), min(2048, big >> 2))
+    runs = [(int(r[0]), len(r)) for r in np.split(n, np.nonzero(np.diff(n) != 1)[0] + 1)]
+    runs += [(big - 100, 200), (2**32 - 3, 9), (2**33 + 5, 1), (17, 3), (big // 2 - 1, 4097)]
+    _build.reset_launches()
+    for n0, count in runs:
+        got = fk.window_block(q, spec, n0, count, cuda).cpu()
+        want = fk.taylor2_window_plain(torch.arange(n0, n0 + count), q, spec)
+        assert torch.equal(got, want), (win, pw, w, n0, count)
+    assert _build.launches["taylor2_window_block"] == len(runs)
+    if pw <= 16:  # the whole period against the plain version on the card
+        got = fk.window_block(q, spec, 0, big, cuda)
+        assert torch.equal(got, fk.taylor2_window_plain(torch.arange(big, device=cuda), q, spec))
+        if isinstance(win, str):  # make_window routes through the kernel
+            _build.reset_launches()
+            assert torch.equal(kw.make_window(win, spec, device=cuda), got)
+            assert _build.launches["taylor2_window_block"] == 1
+
+
+def test_taylor2_kernel_refuses_what_it_does_not_take(cuda):
+    q = catalog.get("bh7").quantized(32)
+    with pytest.raises(ValueError, match="phase_width 2..32"):
+        fk.window_block(q, WindowSpec(33, 32, sin_type="taylor2"), 0, 8, cuda)
+    with pytest.raises(ValueError, match="at most 16 terms"):
+        fk.window_block((1,) * 17, WindowSpec(12, 24, sin_type="taylor2"), 0, 8, cuda)
+    assert fk.window_block(q, WindowSpec(12, 32, sin_type="taylor2"), 0, 0, cuda).shape == (0,)

@@ -20,11 +20,16 @@ PERF_BOUNDS = {
     "outer_checksum": (0.0781, 4), "outer_block": (0.0801, 4),
     "outer_checksum_f32": (0.0250, 4), "outer_checksum_comp": (0.0581, 4),
     "taylor_checksum": (0.0321, 4), "materialize": (0.3205, 4), "ddc_mixer": (0.2404, 4),
+    "fm_demod": (0.3205, 4), "cordic_atan2": (0.3205, 4), "taylor2_window_block": (0.2925, 4),
 }
 
 
+#: bench_all config 5's channelizer output: (frames, channels, AW)
+SDR_SHAPE = ((1 << 22) - 7, 16, 20)
+
+
 def _main_path_bounds():
-    return prof.kernel_bounds(N, 7, 128 << 20, 1 << 20, 1 << 19, 2 * N * 4)
+    return prof.kernel_bounds(N, 7, 128 << 20, 1 << 20, 1 << 19, 2 * N * 4, SDR_SHAPE)
 
 
 class TestRooflineAccounting:
@@ -82,6 +87,13 @@ class TestBounds:
         assert prof.cordic_window_int_ops(10, 7, 32) == 10 * prof.cordic_ops(7, 32)
         assert prof.cordic_window_int_ops(10, 7, 32, "rtl") == 10 * prof.cordic_ops(7, 31)
         assert prof.outer_window_int_ops(10, 7) == 10 * (6 * 6 + 2)
+        # the atan2: AW - 1 iterations of 6, as the CORDIC window's, 15
+        # around them; the discriminator quantizes each sample once; the
+        # taylor2 window: the cosine of each harmonic only
+        assert prof.atan2_ops(20) == 19 * 6 + 15
+        assert prof.fm_demod_conj_ops(20) == prof.atan2_ops(20) + 14
+        assert prof.taylor2_window_ops(7) == 6 * 24 + 2
+        assert prof.taylor2_window_ops(7, p_lo=False) == 6 * 21 + 2
 
     def test_op_models_are_not_the_tpu_s(self):
         # JAX counts the int32-limb datapath of its TPU kernels
