@@ -38,7 +38,7 @@ launches = {
     "outer_block": 0, "outer_block_f32": 0, "outer_block_comp": 0,
     "outer_checksum": 0, "outer_checksum_f32": 0, "outer_checksum_comp": 0,
     "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_checksum": 0,
-    "materialize": 0, "ddc_mixer": 0, "cordic_atan2": 0, "fm_demod": 0,
+    "materialize": 0, "ddc_nco_table": 0, "ddc_mixer": 0, "cordic_atan2": 0, "fm_demod": 0,
     "taylor2_window_block": 0,
 }
 
@@ -71,16 +71,21 @@ _SIGNATURES = {
     "bhw_taylor_checksum": (_P, _L, _L, _P, _I, _I, _I, _I, _P),
     # dst, src, nbytes, stream
     "bhw_materialize": (_P, _P, _L, _P),
+    # table, len, fw, pw, w, flavor, lut, nlut, gain, zshift, oshift, stream
+    "bhw_ddc_nco_table": (_P, _L, _U, _I, _I, _I, _P, _I, _L, _I, _I, _P),
     # out, x, rows, t, n0, period, fw, pw, w, flavor, lut, nlut, gain,
-    # zshift, oshift, scale, raw, stream
-    "bhw_ddc_mixer": (_P, _P, _L, _L, _L, _L, _U, _I, _I, _I, _P, _I, _L, _I, _I, _F, _I, _P),
+    # zshift, oshift, scale, raw, table (null: the compute path), table_len,
+    # stream
+    "bhw_ddc_mixer": (_P, _P, _L, _L, _L, _L, _U, _I, _I, _I, _P, _I, _L, _I, _I, _F, _I, _P,
+                      _L, _P),
     # out, y, x, n, elem, lut, aw, p, input_width, convention, stream
     "bhw_cordic_atan2": (_P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _P),
     # out, i, q, rows, t, (i strides), (q strides), elem, mode, lut, aw,
     # input_width, drop, shift, stream
     "bhw_fm_demod": (_P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _P, _I, _I, _I, _I, _P),
-    # out, y, batches, nf, c, elem, iq_scale, lut, aw, drop, shift, stream
-    "bhw_fm_demod_iq": (_P, _P, _L, _L, _L, _I, _D, _P, _I, _I, _I, _P),
+    # out, y, batches, nf, c, bins (c, or c // 2 + 1: a half spectrum), elem,
+    # iq_scale, lut, aw, drop, shift, stream
+    "bhw_fm_demod_iq": (_P, _P, _L, _L, _L, _L, _I, _D, _P, _I, _I, _I, _P),
     # out (16-byte aligned), n0, count, rom, pw, w, ls, coeffs, nterms,
     # p_hi, p_lo, saturate, stream
     "bhw_taylor2_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _U, _U, _I, _P),

@@ -15,11 +15,15 @@
 //                     (rows, T) with any strides, read in place, to
 //                     (rows, T-1) int64;
 //   demod_iq_kernel   sdr_chain's discriminator from the complex64 (or
-//                     complex128) channelizer output (batches, nf, C): the
+//                     complex128) channelizer output (batches, nf, bins): the
 //                     quantizer rint(re * iq_scale) (round half to even, as
 //                     torch.round then .to(int32)), then fm_demod_conj,
 //                     written as (batches, nf-1, C) int64 in the (frame,
-//                     channel) layout: no transpose, no int64 copy.
+//                     channel) layout: no transpose, no int64 copy.  bins is
+//                     C (the full spectrum) or C/2 + 1 (torch.fft.rfft of a
+//                     real stream): channel k > C/2 is then the conjugate of
+//                     bin C - k, quantized as rint(-im * iq_scale), which is
+//                     what the full spectrum's conjugate fill would give.
 //
 // The datapath (src/cordic_atan2.vhd:146-219, model/golden.py:cordic_atan2):
 // the quadrant from bit input_width-1 of x and y, the one's-complement abs
@@ -28,38 +32,53 @@
 // wrap(z >> P, AW) and the quadrant fix of either convention.
 //
 // What bounds it on the H100: the iterations.  At the SDR chain's AW=20 a
-// discriminator output needs 8 bytes read (its complex64 sample; the
-// neighbour's is the next output's) and 8 written, against 19 iterations
-// of some 10 integer operations: at 3.35 TB/s and the int32 issue rate the
-// operations take about 1.4 times as long as the bytes
-// (utils/profiling.py:fm_demod_conj_ops).  So the design keeps an
-// iteration short:
+// discriminator output needs 8 bytes read (its complex64 sample, or 4.5
+// from a half spectrum; the neighbour's is the next output's) and 8
+// written, against 19 iterations: their instructions, not the bytes, set
+// the time.  So the design keeps an iteration short and spreads it over
+// the integer ALU pipe (shifts, logic) and the FMA pipe (IMAD), which
+// issue 64 lanes a clock an SM each:
 //
-// - The state sits at the top of a word: X = x << (B - iw) for a B-bit
-//   word (B = 32 while iw <= 32, else 64).  An add of two such words wraps
-//   at iw bits by itself, so the reference's per-add wrap costs nothing;
-//   the shifted operand (X >> i) has its low B-iw bits cleared (one AND), so
-//   no fraction bit carries into the state.  The wrap does fire: with P=1
-//   the state reaches 1.16 * 2^(iw-1) near |x| == |y| (the CORDIC gain 1.647
-//   times sqrt 2), and tests/test_torch_demod_kernel.py holds a case where
-//   it does.
-// - Steering by d = +-1 (the sign of y, or 1): x + d*(y >> i) is one IMAD in
-//   the 32-bit word; the 64-bit word negates by xor and subtract instead.
+// - The state sits at the top of a word: X = x << sh, sh = B - iw, for a
+//   B-bit word (B = 32 while iw <= 32, else 64).  An add of two such words
+//   wraps at iw bits by itself, so the reference's per-add wrap costs
+//   nothing.  The wrap does fire: with P=1 the state reaches 1.16 *
+//   2^(iw-1) near |x| == |y| (the CORDIC gain 1.647 times sqrt 2), and
+//   tests/test_torch_demod_kernel.py holds a case where it does.
+// - 32-bit words: the shifted operand floor(x / 2^i) << sh is the shift
+//   pair (X >> (i + sh)) << sh, and its left shift folds into the steering
+//   product: with m the sign mask of y (0 or all ones) and d = +-1 its
+//   steering, d << sh = m * 2^(sh+1) + 2^sh (one IMAD), X += (d << sh) *
+//   (Y >> (i + sh)) and Y -= (d << sh) * (X >> (i + sh)) are one shift and
+//   one IMAD each.  z, which steers nothing, is zbase + sum m_i * (-2
+//   lut[i]) (zbase = -sum lut[i]), one IMAD an iteration.  The sign and the
+//   two shifts issue on the ALU pipe, the four IMAD on the FMA pipe; with
+//   the negated operand of Y's update and the test that ends the loop at
+//   AW-1, an iteration is 11 SASS instructions (chip_smoke.py prints them
+//   by pipe).
+// - 64-bit words: the shifted operand is (X >> i) with its low sh bits
+//   cleared (one AND a word), steered by a xor and subtract with m.
 // - z needs no wrap: |z| <= sum lut[i] < 0.56 * 2^(iw-1) on every path.
 // - The iterations unroll at compile time up to the word's most (31 or 48)
-//   and stop at AW-1 by a uniform branch: every shift count is an
-//   immediate and lut[i] a constant-bank operand.
+//   and stop at AW-1 by a uniform branch: lut[i] and the steps are
+//   constant-bank operands.
 // - All wrapping adds, negations and the 32-bit conjugate products are done
 //   in unsigned types (signed overflow is undefined); right shifts of
 //   negative values are arithmetic under nvcc.
 //
-// Grids: atan2 and the complex front end walk their outputs in a grid-
-// stride loop, one output a thread, so each warp's loads and stores are
-// coalesced (the I/Q front end reads frame f and f+1 of a channel, C
-// samples apart: the second read hits L1/L2).  demod_int puts a row on
-// blockIdx.y and T on blockIdx.x; in phase mode a block of kThreads threads
-// computes kThreads angles and writes the kThreads-1 differences between
-// them, so each angle is computed once (plus one a block).
+// Grids: atan2 walks its outputs in a grid-stride loop, one output a
+// thread, so each warp's loads and stores are coalesced.  The complex front
+// end gives each thread a strip of consecutive frames of one channel: it
+// reads and quantizes each sample once, carries it in registers to the next
+// output and has the next sample's load in flight while it computes this
+// one; consecutive lanes take consecutive channels, then the next strip, so
+// each warp's loads and stores are whole 32-byte sectors (a 128-byte line
+// at 16 channels), and the strip length is chosen so the grid holds at
+// least one full load of the card (2048 threads an SM), within 4 to 64
+// frames.  demod_int puts a row on blockIdx.y and T on blockIdx.x; in
+// phase mode a block of kThreads threads computes kThreads angles and
+// writes the kThreads-1 differences between them, so each angle is
+// computed once (plus one a block).
 
 #include <climits>
 #include <cstdint>
@@ -73,12 +92,16 @@ typedef unsigned long long u64;
 
 constexpr int kThreads = 256;
 constexpr int kMaxLut = 48;  // LUT_ATAN_PI entries: AW - 1 <= 48
+constexpr int kThreadsPerSm = 2048;
+constexpr i64 kMinStrip = 4, kMaxStrip = 64;  // frames a thread of demod_iq walks
 
 enum Convention : int { kCordic = 0, kFixed = 1 };  // cordic_atan2, atan2_fixed
 enum Mode : int { kConj = 0, kPhase = 1 };          // fm_demod_conj, fm_demod_phase
 
 struct Params {
   i64 lut[kMaxLut];  // LUT_ATAN_PI[i] >> (49 - AW - P), i < AW - 1
+  i64 zstep[kMaxLut];  // -2 lut[i]
+  i64 zbase;  // -sum lut[i], i < AW - 1
   int aw;            // angle width AW
   int p;             // guard bits P
   int in_sign;       // min(input_width, 64) - 1: the quadrant's bit
@@ -110,22 +133,31 @@ __device__ __forceinline__ i64 atan2_word(i64 y, i64 x, const Params& P) {
   const i64 sx = (x >> P.in_sign) & 1, sy = (y >> P.in_sign) & 1;
   const int quadrant = (int)((sx << 1) | sy);
   const i64 mask_lo = (1ll << (P.aw - 1)) - 1;
-  const U keep = ~(U)0 << sh;
   U xs = (U)((x ^ -sx) & mask_lo) << sh;  // one's-complement abs, low AW-1 bits
   U ys = (U)((y ^ -sy) & mask_lo) << sh;
-  U z = 0;
+  U z;
   const int niter = P.aw - 1;
+  if constexpr (B == 32) {
+    const U p2 = (U)1 << sh, p2x2 = p2 << 1;
+    z = (U)P.zbase;
 #pragma unroll
-  for (int i = 0; i < Word<S>::kMaxIter; ++i) {
-    if (i >= niter) break;
-    const U xi = (U)((S)xs >> i) & keep, yi = (U)((S)ys >> i) & keep;
-    const U lut = (U)(S)P.lut[i];
-    if constexpr (B == 32) {
-      const U d = (U)(((S)ys >> (B - 1)) | 1);  // +1 for y >= 0, -1 below
-      xs += d * yi;
-      ys -= d * xi;
-      z -= d * lut;
-    } else {
+    for (int i = 0; i < Word<S>::kMaxIter; ++i) {
+      if (i >= niter) break;
+      const U m = (U)((S)ys >> (B - 1));  // 0 for y >= 0, all ones below
+      const U dsh = m * p2x2 + p2;        // d << sh, d = +-1
+      const U xa = (U)((S)xs >> (i + sh)), ya = (U)((S)ys >> (i + sh));
+      xs += dsh * ya;
+      ys -= dsh * xa;
+      z += m * (U)P.zstep[i];
+    }
+  } else {
+    const U keep = ~(U)0 << sh;
+    z = 0;
+#pragma unroll
+    for (int i = 0; i < Word<S>::kMaxIter; ++i) {
+      if (i >= niter) break;
+      const U xi = (U)((S)xs >> i) & keep, yi = (U)((S)ys >> i) & keep;
+      const U lut = (U)(S)P.lut[i];
       const U m = (U)((S)ys >> (B - 1));  // 0 for y >= 0, all ones below
       xs += (yi ^ m) - m;
       ys -= (xi ^ m) - m;
@@ -148,15 +180,22 @@ __device__ __forceinline__ i64 atan2_word(i64 y, i64 x, const Params& P) {
   return (i64)((u64)out << up) >> up;  // wrap to AW bits
 }
 
-// the conjugate-product discriminator of samples (i0, q0) -> (i1, q1):
-// atan2_fixed(im >> shift, re >> shift, AW, AW), products in wrapping
-// 32-bit arithmetic on the inputs re-quantized by >> drop
+// a sample of the conjugate-product discriminator: I and Q re-quantized by
+// >> drop, as the 32-bit words its products take
+struct Iq {
+  unsigned a, b;
+};
+
+__device__ __forceinline__ Iq requant(i64 i, i64 q, const Params& P) {
+  return {(unsigned)(i >> P.drop), (unsigned)(q >> P.drop)};
+}
+
+// the discriminator of samples s0 -> s1: atan2_fixed(im >> shift, re >>
+// shift, AW, AW) of the products in wrapping 32-bit arithmetic
 template <typename S>
-__device__ __forceinline__ i64 conj_word(i64 i0, i64 q0, i64 i1, i64 q1, const Params& P) {
-  const unsigned a0 = (unsigned)(i0 >> P.drop), b0 = (unsigned)(q0 >> P.drop);
-  const unsigned a1 = (unsigned)(i1 >> P.drop), b1 = (unsigned)(q1 >> P.drop);
-  const int re = (int)(a1 * a0 + b1 * b0);
-  const int im = (int)(b1 * a0 - a1 * b0);
+__device__ __forceinline__ i64 conj_word(Iq s0, Iq s1, const Params& P) {
+  const int re = (int)(s1.a * s0.a + s1.b * s0.b);
+  const int im = (int)(s1.b * s0.a - s1.a * s0.b);
   return atan2_word<S>((i64)(im >> P.shift), (i64)(re >> P.shift), P);
 }
 
@@ -188,8 +227,9 @@ demod_int_kernel(i64* __restrict__ out, const T* __restrict__ i, const T* __rest
     if constexpr (MODE == kConj) {
       const i64 j = (i64)blockIdx.x * kThreads + threadIdx.x;
       if (j < tout) {
-        o[j] = conj_word<S>((i64)__ldg(ir + j * L.it), (i64)__ldg(qr + j * L.qt),
-                            (i64)__ldg(ir + (j + 1) * L.it), (i64)__ldg(qr + (j + 1) * L.qt), P);
+        o[j] = conj_word<S>(requant((i64)__ldg(ir + j * L.it), (i64)__ldg(qr + j * L.qt), P),
+                            requant((i64)__ldg(ir + (j + 1) * L.it),
+                                    (i64)__ldg(qr + (j + 1) * L.qt), P), P);
       }
     } else {
       // this block's angles at t0 + k, k < kThreads; output j = t0 + k - 1
@@ -214,7 +254,12 @@ bool fill(Params& P, const i64* lut, int aw, int p, int input_width, int convent
   if (aw < 2 || p < 0 || aw + p > 49 || input_width < 1 || input_width > 64) return false;
   if (drop < 0 || drop > 63 || shift < 0 || shift > 31) return false;
   if (convention != kCordic && convention != kFixed) return false;
-  for (int k = 0; k < kMaxLut; ++k) P.lut[k] = k < aw - 1 ? lut[k] : 0;
+  P.zbase = 0;
+  for (int k = 0; k < kMaxLut; ++k) {
+    P.lut[k] = k < aw - 1 ? lut[k] : 0;
+    P.zstep[k] = -2 * P.lut[k];
+    P.zbase -= P.lut[k];
+  }
   P.aw = aw;
   P.p = p;
   P.in_sign = input_width - 1;
@@ -240,32 +285,67 @@ __device__ __forceinline__ int quantize(double v, const Params& P) {
   return __double2int_rn(__dmul_rn(v, P.iq_scale));
 }
 
+// the strips of demod_iq: the outputs (batches, nf-1, c) as items of
+// strip consecutive frames of one channel, item g = (batch, strip, channel)
+// with the channel fastest
+struct Strips {
+  i64 nf, c, bins;  // frames, channels, bins a frame of the input
+  i64 strip, nstrips, items;
+};
+
+// one input sample of channel k, quantized and re-quantized; cj: the
+// conjugate of its bin
+template <typename C>
+__device__ __forceinline__ Iq sample(C v, bool cj, const Params& P) {
+  return requant(quantize(v.x, P), quantize(cj ? -v.y : v.y, P), P);
+}
+
 template <typename C, typename S>
 __global__ void __launch_bounds__(kThreads)
-demod_iq_kernel(i64* __restrict__ out, const C* __restrict__ y, i64 batches, i64 nf, i64 c,
-                const Params P) {
-  const i64 per = (nf - 1) * c;  // outputs a batch
-  for (i64 b = blockIdx.y; b < batches; b += gridDim.y) {
-    const C* yb = y + b * nf * c;
-    i64* ob = out + b * per;
-    for (i64 e = (i64)blockIdx.x * kThreads + threadIdx.x; e < per;
-         e += (i64)gridDim.x * kThreads) {
-      const C z0 = yb[e], z1 = yb[e + c];
-      ob[e] = conj_word<S>(quantize(z0.x, P), quantize(z0.y, P), quantize(z1.x, P),
-                           quantize(z1.y, P), P);
-    }
+demod_iq_kernel(i64* __restrict__ out, const C* __restrict__ y, const Strips L, const Params P) {
+  const i64 g = (i64)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= L.items) return;
+  const i64 k = g % L.c, sb = g / L.c;
+  const i64 s = sb % L.nstrips, b = sb / L.nstrips;
+  const i64 f0 = s * L.strip;
+  const i64 f1 = f0 + L.strip < L.nf - 1 ? f0 + L.strip : L.nf - 1;  // outputs f0 .. f1-1
+  const bool cj = k >= L.bins;  // a half spectrum's channel past C/2
+  const C* yk = y + b * L.nf * L.bins + (cj ? L.c - k : k);
+  i64* o = out + (b * (L.nf - 1) + f0) * L.c + k;
+  Iq prev = sample(__ldg(yk + f0 * L.bins), cj, P);
+  C next = __ldg(yk + (f0 + 1) * L.bins);
+  for (i64 f = f0; f < f1; ++f) {
+    const C cur = next;
+    if (f + 2 <= f1) next = __ldg(yk + (f + 2) * L.bins);  // in flight during this output
+    const Iq s1 = sample(cur, cj, P);
+    *o = conj_word<S>(prev, s1, P);
+    o += L.c;
+    prev = s1;
   }
 }
 
 template <typename S>
-int launch_iq(int elem, i64* out, const void* y, i64 batches, i64 nf, i64 c, const Params& P,
-              cudaStream_t st) {
-  const dim3 grid(stride_blocks((nf - 1) * c), (unsigned)(batches < 65535 ? batches : 65535));
+int launch_iq(int elem, i64* out, const void* y, i64 batches, i64 nf, i64 c, i64 bins,
+              const Params& P, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  Strips L{nf, c, bins, 0, 0, 0};
+  const i64 outs = batches * (nf - 1) * c;
+  const i64 target = (i64)sms * kThreadsPerSm;
+  L.strip = outs / target;  // rounded down: at least one full load unless clamped
+  L.strip = L.strip < kMinStrip ? kMinStrip : (L.strip > kMaxStrip ? kMaxStrip : L.strip);
+  if (L.strip > nf - 1) L.strip = nf - 1;
+  L.nstrips = (nf - 1 + L.strip - 1) / L.strip;
+  L.items = batches * L.nstrips * c;
+  const i64 blocks = (L.items + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (elem == 8) {
-    demod_iq_kernel<float2, S><<<grid, kThreads, 0, st>>>(out, (const float2*)y, batches, nf, c, P);
+    demod_iq_kernel<float2, S><<<(unsigned)blocks, kThreads, 0, st>>>(out, (const float2*)y, L, P);
   } else {
-    demod_iq_kernel<double2, S><<<grid, kThreads, 0, st>>>(out, (const double2*)y, batches, nf, c,
-                                                          P);
+    demod_iq_kernel<double2, S><<<(unsigned)blocks, kThreads, 0, st>>>(out, (const double2*)y, L,
+                                                                      P);
   }
   return (int)cudaGetLastError();
 }
@@ -341,19 +421,21 @@ int bhw_fm_demod(void* out, const void* i, const void* q, i64 rows, i64 t, i64 i
                    : launch_demod<i64, i64>(mode, o, i, q, L, P, st);
 }
 
-// out: (batches, nf - 1, c) int64; y: (batches, nf, c) complex64 (elem = 8)
-// or complex128 (elem = 16), both contiguous.  The quantizer rint(. *
-// iq_scale) to int32, then fm_demod_conj at AW (drop, shift as above).
-int bhw_fm_demod_iq(void* out, const void* y, i64 batches, i64 nf, i64 c, int elem,
+// out: (batches, nf - 1, c) int64; y: (batches, nf, bins) complex64 (elem =
+// 8) or complex128 (elem = 16), both contiguous; bins = c, or c / 2 + 1 for
+// the half spectrum of a real stream (channel k > c / 2 is the conjugate of
+// bin c - k).  The quantizer rint(. * iq_scale) to int32, then
+// fm_demod_conj at AW (drop, shift as above).
+int bhw_fm_demod_iq(void* out, const void* y, i64 batches, i64 nf, i64 c, i64 bins, int elem,
                     double iq_scale, const i64* lut, int aw, int drop, int shift, void* stream) {
   Params P;
   if (!fill(P, lut, aw, 1, aw, kFixed, drop, shift, iq_scale) || batches < 1 || nf < 2 || c < 1 ||
-      (elem != 8 && elem != 16)) {
+      (bins != c && bins != c / 2 + 1) || (elem != 8 && elem != 16)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  return aw + 1 <= 32 ? launch_iq<int>(elem, (i64*)out, y, batches, nf, c, P, st)
-                      : launch_iq<i64>(elem, (i64*)out, y, batches, nf, c, P, st);
+  return aw + 1 <= 32 ? launch_iq<int>(elem, (i64*)out, y, batches, nf, c, bins, P, st)
+                      : launch_iq<i64>(elem, (i64*)out, y, batches, nf, c, bins, P, st);
 }
 
 }  // extern "C"

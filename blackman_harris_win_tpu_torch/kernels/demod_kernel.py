@@ -14,9 +14,10 @@ points use it:
   I/Q (..., T) to (..., T-1) int64, the inputs read in place at their
   strides (counter ``fm_demod``);
 - :func:`iq_demod`: ``sdr_chain``'s discriminator from the complex
-  channelizer output (..., nf, C): the quantizer ``round(y * iq_scale)`` to
-  int32 and ``fm_demod_conj`` in one pass, (..., nf-1, C) int64 out
-  (counter ``fm_demod``).
+  channelizer output (..., nf, C), or its half spectrum (..., nf, C//2 + 1)
+  for a real stream: the quantizer ``round(y * iq_scale)`` to int32 and
+  ``fm_demod_conj`` in one pass, (..., nf-1, C) int64 out (counter
+  ``fm_demod``).
 
 They replace the jnp of ``blackman_harris_win_tpu/kernels/cordic.py:275-360``
 and ``pipeline/demod.py:30-57`` (no ``pallas_call``).  Each takes CUDA
@@ -151,18 +152,28 @@ def fm_demod(i: torch.Tensor, q: torch.Tensor, input_width: int, angle_width: in
     return out
 
 
-def iq_demod(y: torch.Tensor, angle_width: int = 20, iq_scale: float = 2.0**14) -> torch.Tensor:
+def iq_demod(y: torch.Tensor, angle_width: int = 20, iq_scale: float = 2.0**14,
+             n_channels: int | None = None) -> torch.Tensor:
     """``sdr_chain``'s discriminator of a complex64/complex128 CUDA tensor
-    (..., nf, C): I/Q = round(y * iq_scale) as int32, then ``fm_demod_conj``
-    at IQ_WIDTH over the frames of each channel, as (..., nf-1, C) int64.  A product past the int32 range has no defined plain value
-    (torch's float-to-int32 cast); the kernel saturates it."""
+    (..., nf, bins): I/Q = round(y * iq_scale) as int32, then
+    ``fm_demod_conj`` at IQ_WIDTH over the frames of each channel, as
+    (..., nf-1, C) int64.  ``bins`` is C (``n_channels``, by default the last
+    dimension: the full spectrum) or C // 2 + 1, the half spectrum of a real
+    stream (``torch.fft.rfft``), whose channels k > C / 2 the kernel reads as
+    the conjugates of bins C - k.  A product past the int32 range has no
+    defined plain value (torch's float-to-int32 cast); the kernel saturates
+    it."""
     dev = _card_device(y)
     if y.dtype not in (torch.complex64, torch.complex128):
         raise TypeError(f"the I/Q discriminator takes complex64 or complex128, got {y.dtype}")
     if y.dim() < 2:
         raise ValueError("the I/Q discriminator takes (..., n_frames, n_channels)")
     _check_widths(angle_width, 1, angle_width)
-    nf, c = y.shape[-2], y.shape[-1]
+    nf, bins = y.shape[-2], y.shape[-1]
+    c = bins if n_channels is None else int(n_channels)
+    if bins not in (c, c // 2 + 1):
+        raise ValueError(f"{bins} bins a frame is neither the {c} channels nor their half "
+                         f"spectrum ({c // 2 + 1})")
     out = torch.empty((*y.shape[:-2], max(nf - 1, 0), c), dtype=torch.int64, device=dev)
     if not out.numel():
         return out
@@ -170,6 +181,6 @@ def iq_demod(y: torch.Tensor, angle_width: int = 20, iq_scale: float = 2.0**14) 
     drop, shift = conj_shifts(IQ_WIDTH, angle_width)
     lut = atan2_lut(angle_width, 1)
     _launch("fm_demod", "bhw_fm_demod_iq", dev, out.data_ptr(), src.data_ptr(),
-            src.numel() // (nf * c), nf, c, src.element_size(), float(iq_scale),
+            src.numel() // (nf * bins), nf, c, bins, src.element_size(), float(iq_scale),
             lut.ctypes.data, angle_width, drop, shift)
     return out

@@ -7,7 +7,9 @@ C:
 - the polyphase decomposition is a reshape;
 - the C branch FIRs are one grouped ``conv1d`` (groups = C) with flipped
   taps (``conv1d`` correlates), in full fp32;
-- the cross-branch DFT is ``torch.fft.fft`` along the branch axis.
+- the cross-branch DFT is ``torch.fft.fft`` along the branch axis; the SDR
+  chain takes a real stream's half spectrum (``torch.fft.rfft``,
+  :func:`channel_bins`), which its discriminator kernel reads in place.
 
 Channel k of frame m:  Y[m, k] = sum_p e^{-j 2 pi p k / C} *
 (sum_t h_p[t] x[(m - t) C + p])  (h_p[t] = h[t C + p]); a tone at +k/C of
@@ -48,6 +50,33 @@ def polyphase_channelize(x, prototype, n_channels: int, device=None):
     T // C - (taps_per_branch - 1) (valid region).  Output channel k is
     centered at f = k/C * fs.
     """
+    # DFT across branches (e^{-j 2 pi p k / C}) so channel k sits at +k/C
+    return torch.fft.fft(_branches(x, prototype, n_channels, device), dim=-1)
+
+
+def channel_bins(x, prototype, n_channels: int, device=None):
+    """The channelizer's output as the SDR chain's discriminator reads it:
+    for a real stream the half spectrum ``torch.fft.rfft`` gives, (...,
+    n_frames, C//2 + 1), whose channel k > C/2 is the conjugate of bin C - k
+    (:func:`full_spectrum`); for a complex stream :func:`polyphase_channelize`'s
+    (..., n_frames, C).  The half spectrum spares the full one's conjugate
+    fill, which is a pass of its own over the output."""
+    y = _branches(x, prototype, n_channels, device)
+    return torch.fft.fft(y, dim=-1) if y.is_complex() else torch.fft.rfft(y, dim=-1)
+
+
+def full_spectrum(y, n_channels: int):
+    """The (..., n_frames, C) spectrum of :func:`channel_bins`' output: a
+    half spectrum with the conjugates of bins C - k as channels k > C/2,
+    the fill ``torch.fft.fft`` of a real input makes; a full one as it is."""
+    if y.shape[-1] == n_channels:
+        return y
+    return torch.cat([y, y[..., 1:(n_channels - 1) // 2 + 1].flip(-1).conj()], dim=-1)
+
+
+def _branches(x, prototype, n_channels: int, device):
+    """The polyphase branch FIRs of x: (..., T) -> (..., n_frames, C), real
+    or complex as x."""
     c = n_channels
     h = np.asarray(prototype, np.float64)
     if h.size % c:
@@ -73,8 +102,5 @@ def polyphase_channelize(x, prototype, n_channels: int, device=None):
 
     with _full_fp32():
         if xp.is_complex():
-            y = torch.complex(branches_conv(xp.real), branches_conv(xp.imag))
-        else:
-            y = branches_conv(xp)
-    # DFT across branches (e^{-j 2 pi p k / C}) so channel k sits at +k/C
-    return torch.fft.fft(y, dim=-1)
+            return torch.complex(branches_conv(xp.real), branches_conv(xp.imag))
+        return branches_conv(xp)

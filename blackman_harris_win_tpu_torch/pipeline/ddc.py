@@ -15,7 +15,8 @@
 
 On the card the quantizer, the NCO, the mixer and the f32 rescale are one
 kernel launch (:func:`mixer`, ``csrc/ddc_kernel.cu``; the JAX package
-leaves the same jnp to XLA's fusion); on the CPU they run as its plain
+leaves the same jnp to XLA's fusion), after a short one that tabulates the
+NCO over its period where that period is short; on the CPU they run as its plain
 version, :func:`mixer_plain`, built on :func:`nco_iq` and
 :func:`mix_iq_int` in int64/int32 torch ops.  :func:`make_sharded_ddc` runs
 the DDC over a device mesh (``dist/``).
@@ -70,6 +71,17 @@ def mix_iq_int(xq, n, fw: int, phase_width: int, data_width: int,
     return xq * c, xq * ns
 
 
+def nco_table_plain(fw: int, phase_width: int, data_width: int, flavor: str = "dds48",
+                    device=None) -> torch.Tensor:
+    """Plain version of the mixer kernel's table (``ddc_kernel.nco_table``):
+    the (P, 2) int32 (cos, -sin) of :func:`nco_iq` at n = 0 .. P-1, P the
+    NCO's period ``ddc_kernel.nco_period``, on ``device`` (default the
+    card)."""
+    n = torch.arange(ddc_kernel.nco_period(fw, phase_width), dtype=torch.int64,
+                     device=_build.resolve_device(device))
+    return torch.stack(nco_iq(n, fw, phase_width, data_width, flavor), dim=-1)
+
+
 def mixer_plain(x: torch.Tensor, fw: int, phase_width: int, data_width: int,
                 flavor: str = "dds48", n0: int = 0, period: int = 0, raw: bool = False):
     """Plain version of the DDC mixer kernel, in torch ops on ``x``'s
@@ -94,8 +106,9 @@ def mixer(x, fw: int, phase_width: int, data_width: int, flavor: str = "dds48",
     index below 0 takes ``+ period``: the sharded DDC's circular halo).
     Returns the (2, ..., T) float32 mixer output, or with ``raw`` the int32
     (I, Q) products.  On a CUDA tensor it is one launch of the mixer kernel
-    (``kernels/ddc_kernel.py``), which raises for what it does not take; on
-    the CPU it is :func:`mixer_plain`.  A tensor runs on its device;
+    (``kernels/ddc_kernel.py``), after one of its table kernel where the
+    NCO's period is short, and raises for what it does not take; on the CPU
+    it is :func:`mixer_plain`.  A tensor runs on its device;
     array-like input goes to ``device`` (default the card)."""
     x = _build.as_tensor(x, torch.float32, device)
     if x.device.type == "cpu":

@@ -14,7 +14,7 @@ import torch
 
 from ..dist.halo import left_halo
 from ..dist.mesh import Mesh, from_rows, local_map, shard
-from .channelizer import design_prototype, polyphase_channelize
+from .channelizer import channel_bins, design_prototype, full_spectrum
 from ..kernels.demod_kernel import IQ_WIDTH, iq_demod
 from .demod import fm_demod_conj_plain
 
@@ -27,13 +27,18 @@ def sdr_chain(x, prototype, n_channels: int, angle_width: int = 20,
     instantaneous frequency per channel).
 
     ``iq_scale`` is a fixed quantization gain; size it so channel envelopes
-    stay within +-2^15.  On a card the quantizer and the discriminator are
-    one launch of the demod kernel (``demod_kernel.iq_demod``).
+    stay within +-2^15.  A real stream's channelizer output is its half
+    spectrum (``channelizer.channel_bins``); on a card the quantizer and the
+    discriminator are one launch of the demod kernel
+    (``demod_kernel.iq_demod``), which reads the channels past C/2 as the
+    conjugates of their bins, and on the CPU the plain discriminator takes
+    the conjugate fill (``channelizer.full_spectrum``): both are the chain
+    over ``polyphase_channelize``'s full spectrum, bit for bit.
     """
-    y = polyphase_channelize(x, prototype, n_channels, device)  # (nf, C)
+    y = channel_bins(x, prototype, n_channels, device)  # (nf, C//2 + 1) or (nf, C)
     if y.device.type == "cuda":
-        return iq_demod(y, angle_width, iq_scale)
-    return discriminate_plain(y, angle_width, iq_scale)
+        return iq_demod(y, angle_width, iq_scale, n_channels)
+    return discriminate_plain(full_spectrum(y, n_channels), angle_width, iq_scale)
 
 
 def discriminate_plain(y, angle_width: int = 20, iq_scale: float = 2.0**14):

@@ -91,16 +91,26 @@ def outer_window_int_ops(n_samples: int, n_terms: int) -> int:
     return n_samples * ((n_terms - 1) * 6 + 2)
 
 
-def ddc_mixer_ops(data_width: int) -> int:
-    """Operations per sample of the DDC mixer kernel (``csrc/ddc_kernel.cu``):
-    the quantizer (scale product, round-to-int: 2), the phase (index add,
-    product, mask: 3), the pre-rotation (quadrant, low part, sign
+def nco_ops(data_width: int) -> int:
+    """Operations per (cos, -sin) pair of the DDC's NCO (``csrc/ddc_kernel.cu``):
+    the phase (product, mask: 2), the pre-rotation (quadrant, low part, sign
     extension, start-angle select, start x and y selects: 6), W CORDIC
     iterations of 2 shifts, 3 adds/subtracts and a sign test, less the last
-    z step (6W - 1), the output shifts (2), the two mixer products (2) and
-    the rescale (2 conversions, 2 products: 4).  The dds48 flavor's 48-bit
-    state counts one operation a step, as every model here does."""
-    return 6 * data_width - 1 + 19
+    z step (6W - 1), the output shifts (2).  The dds48 flavor's 48-bit state
+    counts one operation a step, as every model here does."""
+    return 6 * data_width - 1 + 10
+
+
+def ddc_mixer_ops(data_width: int) -> int:
+    """Operations per sample of the DDC mixer kernel computing its NCO:
+    :func:`nco_ops` and the sample's own work, :data:`DDC_MIX_OPS`."""
+    return nco_ops(data_width) + DDC_MIX_OPS
+
+
+#: operations per sample of the DDC mixer besides its NCO: the index add
+#: (1), the quantizer (scale product, round-to-int: 2), the two mixer
+#: products (2) and the rescale (2 conversions, 2 products: 4)
+DDC_MIX_OPS = 9
 
 
 def atan2_ops(angle_width: int) -> int:
@@ -138,25 +148,31 @@ def taylor2_window_ops(n_terms: int, p_lo: bool = True) -> int:
 
 
 def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
-                  mat_bytes: int, sdr_shape: tuple[int, int, int],
+                  mat_bytes: int, sdr_shape: tuple[int, int, int], ddc_period: int,
                   ddc_width: int = 16) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
     path's shapes (``chip_smoke.py``): each input read once, each output
     written once (tables and scalars are negligible); integer operations at
     INT32_OPS, float32 ones at F32_FLOPS.  ``mat_bytes`` is the DDC's (2, T)
     float32 mixer output, which ``materialize`` copies and the DDC mixer
-    kernel writes from T float32 samples at data width ``ddc_width``.
-    ``sdr_shape`` = (frames, channels, AW) of the SDR chain's complex64
-    channelizer output, which ``fm_demod`` reads once and turns into
-    (frames - 1, channels) int64; ``cordic_atan2`` takes the int32 (Q, I)
-    of that output, one angle of each, int64 out.
+    kernel writes from T float32 samples at data width ``ddc_width``; its
+    NCO has period ``ddc_period`` in the sample index, so the function needs
+    min(period, T) NCO evaluations (``ddc_nco_table`` writes them as int32
+    pairs), and each sample's own work.  ``sdr_shape`` = (frames, channels,
+    AW) of the SDR chain's complex64 channelizer output, which ``fm_demod``
+    reads once and turns into (frames - 1, channels) int64 (``fm_demod_half``:
+    the same from the half spectrum of a real stream, frames x (channels//2
+    + 1) bins); ``cordic_atan2`` takes the int32 (Q, I) of that output, one
+    angle of each, int64 out.
     ``taylor2_window_block`` writes the n-sample int32 window at n_terms
     terms, at LS = 12 (its correction takes the P_lo term)."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
+    n_nco = min(ddc_period, t_ddc)
     nf_sdr, c_sdr, aw_sdr = sdr_shape
     n_iq, n_disc = nf_sdr * c_sdr, max(nf_sdr - 1, 0) * c_sdr
+    disc_ops = n_disc * fm_demod_conj_ops(aw_sdr)
     # the fewest float32 operations per sample (an FMA counts two): f32, two
     # FMAs per harmonic; comp, 6 FMAs per compensated harmonic (2 for s, 4
     # for e) and 2 per plain one: comp_window_flops less its 6 for the host's
@@ -184,8 +200,11 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         # Blackman: two generator calls, a_k * cos, shift, accumulate, wrap
         "taylor_window_block": bound(4 * n, n * (2 * (TAYLOR_OPS + 3) + 2)),
         "materialize": bound(2 * mat_bytes),
-        "ddc_mixer": bound(4 * t_ddc + mat_bytes, t_ddc * ddc_mixer_ops(ddc_width)),
-        "fm_demod": bound(8 * nf_sdr * c_sdr + 8 * n_disc, n_disc * fm_demod_conj_ops(aw_sdr)),
+        "ddc_nco_table": bound(8 * n_nco, n_nco * nco_ops(ddc_width)),
+        "ddc_mixer": bound(4 * t_ddc + mat_bytes,
+                           n_nco * nco_ops(ddc_width) + t_ddc * DDC_MIX_OPS),
+        "fm_demod": bound(8 * nf_sdr * c_sdr + 8 * n_disc, disc_ops),
+        "fm_demod_half": bound(8 * nf_sdr * (c_sdr // 2 + 1) + 8 * n_disc, disc_ops),
         "cordic_atan2": bound(16 * n_iq, n_iq * atan2_ops(aw_sdr)),
         "taylor2_window_block": bound(4 * n, n * taylor2_window_ops(n_terms)),
     }

@@ -30,17 +30,21 @@ user calls, at the repository's real sizes:
    Hamming window;
 7. the DDC at bench_all config 21: 2^26 float32 samples, fc = 1/8, decim 4,
    64 taps (``design_lowpass(64, 0.2)``), dds48 NCO at pw=20 W=16; its
-   quantizer, NCO, integer mixer and f32 rescale are one launch of the
-   mixer kernel (``ddc_mixer``), and its decimating FIR takes the bulk
-   branch, which runs the materialization kernel (kernel 7) before the
-   strided conv: exactly one launch of each;
-8. the SDR chain (the channelizer's grouped conv1d and FFT, then one
-   launch of the discriminator kernel ``fm_demod``, which quantizes the
-   channel I/Q and runs the conjugate-product CORDIC atan2; no DDC, so no
-   mixer launch) at the multichip dryrun's stage-4 configuration (4
-   channels, 6 taps per branch, AW=20) over a 2^22-sample tone, a latency
-   check, and at bench_all config 5 (16 channels, 8 taps per branch) over
-   16 * 2^22 noise samples: exactly one ``fm_demod`` launch a call; then
+   NCO repeats every 8 samples, so one launch of the table kernel
+   (``ddc_nco_table``) writes those 8 (cos, -sin) pairs, and its quantizer,
+   table read, integer mixer and f32 rescale are one launch of the mixer
+   kernel (``ddc_mixer``); its decimating FIR takes the bulk branch, which
+   runs the materialization kernel (kernel 7) before the strided conv:
+   exactly one launch of each;
+8. the SDR chain (the channelizer's grouped conv1d and the half-spectrum
+   FFT ``torch.fft.rfft`` of its real branches, then one launch of the
+   discriminator kernel ``fm_demod``, which reads the C/2 + 1 bins in
+   place, the channels past C/2 as conjugates, quantizes the channel I/Q
+   and runs the conjugate-product CORDIC atan2; no DDC, so no mixer
+   launch) at the multichip dryrun's stage-4 configuration (4 channels, 6
+   taps per branch, AW=20) over a 2^22-sample tone, a latency check, and at
+   bench_all config 5 (16 channels, 8 taps per branch) over 16 * 2^22 noise
+   samples: exactly one ``fm_demod`` launch a call; then
    the demod module's other entry points on config 5's quantized channel
    I/Q: ``atan2_fixed`` (one launch of ``cordic_atan2``) and
    ``fm_demod_phase`` (one of ``fm_demod``);
@@ -76,9 +80,10 @@ user calls, at the repository's real sizes:
    against the single-device stft of the circularly extended input); the
    sharded DDC on 7's x (mixer ints 0 LSB against the plain NCO at the
    shard seams, the output within 7's FIR bound of ``ddc()`` and of a
-   float64 FIR around the seams, one ``ddc_mixer`` and one ``materialize``
-   a shard; the mixer kernel's time at a shard's size and the sharded
-   call's device time are printed); the sharded SDR chain at config 5
+   float64 FIR around the seams, one ``ddc_nco_table``, one ``ddc_mixer``
+   and one ``materialize`` a shard; the mixer kernel's time at a shard's
+   size and the sharded call's device time are printed); the sharded SDR
+   chain at config 5
    (one ``fm_demod`` a shard; 0 LSB against ``sdr_chain`` of the circularly
    extended input, or differing only where the two channelizers round the
    int I/Q differently).  Each stage's launches must be exactly one a shard
@@ -110,12 +115,17 @@ quadrant-seam blocks, the exact checksum identities, the float windows
 against the float64 golden on every sample, the spectral floors at pw=16,
 the analyzers against a float64 reference within the derived f32 budget,
 the DDC against a float64 FIR of its exact integer mixer products, the DDC
-mixer kernel bit-equal to its plain version on phase 7's input and 0 LSB
-against the CPU plain version on random blocks (n0 up to 2^33) and around
-every quadrant seam at dds48 and scaled, pw 20/31/24, the SDR
+mixer kernel bit-equal to its plain version on the card over 2^26 samples
+on each of its paths (config 21's table of P = 8, the odd word 104857 at
+pw=20 whose table holds P = 2^20, and an odd word at pw=31, computed per
+sample), its table kernel 0 LSB against the plain NCO, and the mixer 0 LSB
+against the CPU plain version on random blocks (n0 up to 2^33) of either
+path, around every quadrant seam and on tables that hold the seams, at
+dds48 and scaled, pw 20/31/24, the SDR
 tone offset and discriminator (the config-5 output 0 LSB against the plain
-discriminator in torch ops on the card, and against the CPU plain version
-on random runs; the atan2 kernel in both conventions on int32 and int64
+discriminator in torch ops over ``torch.fft.fft``'s full spectrum on the
+card, and against the CPU plain version on random runs; the full-spectrum
+entry bit-equal to the half-spectrum one; the atan2 kernel in both conventions on int32 and int64
 words and the phase discriminator on random and seam blocks at AW
 16/20/24/31 P=1, AW 30 P=2 (32-bit words), AW 31 P=2 and AW 40 (64-bit
 words), 0 LSB against the CPU plain versions), the taylor2 window bit-equal
@@ -151,16 +161,21 @@ kernels' run walk per sample, of the stage-1 kernel's FFT body and of one
 row of each outer instantiation's walk (f32/comp: its FFMA, LDS and STG;
 int: its IMAD.WIDE, IADD3, LEA.HI, SHF, LDS and STG), with their
 local-memory instructions, and of one CORDIC iteration of the DDC mixer
-kernel (its W=17 instantiation less its W=16 one), and of the atan2 and
-taylor2 kernels (the median branch-free block: one unrolled iteration, or
-one harmonic of one sample); an int, a mixer, an atan2/discriminator or a
-taylor2 instantiation whose ptxas line shows a stack frame or spills, or
-whose SASS holds local-memory instructions, fails the run.
-The mixer kernel's time, its launches a DDC call, the DDC's device time
-and the torch-op NCO + mixer time (its plain version, a comparison row
-only) are printed for phases 7, 11 and 12, and phase 8's (none).
-The SDR chain's time at config 5 is printed with its pieces (the
-channelizer, the discriminator kernel and its plain version).  Phase 10's
+kernel's compute path (its W=17 instantiation less its W=16 one, over the
+samples a thread computes), its table pass (the row loop, per sample) and
+its table kernel, and of the atan2 and taylor2 kernels (the median
+branch-free block: one unrolled iteration, or one harmonic of one sample),
+each split into the instructions of the integer ALU pipe, the FMA pipe
+(IMAD and f32 arithmetic) and the FP64 pipe; an int, a mixer or table, an
+atan2/discriminator or a taylor2 instantiation whose ptxas line shows a
+stack frame or spills, or whose SASS holds local-memory instructions, fails
+the run.
+The mixer kernel's time on each path (beside its bound), its launches a
+DDC call, the DDC's device time and the torch-op NCO + mixer time (its
+plain version, a comparison row only) are printed for phases 7, 11 and 12,
+and phase 8's (none).  The SDR chain's time at config 5 is printed with its
+pieces (the channelizer, the discriminator kernel on the half spectrum and
+on the full one, and its plain version).  Phase 10's
 wall time per subcommand
 (file I/O included), its host steps alone and the six mode rates of
 ``windows/modes.py:MODE_GSPS`` are printed with the card's name and power
@@ -436,15 +451,27 @@ def _ddc_gates(x, bb, h, fc: float, decim: int, pw: int, w: int, rng, dev) -> di
     return {"mat_err": mat_err, "fir_err": err, "fir_bound": bound, "f_meas": f_meas}
 
 
-def _ddc_mixer_gates(x21, fc: float, pw: int, w: int, rng, dev) -> float:
+#: the mixer kernel's paths at 2^26 samples, W=16 dds48: (label, tuning
+#: word, PW); config 21 (fc = 1/8) is the main path's
+DDC_PATHS = (("config 21, table of P = 8", 1 << 17, 20),
+             ("odd word at pw=20 (fc ~ 0.1), table of P = 2^20", 104857, 20),
+             ("odd word at pw=31, computed per sample", 509168373, 31))
+
+
+def _ddc_mixer_gates(x21, pw: int, w: int, rng, dev) -> tuple[float, int]:
     """The DDC mixer kernel against its plain version: on phase 7's input
-    (2^26 samples, dds48), its f32 output bit-equal to ``mixer_plain`` on the
-    card and its raw ints 0 LSB against ``mix_iq_int`` on the card; for
-    dds48 and scaled at (pw, W) in {(20, 16), (31, 17), (24, 12)}, four
-    random 4096-sample blocks starting anywhere in [0, 2^33) and, through
-    tuning words +1 and -1, the phases s-3 .. s+3 around each quadrant seam
-    s at indices from 0 and from 2^32 - 5 on, 0 LSB against the CPU plain
-    version.  Returns the largest |difference| seen."""
+    (2^26 samples, dds48) at each of DDC_PATHS, its f32 output bit-equal to
+    ``mixer_plain`` on the card, and at config 21 its raw ints 0 LSB
+    against ``mix_iq_int`` on the card; its table kernel at the two table
+    words 0 LSB against ``nco_table_plain`` on the CPU; for dds48 and scaled
+    at (pw, W) in {(20, 16), (31, 17), (24, 12)}, four random 4096-sample
+    blocks starting anywhere in [0, 2^33) at an odd word (the compute path)
+    and at a word of period 2^10 (a table), the tables of period 4 and 8,
+    whose entries are the quadrant seams (and octants), and, through tuning
+    words +1 and -1, the phases s-3 .. s+3 around each quadrant seam s at
+    indices from 0 and from 2^32 - 5 on, 0 LSB against the CPU plain
+    version.  Returns the largest |difference| of the mixer and of the
+    table."""
     import torch
 
     from blackman_harris_win_tpu_torch.kernels import ddc_kernel
@@ -453,28 +480,39 @@ def _ddc_mixer_gates(x21, fc: float, pw: int, w: int, rng, dev) -> float:
         freq_word,
         mix_iq_int,
         mixer_plain,
+        nco_table_plain,
     )
 
     t = x21.shape[-1]
-    fw = freq_word(fc, pw)
-    got = ddc_kernel.mixer(x21, fw, pw, w, "dds48")
-    want = mixer_plain(x21, fw, pw, w, "dds48")
-    err = float((got - want).abs().max())
-    _require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-             f"ddc_mixer: f32 output differs from mixer_plain on the card ({err:.3e})")
-    del got, want
+    err, err_table = 0.0, 0
+    for what, fw, pw_ in DDC_PATHS:
+        got = ddc_kernel.mixer(x21, fw, pw_, w, "dds48")
+        want = mixer_plain(x21, fw, pw_, w, "dds48")
+        err = max(err, float((got - want).abs().max()))
+        _require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                 f"ddc_mixer {what}: f32 output differs from mixer_plain on the card ({err:.3e})")
+        del got, want
+        if ddc_kernel.table_period(fw, pw_, t):
+            tab = ddc_kernel.nco_table(fw, pw_, w, "dds48", device=dev).cpu()
+            want = nco_table_plain(fw, pw_, w, "dds48", device="cpu")
+            err_table = max(err_table, int((tab - want).abs().max()))
+            _require(torch.equal(tab, want), f"ddc_nco_table {what}: differs from "
+                     "nco_table_plain on the CPU")
+    fw = DDC_PATHS[0][1]
     raw = ddc_kernel.mixer(x21, fw, pw, w, "dds48", raw=True)
     xq = torch.round(x21 * float((1 << MIX_IN_BITS) - 1)).to(torch.int32)
     mi, mq = mix_iq_int(xq, torch.arange(t, device=dev), fw, pw, w)
     _require(torch.equal(raw[0], mi) and torch.equal(raw[1], mq),
              "ddc_mixer: raw ints differ from mix_iq_int on the card")
     del raw, xq, mi, mq
-    nblocks = 0
+    nblocks, ntable = 0, 0
     for flavor in ("dds48", "scaled"):
         for pw_, w_ in ((20, 16), (31, 17), (24, 12)):
             big = 1 << pw_
             f0 = freq_word(0.2371, pw_) | 1
-            blocks = [(int(b), 4096, f0) for b in rng.integers(0, 1 << 33, size=4)]
+            blocks = [(int(b), 4096, f) for b in rng.integers(0, 1 << 33, size=4)
+                      for f in (f0, (f0 << (pw_ - 10)) % big)]
+            blocks += [(int(rng.integers(0, 1 << 33)), 4096, f) for f in (big // 4, 3 * big // 8)]
             for base in (0, 2**32 - 5):
                 for s in (0, big // 4, big // 2, 3 * big // 4):
                     blocks += [(base + (s - 3 - base) % big, 7, 1),
@@ -486,11 +524,14 @@ def _ddc_mixer_gates(x21, fc: float, pw: int, w: int, rng, dev) -> float:
                 _require(torch.equal(g, p), f"ddc_mixer {flavor} pw={pw_} W={w_}: block at "
                          f"{b0} (fw {f}) differs from the CPU plain version")
                 nblocks += 1
-    print(f"ddc_mixer: on the (2, {t}) config-21 mixer output bit-equal to mixer_plain on the "
-          f"card, raw ints 0 LSB against mix_iq_int; {nblocks} blocks (dds48 and scaled, pw 20/"
-          "31/24, W 16/17/12, random n0 in [0, 2^33), every quadrant seam +-3 from n0 0 and "
-          "2^32 - 5) 0 LSB against the CPU plain version")
-    return err
+                ntable += bool(ddc_kernel.table_period(f, pw_, n))
+    print(f"ddc_mixer: on the (2, {t}) mixer output bit-equal to mixer_plain on the card on each "
+          f"path ({'; '.join(d[0] for d in DDC_PATHS)}), the tables 0 LSB against "
+          f"nco_table_plain, raw ints 0 LSB against mix_iq_int at config 21; {nblocks} blocks "
+          f"({ntable} through a table; dds48 and scaled, pw 20/31/24, W 16/17/12, random n0 in "
+          "[0, 2^33), tables of the seams, every quadrant seam +-3 from n0 0 and 2^32 - 5) 0 "
+          "LSB against the CPU plain version")
+    return err, err_table
 
 
 def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=None) -> int:
@@ -1013,7 +1054,8 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
         step = make_sharded_ddc(m, pw, w, fc, dec, taps=h21, flavor="dds48")
         t_sh, _ = stage(
             f"ddc config 21 ({t} samples, dds48 pw{pw} w{w}, decim {dec}, {n_taps} taps)", mname,
-            {"materialize": nb, "ddc_mixer": nb}, lambda step=step: step(x21),
+            {"materialize": nb, "ddc_nco_table": nb, "ddc_mixer": nb},
+            lambda step=step: step(x21),
             lambda: ddc(x21, fc, dec, taps=h21, phase_width=pw, data_width=w, flavor="dds48"),
             ddc_gate)
         # the mixer kernel at a shard's size (its extended chunk) beside
@@ -1021,7 +1063,8 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
         xs = x21[:b + ddc_halo]
         k_ms = _time_ms(lambda: ddc_kernel.mixer(xs, fw, pw, w, "dds48"))
         p_ms = _time_ms(lambda: mixer_plain(xs, fw, pw, w, "dds48"))
-        print(f"ddc_mixer {label} phase 11 [{mname}]: {nb} launches a call (one a shard); "
+        print(f"ddc_mixer {label} phase 11 [{mname}]: {nb} launches a call (one a shard, each "
+              "after one of ddc_nco_table); "
               f"kernel {k_ms:.3f} ms a shard of {xs.numel()} samples, torch-op NCO + mixer "
               f"{p_ms:.3f} ms (plain version, comparison only); the sharded DDC {t_sh:.3f} ms "
               "a call (CUDA events, above)")
@@ -1111,7 +1154,7 @@ def _mp_steps(mesh_a, mesh_b, x, x21, x_stft) -> list:
          stft_step),
         ("istft quantized (the round trip)", ("window_block",), lambda: inv(frames["s"])),
         (f"ddc config 21 ({x21.numel()} samples, dds48 pw20 w16, decim 4, 64 taps)",
-         ("ddc_mixer", "materialize"), lambda: ddc_step(x21)),
+         ("ddc_nco_table", "ddc_mixer", "materialize"), lambda: ddc_step(x21)),
         (f"psum over channels, x {tuple(x_stft.view(2, -1).shape)} (2x2)", (), psum_step),
     ]
 
@@ -1279,7 +1322,7 @@ def _multiprocess_phase(launched: dict, dev, label: str, r: dict, seed: int) -> 
               f"bit-equal to the one-process mesh's; {msg}")
         if "ddc_mixer" in kernels:
             print(f"ddc_mixer {label} phase 12: 2 launches a call in each process (one a local "
-                  f"shard), 4 in one process")
+                  f"shard, each after one of ddc_nco_table), 4 in one process")
     print(f"phase 12: {time.perf_counter() - t0:.1f} s host clock, gates and timing included")
 
 
@@ -1443,6 +1486,31 @@ def _module_route(tmp, dev) -> dict:
 #: the window kernels' instantiations: mangled-name fragment -> datapath
 _WINDOW_INSTANCES = {"ILi0ELi0E": "i32", "ILi1ELi1E": "r2s S=1", "ILi1ELi2E": "r2s S=2",
                      "ILi2ELi0E": "i64"}
+#: csrc/ddc_kernel.cu: kPer, the samples a thread of the mixer passes takes
+DDC_SAMPLES_A_THREAD = 4
+#: SASS opcodes by the pipe that issues them on sm_90: the integer ALU pipe
+#: (shifts, logic, adds, compares, selects; 64 lanes a clock an SM), the FMA
+#: pipe (IMAD and the f32 arithmetic) and the FP64 pipe (64 lanes each);
+#: the rest (loads, stores, conversions, branches) under "other"
+SASS_PIPES = {
+    "alu": ("IADD3", "LOP3", "SHF", "SEL", "ISETP", "LEA", "PRMT", "IABS", "IMNMX", "FSEL",
+            "FSETP", "MOV", "PLOP3", "FLO", "POPC", "BMSK", "SGXT", "VIADD", "IADD"),
+    "fma": ("IMAD", "FFMA", "FMUL", "FADD", "HFMA2", "HMUL2", "HADD2"),
+    "fp64": ("DFMA", "DADD", "DMUL"),
+}
+
+
+def _pipes(ins) -> dict:
+    """Instructions of ``ins`` (SASS text without addresses) by pipe."""
+    out = dict.fromkeys((*SASS_PIPES, "other"), 0)
+    for text in ins:
+        op = re.sub(r"^@!?U?P\w+\s+", "", text.strip()).split(None, 1)[0].split(".")[0]
+        out[next((k for k, ops in SASS_PIPES.items() if op in ops), "other")] += 1
+    return out
+
+
+def _pipe_str(counts: dict, per: float = 1.0) -> str:
+    return ", ".join(f"{k} {v / per:g}" for k, v in counts.items())
 
 
 def _print_sass(lib_path) -> None:
@@ -1464,14 +1532,24 @@ def _print_sass(lib_path) -> None:
     r = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                        timeout=300)
     funcs = re.split(r"\n\s*Function : ", r.stdout)[1:]
-    mixer = {}  # (flavor, W) -> (instructions, local-memory instructions), f32 output
+    mixer = {}  # (flavor, W) -> instructions of the compute path, f32 output
     for body in funcs:
         name = body.split("\n", 1)[0].strip()
-        m = re.search(r"ddc_mixer_kernelILi([01])ELi(\d+)ELb0E", name)
-        if m:
+        if "ddc_" in name:
             ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
-            mixer[(("dds48", "scaled")[int(m.group(1))], int(m.group(2)))] = (
-                len(ins), sum(bool(re.search(r"\b(LDL|STL)\b", i)) for i in ins))
+            local = sum(bool(re.search(r"\b(LDL|STL)\b", i)) for i in ins)
+            _require(local == 0, f"{name[:80]}: {local} local-memory instructions")
+            m = re.search(r"ddc_mixer_kernelILi([01])ELi(\d+)ELb0E", name)
+            if m:
+                mixer[(("dds48", "scaled")[int(m.group(1))], int(m.group(2)))] = ins
+            elif "ddc_table_mixer_kernelILb0E" in name:
+                loop = _loop_body(body)
+                print(f"sass ddc_mixer table pass (f32 output): {len(ins)} instructions; the "
+                      f"row loop {len(loop)}, per sample ({DDC_SAMPLES_A_THREAD} a thread) "
+                      f"{_pipe_str(_pipes(loop), DDC_SAMPLES_A_THREAD)}; 0 local-memory")
+            elif (m := re.search(r"ddc_nco_table_kernelILi([01])ELi16E", name)):
+                print(f"sass ddc_nco_table {('dds48', 'scaled')[int(m.group(1))]} W=16: "
+                      f"{len(ins)} instructions ({_pipe_str(_pipes(ins))}); 0 local-memory")
             continue
         if "materialize_bulk_kernel" in name:
             at = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
@@ -1510,10 +1588,26 @@ def _print_sass(lib_path) -> None:
               f"of one chain ~ {per} instructions")
     for flavor in ("dds48", "scaled"):  # W=17 unrolls one iteration more than W=16
         if (flavor, 16) in mixer and (flavor, 17) in mixer:
-            (n16, l16), (n17, l17) = mixer[(flavor, 16)], mixer[(flavor, 17)]
-            print(f"sass ddc_mixer {flavor} (f32 output): W=16 {n16} instructions, W=17 {n17}; "
-                  f"one CORDIC iteration {n17 - n16} instructions; local-memory instructions "
-                  f"{l16}, {l17}")
+            i16, i17 = mixer[(flavor, 16)], mixer[(flavor, 17)]
+            p16, p17 = _pipes(i16), _pipes(i17)
+            k = DDC_SAMPLES_A_THREAD
+            print(f"sass ddc_mixer compute path {flavor} (f32 output): W=16 {len(i16)} "
+                  f"instructions, W=17 {len(i17)}; one CORDIC iteration of one sample "
+                  f"{(len(i17) - len(i16)) / k:g} instructions "
+                  f"({_pipe_str({p: p17[p] - p16[p] for p in p16}, k)}); 0 local-memory")
+
+
+def _loop_body(body: str) -> list:
+    """The instructions of the widest loop (backward branch) of a kernel's
+    SASS, without addresses; [] where it has none."""
+    at = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    spans = [(int(b.group(1), 16), int(a, 16)) for a, text in at
+             if (b := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text))
+             and int(b.group(1), 16) < int(a, 16)]
+    if not spans:
+        return []
+    lo, hi = max(spans, key=lambda s: s[1] - s[0])
+    return [text for a, text in at if lo <= int(a, 16) <= hi]
 
 
 #: csrc/taylor_kernel.cu: the Regime template values, and kG, the samples a
@@ -1567,22 +1661,24 @@ def _print_unrolled_sass(name: str, body: str) -> None:
     ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
     targets = {int(m.group(1), 16) for _, text in ins
                if (m := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text))}
-    runs, run = [], 0
+    runs, run = [], []
     for addr, text in ins:
         if int(addr, 16) in targets and run:
             runs.append(run)
-            run = 0
-        run += 1
+            run = []
+        run.append(text)
         if re.search(r"\b(BRA|EXIT|RET|BRX|JMP|CALL)\b", text):
             runs.append(run)
-            run = 0
+            run = []
     local = sum(1 for _, text in ins if re.search(r"\b(LDL|STL)", text))
     m = re.search(r"(atan2_kernel|demod_int_kernel|demod_iq_kernel|taylor2_window_kernel)I"
                   r"([^E]*E(?:[^E]*E)?)", name)
     what = m.group(1) + "<" + m.group(2) + ">" if m else name[:60]
-    median = float(np.median([r for r in runs if r >= 4])) if any(r >= 4 for r in runs) else 0.0
-    print(f"sass {what}: {len(ins)} instructions; median branch-free block {median:.0f}; "
-          f"{local} local-memory instructions")
+    blocks = [r for r in runs if len(r) >= 4]
+    median = float(np.median([len(r) for r in blocks])) if blocks else 0.0
+    block = min(blocks, key=lambda r: abs(len(r) - median)) if blocks else []
+    print(f"sass {what}: {len(ins)} instructions; median branch-free block {median:.0f} "
+          f"({_pipe_str(_pipes(block))}); {local} local-memory instructions")
     _require(local == 0, f"{what}: {local} local-memory instructions")
 
 
@@ -1740,7 +1836,8 @@ def _device_ms(fn, calls: int = 5) -> float:
 
 #: device-time groups of the two profiled calls, in match order: name ->
 #: substrings of a kernel's name (lower case); the rest is the last group
-DDC_GROUPS = {"ddc_mixer": ("ddc_mixer",), "materialize": ("materialize",),
+DDC_GROUPS = {"ddc_mixer": ("ddc_mixer", "ddc_table_mixer"), "ddc_nco_table": ("ddc_nco_table",),
+              "materialize": ("materialize",),
               "FIR (conv, gemm)": ("conv", "cudnn", "gemm", "xmma", "cutlass", "gemv", "dot"),
               "elementwise": ()}
 SDR_GROUPS = {"fm_demod": ("demod",),
@@ -1841,15 +1938,22 @@ def main(argv=None) -> int:
         window_values_plain,
     )
     from blackman_harris_win_tpu_torch.pipeline.channelizer import (
+        channel_bins,
         design_prototype,
         polyphase_channelize,
     )
     from blackman_harris_win_tpu_torch.kernels.cordic import atan2_fixed, atan2_fixed_plain
+    from blackman_harris_win_tpu_torch.kernels import ddc_kernel
     from blackman_harris_win_tpu_torch.kernels.ddc_kernel import mixer as ddc_mixer
     from blackman_harris_win_tpu_torch.kernels import demod_kernel as dmk
     from blackman_harris_win_tpu_torch.kernels import fastwin_kernel as fk
     from blackman_harris_win_tpu_torch.pipeline.demod import fm_demod_phase, fm_demod_phase_plain
-    from blackman_harris_win_tpu_torch.pipeline.ddc import ddc, freq_word, mixer_plain
+    from blackman_harris_win_tpu_torch.pipeline.ddc import (
+        ddc,
+        freq_word,
+        mixer_plain,
+        nco_table_plain,
+    )
     from blackman_harris_win_tpu_torch.pipeline.fir import decimating_fir, design_lowpass
     from blackman_harris_win_tpu_torch.pipeline.sdr import discriminate_plain, sdr_chain
     from blackman_harris_win_tpu_torch.pipeline.spectral import (
@@ -1878,6 +1982,7 @@ def main(argv=None) -> int:
     fn = "?"
     # may not spill ("demod_int_kernel" before "int_kernel": the first match counts)
     in_registers = {"demod_int_kernel": 0, "int_kernel": 0, "ddc_mixer_kernel": 0,
+                    "ddc_table_mixer_kernel": 0, "ddc_nco_table_kernel": 0,
                     "atan2_kernel": 0, "demod_iq_kernel": 0, "taylor2_window_kernel": 0}
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -1893,6 +1998,7 @@ def main(argv=None) -> int:
     if not log:
         print("ptxas: the library was built before this run, no ptxas lines")
     want_inst = {"demod_int_kernel": 8, "int_kernel": 30, "ddc_mixer_kernel": 40,
+                 "ddc_table_mixer_kernel": 2, "ddc_nco_table_kernel": 20,
                  "atan2_kernel": 4, "demod_iq_kernel": 4, "taylor2_window_kernel": 2}
     _require(not log or in_registers == want_inst,
              f"ptxas reported {in_registers} instantiations, want {want_inst}")
@@ -1966,9 +2072,10 @@ def main(argv=None) -> int:
     # the DDC, bench_all config 21
     fc21, dec21, pw21, w21 = 1 / 8, 4, 20, 16
     h21 = design_lowpass(64, 0.8 / dec21)
-    bb = _counted(launched, "7 ddc", ("ddc_mixer", "materialize"),
+    bb = _counted(launched, "7 ddc", ("ddc_nco_table", "ddc_mixer", "materialize"),
                   lambda: ddc(x21, fc21, dec21, taps=h21, phase_width=pw21, data_width=w21,
-                              flavor="dds48"), exact={"ddc_mixer": 1, "materialize": 1})
+                              flavor="dds48"),
+                  exact={"ddc_nco_table": 1, "ddc_mixer": 1, "materialize": 1})
     # the SDR chain: dryrun stage 4's configuration over 2^22 samples (a
     # latency check with the tone gate) and bench_all config 5
     n_ch, tpb, aw, offset = 4, 6, 20, 0.005
@@ -1998,8 +2105,8 @@ def main(argv=None) -> int:
         paths = _front_end_inputs(Path(tmp), x, x21, x_stft)
         fe = _counted(launched, "10 front end",
                       ("window_block", "taylor_window_block", "outer_block", "outer_block_f32",
-                       "outer_block_comp", "welch_stage1", "materialize", "ddc_mixer",
-                       "taylor2_window_block"),
+                       "outer_block_comp", "welch_stage1", "materialize", "ddc_nco_table",
+                       "ddc_mixer", "taylor2_window_block"),
                       lambda: _front_end_phase(Path(tmp), paths))
         fe_route = _module_route(Path(tmp), dev)
         fe_pieces = _front_end_pieces(Path(tmp), paths, win_hls, (win_s, win_e))
@@ -2213,12 +2320,20 @@ def main(argv=None) -> int:
     _require(bb.shape == (2, (1 << 26) // dec21) and bool(torch.isfinite(bb).all()),
              f"DDC output is not finite of shape (2, 2^26/{dec21})")
     ddc_res = _ddc_gates(x21, bb, h21, fc21, dec21, pw21, w21, rng, dev)
-    err_mixer = _ddc_mixer_gates(x21, fc21, pw21, w21, rng, dev)
+    err_mixer, err_table = _ddc_mixer_gates(x21, pw21, w21, rng, dev)
     _require(sdr_out.shape == ((1 << 22) // n_ch - tpb, n_ch), "SDR output shape")
     err_fm = _sdr_gates("dryrun 4x6", x_sdr, sdr_out, proto, n_ch, aw, offset, rng)
     _require(sdr5_out.shape == ((c5 << 22) // c5 - tpb5, c5), "SDR config 5 output shape")
     err_fm = max(err_fm, _sdr_gates("config 5 16x8", x_sdr5, sdr5_out, proto5, c5, aw, None, rng,
                                     frames=1 << 16))
+    # the discriminator's two entries on config 5: the chain's half spectrum
+    # and the full one (a complex stream's) give the chain's output
+    y5h = channel_bins(x_sdr5, proto5, c5)
+    _require(torch.equal(dmk.iq_demod(y5h, aw, n_channels=c5), sdr5_out) and
+             torch.equal(dmk.iq_demod(y5, aw), sdr5_out),
+             "fm_demod on config 5: the half- and full-spectrum entries differ from the chain")
+    print(f"fm_demod on config 5: the half-spectrum entry {tuple(y5h.shape)} and the full-"
+          f"spectrum entry {tuple(y5.shape)} bit-equal to the chain's output")
     del sdr5_out
     # the demod entries of phase 8 against their plain versions on the card
     err_atan = int((ang5 - atan2_fixed_plain(q5, i5, 16, aw)).abs().max())
@@ -2401,13 +2516,14 @@ def main(argv=None) -> int:
                         f"{label} sdr config 5", SDR_GROUPS)
     # the discriminator on config 5's channelizer output and the elementwise
     # atan2 on its I/Q: each kernel and its plain version in torch ops
-    t["fm_demod"] = (_time_ms(lambda: dmk.iq_demod(y5, aw)),
+    t["fm_demod"] = (_time_ms(lambda: dmk.iq_demod(y5h, aw, n_channels=c5)),
                      _time_ms(lambda: discriminate_plain(y5, aw)))
     t["cordic_atan2"] = (_time_ms(lambda: atan2_fixed(q5, i5, 16, aw)),
                          _time_ms(lambda: atan2_fixed_plain(q5, i5, 16, aw)))
     t_phase5 = (_time_ms(lambda: fm_demod_phase(i5.mT, q5.mT, 16, aw)),
                 _time_ms(lambda: fm_demod_phase_plain(i5.mT, q5.mT, 16, aw)))
-    t_chan5 = _time_ms(lambda: polyphase_channelize(x_sdr5, proto5, c5))
+    t_fm_full = _time_ms(lambda: dmk.iq_demod(y5, aw))
+    t_chan5 = _time_ms(lambda: channel_bins(x_sdr5, proto5, c5))
     # the taylor2 window: the kernel and its plain version
     spec_t2 = tay_specs["bh7 taylor2"]
     t["taylor2_window_block"] = (_time_ms(lambda: make_window("bh7", spec_t2, device=dev)),
@@ -2415,6 +2531,16 @@ def main(argv=None) -> int:
     # the DDC's quantizer, NCO, integer mixer and f32 rescale: the kernel
     # and its plain version in torch ops (a comparison row only)
     fw21 = freq_word(fc21, pw21)
+    _require(DDC_PATHS[0][1:] == (fw21, pw21), "DDC_PATHS[0] is not config 21's word")
+    p21 = ddc_kernel.nco_period(fw21, pw21)
+    t["ddc_nco_table"] = (
+        _time_ms(lambda: ddc_kernel.nco_table(fw21, pw21, w21, "dds48", device=dev)),
+        _time_ms(lambda: nco_table_plain(fw21, pw21, w21, "dds48", device=dev)))
+    t_paths = {what: (_time_ms(lambda f=f, p=p: ddc_mixer(x21, f, p, w21, "dds48")),
+                      _time_ms(lambda f=f, p=p: ddc_kernel.nco_table(f, p, w21, "dds48",
+                                                                     device=dev))
+                      if ddc_kernel.table_period(f, p, 1 << 26) else None)
+               for what, f, p in DDC_PATHS[1:]}
     t["ddc_mixer"] = (_time_ms(lambda: ddc_mixer(x21, fw21, pw21, w21, "dds48")),
                       _time_ms(lambda: mixer_plain(x21, fw21, pw21, w21, "dds48")))
     t_scaled = _time_ms(lambda: ddc_mixer(x21, fw21, pw21, w21, "scaled"))
@@ -2495,6 +2621,22 @@ def main(argv=None) -> int:
           f"(scaled flavor {t_scaled:.3f} ms); torch-op NCO + mixer {t['ddc_mixer'][1]:.3f} ms "
           f"(comparison only); the DDC's device time {prof_ddc['busy']:.3f} ms of "
           f"{prof_ddc['wall']:.3f} ms wall")
+    for what, f, p in DDC_PATHS:
+        per = ddc_kernel.table_period(f, p, 1 << 26)
+        b_ms, b_by = profiling.bound(12 << 26, min(per or 1 << 26, 1 << 26) * profiling.nco_ops(
+            w21) + (1 << 26) * profiling.DDC_MIX_OPS)
+        ms, tab = (t["ddc_mixer"][0], t["ddc_nco_table"][0]) if f == fw21 else t_paths[what]
+        how = (f"its table included (the table kernel timed alone {tab:.3f} ms)" if tab
+               else "no table")
+        print(f"time {label} ddc_mixer {what} (fw {f}, 2^26 samples, dds48 W={w21}): {ms:.3f} "
+              f"ms one call alone, {how}; bound {b_ms:.4f} ms ({b_by}), roofline share "
+              f"{b_ms / ms:.1%}")
+    def table21():
+        return ddc_kernel.nco_table(fw21, pw21, w21, "dds48", device=dev)
+
+    print(f"time {label} ddc_nco_table config 21 (P = {p21}): {t['ddc_nco_table'][0]:.3f} ms one "
+          f"call alone, {_time_batch_ms(lambda _: table21()):.4f} ms per call of 16 queued, "
+          f"{_device_ms(table21):.4f} ms device time: a launch's cost, not the table's")
     t_sdr = _time_ms(lambda: sdr_chain(x_sdr, proto, n_ch, angle_width=aw))
     print(f"time {label} SDR chain latency check, 2^22 samples, 4 channels x 6 taps, AW=20 "
           f"(channelizer + fm_demod kernel): {t_sdr:.3f} ms")
@@ -2503,13 +2645,15 @@ def main(argv=None) -> int:
     t_sdr5 = _time_ms(lambda: sdr_chain(x_sdr5, proto5, c5, angle_width=aw))
     print(f"time {label} SDR chain bench_all config 5, 16*2^22 samples, 16 channels x 8 taps, "
           f"AW=20: {t_sdr5:.3f} ms; {(c5 << 22) / t_sdr5 / 1e3:.1f} Msamples/s in; pieces: "
-          f"channelizer (conv1d + FFT) {t_chan5:.3f} ms, fm_demod kernel {t['fm_demod'][0]:.3f} "
-          f"ms (plain discriminator in torch ops {t['fm_demod'][1]:.3f} ms, comparison only)")
+          f"channelizer (conv1d + rfft) {t_chan5:.3f} ms, fm_demod kernel on the half spectrum "
+          f"{t['fm_demod'][0]:.3f} ms, on the full spectrum {t_fm_full:.3f} ms (plain "
+          f"discriminator in torch ops {t['fm_demod'][1]:.3f} ms, comparison only)")
     n_out5 = (y5.shape[0] - 1) * c5
     print(f"fm_demod {label}: {counts['fm_demod']} launch(es) on the counted main path "
           f"(phases 8 and 11: 1 a chain call or shard, 1 for fm_demod_phase); on config 5's "
-          f"{tuple(y5.shape)} channelizer output {t['fm_demod'][0]:.3f} ms, "
-          f"{n_out5 / t['fm_demod'][0] / 1e6:.3f} Goutputs/s; fm_demod_phase on its I/Q {t_phase5[0]:.3f} ms (plain "
+          f"{tuple(y5h.shape)} half-spectrum channelizer output {t['fm_demod'][0]:.3f} ms, "
+          f"{n_out5 / t['fm_demod'][0] / 1e6:.3f} Goutputs/s (full spectrum {tuple(y5.shape)} "
+          f"{t_fm_full:.3f} ms); fm_demod_phase on its I/Q {t_phase5[0]:.3f} ms (plain "
           f"{t_phase5[1]:.3f} ms); cordic_atan2 (atan2_fixed) {t['cordic_atan2'][0]:.3f} ms "
           f"(plain {t['cordic_atan2'][1]:.3f} ms); the SDR call's device time "
           f"{prof_sdr['busy']:.3f} ms of {prof_sdr['wall']:.3f} ms wall")
@@ -2555,7 +2699,7 @@ def main(argv=None) -> int:
     src = "blackman_harris_win_tpu_torch/csrc/"
     bounds = profiling.kernel_bounds(n, len(q7), nsamp, nfft, hop,
                                      m21.numel() * m21.element_size(), ddc_width=w21,
-                                     sdr_shape=(y5.shape[0], c5, aw))
+                                     sdr_shape=(y5.shape[0], c5, aw), ddc_period=p21)
     err_mat = ddc_res["mat_err"]
     tpu = "blackman_harris_win_tpu/kernels/pallas/"
     rows = [  # name, source, replaces (under tpu unless a full path), timing key, max abs err
@@ -2582,6 +2726,8 @@ def main(argv=None) -> int:
          err_tck),
         ("materialize", "barrier_kernel.cu", "barrier.py:31", "materialize", err_mat),
         # no pallas_call: the jnp of nco_iq / mix_iq_int and ddc()'s front half
+        ("ddc_nco_table", "ddc_kernel.cu", "blackman_harris_win_tpu/pipeline/ddc.py:49",
+         "ddc_nco_table", err_table),
         ("ddc_mixer", "ddc_kernel.cu", "blackman_harris_win_tpu/pipeline/ddc.py:49", "ddc_mixer",
          err_mixer),
         # no pallas_call: the jnp of the vectoring atan2 and the discriminators
@@ -2594,6 +2740,10 @@ def main(argv=None) -> int:
          "blackman_harris_win_tpu/kernels/fastwin.py:123", "taylor2_window_block", err_t2),
     ]
     kernels = []
+    b_full = bounds["fm_demod"]
+    print(f"bound {label} fm_demod full-spectrum entry: {b_full[0]:.4f} ms ({b_full[1]}); "
+          f"measured {t_fm_full:.3f} ms, roofline share {b_full[0] / t_fm_full:.1%}")
+    bounds["fm_demod"] = bounds["fm_demod_half"]  # the main path's entry
     for name, source, replaces, key, err in rows:
         bound_ms, bound_by = bounds[name]
         kernels.append({"name": name, "route": "cuda", "source": src + source,

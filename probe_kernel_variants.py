@@ -1,6 +1,7 @@
 """Time the port's ``materialize`` copy, its window-kernel datapaths, its
-stage-1 kernel, its Taylor checksum and its int/f32/comp outer kernels on
-one card, each beside what it is compared with in the same process.
+stage-1 kernel, its Taylor checksum, its int/f32/comp outer kernels, its
+DDC mixer and its discriminator on one card, each beside what it is
+compared with in the same process.
 
     python3 probe_kernel_variants.py [--rounds N] [--against DIR] [--only SECTION]
 
@@ -45,8 +46,23 @@ one card, each beside what it is compared with in the same process.
    other, comp s bit-equal and e within twice ``comp_e_bound``, the float
    checksums within their derived sum bounds), then one call alone and per
    call of 16 queued, in turns.
+6. ``ddc_mixer`` (``csrc/ddc_kernel.cu``) on 2^26 float32 samples at W=16
+   on each of its paths: bench_all config 21 (fc = 1/8 at pw=20, dds48 and
+   scaled: a table of P = 8), the odd word 104857 at pw=20 (a table of P =
+   2^20) and an odd word at pw=31 (the NCO computed per sample), through
+   the port's wrapper (the table's launch included) and, with ``--against
+   DIR``, DIR's C entries (an earlier ``bhw_ddc_mixer`` without a table
+   argument computes every sample's NCO); outputs bit-equal, one call alone
+   and per call of 16 queued, in turns.
+7. The discriminator (``csrc/demod_kernel.cu``) at bench_all config 5 (16
+   channels x 8 taps over 16 * 2^22 samples, AW=20): ``fm_demod`` on the
+   chain's half spectrum and on the full one, and ``cordic_atan2``
+   (``atan2_fixed``) on the quantized (Q, I), through the port's wrappers
+   and, with ``--against DIR``, DIR's C entries (an earlier
+   ``bhw_fm_demod_iq`` without a bins argument takes the full spectrum);
+   outputs bit-equal, one call alone, in turns.
 
-``--only materialize|window|welch|taylor|outer`` runs one section.  Prints
+``--only materialize|window|welch|taylor|outer|ddc|demod`` runs one section.  Prints
 one line per measurement with the card's name and power limit, and
 as its last line one JSON object with every time (ms, median over the
 rounds).  Exits non-zero without a CUDA device.
@@ -137,12 +153,12 @@ def _in_turns(fns: dict, rounds: int, measure) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=8)
-    ap.add_argument("--only", choices=("materialize", "window", "welch", "taylor", "outer"),
-                    default=None, help="run one section (default: all)")
+    ap.add_argument("--only", choices=tuple(SECTIONS), default=None,
+                    help="run one section (default: all)")
     ap.add_argument("--against", type=Path, default=None,
                     help="a checkout of another revision whose materialize, welch_stage1, "
-                         "taylor_checksum and f32/comp outer kernels are timed beside the "
-                         "port's")
+                         "taylor_checksum, outer, DDC mixer and discriminator kernels are "
+                         "timed beside the port's")
     args = ap.parse_args(argv)
 
     import torch
@@ -477,8 +493,138 @@ def _probe_outer(args, dev, label, stream, result) -> None:
                     print(f"time {label} outer_{kind}{name} bh7 2^26 {how}, {k}: {ms:.4f} ms")
                 result["outer"][mode][f"{kind} {how}"] = tt
 
+def _other_source(args, source: str) -> str:
+    return (args.against / "blackman_harris_win_tpu_torch" / "csrc" / source).read_text()
+
+
+def _probe_ddc(args, dev, label, stream, result) -> None:
+    """Section 6: the DDC mixer on each of its paths, the port's beside
+    DIR's."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import ddc_kernel as dk
+
+    from chip_smoke import DDC_PATHS
+
+    t, w = 1 << 26, 16
+    x = torch.rand(t, device=dev) * 2 - 1
+    other = with_table = None
+    if args.against is not None:
+        other = _build_one(args.against, "ddc_kernel.cu", "other")
+        with_table = "bhw_ddc_nco_table" in _other_source(args, "ddc_kernel.cu")
+        if not with_table:  # out, x, rows, t, n0, period, (NCO), scale, raw, stream
+            other.bhw_ddc_mixer.argtypes = list(_build._SIGNATURES["bhw_ddc_mixer"][:17]) + [
+                ctypes.c_void_p]
+    result["ddc_mixer"] = {}
+    cases = [(what, fw, pw, "dds48") for what, fw, pw in DDC_PATHS]
+    cases.insert(1, (DDC_PATHS[0][0] + ", scaled", DDC_PATHS[0][1], DDC_PATHS[0][2], "scaled"))
+    for what, fw, pw, flavor in cases:
+        fns = {"port, wrapper": lambda fw=fw, pw=pw, flavor=flavor: dk.mixer(x, fw, pw, w,
+                                                                             flavor)}
+        want = fns["port, wrapper"]()
+        if other is not None:
+            nco, _lut = dk._check_widths(fw, pw, w, flavor)
+            out = torch.empty_like(want)
+            p = dk.table_period(fw, pw, t) if with_table else 0
+            table = torch.empty((max(p, 1), 2), dtype=torch.int32, device=dev)
+
+            def theirs(nco=nco, out=out, p=p, table=table, _lut=_lut):
+                if p:
+                    rc = other.bhw_ddc_nco_table(table.data_ptr(), p, *nco, stream)
+                    if rc:
+                        raise RuntimeError(f"ddc_nco_table {args.against.name}: error {rc}")
+                tab = (table.data_ptr() if p else None, p) if with_table else ()
+                rc = other.bhw_ddc_mixer(out.data_ptr(), x.data_ptr(), 1, t, 0, 0, *nco,
+                                         dk.mixer_scale(w), 0, *tab, stream)
+                if rc:
+                    raise RuntimeError(f"ddc_mixer {args.against.name}: CUDA error {rc}")
+
+            theirs()
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                raise RuntimeError(f"ddc_mixer {what}: {args.against.name} differs from the port")
+            fns[f"{args.against.name}, C entry"] = theirs
+        result["ddc_mixer"][what] = {}
+        for how, measure in (("alone", lambda f: _event_ms(f, 1)),
+                             ("per call of 16 queued", lambda f: _event_ms(f, 16))):
+            tt = _in_turns(fns, args.rounds, measure)
+            ratio = ""
+            if len(tt) == 2:
+                a, b = tt.values()
+                ratio = f"; {b / a:.3f}x"
+            print(f"time {label} ddc_mixer {flavor} {what} (fw {fw}) 2^26 {how}: " + ", ".join(
+                f"{k} {ms:.4f} ms" for k, ms in tt.items()) + ratio)
+            result["ddc_mixer"][what][how] = tt
+
+
+def _probe_demod(args, dev, label, stream, result) -> None:
+    """Section 7: the discriminator and the elementwise atan2 at config 5,
+    the port's beside DIR's."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import demod_kernel as dmk
+    from blackman_harris_win_tpu_torch.kernels.cordic import atan2_fixed
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import (
+        channel_bins,
+        design_prototype,
+        polyphase_channelize,
+    )
+
+    c, aw = 16, 20
+    proto = design_prototype(c, 8)
+    x = torch.randn(c << 22, device=dev)
+    y, yh = polyphase_channelize(x, proto, c), channel_bins(x, proto, c)
+    i = torch.round(y.real * 2.0**14).to(torch.int32)
+    q = torch.round(y.imag * 2.0**14).to(torch.int32)
+    want = dmk.iq_demod(y, aw)
+    fns = {"port, half spectrum": lambda: dmk.iq_demod(yh, aw, n_channels=c),
+           "port, full spectrum": lambda: dmk.iq_demod(y, aw)}
+    if not torch.equal(fns["port, half spectrum"](), want):
+        raise RuntimeError("fm_demod: the half- and full-spectrum entries differ")
+    ang = atan2_fixed(q, i, 16, aw)
+    afns = {"port, wrapper": lambda: atan2_fixed(q, i, 16, aw)}
+    if args.against is not None:
+        other = _build_one(args.against, "demod_kernel.cu", "other")
+        with_bins = "bins" in _other_source(args, "demod_kernel.cu")
+        if not with_bins:  # out, y, batches, nf, c, elem, iq_scale, lut, aw, drop, shift, stream
+            sig = list(_build._SIGNATURES["bhw_fm_demod_iq"])
+            other.bhw_fm_demod_iq.argtypes = sig[:5] + sig[6:]
+        drop, shift = dmk.conj_shifts(dmk.IQ_WIDTH, aw)
+        lut = dmk.atan2_lut(aw, 1)
+        out, aout = torch.empty_like(want), torch.empty_like(ang)
+        nf = y.shape[0]
+
+        def theirs():
+            bins = (c,) if with_bins else ()
+            rc = other.bhw_fm_demod_iq(out.data_ptr(), y.data_ptr(), 1, nf, c, *bins, 8,
+                                       2.0**14, lut.ctypes.data, aw, drop, shift, stream)
+            if rc:
+                raise RuntimeError(f"fm_demod {args.against.name}: CUDA error {rc}")
+
+        def theirs_atan2():
+            rc = other.bhw_cordic_atan2(aout.data_ptr(), q.data_ptr(), i.data_ptr(), q.numel(),
+                                        4, lut.ctypes.data, aw, 1, 16, 1, stream)
+            if rc:
+                raise RuntimeError(f"cordic_atan2 {args.against.name}: CUDA error {rc}")
+
+        theirs()
+        theirs_atan2()
+        if not torch.equal(out, want) or not torch.equal(aout, ang):
+            raise RuntimeError(f"demod: {args.against.name} differs from the port")
+        fns[f"{args.against.name}, full spectrum"] = theirs
+        afns[f"{args.against.name}, C entry"] = theirs_atan2
+    result["fm_demod"], result["cordic_atan2"] = {}, {}
+    for name, group in (("fm_demod", fns), ("cordic_atan2", afns)):
+        tt = _in_turns(group, args.rounds, lambda f: _event_ms(f, 1))
+        print(f"time {label} {name} config 5 {tuple(y.shape)} one call alone: " + ", ".join(
+            f"{k} {ms:.4f} ms" for k, ms in tt.items()))
+        result[name] = tt
+
+
 SECTIONS = {"materialize": _probe_materialize, "window": _probe_window,
-            "welch": _probe_welch, "taylor": _probe_taylor, "outer": _probe_outer}
+            "welch": _probe_welch, "taylor": _probe_taylor, "outer": _probe_outer,
+            "ddc": _probe_ddc, "demod": _probe_demod}
 
 
 if __name__ == "__main__":

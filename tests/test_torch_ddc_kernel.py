@@ -7,18 +7,26 @@ seeded numpy inputs:
 
 - the plain version the CPU path takes (``pipeline/ddc.py:mixer`` on a CPU
   tensor: ``mixer_plain`` over ``nco_iq`` / ``mix_iq_int``);
-- a numpy emulation of the kernel's own datapath, lane by lane: the 32-bit
-  phase product, the pre-rotation, the unwrapped steering iterations
-  (int32 words for the scaled flavor, int64 for dds48), rint of the f32
-  input product, the int32 mixer products and one f32 rescale product.
-  The emulation asserts that the state stays inside the ranges the
-  kernel's exactness argument needs (no wrap of the reference ever fires).
+- a numpy emulation of the kernel's own datapaths, lane by lane: the
+  32-bit phase product, the pre-rotation, the steering iterations (int32
+  words for the scaled flavor; for dds48 doubles, the floor of each shift
+  taken as the kernel's round-down add of 1.5 * 2^52), rint of the f32
+  input product, the int32 mixer products and one f32 rescale product; and
+  the period table: the NCO at (j * fw) mod 2^PW for j < P, read at
+  nl & (P - 1).  The emulation asserts that the state stays inside the
+  ranges the kernel's exactness argument needs (no wrap of the reference
+  ever fires, every double is an integer below 2^47) and that the dds48
+  doubles equal the int64 state they stand for.
 
 Raw (I, Q) 0 LSB for dds48 and scaled at pw 16, 20, 24, 31 and W 12, 16,
 17, with n0 at 0 and across 2^32, at the quadrant-seam phases; the f32
 mixer output bit-equal to JAX's quantize-mix-rescale; exact halves of the
 input product; batch dims and ragged rows; the sharded halo's period; every
-phase at pw=16 for W 8..17.  The kernel against these on the card is
+phase at pw=16 for W 8..17.  The table: tuning words with 0, 1, 3, 17 and
+PW trailing zeros (fw = 0: P = 1), n0 up to 2^33, negative n under a
+sharded period that is not a multiple of P, the seam phases, and both sides
+of the switch-over rule (``ddc_kernel.table_period``, which the kernel's
+wrapper uses to choose the path).  The kernel against these on the card is
 ``tests/test_torch_gpu.py``.
 """
 
@@ -37,9 +45,30 @@ AMP = float((1 << ddc.MIX_IN_BITS) - 1)
 N0S = [0, 2**32 - 5, 2**32 + 3]
 
 
+#: the kernel's floor constant: fma_rd(v, 2^-k, M) - M = floor(v * 2^-k)
+FLOOR_MAGIC = 1.5 * 2.0**52
+
+
+def _floor_shift(v, k):
+    """``csrc/ddc_kernel.cu:floor_shift``: the round-down sum M + v * 2^-k
+    lies in [2^52, 2^53), where the doubles are the integers, so it is
+    M + floor(v * 2^-k), and subtracting M is exact."""
+    s = v * 2.0**-k  # exact: a power of two
+    assert np.all((FLOOR_MAGIC + s >= 2.0**52) & (FLOOR_MAGIC + s < 2.0**53))
+    return (FLOOR_MAGIC + np.floor(s)) - FLOOR_MAGIC
+
+
+def _exact(*vs):
+    """Every double an integer below 2^47: no operation of the kernel's
+    FP64 datapath rounds."""
+    for v in vs:
+        assert np.all(np.floor(v) == v) and np.abs(v).max(initial=0) < 2.0**47
+
+
 def _nco_emulation(n, fw, pw, w, flavor, period=0):
     """(cos, -sin) as ``csrc/ddc_kernel.cu:nco`` computes them at int64
-    indices ``n`` (n < 0 takes n + period)."""
+    indices ``n`` (n < 0 takes n + period): the scaled flavor in int32
+    words, dds48 in doubles beside the int64 state they hold."""
     lut, gain, zshift, oshift = dk.mixer_constants(pw, w, flavor)
     if flavor == "dds48":
         s_bits = z_bits = 48
@@ -61,15 +90,30 @@ def _nco_emulation(n, fw, pw, w, flavor, period=0):
     y = np.where(q == 1, -gain, np.where(q == 2, gain, 0))
     z = init_t << zshift
     assert np.abs(z).max() <= 1 << (z_bits - 2)
+    xd, yd, zd = x.astype(np.float64), y.astype(np.float64), init_t * 2.0**zshift
     for k in range(w):
         d = np.where(z < 0, -1, 1)
         x, y = x + d * (y >> k), y - d * (x >> k)
+        if flavor == "dds48":  # the kernel's doubles
+            assert not np.any((zd == 0) & np.signbit(zd))  # copysign(1, z) is the steering
+            dd = np.copysign(1.0, zd)
+            ys, xs = (yd, xd) if k == 0 else (_floor_shift(yd, k), _floor_shift(xd, k))
+            xd, yd = xd + dd * ys, yd - dd * xs
+            if k < w - 1:
+                zd = zd - dd * float(lut[k])
+            _exact(xd, yd, zd)
         if k < w - 1:
             z = z - d * int(lut[k])
         # the bounds of the kernel's note: the reference's wraps never fire
         assert max(np.abs(x).max(), np.abs(y).max()) < (1 << (s_bits - 2)) + 64
         assert np.abs(z).max() <= 1 << (z_bits - 2)
-    c, ns = x >> oshift, y >> oshift
+    if flavor == "dds48":
+        np.testing.assert_array_equal(xd, x.astype(np.float64))
+        np.testing.assert_array_equal(yd, y.astype(np.float64))
+        c, ns = (np.floor(v * 2.0**-oshift).astype(np.int64) for v in (xd, yd))
+    else:
+        c, ns = x >> oshift, y >> oshift
+    np.testing.assert_array_equal(c, x >> oshift)
     assert max(np.abs(c).max(), np.abs(ns).max()) <= (1 << (w - 2)) + 1
     return c, ns
 
@@ -78,14 +122,22 @@ def _wrap32(v):
     return ((np.asarray(v, np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
 
 
-def _mixer_emulation(x, n0, fw, pw, w, flavor, period=0, raw=True):
+def _mixer_emulation(x, n0, fw, pw, w, flavor, period=0, raw=True, table=False):
     """The kernel's output for x (..., T): index n0 + (e mod T) for flat
     element e, the int32 mixer products, and with ``raw=False`` the f32
-    rescale (the int->f32 conversion, then one product)."""
+    rescale (the int->f32 conversion, then one product).  ``table``: the
+    pairs come from the period table, entry nl & (P - 1) of the NCO at
+    (j * fw) mod 2^PW (entries computed where they are read)."""
     x = np.asarray(x, np.float32)
     t = x.shape[-1]
     xq = np.rint(x * np.float32(AMP)).astype(np.int64)  # __float2int_rn(__fmul_rn(x, amp))
-    c, ns = _nco_emulation(n0 + np.arange(t, dtype=np.int64), fw, pw, w, flavor, period)
+    n = n0 + np.arange(t, dtype=np.int64)
+    if table:
+        p = dk.nco_period(fw, pw)
+        nl = np.where(n < 0, n + period, n) & 0xFFFFFFFF
+        c, ns = _nco_emulation(nl & (p - 1), fw, pw, w, flavor)
+    else:
+        c, ns = _nco_emulation(n, fw, pw, w, flavor, period)
     m = np.stack([_wrap32(xq * c), _wrap32(xq * ns)])
     if raw:
         return m
@@ -247,6 +299,130 @@ class TestDatapath:
                     assert zshift + pw <= 31
                 else:
                     assert zshift + pw == 48 and oshift == 48 - w
+
+
+def _word(pw, tz, odd=0x2D4B3):
+    """A tuning word mod 2^PW with ``tz`` trailing zeros (0 for tz >= PW)."""
+    return ((odd | 1) << tz) % (1 << pw)
+
+
+TZ = [0, 1, 3, 17, 99]  # 99: tz >= PW, the word 0 (P = 1)
+
+
+class TestPeriodTable:
+    @pytest.mark.parametrize("tz", TZ)
+    @pytest.mark.parametrize("pw", [4, 16, 20, 24, 31])
+    def test_nco_period(self, pw, tz):
+        # P = 2^(PW - tz): the phase of n is that of n mod P, and of no
+        # shorter period
+        fw = _word(pw, tz)
+        p = dk.nco_period(fw, pw)
+        assert p == (1 << (pw - tz) if tz < pw else 1)
+        rng = np.random.default_rng(pw + tz)
+        n = rng.integers(0, 1 << 40, 64, dtype=np.int64)
+
+        def phase(m):
+            return ((np.asarray(m) & 0xFFFFFFFF) * fw) % (1 << pw)
+
+        np.testing.assert_array_equal(phase(n), phase(n & (p - 1)))
+        np.testing.assert_array_equal(phase(n), phase(n + p))
+        if p > 1:
+            assert phase(p // 2) != 0
+        assert (1 << 32) % p == 0 and p <= 1 << pw
+
+    @pytest.mark.parametrize("n0", [0, 2**32 - 5, 2**33 + 3])
+    @pytest.mark.parametrize("tz", TZ)
+    @pytest.mark.parametrize("pw", [16, 20, 24, 31])
+    @pytest.mark.parametrize("flavor", FLAVORS)
+    def test_table_vs_jax(self, flavor, pw, tz, n0):
+        rng = np.random.default_rng(pw * 7 + tz + n0 % 11)
+        fw, w, t = _word(pw, tz), 16, 1024
+        x = _x(rng, t)
+        want = _jax_ints(x, n0 + np.arange(t, dtype=np.int64), fw, pw, w, flavor)
+        np.testing.assert_array_equal(_mixer_emulation(x, n0, fw, pw, w, flavor, table=True),
+                                      want)
+        np.testing.assert_array_equal(
+            ddc.mixer(torch.from_numpy(x), fw, pw, w, flavor, n0=n0, raw=True).numpy(), want)
+
+    @pytest.mark.parametrize("tz", [3, 6, 10])
+    @pytest.mark.parametrize("flavor", FLAVORS)
+    def test_table_under_a_sharded_period(self, flavor, tz):
+        # shard 0's chunk starts below 0; the stream's length 1000 is no
+        # multiple of P = 2^(20 - tz): an index below 0 takes + 1000 first,
+        # then its table entry
+        pw, w, t_total, first = 20, 16, 1000, -60
+        fw = _word(pw, tz)
+        assert t_total % dk.nco_period(fw, pw)
+        x = _x(np.random.default_rng(tz), 160)
+        want = _jax_ints(x, np.arange(first, first + 160, dtype=np.int64) % t_total, fw, pw, w,
+                         flavor)
+        np.testing.assert_array_equal(
+            _mixer_emulation(x, first, fw, pw, w, flavor, period=t_total, table=True), want)
+        mi, mq = ddc.shard_mixer_ints(torch.from_numpy(x), first, t_total, fw, pw, w, flavor)
+        np.testing.assert_array_equal(np.stack([mi.numpy(), mq.numpy()]), want)
+
+    @pytest.mark.parametrize("pw", [16, 20, 31])
+    @pytest.mark.parametrize("flavor", FLAVORS)
+    def test_table_at_the_seams(self, flavor, pw):
+        # words whose tables hold the quadrant seams: P = 4 is exactly the
+        # four seam phases, P = 8 adds the octants, P = 2^10 the seams among
+        # 2^10 phases; each table against JAX's NCO at the same phases
+        big = 1 << pw
+        for fw in (big // 4, 3 * big // 8, 5 * (big >> 10)):
+            p = dk.nco_period(fw, pw)
+            ph = np.arange(p, dtype=np.int64) * fw % big
+            assert {0, big // 4, big // 2, 3 * big // 4} <= set(ph.tolist())
+            for w in (12, 16, 17):
+                tab = np.stack(_nco_emulation(np.arange(p), fw, pw, w, flavor), axis=-1)
+                want = jddc.nco_iq(jnp.asarray(np.arange(p, dtype=np.int32)), fw, pw, w, flavor)
+                np.testing.assert_array_equal(tab, np.stack([np.asarray(v) for v in want], -1))
+                np.testing.assert_array_equal(
+                    tab, ddc.nco_table_plain(fw, pw, w, flavor, device="cpu").numpy())
+
+    @pytest.mark.parametrize("t", [3, 4, 1 << 12, (1 << 22) - 1, 1 << 22, 1 << 26])
+    @pytest.mark.parametrize("p_log2", [0, 3, 10, 20, 21, 31])
+    def test_switch_over_rule(self, p_log2, t):
+        # a table where P <= 2^20 and P <= T/4: both sides of each bound
+        pw = 31 if p_log2 > 20 else 20
+        fw = _word(pw, pw - p_log2)
+        p = dk.nco_period(fw, pw)
+        assert p == 1 << p_log2
+        want = p if p <= dk.MAX_TABLE and 4 * p <= t else 0
+        assert dk.table_period(fw, pw, t) == want
+        assert dk.MAX_TABLE == 1 << 20 and dk.TABLE_REUSE == 4
+
+    @pytest.mark.parametrize("flavor", FLAVORS)
+    def test_both_paths_agree(self, flavor):
+        # the table's side of the rule and the compute path's give the same
+        # ints at a word, rows and an n0 where both apply
+        pw, w, n0 = 24, 17, 2**33 - 7
+        fw = _word(pw, 14)
+        x = _x(np.random.default_rng(1), (3, 4096))
+        assert dk.table_period(fw, pw, 4096) == 1 << 10
+        np.testing.assert_array_equal(
+            _mixer_emulation(x, n0, fw, pw, w, flavor, table=True),
+            _mixer_emulation(x, n0, fw, pw, w, flavor))
+
+
+class TestDds48Doubles:
+    @pytest.mark.parametrize("w", [8, 12, 16, 17])
+    def test_every_phase_at_pw20(self, w):
+        # the FP64 datapath (its exactness asserted in the emulation) over
+        # all 2^20 phases, against the plain NCO
+        pw = 20
+        n = np.arange(1 << pw, dtype=np.int64)
+        c, ns = ddc.nco_iq(n, 1, pw, w, "dds48", device="cpu")
+        ec, ens = _nco_emulation(n, 1, pw, w, "dds48")
+        np.testing.assert_array_equal(ec, c.numpy())
+        np.testing.assert_array_equal(ens, ns.numpy())
+
+    def test_floor_magic(self):
+        # the kernel's floor of a shift, at the extremes of the state
+        v = np.array([0, 1, -1, 2**46 + 63, -(2**46) - 63, 2**47 - 1, -(2**47) + 1, 12345,
+                      -12345], np.float64)
+        for k in range(1, 17):
+            np.testing.assert_array_equal(_floor_shift(v, k),
+                                          (v.astype(np.int64) >> k).astype(np.float64))
 
 
 class TestDispatch:

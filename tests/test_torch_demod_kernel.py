@@ -8,12 +8,20 @@ cordic_atan2`` / ``atan2_fixed``, ``pipeline/demod.py:fm_demod_conj`` /
 ``model/golden.py:cordic_atan2``, on seeded numpy inputs:
 
 - the state at the top of a 32-bit word while AW+P <= 32, else of a 64-bit
-  one, so that every add wraps at AW+P bits by itself, with the fraction
-  bits of each shifted operand cleared; steering by d = +-1 (32-bit) or a
-  xor-and-subtract negation (64-bit); z unwrapped (its bound asserted);
+  one, so that every add wraps at AW+P bits by itself; in 32-bit words the
+  shifted operand is the shift pair (X >> (i + sh)) << sh with its left
+  shift folded into the steering product (d << sh = m * 2^(sh+1) + 2^sh,
+  m the sign mask of y) and z is zbase + sum m_i * (-2 lut[i]); in 64-bit
+  words the shifted operand's fraction bits are cleared and the steering is
+  a xor-and-subtract negation; z unwrapped (its bound asserted);
 - the conjugate products in wrapping uint32 arithmetic on the inputs
   re-quantized by >> drop; the phase differences wrapped in uint64;
-- the I/Q front end's f32 quantizer, rint(f32(re) * f32(iq_scale)).
+- the I/Q front end's f32 quantizer, rint(f32(re) * f32(iq_scale)), once a
+  sample, walked in strips of consecutive frames of one channel (the
+  quantized sample carried to the next output, across strip and batch
+  boundaries, the last strip ending at nf - 1), over the full spectrum or
+  a real stream's half spectrum (channel k > C/2 the conjugate of bin
+  C - k, quantized as rint(-im * iq_scale)).
 
 The seam inputs are x or y in {0, +-1}, inputs whose masked abs is
 2^(AW-1)-1, and inputs with bit input_width-1 set, at AW 16/20/24/31 with
@@ -64,20 +72,28 @@ def _atan2_emulation(y, x, input_width, aw, p, convention, top=True, trace=None)
     keep = u(((1 << bits) - 1) ^ ((1 << sh) - 1))
     xs = ((x ^ -sx) & mask_lo).astype(u) << u(sh)
     ys = ((y ^ -sy) & mask_lo).astype(u) << u(sh)
-    z = np.zeros(xs.shape, u)
     lut = dk.atan2_lut(aw, p)
+    # 32-bit words: z starts at zbase = -sum lut[i] and takes m * (-2 lut[i])
+    z = np.full(xs.shape, u((-int(lut.sum())) % (1 << bits)) if bits == 32 else u(0), u)
+    p2 = u(1 << sh)
     zmax = 0
     for i in range(aw - 1):
-        xi = (xs.view(s) >> s(i)).view(u) & keep
-        yi = (ys.view(s) >> s(i)).view(u) & keep
+        m = (ys.view(s) >> s(bits - 1)).view(u)
         lk = u(int(lut[i]) & ((1 << bits) - 1))
         if bits == 32:
-            d = ((ys.view(s) >> s(bits - 1)) | s(1)).view(u)
-            xs, ys, z = xs + d * yi, ys - d * xi, z - d * lk
+            dsh = m * (p2 << u(1)) + p2  # d << sh
+            xa = (xs.view(s) >> s(i + sh)).view(u)
+            ya = (ys.view(s) >> s(i + sh)).view(u)
+            xs, ys = xs + dsh * ya, ys - dsh * xa
+            z = z + m * u((-2 * int(lut[i])) % (1 << bits))
+            zt = (z.view(s).astype(np.int64)
+                  + sum(int(lut[j]) for j in range(i + 1, aw - 1)))  # z of the reference
         else:
-            m = (ys.view(s) >> s(bits - 1)).view(u)
+            xi = (xs.view(s) >> s(i)).view(u) & keep
+            yi = (ys.view(s) >> s(i)).view(u) & keep
             xs, ys, z = xs + ((yi ^ m) - m), ys - ((xi ^ m) - m), z - ((lk ^ m) - m)
-        zmax = max(zmax, int(np.abs(z.view(s).astype(np.int64)).max(initial=0)))
+            zt = z.view(s).astype(np.int64)
+        zmax = max(zmax, int(np.abs(zt).max(initial=0)))
         if trace is not None:
             trace.append(max(int(np.abs(xs.view(s).astype(np.int64)).max(initial=0)),
                              int(np.abs(ys.view(s).astype(np.int64)).max(initial=0))))
@@ -102,13 +118,67 @@ def _wrap(v, bits):
 
 def _conj_emulation(i, q, input_width, aw, top=True):
     """``conj_word`` over (..., T) int arrays -> (..., T-1)."""
-    drop, shift = dk.conj_shifts(input_width, aw)
-    a = (np.asarray(i, np.int64) >> drop).astype(np.uint32)
-    b = (np.asarray(q, np.int64) >> drop).astype(np.uint32)
-    a0, a1, b0, b1 = a[..., :-1], a[..., 1:], b[..., :-1], b[..., 1:]
+    a, b = _requant(i, q, input_width, aw)
+    return _conj_pair(a[..., :-1], b[..., :-1], a[..., 1:], b[..., 1:], aw, input_width, top)
+
+
+def _requant(i, q, input_width, aw):
+    """``requant``: I and Q >> drop as the 32-bit words of the products."""
+    drop, _ = dk.conj_shifts(input_width, aw)
+    return ((np.asarray(i, np.int64) >> drop).astype(np.uint32),
+            (np.asarray(q, np.int64) >> drop).astype(np.uint32))
+
+
+def _conj_pair(a0, b0, a1, b1, aw, input_width=16, top=True):
+    """The discriminator of re-quantized samples (a0, b0) -> (a1, b1)."""
+    _, shift = dk.conj_shifts(input_width, aw)
     re = (a1 * a0 + b1 * b0).view(np.int32) >> np.int32(shift)
     im = (b1 * a0 - a1 * b0).view(np.int32) >> np.int32(shift)
     return _atan2_emulation(im, re, aw, aw, 1, "fixed", top)
+
+
+def _strip_len(outputs, nf, sms=132):
+    """``launch_iq``'s strip: at least one full load of the card (2048
+    threads an SM) within 4 to 64 frames, at most the nf - 1 outputs."""
+    target = sms * 2048
+    return min(max(outputs // target, 4), 64, nf - 1)
+
+
+def _iq_strip_emulation(y, c, strip, aw=20, scale=2.0**14):
+    """``demod_iq_kernel`` on (batches, nf, bins) complex64 -> (batches,
+    nf-1, c): item g = (batch, strip, channel), the channel fastest, walks
+    its strip of frames, quantizing each sample once and carrying it to
+    the next output; a channel k >= bins reads the conjugate of bin c - k.
+    Asserts that every output is written once."""
+    y = np.asarray(y)
+    batches, nf, bins = y.shape
+    nstrips = -(-(nf - 1) // strip)
+    g = np.arange(batches * nstrips * c)
+    k, sb = g % c, g // c
+    st, b = sb % nstrips, sb // nstrips
+    f0 = st * strip
+    f1 = np.minimum(f0 + strip, nf - 1)
+    cj = k >= bins
+    col = np.where(cj, c - k, k)
+
+    def sample(f):
+        v = y[b, f, col]
+        return _requant(_quantize(v.real, scale),
+                        _quantize(np.where(cj, -v.imag, v.imag), scale), 16, aw)
+
+    out = np.zeros((batches, nf - 1, c), np.int64)
+    written = np.zeros(out.shape, np.int64)
+    prev = sample(f0)
+    for j in range(strip):
+        f = f0 + j
+        live = f < f1
+        cur = sample(np.minimum(f + 1, nf - 1))
+        d = _conj_pair(*prev, *cur, aw)
+        out[b[live], f[live], k[live]] = d[live]
+        written[b[live], f[live], k[live]] += 1
+        prev = cur
+    assert np.all(written == 1)
+    return out
 
 
 def _phase_emulation(i, q, input_width, aw):
@@ -260,6 +330,131 @@ class TestIqFrontEnd:
         want = sdr.discriminate_plain(torch.from_numpy(y)).numpy()
         i, q = _quantize(y.real, 2.0**14), _quantize(y.imag, 2.0**14)
         np.testing.assert_array_equal(_conj_emulation(i.T, q.T, 16, 20).T, want)
+
+
+def _spectrum_input(c, tpb=6, frames=83, seed=0):
+    """A real stream for a c-channel bank: a tone in channel 1 over noise."""
+    n = np.arange(c * (frames + tpb - 1))
+    rng = np.random.default_rng(seed + c)
+    x = np.cos(2 * np.pi * (1 / c + 0.004) * n) + 0.4 * rng.normal(size=n.size)
+    return x.astype(np.float32), channelizer.design_prototype(c, tpb)
+
+
+class TestStripWalk:
+    @pytest.mark.parametrize("strip", [1, 4, 7, 64])
+    @pytest.mark.parametrize("nf", [2, 3, 50, 130])
+    def test_carry_across_strips_and_batches(self, nf, strip):
+        # three batches of (nf, 5) channels walked in strips, the last strip
+        # of each ending at nf - 1 wherever nf - 1 is no multiple of the
+        # strip: the carried samples against the chain's plain discriminator
+        # and JAX's over the same int I/Q
+        rng = np.random.default_rng(nf * 10 + strip)
+        y = (rng.normal(size=(3, nf, 5)) + 1j * rng.normal(size=(3, nf, 5))).astype(np.complex64)
+        got = _iq_strip_emulation(y, 5, min(strip, nf - 1))
+        want = sdr.discriminate_plain(torch.from_numpy(y)).numpy()
+        np.testing.assert_array_equal(got, want)
+        i, q = _quantize(y.real, 2.0**14), _quantize(y.imag, 2.0**14)
+        for bi in range(3):
+            np.testing.assert_array_equal(
+                got[bi], np.asarray(jdm.fm_demod_conj(i[bi].T, q[bi].T, 16, 20)).T)
+
+    def test_strip_length_fills_the_card(self):
+        # config 5 (16 channels over 2^22 - 7 frames) and the dryrun's 4 x 6
+        # (2^20 - 5 frames): each grid holds at least one full load of 132
+        # SMs; tiny inputs walk 4 frames or all of them
+        for nf, c in (((1 << 22) - 7, 16), ((1 << 20) - 5, 4)):
+            strip = _strip_len((nf - 1) * c, nf)
+            assert -(-(nf - 1) // strip) * c >= 132 * 2048
+        assert _strip_len(16 * ((1 << 22) - 8), (1 << 22) - 7) == 64
+        assert _strip_len(4 * ((1 << 20) - 6), (1 << 20) - 5) == 15
+        assert _strip_len(40, 11) == 4 and _strip_len(6, 3) == 2
+
+
+class TestHalfSpectrum:
+    @pytest.mark.parametrize("c", [4, 5, 16, 2])
+    def test_rfft_conjugates_are_fft_s_fill(self, c):
+        # the CPU's torch.fft.fft of a real input: bins <= C/2 are rfft's,
+        # bins k > C/2 the conjugates of rfft's bins C - k, bit for bit; so
+        # full_spectrum of the chain's half spectrum is polyphase_channelize
+        x, proto = _spectrum_input(c)
+        rng = np.random.default_rng(c)
+        r = torch.from_numpy(rng.normal(size=(3, 40, c)).astype(np.float32))
+        full, half = torch.fft.fft(r, dim=-1), torch.fft.rfft(r, dim=-1)
+        h = c // 2 + 1
+        assert half.shape[-1] == h
+        assert torch.equal(torch.view_as_real(full[..., :h]), torch.view_as_real(half))
+        fill = half[..., 1:(c - 1) // 2 + 1].flip(-1).conj().resolve_conj()
+        assert torch.equal(torch.view_as_real(full[..., h:]), torch.view_as_real(fill))
+        y_half = channelizer.channel_bins(x, proto, c, device="cpu")
+        y_full = channelizer.polyphase_channelize(x, proto, c, device="cpu")
+        assert y_half.shape[-1] == h
+        assert torch.equal(torch.view_as_real(channelizer.full_spectrum(y_half, c)),
+                           torch.view_as_real(y_full))
+
+    @pytest.mark.parametrize("strip", [4, 9])
+    @pytest.mark.parametrize("c", [4, 5, 16])
+    def test_front_end_vs_the_full_spectrum(self, c, strip):
+        # the kernel's reading of the half spectrum (bins 0 and C/2 as they
+        # are, channel k > C/2 as rint(-im * scale) of bin C - k) against the
+        # plain discriminator over torch.fft.fft's full spectrum and JAX's
+        x, proto = _spectrum_input(c, seed=strip)
+        y_half = channelizer.channel_bins(x, proto, c, device="cpu").numpy()
+        y_full = channelizer.polyphase_channelize(x, proto, c, device="cpu")
+        want = sdr.discriminate_plain(y_full).numpy()
+        got = _iq_strip_emulation(y_half[None], c, strip)[0]
+        assert got.shape == want.shape == (y_half.shape[0] - 1, c)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_iq_strip_emulation(y_full.numpy()[None], c, strip)[0],
+                                      want)
+        yf = y_full.numpy()
+        i, q = _quantize(yf.real, 2.0**14), _quantize(yf.imag, 2.0**14)
+        np.testing.assert_array_equal(got, np.asarray(jdm.fm_demod_conj(i.T, q.T, 16, 20)).T)
+        np.testing.assert_array_equal(sdr.sdr_chain(x, proto, c, device="cpu").numpy(), want)
+
+    def test_conjugate_quantizes_as_the_fill(self):
+        # rint(-im * scale), one rounding, is the negated rint(im * scale),
+        # exact halves included
+        k = np.arange(-30000, 30000, 37, dtype=np.float64)
+        v = np.concatenate([np.float32((k + 0.5) / 2.0**14), np.float32(k / 3.0e3)])
+        np.testing.assert_array_equal(_quantize(-v, 2.0**14), -_quantize(v, 2.0**14))
+        want = torch.round(torch.from_numpy(-v) * 2.0**14).to(torch.int32).numpy()
+        np.testing.assert_array_equal(_quantize(-v, 2.0**14), want)
+
+    def test_wrapper_takes_either_width(self):
+        # the bins a frame must be the channels or their half spectrum
+        y = torch.zeros((3, 9), dtype=torch.complex64)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            dk.iq_demod(y, n_channels=16)
+
+
+class TestIterationIdentities:
+    @pytest.mark.parametrize("sh", [0, 1, 11, 16, 30])
+    def test_folded_shift_pair_is_the_masked_shift(self, sh):
+        # d * ((X >> i) with its low sh bits cleared) == (d << sh) * (X >> (i + sh))
+        # mod 2^32, d << sh = m * 2^(sh+1) + 2^sh, for X with its low sh bits 0
+        rng = np.random.default_rng(sh)
+        x = (rng.integers(0, 1 << 32, 4096, dtype=np.uint64).astype(np.uint32)
+             >> np.uint32(sh)) << np.uint32(sh)
+        m = np.where(rng.integers(0, 2, 4096) == 1, np.uint32(0xFFFFFFFF), np.uint32(0))
+        d = m | np.uint32(1)
+        keep = np.uint32((0xFFFFFFFF << sh) & 0xFFFFFFFF)
+        p2 = np.uint32(1 << sh)
+        for i in range(0, 31 - sh):
+            masked = d * ((x.view(np.int32) >> np.int32(i)).view(np.uint32) & keep)
+            folded = (m * (p2 << np.uint32(1)) + p2) * (
+                x.view(np.int32) >> np.int32(i + sh)).view(np.uint32)
+            np.testing.assert_array_equal(masked, folded)
+
+    @pytest.mark.parametrize("aw,p", [(16, 1), (20, 1), (24, 1), (31, 1), (30, 2)])
+    def test_z_as_steps_of_the_sign_mask(self, aw, p):
+        # z = sum -d_i lut[i] = zbase + sum m_i (-2 lut[i]) mod 2^32
+        lut = dk.atan2_lut(aw, p)
+        rng = np.random.default_rng(aw)
+        d = rng.choice([-1, 1], size=(512, aw - 1))
+        m = (d - 1) // 2
+        want = (-d * lut).sum(axis=1)
+        got = (-int(lut.sum()) + (m * (-2 * lut)).sum(axis=1)) % (1 << 32)
+        np.testing.assert_array_equal(np.where(got >= 1 << 31, got - (1 << 32), got), want)
 
 
 class TestDispatch:

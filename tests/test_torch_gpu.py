@@ -976,6 +976,58 @@ def test_ddc_mixer_kernel_refuses_what_it_does_not_take(cuda):
     assert _build.launches["ddc_mixer"] == 0
 
 
+TABLE_TZ = [0, 1, 3, 17, 99]  # trailing zeros of the tuning word; 99: the word 0
+
+
+@pytest.mark.parametrize("tz", TABLE_TZ)
+@pytest.mark.parametrize("flavor,pw,w", [(f, pw, w) for f in ("dds48", "scaled")
+                                         for pw in (16, 20, 24, 31) for w in (12, 17)])
+def test_ddc_mixer_table_path_matches_plain(cuda, flavor, pw, w, tz):
+    # P = 2^(PW - tz): a table where P <= 2^20 and P <= T/4, else the
+    # compute path; rows long and short, n0 past 2^32, raw and f32 output
+    fw = ((0x2D4B3 << tz) % (1 << pw)) if tz < pw else 0
+    rng = np.random.default_rng(pw * 100 + w + tz)
+    for shape, n0 in (((1 << 18,), 2**33 + 5), ((3, 4099), 2**32 - 7), ((5, 64), 12345)):
+        x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+        p = dk.table_period(fw, pw, shape[-1])
+        for raw in (True, False):
+            _build.reset_launches()
+            got = dk.mixer(x.to(cuda), fw, pw, w, flavor, n0=n0, raw=raw)
+            assert _build.launches["ddc_mixer"] == 1
+            assert _build.launches["ddc_nco_table"] == (1 if p else 0)
+            want = pddc.mixer(x, fw, pw, w, flavor, n0=n0, raw=raw)
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), (shape, p)
+
+
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+@pytest.mark.parametrize("fw,pw", [(1 << 17, 20), (104857, 20), (3 << 12, 24), (0, 16),
+                                   (1 << 27, 31)])
+def test_ddc_nco_table_kernel_matches_plain(cuda, flavor, fw, pw):
+    for w in (8, 16, 17):
+        _build.reset_launches()
+        got = dk.nco_table(fw, pw, w, flavor, device=cuda)
+        assert _build.launches["ddc_nco_table"] == 1
+        want = pddc.nco_table_plain(fw, pw, w, flavor, device="cpu")
+        assert got.shape == want.shape == (dk.nco_period(fw, pw), 2)
+        assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="exceeds"):
+        dk.nco_table(1, 21, 16, flavor, device=cuda)
+
+
+@pytest.mark.parametrize("flavor", ["dds48", "scaled"])
+def test_sharded_ddc_table_under_a_period_no_multiple_of_p(cuda, flavor):
+    # shard 0's chunk starts below 0 and the stream (1000 samples) is no
+    # multiple of P = 16: the table path takes n + period before n mod P
+    pw, w, fw = 20, 16, 0x2D4B3 << 16
+    x = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, 400).astype(np.float32))
+    assert dk.table_period(fw, pw, 400) == 16
+    _build.reset_launches()
+    got = dk.mixer(x.to(cuda), fw, pw, w, flavor, n0=-60, period=1000, raw=True)
+    assert _build.launches["ddc_nco_table"] == 1
+    want = pddc.mixer(x, fw, pw, w, flavor, n0=-60, period=1000, raw=True)
+    assert torch.equal(got.cpu(), want)
+
+
 def _no_torch_op_nco(monkeypatch):
     """Record every call of the plain NCO's CORDIC (the torch-op route)."""
     calls = []
@@ -994,7 +1046,9 @@ def test_ddc_call_is_one_mixer_launch(cuda, monkeypatch, flavor):
     _build.reset_launches()
     got = pddc.ddc(torch.from_numpy(x).to(cuda), 1 / 8, 4, taps=h, flavor=flavor)
     torch.cuda.synchronize()
-    assert {k: v for k, v in _build.launches.items() if v} == {"ddc_mixer": 1, "materialize": 1}
+    # fc = 1/8 at PW = 20: an NCO period of 8, so its table first
+    assert {k: v for k, v in _build.launches.items() if v} == {"ddc_nco_table": 1,
+                                                               "ddc_mixer": 1, "materialize": 1}
     assert not calls
     # the mixer output the FIR takes is bit-equal to the CPU plain version's
     m2 = pddc.mixer(torch.from_numpy(x).to(cuda), pddc.freq_word(1 / 8, 20), 20, 16, flavor)
@@ -1014,7 +1068,8 @@ def test_sharded_ddc_is_one_mixer_launch_a_shard(cuda, monkeypatch, flavor):
     step = pddc.make_sharded_ddc(_card_mesh(cuda), 20, 16, 1 / 8, 4, taps=h, flavor=flavor)
     _build.reset_launches()
     got = unshard(step(torch.from_numpy(x).to(cuda))).cpu()
-    assert _build.launches["ddc_mixer"] == 4 and not calls
+    assert _build.launches["ddc_mixer"] == 4 and _build.launches["ddc_nco_table"] == 4
+    assert not calls
     want = pddc.ddc(x, 1 / 8, 4, taps=h, flavor=flavor, device="cpu")
     u = 2.0**-24
     bound = 2 * 64 * u / (1 - 64 * u) * np.abs(h.astype(np.float32)).sum() * np.abs(x).max()
@@ -1380,6 +1435,31 @@ def test_iq_demod_kernel_matches_plain(cuda, aw, scale, dtype):
     assert got.shape == want.shape == (2, 699, 16) and torch.equal(got.cpu(), want)
     # the plain version on the card agrees too
     assert torch.equal(sdr.discriminate_plain(y.to(cuda), aw, scale).cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("c", [2, 4, 5, 16, 33])
+def test_iq_demod_half_spectrum_matches_plain(cuda, c, dtype):
+    # a real stream's half spectrum (C//2 + 1 bins): channel k > C/2 read as
+    # the conjugate of bin C - k, against the plain discriminator over the
+    # conjugate fill; batches, and nf - 1 no multiple of a strip
+    from blackman_harris_win_tpu_torch.pipeline import channelizer, sdr
+
+    rng = np.random.default_rng(c)
+    r = torch.from_numpy(rng.normal(size=(2, 999, c)) * 0.7).to(
+        torch.float32 if dtype == torch.complex64 else torch.float64)
+    half = torch.fft.rfft(r, dim=-1)
+    want = sdr.discriminate_plain(channelizer.full_spectrum(half, c))
+    _build.reset_launches()
+    got = dmk.iq_demod(half.to(cuda), 20, n_channels=c)
+    assert _build.launches["fm_demod"] == 1
+    assert got.shape == want.shape == (2, 998, c) and torch.equal(got.cpu(), want)
+    # the card's own full spectrum of the same stream gives the same output
+    full = torch.fft.fft(r.to(cuda), dim=-1)
+    assert torch.equal(dmk.iq_demod(full, 20).cpu(), dmk.iq_demod(torch.fft.rfft(
+        r.to(cuda), dim=-1), 20, n_channels=c).cpu())
+    with pytest.raises(ValueError, match="half"):
+        dmk.iq_demod(half.to(cuda)[..., :-1], 20, n_channels=c)
 
 
 def test_demod_kernels_refuse_what_they_do_not_take(cuda):
