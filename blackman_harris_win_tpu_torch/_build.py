@@ -81,14 +81,15 @@ _SIGNATURES = {
     # out, y, x, n, elem, lut, aw, p, input_width, convention, stream
     "bhw_cordic_atan2": (_P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _P),
     # out, i, q, rows, t, (i strides), (q strides), elem, mode, lut, aw,
-    # input_width, drop, shift, stream
-    "bhw_fm_demod": (_P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _P, _I, _I, _I, _I, _P),
+    # input_width, drop, shift, walk (0: lanes on t, out (rows, t-1); 1:
+    # lanes on rows, out (t-1, rows)), stream
+    "bhw_fm_demod": (_P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P),
     # out, y, batches, nf, c, bins (c, or c // 2 + 1: a half spectrum), elem,
     # iq_scale, lut, aw, drop, shift, stream
     "bhw_fm_demod_iq": (_P, _P, _L, _L, _L, _L, _I, _D, _P, _I, _I, _I, _P),
     # out (16-byte aligned), n0, count, rom, pw, w, ls, coeffs, nterms,
-    # p_hi, p_lo, saturate, stream
-    "bhw_taylor2_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _U, _U, _I, _P),
+    # p_hi, p_lo, saturate, regime (fastwin_kernel.walk_regime), stream
+    "bhw_taylor2_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _U, _U, _I, _I, _P),
 }
 #: host-side queries of a kernel's launch geometry: name -> (args, result)
 _QUERIES = {

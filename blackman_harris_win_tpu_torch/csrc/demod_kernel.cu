@@ -13,7 +13,7 @@
 //                     int64 (y, x) of one shape, int64 out;
 //   demod_int_kernel  fm_demod_conj / fm_demod_phase from integer I/Q
 //                     (rows, T) with any strides, read in place, to
-//                     (rows, T-1) int64;
+//                     (rows, T-1) int64 in the input's stride order;
 //   demod_iq_kernel   sdr_chain's discriminator from the complex64 (or
 //                     complex128) channelizer output (batches, nf, bins): the
 //                     quantizer rint(re * iq_scale) (round half to even, as
@@ -75,10 +75,29 @@
 // each warp's loads and stores are whole 32-byte sectors (a 128-byte line
 // at 16 channels), and the strip length is chosen so the grid holds at
 // least one full load of the card (2048 threads an SM), within 4 to 64
-// frames.  demod_int puts a row on blockIdx.y and T on blockIdx.x; in
-// phase mode a block of kThreads threads computes kThreads angles and
-// writes the kThreads-1 differences between them, so each angle is
-// computed once (plus one a block).
+// frames.  demod_int computes each angle (phase) or re-quantized sample
+// (conj) once, whichever stride of the I/Q is the unit one, in one of two
+// walks the host picks (kernels/demod_kernel.py:walk_of):
+//
+// - kWalkRows, for I/Q whose row stride is the shorter (the (T, C) array
+//   of a channel bank read as its (C, T) transpose, as the SDR chain's
+//   plain path and chip_smoke.py pass it): the complex front end's strip
+//   walk, lanes on
+//   consecutive rows, and the output written (T-1, rows), the input's
+//   stride order, the layout torch's own elementwise ops give the plain
+//   version (the wrapper returns its transpose).  Consecutive t on the
+//   lanes would read such a 16-row int32 bank at 4 useful bytes of each
+//   32-byte sector, with each sector read again for a later row: 3.117 ms
+//   at config 5 against a 0.32 ms byte bound on an H100 (PERF.md).
+// - kWalkT, for rows with a unit (or the shorter) t stride: a warp walks a
+//   chunk of one row, a sample a lane a step, and takes each output's
+//   predecessor from the next lane down (__shfl_up_sync) and lane 0's
+//   from lane 31 of the step before; the chunk's first from sample t0 - 1,
+//   computed once a chunk.  Output (rows, T-1), a warp's store one run of
+//   32 int64.
+//
+// Both carry the value across their strip or chunk in registers: no
+// shared memory, no barrier, each sample read and quantized once.
 
 #include <climits>
 #include <cstdint>
@@ -208,43 +227,130 @@ atan2_kernel(i64* __restrict__ out, const T* __restrict__ y, const T* __restrict
   }
 }
 
+enum Walk : int { kWalkT = 0, kWalkRows = 1 };  // demod_int: lanes on t, or on rows
+
 // strides are in elements: row r, sample t of i at i[r * ir + t * it]
 struct Layout {
   i64 rows, t;
   i64 ir, it, qr, qt;
+  i64 span;     // kWalkRows: outputs a thread walks; kWalkT: 32-sample steps a warp walks
+  i64 per_row;  // strips (kWalkRows) or chunks (kWalkT) a row
+  i64 tasks;    // threads (kWalkRows) or warps (kWalkT) with work
 };
 
-template <typename T, typename S, int MODE>
+template <typename T>
+struct Raw {
+  T i, q;
+};
+
+template <typename T>
+__device__ __forceinline__ Raw<T> load(const T* ip, const T* qp, i64 t, const Layout& L) {
+  return {__ldg(ip + t * L.it), __ldg(qp + t * L.qt)};
+}
+
+// what the discriminator carries from a sample to the next output: its
+// angle (phase) or its re-quantized I/Q (conj)
+struct Val {
+  i64 phi;
+  Iq s;
+};
+
+template <typename S, int MODE, typename T>
+__device__ __forceinline__ Val value(Raw<T> x, const Params& P) {
+  Val v{0, {0u, 0u}};
+  if constexpr (MODE == kPhase) {
+    v.phi = atan2_word<S>((i64)x.q, (i64)x.i, P);
+  } else {
+    v.s = requant((i64)x.i, (i64)x.q, P);
+  }
+  return v;
+}
+
+// the output of samples prev -> cur: phase_wrap(phi1 - phi0) or the
+// conjugate-product angle
+template <typename S, int MODE>
+__device__ __forceinline__ i64 output(Val prev, Val cur, const Params& P) {
+  if constexpr (MODE == kPhase) {
+    const u64 half = 1ull << (P.aw - 1), full = 1ull << P.aw;
+    const u64 d = (u64)cur.phi - (u64)prev.phi;
+    return (i64)((d + half) & (full - 1)) - (i64)half;
+  } else {
+    return conj_word<S>(prev.s, cur.s, P);
+  }
+}
+
+// lane l - 1's value (lane 0: its own), and lane src's, across the warp
+template <int MODE>
+__device__ __forceinline__ Val from_lane_below(Val v) {
+  if constexpr (MODE == kPhase) {
+    v.phi = __shfl_up_sync(0xffffffffu, v.phi, 1);
+  } else {
+    v.s.a = __shfl_up_sync(0xffffffffu, v.s.a, 1);
+    v.s.b = __shfl_up_sync(0xffffffffu, v.s.b, 1);
+  }
+  return v;
+}
+
+template <int MODE>
+__device__ __forceinline__ Val from_lane(Val v, int src) {
+  if constexpr (MODE == kPhase) {
+    v.phi = __shfl_sync(0xffffffffu, v.phi, src);
+  } else {
+    v.s.a = __shfl_sync(0xffffffffu, v.s.a, src);
+    v.s.b = __shfl_sync(0xffffffffu, v.s.b, src);
+  }
+  return v;
+}
+
+template <typename T, typename S, int MODE, int WALK>
 __global__ void __launch_bounds__(kThreads)
 demod_int_kernel(i64* __restrict__ out, const T* __restrict__ i, const T* __restrict__ q,
                  const Layout L, const Params P) {
-  __shared__ i64 phi[kThreads];
-  const i64 tout = L.t - 1;
-  for (i64 r = blockIdx.y; r < L.rows; r += gridDim.y) {
-    const T* ir = i + r * L.ir;
-    const T* qr = q + r * L.qr;
-    i64* o = out + r * tout;
-    if constexpr (MODE == kConj) {
-      const i64 j = (i64)blockIdx.x * kThreads + threadIdx.x;
-      if (j < tout) {
-        o[j] = conj_word<S>(requant((i64)__ldg(ir + j * L.it), (i64)__ldg(qr + j * L.qt), P),
-                            requant((i64)__ldg(ir + (j + 1) * L.it),
-                                    (i64)__ldg(qr + (j + 1) * L.qt), P), P);
-      }
-    } else {
-      // this block's angles at t0 + k, k < kThreads; output j = t0 + k - 1
-      // for k >= 1 is phase_wrap(phi[k] - phi[k-1])
-      const i64 t0 = (i64)blockIdx.x * (kThreads - 1);
-      const i64 t = t0 + threadIdx.x;
-      if (t < L.t) phi[threadIdx.x] = atan2_word<S>((i64)__ldg(qr + t * L.qt),
-                                                   (i64)__ldg(ir + t * L.it), P);
-      __syncthreads();
-      if (threadIdx.x > 0 && t < L.t) {
-        const u64 half = 1ull << (P.aw - 1), full = 1ull << P.aw;
-        const u64 d = (u64)phi[threadIdx.x] - (u64)phi[threadIdx.x - 1];
-        o[t - 1] = (i64)((d + half) & (full - 1)) - (i64)half;
-      }
-      __syncthreads();  // phi is reused by the next row
+  if constexpr (WALK == kWalkRows) {
+    // a strip of span outputs of one row a thread, the rows fastest: each
+    // warp load and store touches consecutive rows of one t
+    const i64 g = (i64)blockIdx.x * kThreads + threadIdx.x;
+    if (g >= L.tasks) return;
+    const i64 r = g % L.rows, t0 = g / L.rows * L.span;
+    const i64 t1 = t0 + L.span < L.t - 1 ? t0 + L.span : L.t - 1;  // outputs t0 .. t1-1
+    const T* ip = i + r * L.ir;
+    const T* qp = q + r * L.qr;
+    i64* o = out + t0 * L.rows + r;  // out is (t - 1, rows)
+    Val prev = value<S, MODE>(load(ip, qp, t0, L), P);
+    Raw<T> next = load(ip, qp, t0 + 1, L);
+    for (i64 t = t0; t < t1; ++t) {
+      const Raw<T> cur = next;
+      if (t + 2 <= t1) next = load(ip, qp, t + 2, L);  // in flight during this output
+      const Val v = value<S, MODE>(cur, P);
+      *o = output<S, MODE>(prev, v, P);
+      o += L.rows;
+      prev = v;
+    }
+  } else {
+    // a chunk of 32 * span samples of one row a warp, a sample a lane a
+    // step: each value computed once, its predecessor from the next lane
+    // down, lane 0's from lane 31 of the step before (the chunk's first
+    // from sample t0 - 1)
+    const i64 w = ((i64)blockIdx.x * kThreads + threadIdx.x) >> 5;
+    if (w >= L.tasks) return;  // whole warps
+    const int lane = threadIdx.x & 31;
+    const i64 r = w / L.per_row, t0 = w % L.per_row * 32 * L.span;
+    const i64 tend = t0 + 32 * L.span < L.t ? t0 + 32 * L.span : L.t;
+    const T* ip = i + r * L.ir;
+    const T* qp = q + r * L.qr;
+    i64* o = out + r * (L.t - 1);  // out is (rows, t - 1): sample t's output at o[t - 1]
+    Val carry{0, {0u, 0u}};
+    if (t0 > 0) carry = value<S, MODE>(load(ip, qp, t0 - 1, L), P);
+    Raw<T> next = load(ip, qp, t0 + lane < tend ? t0 + lane : tend - 1, L);
+    for (i64 tb = t0; tb < tend; tb += 32) {
+      const i64 t = tb + lane;
+      const Raw<T> cur = next;
+      if (tb + 32 < tend) next = load(ip, qp, t + 32 < tend ? t + 32 : tend - 1, L);
+      const Val v = value<S, MODE>(cur, P);
+      Val prev = from_lane_below<MODE>(v);
+      if (lane == 0) prev = carry;
+      carry = from_lane<MODE>(v, 31);
+      if (t < tend && t > 0) o[t - 1] = output<S, MODE>(prev, v, P);
     }
   }
 }
@@ -363,17 +469,47 @@ int launch_atan2(int elem, i64* out, const void* y, const void* x, i64 n, const 
 }
 
 template <typename T, typename S>
-int launch_demod(int mode, i64* out, const void* i, const void* q, const Layout& L,
+int launch_demod(int mode, int walk, i64* out, const void* i, const void* q, Layout L,
                  const Params& P, cudaStream_t st) {
-  const i64 per_block = mode == kPhase ? kThreads - 1 : kThreads;
-  const i64 bx = (L.t - 1 + per_block - 1) / per_block;
-  if (bx > INT_MAX) return (int)cudaErrorInvalidValue;
-  const unsigned by = (unsigned)(L.rows < 65535 ? L.rows : 65535);
-  const dim3 grid((unsigned)bx, by);
-  if (mode == kPhase) {
-    demod_int_kernel<T, S, kPhase><<<grid, kThreads, 0, st>>>(out, (const T*)i, (const T*)q, L, P);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // a thread's outputs (a strip, or a warp's steps): at least one full load
+  // of the card unless clamped, within kMinStrip to kMaxStrip
+  const i64 outs = L.rows * (L.t - 1);
+  i64 span = outs / ((i64)sms * kThreadsPerSm);
+  span = span < kMinStrip ? kMinStrip : (span > kMaxStrip ? kMaxStrip : span);
+  i64 threads;
+  if (walk == kWalkRows) {
+    L.span = span < L.t - 1 ? span : L.t - 1;
+    L.per_row = (L.t - 1 + L.span - 1) / L.span;
+    L.tasks = L.rows * L.per_row;
+    threads = L.tasks;
   } else {
-    demod_int_kernel<T, S, kConj><<<grid, kThreads, 0, st>>>(out, (const T*)i, (const T*)q, L, P);
+    const i64 steps = (L.t + 31) / 32;
+    L.span = span < steps ? span : steps;
+    L.per_row = (L.t + 32 * L.span - 1) / (32 * L.span);
+    L.tasks = L.rows * L.per_row;
+    threads = 32 * L.tasks;
+  }
+  const i64 blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)blocks;
+  const T* ip = (const T*)i;
+  const T* qp = (const T*)q;
+  if (mode == kPhase) {
+    if (walk == kWalkRows) {
+      demod_int_kernel<T, S, kPhase, kWalkRows><<<grid, kThreads, 0, st>>>(out, ip, qp, L, P);
+    } else {
+      demod_int_kernel<T, S, kPhase, kWalkT><<<grid, kThreads, 0, st>>>(out, ip, qp, L, P);
+    }
+  } else {
+    if (walk == kWalkRows) {
+      demod_int_kernel<T, S, kConj, kWalkRows><<<grid, kThreads, 0, st>>>(out, ip, qp, L, P);
+    } else {
+      demod_int_kernel<T, S, kConj, kWalkT><<<grid, kThreads, 0, st>>>(out, ip, qp, L, P);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -396,29 +532,32 @@ int bhw_cordic_atan2(void* out, const void* y, const void* x, i64 n, int elem, c
                       : launch_atan2<i64>(elem, (i64*)out, y, x, n, P, st);
 }
 
-// out: (rows, t - 1) int64, contiguous; i, q: (rows, t) int32 (elem = 4) or
-// int64 (elem = 8) at element strides (ir, it) and (qr, qt).  mode 0:
-// fm_demod_conj (input_width 15 after >> drop, atan2 at AW with P = 1 on
-// the products >> shift); mode 1: fm_demod_phase (atan2_fixed at
-// input_width, then phase_wrap of the differences).
+// out: int64, contiguous, (rows, t - 1) for walk 0 (lanes on t) or (t - 1,
+// rows) for walk 1 (lanes on rows: the layout of I/Q whose row stride is
+// the shorter); i, q: (rows, t) int32 (elem = 4) or int64 (elem = 8) at
+// element strides (ir, it) and (qr, qt).  mode 0: fm_demod_conj
+// (input_width 15 after >> drop, atan2 at AW with P = 1 on the products >>
+// shift); mode 1: fm_demod_phase (atan2_fixed at input_width, then
+// phase_wrap of the differences).
 int bhw_fm_demod(void* out, const void* i, const void* q, i64 rows, i64 t, i64 ir, i64 it, i64 qr,
                  i64 qt, int elem, int mode, const i64* lut, int aw, int input_width, int drop,
-                 int shift, void* stream) {
+                 int shift, int walk, void* stream) {
   Params P;
   const int iw = mode == kConj ? aw : input_width;  // conj: atan2 reads the products at AW
   if (!fill(P, lut, aw, 1, iw, kFixed, drop, shift, 0.0) || rows < 1 || t < 2 ||
-      (elem != 4 && elem != 8) || (mode != kConj && mode != kPhase)) {
+      (elem != 4 && elem != 8) || (mode != kConj && mode != kPhase) ||
+      (walk != kWalkT && walk != kWalkRows)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Layout L{rows, t, ir, it, qr, qt};
+  const Layout L{rows, t, ir, it, qr, qt, 0, 0, 0};
   const cudaStream_t st = (cudaStream_t)stream;
   i64* o = (i64*)out;
   if (aw + 1 <= 32) {
-    return elem == 4 ? launch_demod<int, int>(mode, o, i, q, L, P, st)
-                     : launch_demod<i64, int>(mode, o, i, q, L, P, st);
+    return elem == 4 ? launch_demod<int, int>(mode, walk, o, i, q, L, P, st)
+                     : launch_demod<i64, int>(mode, walk, o, i, q, L, P, st);
   }
-  return elem == 4 ? launch_demod<int, i64>(mode, o, i, q, L, P, st)
-                   : launch_demod<i64, i64>(mode, o, i, q, L, P, st);
+  return elem == 4 ? launch_demod<int, i64>(mode, walk, o, i, q, L, P, st)
+                   : launch_demod<i64, i64>(mode, walk, o, i, q, L, P, st);
 }
 
 // out: (batches, nf - 1, c) int64; y: (batches, nf, bins) complex64 (elem =

@@ -12,7 +12,8 @@ points use it:
   int64 (y, x), int64 out (counter ``cordic_atan2``);
 - :func:`fm_demod`: ``fm_demod_conj`` / ``fm_demod_phase`` from integer
   I/Q (..., T) to (..., T-1) int64, the inputs read in place at their
-  strides (counter ``fm_demod``);
+  strides, each angle or re-quantized sample computed once, the output in
+  the inputs' stride order (:func:`walk_of`; counter ``fm_demod``);
 - :func:`iq_demod`: ``sdr_chain``'s discriminator from the complex
   channelizer output (..., nf, C), or its half spectrum (..., nf, C//2 + 1)
   for a real stream: the quantizer ``round(y * iq_scale)`` to int32 and
@@ -29,6 +30,8 @@ and its plain version in torch ops is by the device the input lies on, in
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -39,6 +42,9 @@ from ..core.luts import LUT_ATAN_PI
 CONVENTIONS = ("cordic", "fixed")
 #: the discriminators, in the order of their codes in the source
 MODES = ("conj", "phase")
+#: the integer discriminator's walks, in the order of their codes in the
+#: source: lanes on consecutive samples t, or on consecutive rows
+WALKS = ("t", "rows")
 #: the widest state the kernel holds: AW + P <= 49 (the LUT's 2^48 scale)
 MAX_STATE_WIDTH = 49
 #: the width of the quantized channel I/Q ``sdr_chain`` discriminates
@@ -128,10 +134,35 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(1, -1) if t.dim() == 1 else t.reshape(-1, t.shape[-1])
 
 
+def walk_of(rows: int, i_strides: tuple[int, int], q_strides: tuple[int, int]) -> str:
+    """The integer discriminator's walk for (rows, T) I/Q at these element
+    strides: "rows" (lanes on consecutive rows, the output (T-1, rows) in
+    memory) where the row stride is the shorter non-zero one, as in the
+    transpose of a (T, C) channel bank; else "t" (lanes on consecutive
+    samples, the output (rows, T-1)).  I's strides decide, or Q's where I
+    is broadcast across the rows."""
+    ir, it = i_strides if i_strides[0] else q_strides
+    return "rows" if rows > 1 and 0 < ir < it else "t"
+
+
+def demod_output(shape: tuple[int, ...], walk: str, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(memory the kernel writes, the (..., T-1) int64 output): for the
+    "rows" walk a contiguous (T-1, rows) and its transpose as ``shape``,
+    else one contiguous tensor."""
+    if walk == "rows":
+        mem = torch.empty((shape[-1], math.prod(shape[:-1])), dtype=torch.int64, device=device)
+        return mem, mem.t().view(shape)
+    out = torch.empty(shape, dtype=torch.int64, device=device)
+    return out, out
+
+
 def fm_demod(i: torch.Tensor, q: torch.Tensor, input_width: int, angle_width: int = 24,
              mode: str = "conj") -> torch.Tensor:
     """``fm_demod_conj`` (mode "conj") or ``fm_demod_phase`` ("phase") of
-    integer I/Q CUDA tensors (..., T), as (..., T-1) int64."""
+    integer I/Q CUDA tensors (..., T), as (..., T-1) int64: contiguous, or
+    for I/Q whose rows are the shorter stride (:func:`walk_of`) the
+    transpose of a contiguous (T-1, rows), as torch's elementwise ops lay
+    out the plain version's."""
     dev = _card_device(i, q)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
@@ -140,15 +171,18 @@ def fm_demod(i: torch.Tensor, q: torch.Tensor, input_width: int, angle_width: in
     if not i.dim():
         raise ValueError("the demod kernels take I/Q (..., T)")
     t = i.shape[-1]
-    out = torch.empty((*i.shape[:-1], max(t - 1, 0)), dtype=torch.int64, device=dev)
-    if not out.numel():
-        return out
+    shape = (*i.shape[:-1], max(t - 1, 0))
+    if not math.prod(shape):
+        return torch.empty(shape, dtype=torch.int64, device=dev)
     i2, q2 = _rows(i), _rows(q)
+    rows = i2.shape[0]
+    walk = walk_of(rows, i2.stride(), q2.stride())
+    mem, out = demod_output(shape, walk, dev)
     drop, shift = conj_shifts(input_width, angle_width) if mode == "conj" else (0, 0)
     lut = atan2_lut(angle_width, 1)
-    _launch("fm_demod", "bhw_fm_demod", dev, out.data_ptr(), i2.data_ptr(), q2.data_ptr(),
-            i2.shape[0], t, *i2.stride(), *q2.stride(), i2.element_size(), MODES.index(mode),
-            lut.ctypes.data, angle_width, input_width, drop, shift)
+    _launch("fm_demod", "bhw_fm_demod", dev, mem.data_ptr(), i2.data_ptr(), q2.data_ptr(),
+            rows, t, *i2.stride(), *q2.stride(), i2.element_size(), MODES.index(mode),
+            lut.ctypes.data, angle_width, input_width, drop, shift, WALKS.index(walk))
     return out
 
 

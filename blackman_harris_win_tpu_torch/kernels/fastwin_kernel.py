@@ -4,10 +4,14 @@
 The kernel computes ``window_values_fast`` (``kernels/fastwin.py``) over a
 contiguous block [n0, n0+count) as int32, bit for bit: per harmonic the
 phase (k*n) mod 2^PW as one uint32 product, the quarter-wave ROM read and
-the second-order Taylor correction with its exact 64-bit floors, the
-alternating accumulate in 32 bits, then the W-bit wrap or the clamp.  It
-replaces the jnp of ``blackman_harris_win_tpu/kernels/fastwin.py:75-157``
-(no ``pallas_call``).
+the second-order Taylor correction with its exact floors, the alternating
+accumulate in 32 bits, then the W-bit wrap or the clamp.  It replaces the
+jnp of ``blackman_harris_win_tpu/kernels/fastwin.py:75-157`` (no
+``pallas_call``).  Where the ROM entries hold long runs of samples, it
+walks them: each lane reads a run's entry and picks its quadrant's form
+once, and steps the residual count's products exactly from sample to
+sample (:func:`walk_regime` says where; ``csrc/fastwin_kernel.cu`` why it
+is exact).
 
 :func:`window_block` is the entry point: the plain version
 (:func:`taylor2_window_plain`, ``window_values_fast`` in torch ops) for the
@@ -32,6 +36,34 @@ from .fastwin import _phase_consts, _rom_q, window_values_fast
 MAX_TERMS = 16
 #: the widest phase the kernel takes: its phase product is 32-bit
 MAX_PHASE_WIDTH = 32
+#: the kernel's compile-time forms, in the order of their codes in the source
+REGIMES = ("rom_only", "per_sample", "walk", "walk_lo")
+#: the run walk's lane layout: lane l of a warp holds its 512 samples' 4l
+#: + o for these offsets o = 128h + j (h, j < 4), in this order
+WALK_OFFSETS = tuple(128 * h + j for h in range(4) for j in range(4))
+#: the widest step between two of a lane's samples in the walk
+MAX_GAP = max(b - a for a, b in zip(WALK_OFFSETS, WALK_OFFSETS[1:]))
+
+
+@lru_cache(maxsize=64)
+def walk_regime(pw: int, ls: int, nterms: int) -> str:
+    """The kernel's form for phase width ``pw``, LUT size ``ls`` and
+    ``nterms`` terms: "rom_only" where rb = pw-2-ls <= 0; the run walk
+    ("walk_lo" with the P_lo term, "walk" without) where S = ls+29 >= 32
+    (its high-word products), each run check's acnt * P_hi (and acnt *
+    P_lo) stays below 2^32 (acnt reaches at most 2^rb - 1 + MAX_GAP *
+    (nterms-1) at a check) and the highest harmonic's runs of 2^rb/k
+    samples span the widest gap between a lane's samples, MAX_GAP, so that
+    a lane leaves few runs; else "per_sample"."""
+    _, p_hi, p_lo, rb = _phase_consts(pw, ls)
+    if rb <= 0:
+        return "rom_only"
+    reach = (1 << rb) - 1 + MAX_GAP * (nterms - 1)
+    use_lo = p_lo != 0 and rb + 12 <= 31
+    if (ls + 29 >= 32 and 1 << rb >= MAX_GAP * (nterms - 1) and reach * p_hi < 1 << 32
+            and (not use_lo or reach * p_lo < 1 << 32)):
+        return "walk_lo" if use_lo else "walk"
+    return "per_sample"
 
 
 @lru_cache(maxsize=16)
@@ -93,6 +125,6 @@ def window_block(coeffs_q, spec: WindowSpec, n0, count: int, device=None) -> tor
         rc = _build.lib().bhw_taylor2_window_block(
             out.data_ptr(), n0 % (1 << 32), count, _rom_on(ls, w, device).data_ptr(), pw, w, ls,
             cbuf.ctypes.data, len(coeffs), p_hi, p_lo, int(spec.overflow == "saturate"),
-            _build.stream_of(device))
+            REGIMES.index(walk_regime(pw, ls, len(coeffs))), _build.stream_of(device))
     _build.check("taylor2_window_block", rc)
     return out

@@ -134,17 +134,49 @@ def fm_demod_conj_ops(angle_width: int) -> int:
     return 4 + 2 + 6 + 2 + atan2_ops(angle_width)
 
 
+def fm_demod_phase_ops(angle_width: int) -> tuple[int, int]:
+    """(operations per sample, per output) of the phase discriminator on
+    integer I/Q (``csrc/demod_kernel.cu``, the integer front end): one
+    atan2 a sample, computed once and reused by the next output, and the
+    wrapped difference of two angles (subtract, add, mask, subtract: 4)."""
+    return atan2_ops(angle_width), 4
+
+
+def fm_demod_int_conj_ops(angle_width: int) -> int:
+    """Operations per output of the conjugate-product discriminator on
+    integer I/Q: :func:`fm_demod_conj_ops` without the quantizer (4), the
+    integer samples arriving quantized."""
+    return fm_demod_conj_ops(angle_width) - 4
+
+
 def taylor2_window_ops(n_terms: int, p_lo: bool = True) -> int:
-    """Operations per sample of the taylor2 window (``csrc/fastwin_kernel.cu``):
-    per harmonic the phase product and mask (2), the quadrant and the low
-    part (2), the ROM index and the residual count (2), d (a product, and
-    with P_lo a product, shift and add: 1 or 4), dh and e (2), the two
+    """Operations per sample of the taylor2 window (``csrc/fastwin_kernel.cu``)
+    along a run of samples that share a ROM entry and a quadrant: per
+    harmonic d from the run's exact step (an add, and with P_lo the
+    numerator's add, a shift and an add: 1 or 4), dh and e (2), the two
     correction products of the quadrant's cosine and their shifts (4), the
-    two subtracts (2), the quadrant steering (the cos/sin pick and the
-    negation: 3), a_k * cos, its shift and the accumulate (3); per sample
-    the W-bit wrap or clamp (2).  The cosine alone: the JAX function also
+    two adds (2), a_k * cos, its shift and the accumulate (3); per sample the
+    W-bit wrap or clamp (2).  What a run costs once is
+    :data:`TAYLOR2_RUN_OPS`.  The cosine alone: the JAX function also
     computes the sine, which no window term reads."""
-    return (n_terms - 1) * (21 + (3 if p_lo else 0)) + 2
+    return (n_terms - 1) * (12 + (3 if p_lo else 0)) + 2
+
+
+#: operations per run of a harmonic in the taylor2 window: the phase
+#: product and mask (2), the quadrant and the low part (2), the ROM index
+#: and the residual count (2), the quadrant's form (the base and multiplied
+#: words, the first-order sign and the coefficient's sign: 4), d's start
+#: (2, with the P_lo numerator's)
+TAYLOR2_RUN_OPS = 12
+
+
+def taylor2_window_work(n: int, n_terms: int, rb: int, p_lo: bool = True) -> int:
+    """Operations of the taylor2 window over n consecutive samples at
+    residual width rb = PW-2-LS > 0: :func:`taylor2_window_ops` a sample and
+    :data:`TAYLOR2_RUN_OPS` a run, harmonic k meeting at most k n / 2^rb + 1
+    runs (its phase steps by k, a ROM entry spans 2^rb)."""
+    runs = sum(k * n // (1 << rb) + 1 for k in range(1, n_terms))
+    return n * taylor2_window_ops(n_terms, p_lo) + runs * TAYLOR2_RUN_OPS
 
 
 def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
@@ -164,8 +196,11 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     the same from the half spectrum of a real stream, frames x (channels//2
     + 1) bins); ``cordic_atan2`` takes the int32 (Q, I) of that output, one
     angle of each, int64 out.
+    ``fm_demod_phase`` and ``fm_demod_int_conj``: the integer discriminator
+    on that output's int32 I/Q (8 bytes a sample in, 8 an output out).
     ``taylor2_window_block`` writes the n-sample int32 window at n_terms
-    terms, at LS = 12 (its correction takes the P_lo term)."""
+    terms, at LS = 12 (its correction takes the P_lo term), a period of PW
+    = log2(n)."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
@@ -173,6 +208,8 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     nf_sdr, c_sdr, aw_sdr = sdr_shape
     n_iq, n_disc = nf_sdr * c_sdr, max(nf_sdr - 1, 0) * c_sdr
     disc_ops = n_disc * fm_demod_conj_ops(aw_sdr)
+    per_angle, per_diff = fm_demod_phase_ops(aw_sdr)
+    rb_t2 = n.bit_length() - 1 - 2 - 12
     # the fewest float32 operations per sample (an FMA counts two): f32, two
     # FMAs per harmonic; comp, 6 FMAs per compensated harmonic (2 for s, 4
     # for e) and 2 per plain one: comp_window_flops less its 6 for the host's
@@ -206,7 +243,9 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         "fm_demod": bound(8 * nf_sdr * c_sdr + 8 * n_disc, disc_ops),
         "fm_demod_half": bound(8 * nf_sdr * (c_sdr // 2 + 1) + 8 * n_disc, disc_ops),
         "cordic_atan2": bound(16 * n_iq, n_iq * atan2_ops(aw_sdr)),
-        "taylor2_window_block": bound(4 * n, n * taylor2_window_ops(n_terms)),
+        "fm_demod_phase": bound(8 * n_iq + 8 * n_disc, n_iq * per_angle + n_disc * per_diff),
+        "fm_demod_int_conj": bound(8 * n_iq + 8 * n_disc, n_disc * fm_demod_int_conj_ops(aw_sdr)),
+        "taylor2_window_block": bound(4 * n, taylor2_window_work(n, n_terms, rb_t2)),
     }
 
 

@@ -47,7 +47,9 @@ user calls, at the repository's real sizes:
    samples: exactly one ``fm_demod`` launch a call; then
    the demod module's other entry points on config 5's quantized channel
    I/Q: ``atan2_fixed`` (one launch of ``cordic_atan2``) and
-   ``fm_demod_phase`` (one of ``fm_demod``);
+   ``fm_demod_phase`` on the (16, T) transpose of its (T, 16) I/Q (one of
+   ``fm_demod``, the integer front end, whose output keeps the inputs'
+   stride order);
 9. STFT/WOLA round trips at the analyzer configuration (BH-4 W=17 pw=20
    saturate, nfft 2^20, hop 2^19, 32 * 2^20 samples) through the quantized
    pair (window kernel), the float pair (f32 outer write-out) and the comp
@@ -128,7 +130,10 @@ card, and against the CPU plain version on random runs; the full-spectrum
 entry bit-equal to the half-spectrum one; the atan2 kernel in both conventions on int32 and int64
 words and the phase discriminator on random and seam blocks at AW
 16/20/24/31 P=1, AW 30 P=2 (32-bit words), AW 31 P=2 and AW 40 (64-bit
-words), 0 LSB against the CPU plain versions), the taylor2 window bit-equal
+words), 0 LSB against the CPU plain versions; ``fm_demod_phase`` and
+``fm_demod_conj`` on config 5's transposed I/Q and on its contiguous rows
+0 LSB against their plain versions on the card, each in the plain
+version's layout), the taylor2 window bit-equal
 to ``window_values_fast`` on the card over all 2^26 samples and its blocks
 at n0 0, N/4+-1, N/2, 3N/4, N-1 for LS 9/10/12/14, W 16/17/32, wrap and
 saturate, 0 LSB against the CPU plain version, the STFT round trips and
@@ -147,7 +152,9 @@ line of their own, per call of 16 queued), beside its bound (the least
 time the card could take: bytes over 3.35 TB/s or operations over the
 peak rate of their type, the larger; integer operations at the issue
 rate, one per lane per cycle) and, where one PyTorch call computes the
-same function, that call's time (``torch.clone`` for the copy; for the f32
+same function, that call's time (the integer discriminator's two modes on
+config 5's I/Q in both layouts too, each beside its byte bound;
+``torch.clone`` for the copy; for the f32
 and comp write-outs ``torch.addmm`` and ``torch.baddbmm`` built from the
 port's tables with TF32 off, gated as their kernels are before they are
 timed; the port never calls them); the six outer kernels' device time
@@ -588,8 +595,9 @@ ATAN2_GATE_WIDTHS = ((16, 1), (20, 1), (24, 1), (31, 1), (30, 2), (31, 2), (40, 
 
 def _demod_gates(dev, rng) -> int:
     """The atan2 kernel in both conventions on int32 and int64 words, and
-    the discriminator kernel's phase and conj modes (one stream and four
-    rows), each 0 LSB against its CPU plain version, at every
+    the discriminator kernel's phase and conj modes (one stream, four
+    contiguous rows and the four-row transpose of an (n, 4) array: both
+    walks), each 0 LSB against its CPU plain version, at every
     ATAN2_GATE_WIDTHS width on random and seam words.  Returns the largest
     |difference| seen."""
     import torch
@@ -622,7 +630,8 @@ def _demod_gates(dev, rng) -> int:
                 if p == 1:  # the discriminators' datapath: P = 1
                     n = len(x) // 4 * 4
                     for mode in ("phase", "conj"):
-                        for i, q in ((xc, yc), (xc[:n].view(4, -1), yc[:n].view(4, -1))):
+                        for i, q in ((xc, yc), (xc[:n].view(4, -1), yc[:n].view(4, -1)),
+                                     (xc[:n].view(-1, 4).mT, yc[:n].view(-1, 4).mT)):
                             held(dmk.fm_demod(i.to(dev, dtype), q.to(dev, dtype), iw, aw, mode),
                                  plain[mode](i, q, iw, aw),
                                  f"fm_demod {mode} AW={aw} iw={iw} {dtype} {tuple(i.shape)}")
@@ -630,7 +639,41 @@ def _demod_gates(dev, rng) -> int:
           + ", ".join(f"{a}/{p}" for a, p in ATAN2_GATE_WIDTHS)
           + "; cordic and fixed conventions, int32 and int64 words, random words and every "
           "pair of the seams 0, +-1, +-(2^(AW-1)-1), bit iw-1 set; fm_demod phase and conj "
-          "modes on one stream and four rows) 0 LSB against the CPU plain versions")
+          "modes on one stream, four rows and a four-row transpose) 0 LSB against the CPU "
+          "plain versions")
+    return worst
+
+
+def _int_demod_gates(dph5, i5, q5, aw: int) -> int:
+    """The integer discriminator on config 5's (T, 16) int32 I/Q: phase 8's
+    ``fm_demod_phase`` of its (16, T) transpose (``dph5``), and both modes
+    on that transpose and on contiguous rows, each 0 LSB against its plain
+    version on the card and laid out as the plain version is (the
+    transpose's output (T-1, 16) in memory).  Returns the largest
+    |difference|."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.pipeline import demod
+
+    worst = 0
+    layouts = {"transposed": (i5.mT, q5.mT), "contiguous rows": (i5.mT.contiguous(),
+                                                                  q5.mT.contiguous())}
+    for layout, (i, q) in layouts.items():
+        for mode in ("phase", "conj"):
+            plain = getattr(demod, f"fm_demod_{mode}_plain")(i, q, 16, aw)
+            got = (dph5 if (layout, mode) == ("transposed", "phase")
+                   else getattr(demod, f"fm_demod_{mode}")(i, q, 16, aw))
+            err = int((got - plain).abs().max())
+            worst = max(worst, err)
+            _require(got.shape == plain.shape and err == 0,
+                     f"fm_demod_{mode} on config 5's {layout} I/Q: {err} LSB from its plain "
+                     "version on the card")
+            _require(got.stride() == plain.stride(), f"fm_demod_{mode} {layout}: strides "
+                     f"{got.stride()}, the plain version's {plain.stride()}")
+            del plain, got
+    print(f"fm_demod_phase and fm_demod_conj on config 5's {tuple(i5.mT.shape)} int32 I/Q, "
+          "transposed and as contiguous rows: 0 LSB against their plain versions on the card, "
+          "in the plain versions' layouts")
     return worst
 
 
@@ -1566,6 +1609,9 @@ def _print_sass(lib_path) -> None:
         if "float_kernel" in name:
             _print_float_sass(name, body)
             continue
+        if re.search(r"taylor2_window_kernelILi[23]E", name):
+            _print_taylor2_walk_sass(name, body)
+            continue
         if any(k in name for k in ("atan2_kernel", "demod_int_kernel", "demod_iq_kernel",
                                    "taylor2_window_kernel")):
             _print_unrolled_sass(name, body)
@@ -1680,6 +1726,48 @@ def _print_unrolled_sass(name: str, body: str) -> None:
     print(f"sass {what}: {len(ins)} instructions; median branch-free block {median:.0f} "
           f"({_pipe_str(_pipes(block))}); {local} local-memory instructions")
     _require(local == 0, f"{what}: {local} local-memory instructions")
+
+
+#: the taylor2 run walk's pass: two harmonics over a lane's 16 samples
+TAYLOR2_PASS_TERMS = 32
+
+
+def _print_taylor2_walk_sass(name: str, body: str) -> None:
+    """A taylor2 run-walk instantiation's SASS: its instruction count, and
+    in its harmonic-pair pass (the innermost loop with a high-word product
+    a term) the instructions a sample and harmonic runs where no lane
+    leaves its run: the pass less the re-entries (the spans a forward
+    branch skips that hold a ROM load), split by pipe per term; the
+    re-entries counted, the pass's predicated instructions, and its
+    local-memory instructions (any fails the run)."""
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    addr = [int(a, 16) for a, _ in ins]
+    jumps = [(a, int(b.group(1), 16)) for a, (_, t) in zip(addr, ins)
+             if (b := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", t))]
+    local = sum(1 for _, t in ins if re.search(r"\b(LDL|STL)", t))
+    regime = {"2": "walk", "3": "walk_lo"}[re.search(r"ILi(\d)E", name).group(1)]
+
+    def span(lo, hi):
+        return [t for a, (_, t) in zip(addr, ins) if lo <= a <= hi]
+
+    npass = next(((lo, hi) for hi, lo in sorted((j for j in jumps if j[1] < j[0]),
+                                                key=lambda j: j[0] - j[1])
+                  if sum("IMAD.HI" in t for t in span(lo, hi)) >= TAYLOR2_PASS_TERMS), None)
+    line = f"sass taylor2_window_kernel<{regime}>: {len(ins)} instructions; "
+    if npass:
+        lo, hi = npass
+        skips = [(a, b) for a, b in jumps if lo <= a < b <= hi
+                 and any("LDG" in t for t in span(a, b))]
+        path = [t for a, (_, t) in zip(addr, ins)
+                if lo <= a <= hi and not any(x < a < y for x, y in skips)]
+        line += (f"one pass (two harmonics, 16 samples) {len(path)} outside its {len(skips)} "
+                 f"re-entries, {len(path) / TAYLOR2_PASS_TERMS:.1f} a sample and harmonic "
+                 f"({_pipe_str(_pipes(path), TAYLOR2_PASS_TERMS)}), "
+                 f"{sum(t.lstrip().startswith('@') for t in path)} of them predicated; ")
+    else:
+        line += "no pass loop found; "
+    print(line + f"{local} local-memory instructions")
+    _require(local == 0, f"{name[:60]}: {local} local-memory instructions")
 
 
 def _row_walk(body: str, marker: str, least: int, keys: tuple) -> tuple[int, dict, int]:
@@ -1947,7 +2035,11 @@ def main(argv=None) -> int:
     from blackman_harris_win_tpu_torch.kernels.ddc_kernel import mixer as ddc_mixer
     from blackman_harris_win_tpu_torch.kernels import demod_kernel as dmk
     from blackman_harris_win_tpu_torch.kernels import fastwin_kernel as fk
-    from blackman_harris_win_tpu_torch.pipeline.demod import fm_demod_phase, fm_demod_phase_plain
+    from blackman_harris_win_tpu_torch.pipeline.demod import (
+        fm_demod_conj,
+        fm_demod_phase,
+        fm_demod_phase_plain,
+    )
     from blackman_harris_win_tpu_torch.pipeline.ddc import (
         ddc,
         freq_word,
@@ -1997,9 +2089,12 @@ def main(argv=None) -> int:
                          f"ptxas {fn}: {line.strip()}")
     if not log:
         print("ptxas: the library was built before this run, no ptxas lines")
-    want_inst = {"demod_int_kernel": 8, "int_kernel": 30, "ddc_mixer_kernel": 40,
+    # demod_int_kernel: I/Q type x word x mode x walk (lanes on t or on
+    # rows); taylor2_window_kernel: ROM only, per sample, the run walk
+    # without and with the P_lo term
+    want_inst = {"demod_int_kernel": 16, "int_kernel": 30, "ddc_mixer_kernel": 40,
                  "ddc_table_mixer_kernel": 2, "ddc_nco_table_kernel": 20,
-                 "atan2_kernel": 4, "demod_iq_kernel": 4, "taylor2_window_kernel": 2}
+                 "atan2_kernel": 4, "demod_iq_kernel": 4, "taylor2_window_kernel": 4}
     _require(not log or in_registers == want_inst,
              f"ptxas reported {in_registers} instantiations, want {want_inst}")
     _print_sass(path)
@@ -2337,9 +2432,8 @@ def main(argv=None) -> int:
     del sdr5_out
     # the demod entries of phase 8 against their plain versions on the card
     err_atan = int((ang5 - atan2_fixed_plain(q5, i5, 16, aw)).abs().max())
-    err_ph = int((dph5 - fm_demod_phase_plain(i5.mT, q5.mT, 16, aw)).abs().max())
-    _require(err_atan == 0 and err_ph == 0, f"phase 8 demod entries vs plain on the card: "
-             f"atan2_fixed {err_atan} LSB, fm_demod_phase {err_ph} LSB")
+    err_ph = _int_demod_gates(dph5, i5, q5, aw)
+    _require(err_atan == 0, f"phase 8 atan2_fixed vs plain on the card: {err_atan} LSB")
     print(f"phase 8 demod entries on config 5's I/Q {tuple(i5.shape)}: atan2_fixed and "
           "fm_demod_phase 0-LSB equal to their plain versions on the card")
     del ang5, dph5
@@ -2522,6 +2616,13 @@ def main(argv=None) -> int:
                          _time_ms(lambda: atan2_fixed_plain(q5, i5, 16, aw)))
     t_phase5 = (_time_ms(lambda: fm_demod_phase(i5.mT, q5.mT, 16, aw)),
                 _time_ms(lambda: fm_demod_phase_plain(i5.mT, q5.mT, 16, aw)))
+    # the integer discriminator's other calls on the same I/Q: conj on the
+    # transpose, both modes on contiguous rows (the kernel alone)
+    i5c, q5c = i5.mT.contiguous(), q5.mT.contiguous()
+    t_int5 = {("conj", "transposed"): _time_ms(lambda: fm_demod_conj(i5.mT, q5.mT, 16, aw)),
+              ("phase", "contiguous rows"): _time_ms(lambda: fm_demod_phase(i5c, q5c, 16, aw)),
+              ("conj", "contiguous rows"): _time_ms(lambda: fm_demod_conj(i5c, q5c, 16, aw))}
+    del i5c, q5c
     t_fm_full = _time_ms(lambda: dmk.iq_demod(y5, aw))
     t_chan5 = _time_ms(lambda: channel_bins(x_sdr5, proto5, c5))
     # the taylor2 window: the kernel and its plain version
@@ -2744,6 +2845,12 @@ def main(argv=None) -> int:
     print(f"bound {label} fm_demod full-spectrum entry: {b_full[0]:.4f} ms ({b_full[1]}); "
           f"measured {t_fm_full:.3f} ms, roofline share {b_full[0] / t_fm_full:.1%}")
     bounds["fm_demod"] = bounds["fm_demod_half"]  # the main path's entry
+    # the integer front end on config 5's int32 I/Q: phase 8's call, then
+    # the other mode and layout
+    for (mode, layout), ms in {("phase", "transposed"): t_phase5[0], **t_int5}.items():
+        b_ms, b_by = bounds["fm_demod_phase" if mode == "phase" else "fm_demod_int_conj"]
+        print(f"bound {label} fm_demod {mode} int32 {layout} (16, {i5.shape[0]}): {b_ms:.4f} ms "
+              f"({b_by}); measured {ms:.3f} ms, roofline share {b_ms / ms:.1%}")
     for name, source, replaces, key, err in rows:
         bound_ms, bound_by = bounds[name]
         kernels.append({"name": name, "route": "cuda", "source": src + source,

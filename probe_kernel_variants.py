@@ -56,13 +56,23 @@ compared with in the same process.
    and per call of 16 queued, in turns.
 7. The discriminator (``csrc/demod_kernel.cu``) at bench_all config 5 (16
    channels x 8 taps over 16 * 2^22 samples, AW=20): ``fm_demod`` on the
-   chain's half spectrum and on the full one, and ``cordic_atan2``
-   (``atan2_fixed``) on the quantized (Q, I), through the port's wrappers
-   and, with ``--against DIR``, DIR's C entries (an earlier
-   ``bhw_fm_demod_iq`` without a bins argument takes the full spectrum);
+   chain's half spectrum and on the full one, ``cordic_atan2``
+   (``atan2_fixed``) on the quantized (Q, I), and the integer entry
+   (``fm_demod_phase`` and ``fm_demod_conj``) on that I/Q as the (16, T)
+   transpose of its (T, 16) array and as contiguous rows, through the
+   port's wrappers, the port's C entry in the walk its wrapper does not
+   pick for the layout and, with ``--against DIR``, DIR's C entries (an earlier
+   ``bhw_fm_demod_iq`` without a bins argument takes the full spectrum; an
+   earlier ``bhw_fm_demod`` without a walk argument writes (rows, T-1));
    outputs bit-equal, one call alone, in turns.
+8. The taylor2 window (``csrc/fastwin_kernel.cu``) over 2^26 samples: BH-7
+   W=32 LS=12 pw=26 (the main path's) and BH-7 W=32 LS=14 pw=32, through
+   the port's wrapper, its C entry and, with ``--against DIR``, DIR's
+   ``bhw_taylor2_window_block`` (an earlier one without a regime argument
+   computes each sample on its own); outputs bit-equal, one call alone and
+   per call of 16 queued, in turns.
 
-``--only materialize|window|welch|taylor|outer|ddc|demod`` runs one section.  Prints
+``--only materialize|window|welch|taylor|outer|ddc|demod|taylor2`` runs one section.  Prints
 one line per measurement with the card's name and power limit, and
 as its last line one JSON object with every time (ms, median over the
 rounds).  Exits non-zero without a CUDA device.
@@ -157,8 +167,8 @@ def main(argv=None) -> int:
                     help="run one section (default: all)")
     ap.add_argument("--against", type=Path, default=None,
                     help="a checkout of another revision whose materialize, welch_stage1, "
-                         "taylor_checksum, outer, DDC mixer and discriminator kernels are "
-                         "timed beside the port's")
+                         "taylor_checksum, outer, DDC mixer, discriminator and taylor2 "
+                         "kernels are timed beside the port's")
     args = ap.parse_args(argv)
 
     import torch
@@ -584,6 +594,7 @@ def _probe_demod(args, dev, label, stream, result) -> None:
         raise RuntimeError("fm_demod: the half- and full-spectrum entries differ")
     ang = atan2_fixed(q, i, 16, aw)
     afns = {"port, wrapper": lambda: atan2_fixed(q, i, 16, aw)}
+    other = None
     if args.against is not None:
         other = _build_one(args.against, "demod_kernel.cu", "other")
         with_bins = "bins" in _other_source(args, "demod_kernel.cu")
@@ -620,11 +631,142 @@ def _probe_demod(args, dev, label, stream, result) -> None:
         print(f"time {label} {name} config 5 {tuple(y.shape)} one call alone: " + ", ".join(
             f"{k} {ms:.4f} ms" for k, ms in tt.items()))
         result[name] = tt
+    _probe_demod_int(args, dev, label, stream, result, i, q, aw, other)
+
+
+def _probe_demod_int(args, dev, label, stream, result, i, q, aw, other) -> None:
+    """Section 7, the integer entry: both modes on config 5's (T, 16) int32
+    I/Q read as its (16, T) transpose (phase 8's call) and as contiguous
+    rows, the port's wrapper beside its C entry in the other walk and DIR's
+    C entry (``other``: DIR's library, or None)."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import demod_kernel as dmk
+
+    with_walk = None
+    if other is not None:
+        with_walk = "int walk" in _other_source(args, "demod_kernel.cu")
+        if not with_walk:  # the signature less its walk argument
+            sig = list(_build._SIGNATURES["bhw_fm_demod"])
+            other.bhw_fm_demod.argtypes = sig[:16] + sig[17:]
+    lut = dmk.atan2_lut(aw, 1)
+    result["fm_demod int"] = {}
+    for layout, (ii, qq) in (("transposed", (i.mT, q.mT)),
+                             ("contiguous", (i.mT.contiguous(), q.mT.contiguous()))):
+        rows, t = ii.shape
+        for mode in ("phase", "conj"):
+            fns = {"port, wrapper": lambda ii=ii, qq=qq, mode=mode: dmk.fm_demod(ii, qq, 16, aw,
+                                                                                mode)}
+            want = fns["port, wrapper"]()
+            # the port's C entry in the walk the wrapper does not pick for
+            # this layout, its output in that walk's memory order
+            drop, shift = dmk.conj_shifts(16, aw) if mode == "conj" else (0, 0)
+            other_walk = "t" if dmk.walk_of(rows, ii.stride(), qq.stride()) == "rows" else "rows"
+            omem, oout = dmk.demod_output(want.shape, other_walk, dev)
+
+            def port_other(ii=ii, qq=qq, mode=mode, omem=omem, drop=drop, shift=shift,
+                           walk=other_walk):
+                rc = _build.lib().bhw_fm_demod(
+                    omem.data_ptr(), ii.data_ptr(), qq.data_ptr(), rows, t, *ii.stride(),
+                    *qq.stride(), 4, dmk.MODES.index(mode), lut.ctypes.data, aw, 16, drop, shift,
+                    dmk.WALKS.index(walk), stream)
+                if rc:
+                    raise RuntimeError(f"fm_demod port, walk {walk}: CUDA error {rc}")
+
+            port_other()
+            if not torch.equal(oout, want):
+                raise RuntimeError(f"fm_demod {mode} {layout}: the walk {other_walk} differs")
+            fns[f"port, C entry, walk {other_walk}"] = port_other
+            if other is not None:
+                walk = dmk.walk_of(rows, ii.stride(), qq.stride()) if with_walk else "t"
+                mem, out = dmk.demod_output(want.shape, walk, dev)
+                tail = (dmk.WALKS.index(walk),) if with_walk else ()
+
+                def theirs(ii=ii, qq=qq, mode=mode, mem=mem, drop=drop, shift=shift, tail=tail):
+                    rc = other.bhw_fm_demod(mem.data_ptr(), ii.data_ptr(), qq.data_ptr(), rows, t,
+                                            *ii.stride(), *qq.stride(), 4, dmk.MODES.index(mode),
+                                            lut.ctypes.data, aw, 16, drop, shift, *tail, stream)
+                    if rc:
+                        raise RuntimeError(f"fm_demod {args.against.name}: CUDA error {rc}")
+
+                theirs()
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"fm_demod {mode} {layout}: {args.against.name} differs")
+                fns[f"{args.against.name}, C entry"] = theirs
+            tt = _in_turns(fns, args.rounds, lambda f: _event_ms(f, 1))
+            ratio = ""
+            if len(tt) == 3:
+                a, b = tt["port, wrapper"], list(tt.values())[2]
+                ratio = f"; {b / a:.3f}x"
+            print(f"time {label} fm_demod {mode} int32 {layout} {tuple(ii.shape)} one call "
+                  "alone: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in tt.items()) + ratio)
+            result["fm_demod int"][f"{mode} {layout}"] = tt
+
+
+def _probe_taylor2(args, dev, label, stream, result) -> None:
+    """Section 8: the taylor2 window over 2^26 samples, the port's beside
+    DIR's."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import fastwin_kernel as fk
+    from blackman_harris_win_tpu_torch.kernels.fastwin import _phase_consts
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    n = 1 << 26
+    libs = {"port, C entry": _build.lib()}
+    with_regime = {"port, C entry": True}
+    if args.against is not None:
+        k = f"{args.against.name}, C entry"
+        libs[k] = _build_one(args.against, "fastwin_kernel.cu", "other")
+        with_regime[k] = "int regime" in _other_source(args, "fastwin_kernel.cu")
+        if not with_regime[k]:  # the signature less its regime argument
+            sig = list(_build._SIGNATURES["bhw_taylor2_window_block"])
+            libs[k].bhw_taylor2_window_block.argtypes = sig[:12] + sig[13:]
+    result["taylor2_window_block"] = {}
+    q = catalog.get("bh7").quantized(32)
+    cbuf = np.asarray(q, np.int32)
+    for pw, ls in ((26, 12), (32, 14)):
+        spec = WindowSpec(pw, 32, sin_type="taylor2", lut_size=ls, overflow="wrap")
+        rom = fk._rom_on(ls, 32, dev)
+        _, p_hi, p_lo, _ = _phase_consts(pw, ls)
+        regime = fk.REGIMES.index(fk.walk_regime(pw, ls, len(q)))
+        want = fk.window_block(q, spec, 0, n, dev)
+        outs = {k: torch.empty_like(want) for k in libs}
+
+        def entry(k, rom=rom, pw=pw, ls=ls, p_hi=p_hi, p_lo=p_lo, regime=regime):
+            tail = (regime,) if with_regime[k] else ()
+            rc = libs[k].bhw_taylor2_window_block(outs[k].data_ptr(), 0, n, rom.data_ptr(), pw,
+                                                  32, ls, cbuf.ctypes.data, len(q), p_hi, p_lo,
+                                                  0, *tail, stream)
+            if rc:
+                raise RuntimeError(f"taylor2_window_block {k}: CUDA error {rc}")
+
+        for k in libs:
+            entry(k)
+            if not torch.equal(outs[k], want):
+                raise RuntimeError(f"taylor2_window_block pw={pw} LS={ls}: {k} differs")
+        fns = {"port, wrapper": lambda spec=spec: fk.window_block(q, spec, 0, n, dev),
+               **{k: (lambda k=k: entry(k)) for k in libs}}
+        what = f"bh7 w32 ls{ls} pw{pw} ({fk.REGIMES[regime]})"
+        result["taylor2_window_block"][what] = {}
+        for how, measure in (("alone", lambda f: _event_ms(f, 1)),
+                             ("per call of 16 queued", lambda f: _event_ms(f, 16))):
+            tt = _in_turns(fns, args.rounds, measure)
+            ratio = ""
+            if len(tt) == 3:
+                b = list(tt.values())
+                ratio = f"; {b[2] / b[1]:.3f}x"
+            print(f"time {label} taylor2_window_block {what} 2^26 {how}: " + ", ".join(
+                f"{k} {ms:.4f} ms" for k, ms in tt.items()) + ratio)
+            result["taylor2_window_block"][what][how] = tt
 
 
 SECTIONS = {"materialize": _probe_materialize, "window": _probe_window,
             "welch": _probe_welch, "taylor": _probe_taylor, "outer": _probe_outer,
-            "ddc": _probe_ddc, "demod": _probe_demod}
+            "ddc": _probe_ddc, "demod": _probe_demod, "taylor2": _probe_taylor2}
 
 
 if __name__ == "__main__":

@@ -16,6 +16,14 @@ cordic_atan2`` / ``atan2_fixed``, ``pipeline/demod.py:fm_demod_conj`` /
   a xor-and-subtract negation; z unwrapped (its bound asserted);
 - the conjugate products in wrapping uint32 arithmetic on the inputs
   re-quantized by >> drop; the phase differences wrapped in uint64;
+- the integer front end's two walks (``TestIntWalk``), each value (angle or
+  re-quantized sample) computed once and carried: the strip walk with lanes
+  on rows (the transposed (T, C) layout, its output (T-1, rows) in memory)
+  and the warp walk with lanes on samples (each predecessor from the next
+  lane down, lane 0's from lane 31 of the step before, a chunk's first from
+  sample t0 - 1), over T = 2, 3, a strip or step +-1 and their multiples,
+  row counts no multiple of a warp, int32 and int64, every output written
+  once;
 - the I/Q front end's f32 quantizer, rint(f32(re) * f32(iq_scale)), once a
   sample, walked in strips of consecutive frames of one channel (the
   quantized sample carried to the next output, across strip and batch
@@ -281,6 +289,176 @@ class TestDemodEmulation:
         np.testing.assert_array_equal(emu(i, q, 16, 20), want)
         got = getattr(demod, f"fm_demod_{fn}")(torch.from_numpy(i), torch.from_numpy(q), 16, 20)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _int_geometry(rows, t, walk, sms=132):
+    """``launch_demod``'s (span, per_row, tasks): a thread's outputs (the
+    strip walk) or a warp's 32-sample steps (the warp walk), at least one
+    full load of the card (2048 threads an SM) within 4 to 64."""
+    span = min(max(rows * (t - 1) // (sms * 2048), 4), 64)
+    if walk == "rows":
+        span = min(span, t - 1)
+        per_row = -(-(t - 1) // span)
+    else:
+        span = min(span, -(-t // 32))
+        per_row = -(-t // (32 * span))
+    return span, per_row, rows * per_row
+
+
+def _int_walk_emulation(i, q, iw, aw, mode, walk, sms=132):
+    """``demod_int_kernel`` on (rows, T) int arrays in ``walk``: each value
+    computed once, carried as the kernel carries it; returns the logical
+    (rows, T-1) output and asserts every output written once."""
+    i, q = np.asarray(i, np.int64), np.asarray(q, np.int64)
+    rows, t = i.shape
+    if mode == "phase":
+        vals = (_atan2_emulation(q, i, iw, aw, 1, "fixed"),)
+    else:
+        vals = _requant(i, q, iw, aw)
+
+    def at(r, tt):
+        return tuple(v[r, tt] for v in vals)
+
+    def output(prev, cur):
+        if mode == "phase":
+            d = (cur[0] - prev[0]).astype(np.uint64)
+            half, full = 1 << (aw - 1), 1 << aw
+            return ((d + np.uint64(half)) & np.uint64(full - 1)).astype(np.int64) - half
+        return _conj_pair(*prev, *cur, aw, iw)
+
+    span, per_row, tasks = _int_geometry(rows, t, walk, sms)
+    mem = np.zeros((t - 1) * rows, np.int64)
+    written = np.zeros(mem.shape, np.int64)
+    if walk == "rows":  # a thread a strip, rows fastest; mem is (T-1, rows)
+        g = np.arange(tasks)
+        r, t0 = g % rows, g // rows * span
+        t1 = np.minimum(t0 + span, t - 1)
+        prev = at(r, t0)
+        for j in range(span):
+            tt = t0 + j
+            live = tt < t1
+            cur = at(r, np.minimum(tt + 1, t - 1))
+            idx = tt[live] * rows + r[live]
+            mem[idx] = output(prev, cur)[live]
+            written[idx] += 1
+            prev = cur
+        out = mem.reshape(t - 1, rows).T
+    else:  # a warp a chunk of 32 * span samples; mem is (rows, T-1)
+        w = np.arange(tasks)[:, None]
+        lane = np.arange(32)[None, :]
+        r, t0 = w // per_row, w % per_row * 32 * span
+        tend = np.minimum(t0 + 32 * span, t)
+        rr = np.broadcast_to(r, (tasks, 32))
+        carry = at(r, np.maximum(t0 - 1, 0))  # used only where t0 > 0
+        for step in range(span):
+            tb = t0 + 32 * step
+            tt = tb + lane
+            cur = at(rr, np.minimum(tt, tend - 1))
+            # the predecessor: the lane below; lane 0's the carry, lane 31's
+            # value of the step before
+            prev = tuple(np.concatenate([c[:, :1], v[:, :-1]], axis=1)
+                         for c, v in zip(carry, cur))
+            carry = tuple(np.broadcast_to(v[:, 31:], v.shape) for v in cur)
+            live = (tt < tend) & (tt > 0) & (tb < tend)
+            idx = (rr * (t - 1) + tt - 1)[live]
+            mem[idx] = output(prev, cur)[live]
+            written[idx] += 1
+        out = mem.reshape(rows, t - 1)
+    assert np.all(written == 1)
+    return out
+
+
+def _same_layout(a, b):
+    """Equal strides in every dimension longer than 1."""
+    return all(sa == sb for sa, sb, n in zip(a.stride(), b.stride(), a.shape) if n > 1)
+
+
+class TestIntWalk:
+    @pytest.mark.parametrize("walk", ["rows", "t"])
+    @pytest.mark.parametrize("mode", ["phase", "conj"])
+    @pytest.mark.parametrize("t", [2, 3, 5, 8, 31, 33, 129, 256])
+    def test_lengths_vs_jax(self, t, mode, walk):
+        # T = 2, 3; a strip of 4 +-1 and a multiple; a warp step of 32 +-1;
+        # a chunk of 128 + 1 and a multiple (the geometry at these sizes);
+        # 3 and 16 rows
+        for rows in (3, 16):
+            y, x = _seam_inputs(16, 20, rows * t, seed=t * rows)
+            i, q = x[:rows * t].reshape(rows, t), y[:rows * t].reshape(rows, t)
+            want = np.asarray(getattr(jdm, f"fm_demod_{mode}")(i, q, 16, 20), np.int64)
+            np.testing.assert_array_equal(_int_walk_emulation(i, q, 16, 20, mode, walk), want)
+
+    @pytest.mark.parametrize("walk", ["rows", "t"])
+    @pytest.mark.parametrize("mode", ["phase", "conj"])
+    @pytest.mark.parametrize("iw,aw", [(16, 20), (15, 16), (16, 31), (30, 40), (24, 48)])
+    def test_seam_words_and_widths(self, iw, aw, mode, walk):
+        # the atan2 seam words in 33 rows (no multiple of a warp), 32-bit
+        # and 64-bit words, against JAX and the port's plain version on
+        # int32 and int64 I/Q
+        y, x = _seam_inputs(iw, aw, 33 * 61, seed=iw * aw)
+        i, q = x[-33 * 61:].reshape(33, 61), y[-33 * 61:].reshape(33, 61)
+        want = np.asarray(getattr(jdm, f"fm_demod_{mode}")(i, q, iw, aw), np.int64)
+        np.testing.assert_array_equal(_int_walk_emulation(i, q, iw, aw, mode, walk), want)
+        plain = getattr(demod, f"fm_demod_{mode}_plain")
+        dtypes = (np.int32, np.int64) if iw <= 32 else (np.int64,)
+        for dt in dtypes:
+            got = plain(torch.from_numpy(i.astype(dt)), torch.from_numpy(q.astype(dt)), iw, aw)
+            np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("walk", ["rows", "t"])
+    def test_config5_geometry(self, walk):
+        # config 5's 16 rows of 2^22 - 7 samples: 64-output strips and
+        # 64-step chunks on 132 SMs, the grid at least one full load; a
+        # slice of the same geometry (sms=1 scales it down) emulated whole
+        rows, t = 16, (1 << 22) - 7
+        span, per_row, tasks = _int_geometry(rows, t, walk)
+        assert span == 64 and tasks * (1 if walk == "rows" else 32) >= 132 * 2048
+        rng = np.random.default_rng(7)
+        i, q = rng.integers(-(1 << 15), 1 << 15, size=(2, 16, 2 * 2048 * 4 + 5))
+        assert _int_geometry(16, i.shape[1], walk, sms=1)[0] > 4
+        for mode in ("phase", "conj"):
+            want = np.asarray(getattr(jdm, f"fm_demod_{mode}")(i, q, 16, 20), np.int64)
+            np.testing.assert_array_equal(
+                _int_walk_emulation(i, q, 16, 20, mode, walk, sms=1), want)
+
+    def test_walk_of_layouts(self):
+        # the transposed (T, C) channel bank walks its rows, contiguous rows
+        # their samples, broadcast I/Q by whichever side is not broadcast
+        bank = torch.zeros((300, 16), dtype=torch.int32)
+        assert dk.walk_of(16, bank.mT.stride(), bank.mT.stride()) == "rows"
+        assert dk.walk_of(300, bank.stride(), bank.stride()) == "t"
+        assert dk.walk_of(1, (1, 1), (1, 1)) == "t"
+        row = torch.zeros((1, 50)).expand(4, 50)
+        assert dk.walk_of(4, row.stride(), bank.mT.stride()) == "rows"
+        assert dk.walk_of(4, row.stride(), (50, 1)) == "t"
+        assert dk.walk_of(4, torch.zeros((4, 1)).expand(4, 50).stride(), (1, 4)) == "t"
+        assert dk.WALKS.index("t") == 0 and dk.WALKS.index("rows") == 1
+
+    @pytest.mark.parametrize("mode", ["phase", "conj"])
+    def test_output_layout_is_the_plain_versions(self, mode):
+        # torch's elementwise ops lay the plain version's output out in the
+        # inputs' stride order: the transpose of a contiguous (T-1, rows) for
+        # the transposed bank, contiguous rows otherwise; the kernel's
+        # wrapper allocates the same (strides of size-1 dimensions aside)
+        plain = getattr(demod, f"fm_demod_{mode}_plain")
+        rng = np.random.default_rng(1)
+        for t, rows in ((300, 16), (2, 3), (33, 1), (129, 33)):
+            bank = torch.from_numpy(rng.integers(-999, 999, (2, t, rows)))
+            for i, q in ((bank[0].mT, bank[1].mT),
+                         (bank[0].mT.contiguous(), bank[1].mT.contiguous())):
+                want = plain(i, q, 16, 20)
+                i2, q2 = dk._rows(i), dk._rows(q)
+                walk = dk.walk_of(rows, i2.stride(), q2.stride())
+                mem, out = dk.demod_output(want.shape, walk, "cpu")
+                assert out.shape == want.shape and mem.is_contiguous()
+                assert _same_layout(out, want), (t, rows, out.stride(), want.stride())
+                assert out.data_ptr() == mem.data_ptr()
+        out = plain(bank[0].mT, bank[1].mT, 16, 20)
+        assert out.stride() == (1, 33) == torch.empty((128, 33)).t().stride()
+        # batched: (B, C, T) transposed from (B, T, C) reshapes to rows in place
+        b = torch.zeros((2, 3, 40, 4), dtype=torch.int64).mT
+        want = plain(b, b, 16, 20)
+        assert dk.walk_of(24, dk._rows(b).stride(), dk._rows(b).stride()) == "t"
+        assert _same_layout(dk.demod_output(want.shape, "t", "cpu")[1], want.contiguous())
 
 
 class TestIqFrontEnd:

@@ -10,7 +10,14 @@ alternating accumulate with the low 32 bits of (a_k * cos) >> (W-2), then
 the W-bit wrap or the clamp.  Cases: LS 9/10/12/14 with PW from LS+1 (the
 ROM-only regime, rb <= 0) to 31, both sides of the rb+12 <= 31 condition on
 P_lo, W 16/17/24/32, wrap and saturate, every catalog window, the quadrant
-seams, and PW 32 against the port's plain version.  Then the routing:
+seams, and PW 32 against the port's plain version.  The run walk
+(``TestRunWalk``) is emulated as the kernel runs it, warp by warp and lane
+by lane: a run's ROM entry and quadrant read once, d's two parts stepped
+from the lane's first sample by the gap to the next, the check of acnt *
+P_hi against 2^rb * P_hi at every sample (the residual count held to the
+reference's on the way) and the entry of a new run past it, the high-word
+products, two harmonics a pass; every uint32 bound the source's note
+claims is asserted.  Then the routing:
 ``window_block``, the sharded generator's ``_range_fn`` and the CLI's
 ``gen --mode taylor2`` call the kernel's wrapper with the device they were
 given, which takes the plain version on the CPU and asks for the card
@@ -84,6 +91,124 @@ def _emulation(n, coeffs, spec):
         return np.clip(v, -(1 << (w - 1)), (1 << (w - 1)) - 1).astype(np.int32)
     v = v & ((1 << w) - 1)
     return np.where(v >= 1 << (w - 1), v - (1 << w), v).astype(np.int32)
+
+
+def _walk_emulation(n0, count, coeffs, spec, crossings=None):
+    """``csrc/fastwin_kernel.cu:taylor2_window_kernel`` in its run walk over
+    [n0, n0 + count), as int32.  ``crossings``, a dict, gathers per harmonic
+    the runs entered past the lane's first sample: "entry" within a quadrant,
+    "quadrant" across a quadrant seam."""
+    pw, w, ls = spec.phase_width, spec.data_width, spec.lut_size
+    coeffs = fk.taylor2_params(coeffs, spec)
+    regime = fk.walk_regime(pw, ls, len(coeffs))
+    assert regime in ("walk", "walk_lo")
+    use_lo = regime == "walk_lo"
+    s, p_hi, p_lo, rb = pf._phase_consts(pw, ls)
+    assert s >= 32
+    rom = pf._rom_q(ls, w).astype(np.int64)
+    M = 0xFFFFFFFF
+    offsets = fk.WALK_OFFSETS
+    warps = -(-count // 512)
+    base = (np.arange(warps)[:, None] * 512 + 4 * np.arange(32)[None, :]).ravel()
+    nl = (int(n0) + base) & M  # the lane's first sample, mod 2^32
+    acc = np.full((len(base), len(offsets)), coeffs[0] & M, np.int64)
+
+    thr = p_hi << rb
+    assert thr < 1 << 32
+
+    def enter(k, o, run, sel):
+        n = (nl[sel] + o) & M
+        ph = (k * n) & ((1 << pw) - 1)
+        q, low = ph >> (pw - 2), ph & ((1 << (pw - 2)) - 1)
+        ent, acnt = rom[low >> rb], low & ((1 << rb) - 1)
+        odd = (q & 1) == 1
+        run["a"][sel] = np.where(odd, ent[:, 1], ent[:, 0])
+        run["b"][sel] = np.where(odd, ent[:, 0], ent[:, 1])
+        run["s1"][sel] = np.where(odd, 1, M)
+        run["ak"][sel] = np.where(((q + 1) & 2) != 0, -coeffs[k], coeffs[k])
+        run["dhi"][sel] = acnt * p_hi
+        run["lo"][sel] = acnt * p_lo if use_lo else 0
+        run["acnt"][sel], run["o"][sel], run["q"][sel] = acnt, o, q
+
+    def term(k, o, gap, run):
+        acnt = run["acnt"] + k * (o - run["o"])  # the true residual count
+        if gap:
+            # d's parts step by the gap to the lane's previous sample, mod 2^32
+            run["dhi"] = (run["dhi"] + gap * k * p_hi) & M
+            if use_lo:
+                run["lo"] = (run["lo"] + gap * k * p_lo) & M
+            np.testing.assert_array_equal(run["dhi"], acnt * p_hi)  # below 2^32: no wrap
+            cross = run["dhi"] >= thr
+            np.testing.assert_array_equal(cross, acnt >= 1 << rb)
+            if cross.any():
+                q_before = run["q"][cross].copy()
+                enter(k, o, run, cross)
+                if crossings is not None:
+                    seam = int((run["q"][cross] != q_before).sum())
+                    crossings.setdefault(k, {"entry": 0, "quadrant": 0})
+                    crossings[k]["quadrant"] += seam
+                    crossings[k]["entry"] += int(cross.sum()) - seam
+                acnt = run["acnt"] + k * (o - run["o"])
+        # the reference's residual count of this sample
+        ph = (k * ((nl + o) & M)) & ((1 << pw) - 1)
+        np.testing.assert_array_equal(acnt, ph & ((1 << rb) - 1))
+        d = run["dhi"]
+        if use_lo:
+            np.testing.assert_array_equal(run["lo"], acnt * p_lo)
+            d = d + (run["lo"] >> 12)
+        assert d.max(initial=0) < 1 << 32
+        dh = d >> 15
+        e = dh * dh
+        a, b = run["a"].astype(np.uint64), run["b"].astype(np.uint64)
+        # the high words of the 32 x 32 products, shifted: the floors of >> S
+        t1 = (((d.astype(np.uint64) * b) >> np.uint64(32)) >> np.uint64(s - 32)).astype(np.int64)
+        t2 = (((e.astype(np.uint64) * a) >> np.uint64(32)) >> np.uint64(2 * s - 61)).astype(
+            np.int64)
+        np.testing.assert_array_equal(t1, (d * run["b"]) >> s)
+        val = (run["a"] - t2 + run["s1"] * t1) & M
+        val = np.where(val >= 1 << 31, val - (1 << 32), val)
+        assert np.abs(val).max(initial=0) < (1 << (w - 2)) + (1 << 28)  # the note's bound
+        return ((run["ak"] * val) >> (w - 2)) & M
+
+    def fresh(k):
+        run = {f: np.zeros(len(base), np.int64) for f in ("a", "b", "s1", "ak", "dhi", "lo",
+                                                          "acnt", "o", "q")}
+        enter(k, 0, run, np.ones(len(base), bool))
+        return run
+
+    gaps = np.diff(offsets, prepend=0)
+    k = 1
+    while k + 1 < len(coeffs):  # two harmonics a pass
+        r0, r1 = fresh(k), fresh(k + 1)
+        for i, (o, gap) in enumerate(zip(offsets, gaps)):
+            acc[:, i] = (acc[:, i] + term(k + 1, o, gap, r1) - term(k, o, gap, r0)) & M
+        k += 2
+    if k < len(coeffs):
+        r0 = fresh(k)
+        for i, (o, gap) in enumerate(zip(offsets, gaps)):
+            acc[:, i] = (acc[:, i] - term(k, o, gap, r0)) & M
+    v = np.where(acc >= 1 << 31, acc - (1 << 32), acc)
+    if spec.overflow == "saturate" and w < 32:
+        v = np.clip(v, -(1 << (w - 1)), (1 << (w - 1)) - 1)
+    else:
+        v = v & ((1 << w) - 1)
+        v = np.where(v >= 1 << (w - 1), v - (1 << w), v)
+    out = np.full(count, -1, np.int64)
+    written = np.zeros(count, np.int64)
+    at = base[:, None] + np.asarray(offsets)[None, :]
+    keep = at < count
+    out[at[keep]] = v[keep]
+    np.add.at(written, at[keep], 1)
+    assert np.all(written == 1)
+    return out.astype(np.int32)
+
+
+def _kernel_emulation(n0, count, coeffs, spec, crossings=None):
+    """The kernel over [n0, n0 + count) in the form ``walk_regime`` picks."""
+    q = fk.taylor2_params(coeffs, spec)
+    if fk.walk_regime(spec.phase_width, spec.lut_size, len(q)) in ("walk", "walk_lo"):
+        return _walk_emulation(n0, count, q, spec, crossings)
+    return _emulation(np.arange(n0, n0 + count), q, spec)
 
 
 def _indices(pw, count, seed):
@@ -181,6 +306,112 @@ class TestEmulation:
         n = np.arange(2**33 - 50, 2**33 + 50, dtype=np.int64)
         got = fk.taylor2_window_plain(torch.from_numpy(n), q, spec).numpy()
         np.testing.assert_array_equal(_emulation(n, q, spec), got)
+
+
+def _walk_check(win, spec, n0, count, crossings=None):
+    """The kernel's emulation over [n0, n0 + count) 0 LSB against the port's
+    plain version and, where PW <= 31, JAX's ``window_values_fast`` at n mod
+    2^PW (its indices are int32; the window's period is 2^PW)."""
+    q = catalog.get(win).quantized(spec.data_width) if isinstance(win, str) else win
+    got = _kernel_emulation(n0, count, q, spec, crossings)
+    n = np.arange(n0, n0 + count, dtype=np.int64)
+    plain = fk.taylor2_window_plain(torch.from_numpy(n), q, spec).numpy()
+    np.testing.assert_array_equal(got, plain)
+    if spec.phase_width <= 31:
+        want = np.asarray(jf.window_values_fast(n % (1 << spec.phase_width), q, _jspec(spec)))
+        np.testing.assert_array_equal(got, want)
+
+
+class TestRunWalk:
+    @pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
+    def test_crossings_of_every_harmonic(self, k):
+        # BH-7 W=32 LS=12 pw=26, the main path's window: blocks around the
+        # samples where harmonic k's phase meets each quadrant seam and the
+        # period end, where lanes enter a new ROM entry and quadrant mid-walk
+        spec = WindowSpec(26, 32, sin_type="taylor2", lut_size=12, overflow="wrap")
+        assert fk.walk_regime(26, 12, 7) == "walk_lo"
+        seen = {}
+        quarter = 1 << 24
+        for j in range(1, 4 * k + 1):
+            n0 = (j * quarter) // k - 700 + j  # not a multiple of 4, 16 or 512
+            _walk_check("bh7", spec, n0, 1501, seen)
+        _walk_check("bh7", spec, int(np.random.default_rng(k).integers(1 << 26)), 2048, seen)
+        assert seen[k]["entry"] > 0 and seen[k]["quadrant"] > 0, seen
+
+    @pytest.mark.parametrize("overflow", ["wrap", "saturate"])
+    @pytest.mark.parametrize("w", [16, 17, 24, 32])
+    def test_widths(self, w, overflow):
+        spec = WindowSpec(26, w, sin_type="taylor2", lut_size=12, overflow=overflow)
+        rng = np.random.default_rng(w)
+        for win in ("bh7", "bh4", "bh3", "hann"):  # 6, 3, 2 and 1 harmonics: pairs and a single
+            q = catalog.get(win).quantized(w)
+            if max(abs(c) for c in q) >= 1 << 30:
+                continue
+            _walk_check(win, spec, int(rng.integers(1 << 26)), 1000 + w)
+
+    @pytest.mark.parametrize("win,pw,ls,regime", [
+        ("bh7", 30, 9, "walk_lo"), ("bh7", 31, 9, "walk"), ("bh7", 32, 10, "walk"),
+        ("bh7", 24, 12, "walk_lo"), ("bh7", 26, 14, "walk_lo"), ("bh7", 26, 3, "walk"),
+        ("bh7", 31, 14, "walk_lo"), ("hann", 21, 12, "walk_lo")])
+    def test_both_sides_of_the_p_lo_condition_and_short_runs(self, win, pw, ls, regime):
+        # rb = 19 takes the P_lo term, rb >= 20 does not; rb = 10 (BH-7) and
+        # rb = 7 (Hann, one harmonic) leave several runs a lane; LS = 3 is
+        # S = 32, a high word shifted by 0
+        q = catalog.get(win).quantized(32 if win == "bh7" else 16)
+        assert fk.walk_regime(pw, ls, len(q)) == regime
+        spec = WindowSpec(pw, 32 if win == "bh7" else 16, sin_type="taylor2", lut_size=ls,
+                          overflow="wrap")
+        rng = np.random.default_rng(pw * ls)
+        seen = {}
+        for n0 in (0, int(rng.integers(1 << pw)), (1 << (pw - 2)) // 5 - 300):
+            _walk_check(win, spec, n0, 1700, seen)
+        if pw - 2 - ls <= 10:
+            assert all(seen[k]["entry"] > 0 for k in range(1, len(q)))
+
+    @pytest.mark.parametrize("ls", [9, 12, 14])
+    def test_pw32_and_indices_past_2_32(self, ls):
+        # PW = 32 against the plain version; n0 just below 2^32 (the lane's
+        # n wraps mod 2^32 inside a warp) and past 2^33
+        spec = WindowSpec(32, 32, sin_type="taylor2", lut_size=ls, overflow="wrap")
+        for n0 in (2**32 - 700, 2**33 + 5, 3 * 2**30 - 255):
+            _walk_check("bh7", spec, n0, 1400)
+        spec = WindowSpec(26, 32, sin_type="taylor2", lut_size=ls, overflow="wrap")
+        _walk_check("bh7", spec, 2**32 - 300, 700)
+        _walk_check("bh7", spec, 2**33 + 2**25 - 3, 600)
+
+    @pytest.mark.parametrize("count", [1, 3, 4, 5, 511, 512, 513, 4097])
+    def test_ragged_counts(self, count):
+        spec = WindowSpec(26, 32, sin_type="taylor2", lut_size=12, overflow="wrap")
+        _walk_check("bh7", spec, 1 << 24, count)
+
+    def test_regimes(self):
+        # rb <= 0: ROM only; S < 32 (LS < 3), runs shorter than a lane's
+        # widest gap or a run check past 2^32: each sample on its own; the
+        # main path walks with the P_lo term
+        assert fk.walk_regime(12, 12, 7) == fk.walk_regime(14, 12, 7) == "rom_only"
+        assert fk.walk_regime(26, 2, 7) == "per_sample"
+        assert fk.walk_regime(16, 12, 7) == fk.walk_regime(23, 12, 7) == "per_sample"
+        assert fk.walk_regime(24, 12, 7) == "walk_lo"  # 2^10 >= 125 * 6
+        assert fk.walk_regime(24, 12, 16) == "per_sample"
+        assert fk.walk_regime(26, 12, 7) == "walk_lo"
+        for pw in range(14, 33):
+            for ls in (3, 9, 12, 14):
+                for nt in (2, 7, 16):
+                    _, p_hi, p_lo, rb = pf._phase_consts(pw, ls)
+                    form = fk.walk_regime(pw, ls, nt)
+                    if form.startswith("walk"):
+                        assert (1 << rb) >= fk.MAX_GAP * (nt - 1) and ls >= 3
+                        assert (form == "walk_lo") == (p_lo != 0 and rb + 12 <= 31)
+                        reach = (1 << rb) - 1 + fk.MAX_GAP * (nt - 1)
+                        assert reach * p_hi < 1 << 32 and (p_hi << rb) < 1 << 32
+        assert fk.MAX_GAP == 125 and len(fk.WALK_OFFSETS) == 16
+
+    def test_rom_only_and_per_sample_forms(self):
+        # the forms the walk leaves to each sample: rb <= 0 and short runs
+        for pw, ls in ((12, 12), (14, 12), (16, 12), (18, 12)):
+            spec = WindowSpec(pw, 24, sin_type="taylor2", lut_size=ls, overflow="wrap")
+            assert not fk.walk_regime(pw, ls, 4).startswith("walk")
+            _walk_check("bh4", spec, 37, 900)
 
 
 class TestWrapper:

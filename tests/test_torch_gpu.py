@@ -1417,6 +1417,58 @@ def test_fm_demod_kernel_matches_plain(cuda, mode, iw, aw, dtype):
     assert _build.launches["fm_demod"] == 2 * len(cases)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("mode", ["conj", "phase"])
+def test_fm_demod_walks_match_plain(cuda, mode, dtype):
+    # both walks at their edges: T = 2, 3, a strip of 4 +-1 and a multiple,
+    # a warp step of 32 +-1, a chunk +1 and a multiple; 1, 3, 16 and 33
+    # rows; the transposed (T, rows) bank walks its rows and its output is
+    # (T-1, rows) in memory, contiguous rows walk their samples: each the
+    # plain version's layout, one launch a call
+    from blackman_harris_win_tpu_torch.pipeline import demod
+
+    plain = demod.fm_demod_conj_plain if mode == "conj" else demod.fm_demod_phase_plain
+    rng = np.random.default_rng(3 if mode == "conj" else 4)
+    _build.reset_launches()
+    calls = 0
+    for t in (2, 3, 5, 8, 31, 33, 129, 256, 1031):
+        for rows in (1, 3, 16, 33):
+            y, x = dmk.seam_words(16, 20, rng, 2 * rows * t)
+            bank = torch.from_numpy(np.stack([x[-rows * t:], y[-rows * t:]]).reshape(2, t, rows))
+            for i, q in ((bank[0].mT, bank[1].mT), (bank[0].mT.contiguous(),
+                                                    bank[1].mT.contiguous())):
+                want = plain(i, q, 16, 20)
+                got = dmk.fm_demod(i.to(cuda, dtype), q.to(cuda, dtype), 16, 20, mode)
+                calls += 1
+                assert got.shape == want.shape and torch.equal(got.cpu(), want), (t, rows)
+                # the plain version's layout, strides of size-1 dimensions aside
+                assert all(a == b for a, b, n in zip(got.stride(), want.stride(), got.shape)
+                           if n > 1), (t, rows, got.stride(), want.stride())
+    assert _build.launches["fm_demod"] == calls
+
+
+@pytest.mark.parametrize("layout", ["transposed", "contiguous"])
+def test_fm_demod_at_a_config5_slice(cuda, layout):
+    # 16 channels of 2^20 + 3 frames (64-output strips and 64-step chunks on
+    # a full card), both modes 0 LSB against the plain version on the card
+    from blackman_harris_win_tpu_torch.pipeline import demod
+
+    rng = np.random.default_rng(5)
+    bank = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, size=(2, (1 << 20) + 3, 16),
+                                         dtype=np.int32)).to(cuda)
+    i, q = bank[0].mT, bank[1].mT
+    if layout == "contiguous":
+        i, q = i.contiguous(), q.contiguous()
+    for mode, plain in (("phase", demod.fm_demod_phase_plain),
+                        ("conj", demod.fm_demod_conj_plain)):
+        _build.reset_launches()
+        got = dmk.fm_demod(i, q, 16, 20, mode)
+        assert _build.launches["fm_demod"] == 1
+        want = plain(i, q, 16, 20)
+        assert torch.equal(got, want) and got.stride() == want.stride()
+    assert got.stride() == ((1, 16) if layout == "transposed" else ((1 << 20) + 2, 1))
+
+
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 @pytest.mark.parametrize("aw,scale", [(20, 2.0**14), (16, 2.0**14), (24, 1000.0), (31, 2.0**14),
                                       (40, 3.0e4)])
@@ -1504,6 +1556,12 @@ TAYLOR2_CASES = [  # (coeffs or name, pw, w, ls, overflow)
     ("bh4", 12, 24, 12, "wrap"),  # rb < 0: ROM only
     ("bh4", 14, 24, 12, "wrap"),  # rb = 0
     ("bh7", 26, 32, 14, "wrap"),  # the 128 KB ROM
+    ("bh7", 26, 32, 3, "wrap"),  # the run walk at S = 32, no P_lo term (rb = 21)
+    ("bh7", 24, 32, 12, "saturate"),  # the run walk over runs of 2^10: several a lane
+    ("hann", 21, 16, 12, "wrap"),  # one harmonic over runs of 2^7
+    ("bh5", 26, 24, 12, "saturate"),  # four harmonics: two pairs
+    ("bh3", 26, 17, 10, "wrap"),  # two harmonics: one pair
+    ("hann", 26, 16, 12, "saturate"),  # one harmonic: the single pass alone
     (((1 << 14) - 1,) * 3, 12, 16, 10, "saturate"),  # the W < 32 clamp
     (((1 << 14) - 1,) * 3, 12, 16, 10, "wrap"),
 ]
@@ -1530,6 +1588,26 @@ def test_taylor2_kernel_matches_plain(cuda, win, pw, w, ls, overflow):
             _build.reset_launches()
             assert torch.equal(kw.make_window(win, spec, device=cuda), got)
             assert _build.launches["taylor2_window_block"] == 1
+
+
+@pytest.mark.parametrize("pw,ls,w", [(26, 12, 32), (32, 14, 32), (30, 9, 16), (31, 9, 32)])
+def test_taylor2_walk_crossings_match_plain(cuda, pw, ls, w):
+    # blocks around the samples where harmonic k's phase meets a quadrant
+    # seam or the period end, for every k of BH-7, at n0 no multiple of 4,
+    # 16 or 512 and ragged counts; the run walk, one launch a block
+    spec = WindowSpec(pw, w, sin_type="taylor2", lut_size=ls, overflow="wrap")
+    assert fk.walk_regime(pw, ls, 7).startswith("walk")
+    q = catalog.get("bh7").quantized(w)
+    quarter = 1 << (pw - 2)
+    runs = [((j * quarter) // k - 700 + j, 1501 + k) for k in range(1, 7)
+            for j in range(1, 4 * k + 1)]
+    runs += [(2**32 - 700, 1400), (2**33 + 5, 777)]
+    _build.reset_launches()
+    for n0, count in runs:
+        got = fk.window_block(q, spec, n0, count, cuda).cpu()
+        want = fk.taylor2_window_plain(torch.arange(n0, n0 + count), q, spec)
+        assert torch.equal(got, want), (n0, count)
+    assert _build.launches["taylor2_window_block"] == len(runs)
 
 
 def test_taylor2_kernel_refuses_what_it_does_not_take(cuda):

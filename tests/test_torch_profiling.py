@@ -21,7 +21,8 @@ PERF_BOUNDS = {
     "outer_checksum_f32": (0.0250, 4), "outer_checksum_comp": (0.0581, 4),
     "taylor_checksum": (0.0321, 4), "materialize": (0.3205, 4), "ddc_mixer": (0.2404, 4),
     "fm_demod": (0.3205, 4), "fm_demod_half": (0.2865, 4), "cordic_atan2": (0.3205, 4),
-    "taylor2_window_block": (0.2925, 4),
+    "fm_demod_phase": (0.3205, 4), "fm_demod_int_conj": (0.3205, 4),
+    "taylor2_window_block": (0.1844, 4),
 }
 
 
@@ -77,8 +78,10 @@ class TestBounds:
         from blackman_harris_win_tpu_torch import _build
 
         bounds = _main_path_bounds()
-        # fm_demod's second row: its entry for a real stream's half spectrum
-        assert set(bounds) == set(_build.launches) | {"fm_demod_half"}
+        # fm_demod's other rows: its entry for a real stream's half spectrum,
+        # and the integer discriminator's two modes on config 5's I/Q
+        assert set(bounds) == set(_build.launches) | {"fm_demod_half", "fm_demod_phase",
+                                                      "fm_demod_int_conj"}
         assert all(by in ("bytes", "operations") and ms > 0 for ms, by in bounds.values())
 
     def test_bound_is_the_larger_time(self):
@@ -94,11 +97,19 @@ class TestBounds:
         assert prof.outer_window_int_ops(10, 7) == 10 * (6 * 6 + 2)
         # the atan2: AW - 1 iterations of 6, as the CORDIC window's, 15
         # around them; the discriminator quantizes each sample once; the
-        # taylor2 window: the cosine of each harmonic only
+        # taylor2 window: the cosine of each harmonic only, along runs that
+        # share a ROM entry and a quadrant (what a run needs, once a run)
         assert prof.atan2_ops(20) == 19 * 6 + 15
         assert prof.fm_demod_conj_ops(20) == prof.atan2_ops(20) + 14
-        assert prof.taylor2_window_ops(7) == 6 * 24 + 2
-        assert prof.taylor2_window_ops(7, p_lo=False) == 6 * 21 + 2
+        assert prof.fm_demod_phase_ops(20) == (prof.atan2_ops(20), 4)
+        assert prof.fm_demod_int_conj_ops(20) == prof.atan2_ops(20) + 10
+        assert prof.taylor2_window_ops(7) == 6 * 15 + 2
+        assert prof.taylor2_window_ops(7, p_lo=False) == 6 * 12 + 2
+        # BH-7 at pw=26, LS=12 (rb = 12): harmonic k meets k 2^14 + 1 runs
+        runs = sum(k * (1 << 14) + 1 for k in range(1, 7))
+        assert prof.taylor2_window_work(N, 7, 12) == N * (6 * 15 + 2) + 12 * runs
+        # the per-sample model it replaces counted 24 a harmonic: 0.2925 ms
+        assert round(prof.bound(4 * N, N * (6 * 24 + 2))[0], 4) == 0.2925
 
     def test_op_models_are_not_the_tpu_s(self):
         # JAX counts the int32-limb datapath of its TPU kernels
