@@ -37,7 +37,8 @@ launches = {
     "window_block": 0, "window_checksum": 0, "welch_stage1": 0,
     "outer_block": 0, "outer_block_f32": 0, "outer_block_comp": 0,
     "outer_checksum": 0, "outer_checksum_f32": 0, "outer_checksum_comp": 0,
-    "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_checksum": 0,
+    "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_window_rtl": 0,
+    "taylor_checksum": 0,
     "materialize": 0, "ddc_nco_table": 0, "ddc_mixer": 0, "cordic_atan2": 0, "fm_demod": 0,
     "taylor2_window_block": 0,
 }
@@ -67,6 +68,9 @@ _SIGNATURES = {
     # out (16-byte aligned), n0, count, rom, pw, w, ls, coeffs, nterms,
     # ramb_pi (pw), ramb_pi (pw-1), saturate, stream
     "bhw_taylor_window_block": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P),
+    # out (16-byte aligned), n0, count, rom, pw, w, ls, coeffs, nterms,
+    # ramb_pi (pw), ramb_pi (pw-1), stream: the RTL contract
+    "bhw_taylor_window_rtl": (_P, _L, _L, _P, _I, _I, _I, _P, _I, _I, _I, _P),
     # out, n0, count, rom, pw, w, ls, ramb_pi, stream
     "bhw_taylor_checksum": (_P, _L, _L, _P, _I, _I, _I, _I, _P),
     # dst, src, nbytes, stream

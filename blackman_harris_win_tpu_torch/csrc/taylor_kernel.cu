@@ -9,6 +9,12 @@
 //                           narrower generator), wrap or saturate to W bits;
 //   taylor_checksum_kernel  the int32-wrap sum of c+s over [n0, n0+count),
 //                           nothing stored.
+// A fourth, taylor_window_rtl_kernel, replaces no Pallas kernel: it is the
+// TAYLOR window under the RTL (VHDL) contract, the jnp of
+// blackman_harris_win_tpu/kernels/window.py:_window_rtl with the TAYLOR
+// cosine, which the JAX package leaves to XLA.  It runs the window
+// kernel's tiles and generators and only accumulates differently (see
+// rtl_field and taylor_window_rtl_kernel).
 // The semantics are those of model/golden.py:taylor_sincos and
 // tay1_correction (src/taylor_sincos.vhd, src/tay1_order.vhd).
 //
@@ -357,6 +363,24 @@ struct WinParams {
   int w, saturate;
 };
 
+// The window write-outs' walk: per lane, harmonic 1's cosine (gen[0], at
+// PW) and, for a 3-term window (kReg2 != kNone), harmonic 2's (gen[1], at
+// PW-1) at its 8 samples, then acc(c1, c2, v) turns them into the 8
+// outputs v, which are stored.  c2 is not written for a 2-term window.
+template <int kReg1, int kReg2, class Acc>
+__device__ __forceinline__ void window_tiles(int* __restrict__ out, u64 n0, i64 count,
+                                             const int2* __restrict__ rom, const WinParams& P,
+                                             Acc acc) {
+  BHW_BY_RS(P.gen[0].rs, tiles<true>(n0, count, [&](u64 n_a, i64 i0, i64 left) {
+    int c1[kG<true>], c2[kG<true>], unused[kG<true>], v[kG<true>];
+    gen_values<kReg1, false, true, kRs>(n_a, left, P.gen[0], rom, c1, unused);
+    if constexpr (kReg2 != kNone)
+      gen_values<kReg2, false, true, kRs>(n_a, left, P.gen[1], rom, c2, unused);
+    acc(c1, c2, v);
+    store(out, i0, left, v);
+  }));
+}
+
 // HLS: a0 - m1 + m2, m_k = (a_k * cos_k) >> (W-1) (full-scale source); kReg2
 // is kNone for a 2-term window.  |a_k| < 2^31 and |cos_k| <= 2^(W-1) make
 // each product exact in int64 and |m_k| < 2^31, so m_k is the funnel shift
@@ -369,12 +393,10 @@ taylor_window_kernel(int* __restrict__ out, u64 n0, i64 count, const int2* __res
   const int sh = P.w - 1, ws = 32 - P.w;
   const i64 hi = (1ll << sh) - 1, lo = -(1ll << sh);
   const u32 pw2 = 1u << ws;
-  BHW_BY_RS(P.gen[0].rs, tiles<true>(n0, count, [&](u64 n_a, i64 i0, i64 left) {
-    int c1[kG<true>], c2[kG<true>], unused[kG<true>];
-    gen_values<kReg1, false, true, kRs>(n_a, left, P.gen[0], rom, c1, unused);
-    if constexpr (kReg2 != kNone)
-      gen_values<kReg2, false, true, kRs>(n_a, left, P.gen[1], rom, c2, unused);
-    int m1[kG<true>], m2[kG<true>], v[kG<true>];
+  window_tiles<kReg1, kReg2>(out, n0, count, rom, P, [&](const int (&c1)[kG<true>],
+                                                         const int (&c2)[kG<true>],
+                                                         int (&v)[kG<true>]) {
+    int m1[kG<true>], m2[kG<true>];
 #pragma unroll
     for (int k = 0; k < kG<true>; ++k) {
       const i64 p1 = (i64)P.coeffs[1] * c1[k];
@@ -396,8 +418,70 @@ taylor_window_kernel(int* __restrict__ out, u64 n0, i64 count, const int2* __res
       for (int k = 0; k < kG<true>; ++k)
         v[k] = (int)(((u32)P.coeffs[0] - (u32)m1[k] + (u32)m2[k]) * pw2) >> ws;
     }
-    store(out, i0, left, v);
-  }));
+  });
+}
+
+// RTL term of harmonic k (src/bh_win_3term.vhd:257-280, hamming_win.vhd:
+// 194-210): b_k = wrap(rhu0(wrap(p >> (W-2), W+1)), W), p = a_k * cos_k,
+// rhu0(r) = (r >> 1) + (r & 1) = floor((r + 1) / 2).  The W+1-bit wrap
+// subtracts a multiple of 2^(W+1) from t = floor(p / 2^(W-2)), which moves
+// floor((t + 1) / 2) by a multiple of 2^W, and the W-bit wrap after it
+// removes that; floor((floor(p / 2^(W-2)) + 1) / 2) = floor((p + 2^(W-2)) /
+// 2^(W-1)).  So b_k = wrap((p + 2^(W-2)) >> (W-1), W): one multiply-add
+// (|p| < 2^62, exact in int64) and the funnel shift of its two words by
+// W-1 <= 31, whose low W bits are b_k's (W <= 32).  rtl_field returns that
+// word times 2^(32-W) (pw2): b_k * 2^(32-W) as an int32, exact.  The scale
+// is a multiply, which issues on the FMA pipe beside the ALU's shifts.
+__device__ __forceinline__ int rtl_field(int a, int c, i64 half, int sh, u32 pw2) {
+  const i64 p = (i64)a * c + half;
+  return (int)(__funnelshift_r((u32)p, (u32)(p >> 32), sh) * pw2);
+}
+
+// RTL: the alternating tree acc = a0 - b1 (+ b2) is wrapped to W+s bits
+// and rounded half up off bit s-1 to W bits: s = 1 for the 2-term core
+// (hamming_win.vhd:211-231, a W+1-bit subtract, (pp >> 1) + (pp & 1)), s = 2
+// for the 3-term one (bh_win_3term.vhd:282-306, a W+2-bit tree, (pp >> 2)
+// + ((pp >> 1) & 1)).  Both are floor((pp + 2^(s-1)) / 2^s) wrapped to W
+// bits, which depends on acc mod 2^(W+s) only, so the W+s-bit wrap needs
+// no instruction: out = bits [s, s+W-1] of acc + 2^(s-1), sign-extended.
+// Where W + s <= 32 (kWide false) the tree runs in one uint32 word scaled
+// by 2^(32-W-s): each term is rtl_field >> s (arithmetic, exact: b_k *
+// 2^(32-W-s)), a0 + 2^(s-1) is scaled once, and the sum's arithmetic shift
+// right by 32-W is the output.  Where W + s > 32 (W = 32 2-term; W = 31, 32
+// 3-term: a W+1 = 33 or W+2 = 33..34-bit tree), b_k = rtl_field >> (32-W)
+// and a0 + 2^(s-1) - b1 (+ b2) is exact in int64 (|.| < 2^33); the output
+// is its funnel shift by s, wrapped to W.  The output register is W bits
+// wide: "saturate" and "wrap" give the same result and nothing is clamped.
+// Five blocks an SM (up to 48 registers a thread): without the bound,
+// ptxas held 3 of the 16 instantiations to 32 or 40 registers by spilling
+// a value to the stack; with it none spills.
+template <int kReg1, int kReg2, bool kWide>
+__global__ void __launch_bounds__(kThreads, 5)
+taylor_window_rtl_kernel(int* __restrict__ out, u64 n0, i64 count,
+                         const int2* __restrict__ rom, const WinParams P) {
+  constexpr int s = kReg2 == kNone ? 1 : 2;
+  const int sh = P.w - 1, ws = 32 - P.w;
+  const u32 pw2 = 1u << ws;
+  const i64 half = 1ll << (P.w - 2);
+  const i64 a0h = (i64)P.coeffs[0] + (1 << (s - 1));
+  // the 32-bit tree's a0 + 2^(s-1), scaled by 2^(32-W-s) (unused if kWide)
+  const u32 a0s = kWide ? 0u : (u32)a0h << (ws - s);
+  window_tiles<kReg1, kReg2>(out, n0, count, rom, P, [&](const int (&c1)[kG<true>],
+                                                         const int (&c2)[kG<true>],
+                                                         int (&v)[kG<true>]) {
+#pragma unroll
+    for (int k = 0; k < kG<true>; ++k) {
+      const int f1 = rtl_field(P.coeffs[1], c1[k], half, sh, pw2);
+      int f2 = 0;
+      if constexpr (kReg2 != kNone) f2 = rtl_field(P.coeffs[2], c2[k], half, sh, pw2);
+      if constexpr (kWide) {
+        const i64 acc = a0h - (f1 >> ws) + (f2 >> ws);
+        v[k] = (int)(__funnelshift_r((u32)acc, (u32)(acc >> 32), s) * pw2) >> ws;
+      } else {
+        v[k] = (int)(a0s - (u32)(f1 >> s) + (u32)(f2 >> s)) >> ws;
+      }
+    }
+  });
 }
 
 // Sum mod 2^32 is associative and commutative, so the per-lane, per-warp
@@ -463,6 +547,29 @@ int launch(void (*kernel)(P...), i64 count, cudaStream_t stream, A... args) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// What both window entries check and set up: 2..kMaxTerms terms, |a_k| <
+// 2^31, valid generators at PW (and PW-1 for a third term), n0 >= 0, an
+// output on 16 bytes.  False on a refusal; else P and the generators'
+// regimes r1, r2 (kNone without a third term).
+bool win_setup(WinParams& P, int& r1, int& r2, const int* out, i64 n0, int pw, int w, int ls,
+               const i64* coeffs, int nterms, int ramb_pi1, int ramb_pi2, int saturate) {
+  if (nterms < 2 || nterms > kMaxTerms || n0 < 0 || !aligned16(out)) return false;
+  for (int k = 0; k < kMaxTerms; ++k) {
+    const i64 a = k < nterms ? coeffs[k] : 0;
+    if (a <= -(1ll << 31) || a >= (1ll << 31)) return false;
+    P.coeffs[k] = (int)a;
+  }
+  const Gen g1{pw, w, ls, ramb_pi1}, g2{pw - 1, w, ls, ramb_pi2};
+  if (!valid_gen(g1) || (nterms == 3 && !valid_gen(g2))) return false;
+  P.gen[0] = consts(g1);
+  P.gen[1] = nterms == 3 ? consts(g2) : P.gen[0];
+  P.w = w;
+  P.saturate = saturate;
+  r1 = regime_of(g1);
+  r2 = nterms == 3 ? regime_of(g2) : kNone;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -484,20 +591,10 @@ int bhw_taylor_sincos_block(int* c, int* s, i64 n0, i64 count, const int* rom, i
 int bhw_taylor_window_block(int* out, i64 n0, i64 count, const int* rom, int pw, int w,
                             int ls, const i64* coeffs, int nterms, int ramb_pi1,
                             int ramb_pi2, int saturate, void* stream) {
-  if (nterms < 2 || nterms > kMaxTerms || n0 < 0 || !aligned16(out)) return (int)cudaErrorInvalidValue;
   WinParams P;
-  for (int k = 0; k < kMaxTerms; ++k) {
-    const i64 a = k < nterms ? coeffs[k] : 0;
-    if (a <= -(1ll << 31) || a >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-    P.coeffs[k] = (int)a;
-  }
-  const Gen g1{pw, w, ls, ramb_pi1}, g2{pw - 1, w, ls, ramb_pi2};
-  if (!valid_gen(g1) || (nterms == 3 && !valid_gen(g2))) return (int)cudaErrorInvalidValue;
-  P.gen[0] = consts(g1);
-  P.gen[1] = nterms == 3 ? consts(g2) : P.gen[0];
-  P.w = w;
-  P.saturate = saturate;
-  const int r1 = regime_of(g1), r2 = nterms == 3 ? regime_of(g2) : kNone;
+  int r1, r2;
+  if (!win_setup(P, r1, r2, out, n0, pw, w, ls, coeffs, nterms, ramb_pi1, ramb_pi2, saturate))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int2* r = (const int2*)rom;
 #define BHW_WIN(A, B)             \
@@ -507,6 +604,32 @@ int bhw_taylor_window_block(int* out, i64 n0, i64 count, const int* rom, int pw,
   BHW_WIN(kTayNarrow, kNone) BHW_WIN(kTayNarrow, kLut) BHW_WIN(kTayNarrow, kTayNarrow)
   BHW_WIN(kTayWide, kNone) BHW_WIN(kTayWide, kLut) BHW_WIN(kTayWide, kTayWide)
 #undef BHW_WIN
+  return (int)cudaErrorInvalidValue;
+}
+
+int bhw_taylor_window_rtl(int* out, i64 n0, i64 count, const int* rom, int pw, int w, int ls,
+                          const i64* coeffs, int nterms, int ramb_pi1, int ramb_pi2,
+                          void* stream) {
+  WinParams P;
+  int r1, r2;
+  if (!win_setup(P, r1, r2, out, n0, pw, w, ls, coeffs, nterms, ramb_pi1, ramb_pi2, 0))
+    return (int)cudaErrorInvalidValue;
+  // the tree's W+s bits: W+1 (2 terms) or W+2 (3 terms) past a 32-bit word
+  const bool wide = w + (nterms == 3 ? 2 : 1) > 32;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int2* r = (const int2*)rom;
+#define BHW_RTL(A, B, WIDE)                   \
+  if (r1 == A && r2 == B && wide == WIDE)     \
+    return launch(taylor_window_rtl_kernel<A, B, WIDE>, count, st, out, (u64)n0, count, r, P);
+  // the 32-bit tree: every regime pair the HLS entry takes
+  BHW_RTL(kLut, kNone, false) BHW_RTL(kTayNarrow, kNone, false) BHW_RTL(kTayWide, kNone, false)
+  BHW_RTL(kLut, kLut, false) BHW_RTL(kLut, kTayNarrow, false) BHW_RTL(kLut, kTayWide, false)
+  BHW_RTL(kTayNarrow, kLut, false) BHW_RTL(kTayNarrow, kTayNarrow, false)
+  BHW_RTL(kTayWide, kLut, false) BHW_RTL(kTayWide, kTayWide, false)
+  // the 64-bit tree, W >= 31: the W < 19 regime cannot occur
+  BHW_RTL(kLut, kNone, true) BHW_RTL(kTayWide, kNone, true) BHW_RTL(kLut, kLut, true)
+  BHW_RTL(kLut, kTayWide, true) BHW_RTL(kTayWide, kLut, true) BHW_RTL(kTayWide, kTayWide, true)
+#undef BHW_RTL
   return (int)cudaErrorInvalidValue;
 }
 

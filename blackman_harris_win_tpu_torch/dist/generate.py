@@ -3,19 +3,16 @@
 
 A window sample depends only on its index, ``w[n] = sum_k +-a_k cos(2 pi k
 n / 2^PHI)`` with modular phase, so shard i of a mesh axis computes its own
-[n0 + i*B, n0 + (i+1)*B) and nothing is communicated.  Each shard's block
-goes through the kernel the single-device path uses on its device:
+[n0 + i*B, n0 + (i+1)*B) and nothing is communicated.  An integer
+shard's block goes through ``kernels.window.window_block``, the router the
+single-device path uses, so each source and contract reaches its kernel on
+the shard's device (CORDIC kernel 1a, the Taylor HLS or RTL window kernel,
+the taylor2 kernel) at any n0 and block; a float32 shard goes through
+``float_window_block`` (the f32 outer write-out kernel), a compensated
+pair through ``comp_window_block`` (the comp outer write-out).
 
-- CORDIC: ``kernels.window_kernel.window_block`` (kernel 1a);
-- TAYLOR/HLS where :func:`_taylor_fast_ok` holds: ``taylor_window_range``
-  (the Taylor window kernel);
-- taylor2: ``kernels.fastwin_kernel.window_block`` (the taylor2 kernel);
-- float32: ``float_window_block`` (the f32 outer write-out kernel);
-  compensated pair: ``comp_window_block`` (the comp outer write-out);
-- anything else: ``window_samples`` in torch ops on the shard's device.
-
-Every route computes the JAX package's ``window_samples`` values; integer
-blocks are int32, as ``kernels.window.window_block`` returns them.  A
+Every route computes the JAX package's ``window_samples`` values, integer
+blocks as int32.  A
 result replicated over the other mesh axis is computed on every device
 that holds it, as ``shard_map`` does.  Where the mesh spans processes, each
 process computes the shards of its own cells only.
@@ -23,58 +20,24 @@ process computes the shards of its own cells only.
 
 from __future__ import annotations
 
-import torch
-
 from ..core.config import WindowSpec
-from ..kernels import fastwin_kernel
 from ..kernels.compwin import comp_window_block
 from ..kernels.floatwin import float_window_block
 from ..kernels.outerwin import DEFAULT_SPLIT
-from ..kernels.taylor import taylor_window_range
-from ..kernels.window import window_samples
-from ..kernels.window_kernel import window_block
+from ..kernels.window import window_block
 from .mesh import Mesh, Sharded, local_map
-
-
-def _taylor_fast_ok(coeffs_q, spec: WindowSpec, block: int) -> bool:
-    """True when a consecutive ``block`` routes through the TAYLOR block
-    kernel: HLS rounding, 2/3-term, pw >= 5, and shard blocks aligned to
-    the largest harmonic run R_1 = 2^(PW-LS-2) (the JAX package's rule)."""
-    if spec.sin_type != "taylor" or spec.rounding != "hls":
-        return False
-    if len(coeffs_q) not in (2, 3) or spec.phase_width < 5:
-        return False
-    return block % _run(spec) == 0
-
-
-def _run(spec: WindowSpec) -> int:
-    return 1 << max(spec.phase_width - spec.lut_size - 2, 0)
 
 
 def _range_fn(coeffs_q, spec: WindowSpec, n0: int, block: int):
     """gen(i, device): the int32 block [n0 + i*block, n0 + (i+1)*block)."""
     coeffs_q = tuple(int(c) for c in coeffs_q)
-    if _taylor_fast_ok(coeffs_q, spec, block) and n0 % _run(spec) == 0:
-        return lambda i, device: taylor_window_range(n0 + i * block, block, coeffs_q, spec,
-                                                     device)
-    if spec.sin_type == "cordic":
-        return lambda i, device: window_block(coeffs_q, spec, n0 + i * block, block, device)
-    if spec.sin_type == "taylor2":
-        return lambda i, device: fastwin_kernel.window_block(coeffs_q, spec, n0 + i * block,
-                                                             block, device)
-
-    def gen(i, device):
-        start = n0 + i * block
-        n = torch.arange(start, start + block, dtype=torch.int64, device=device)
-        return window_samples(n, coeffs_q, spec).to(torch.int32)
-
-    return gen
+    return lambda i, device: window_block(n0 + i * block, block, coeffs_q, spec, device)
 
 
 def window_shard_fn(coeffs_q, spec: WindowSpec, block: int):
     """The per-shard generator for use inside a larger sharded step:
     ``gen(i, device)`` returns shard i's block [i*B, (i+1)*B) on ``device``
-    (no communication); TAYLOR/HLS routes through the block kernel."""
+    (no communication), through the kernel of its source and contract."""
     return _range_fn(coeffs_q, spec, 0, block)
 
 

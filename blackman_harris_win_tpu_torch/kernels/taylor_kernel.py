@@ -4,12 +4,17 @@
 One CUDA source (``csrc/taylor_kernel.cu``) replaces the Pallas kernel
 ``make_checksum_fn_taylor`` with three entry points around one device
 function, (cos, sin) of the quarter-wave-LUT + 1st-order-Taylor generator at
-a sample index:
+a sample index, and adds a fourth:
 
 - ``sincos_block`` writes (c, s) for [n0, n0+count) (the engine
   ``taylor.taylor_sincos_block`` times);
 - ``window_block`` writes the HLS 2/3-term TAYLOR window
   (``taylor.taylor_window_block``, ``window.make_window``);
+- ``window_rtl_block`` writes the 2/3-term TAYLOR window under the RTL
+  (VHDL) contract (``window.window_block``, ``window.make_window``, the
+  sharded windows): the jnp path ``_window_rtl`` of the JAX package, which
+  has no Pallas kernel, on the same tiles and generators (kernel
+  ``taylor_window_rtl``);
 - ``checksum_range`` sums c+s over [n0, n0+count) in the kernel, nothing
   stored, exact mod 2^32 in any block order; ``make_checksum_fn_taylor``
   (the TPU kernel's interface) runs it over one full period.  Over a full
@@ -18,7 +23,8 @@ a sample index:
   tests and the smoke run check the kernel's arithmetic on other ranges.
 
 Each wrapper runs its plain PyTorch version (``taylor_sincos_plain``,
-``taylor_window_plain``, ``taylor_checksum_plain``) for the CPU and launches
+``taylor_window_plain``, ``taylor_window_rtl_plain``,
+``taylor_checksum_plain``) for the CPU and launches
 the kernel for a CUDA device; there is no fallback between them.  The ROM
 is built on the host (numpy float64, as the JAX package builds it) and put on
 each device once per (LS, W).  Sample indices are taken mod 2^PW, so any
@@ -60,8 +66,9 @@ def _rom_on(ls: int, w: int, device: torch.device) -> torch.Tensor:
 
 
 def _window_params(coeffs_q, spec: WindowSpec) -> tuple[int, ...]:
-    """Validate a TAYLOR window for the kernel: 2/3 terms, both generators
-    (PW and PW-1) valid, |a_k| < 2^31 (int32 coefficients)."""
+    """Validate a TAYLOR window for the kernels (either contract): 2/3
+    terms, both generators (PW and PW-1) valid, |a_k| < 2^31 (int32
+    coefficients)."""
     coeffs = tuple(int(c) for c in coeffs_q)
     if len(coeffs) not in (2, 3):
         raise ValueError(TAYLOR_TERMS_MSG)
@@ -80,6 +87,12 @@ def _taylor_hls(spec: WindowSpec) -> WindowSpec:
     return spec.with_(sin_type="taylor", rounding="hls")
 
 
+def _taylor_rtl(spec: WindowSpec) -> WindowSpec:
+    """The spec the RTL Taylor window functions compute: the TAYLOR source
+    under the RTL contract, whatever ``spec`` names."""
+    return spec.with_(sin_type="taylor", rounding="rtl")
+
+
 def taylor_sincos_plain(n, pw: int, w: int, ls: int):
     """Plain version of ``sincos_block``: (c, s) at int64 indices ``n`` as
     int32, in int64 torch ops on ``n``'s device."""
@@ -92,6 +105,13 @@ def taylor_window_plain(n, coeffs_q, spec: WindowSpec):
     indices ``n`` as int32, in int64 torch ops on ``n``'s device."""
     coeffs = _window_params(coeffs_q, spec)
     return window_samples(n, coeffs, _taylor_hls(spec)).to(torch.int32)
+
+
+def taylor_window_rtl_plain(n, coeffs_q, spec: WindowSpec):
+    """Plain version of ``window_rtl_block``: the RTL TAYLOR window at int64
+    indices ``n`` as int32, in int64 torch ops on ``n``'s device."""
+    coeffs = _window_params(coeffs_q, spec)
+    return window_samples(n, coeffs, _taylor_rtl(spec)).to(torch.int32)
 
 
 def taylor_checksum_plain(pw: int, w: int, ls: int, n0: int = 0, bias: int = 0,
@@ -133,23 +153,39 @@ def sincos_block(n0, count: int, pw: int, w: int, ls: int, device=None):
     return c, s
 
 
-def window_block(coeffs_q, spec: WindowSpec, n0, count: int, device=None):
-    """The HLS TAYLOR window over [n0, n0+count) as int32 on ``device``
-    (kernel ``taylor_window_block``)."""
+def _window_write(entry: str, plain, coeffs_q, spec: WindowSpec, n0, count: int, device,
+                  *extra):
+    """A TAYLOR window write-out over [n0, n0+count) as int32 on ``device``:
+    ``plain`` on the CPU, the C entry ``bhw_<entry>`` on a card (its
+    launch counter ``entry``), given ``extra`` after the generators."""
     coeffs = _window_params(coeffs_q, spec)
     pw, w, ls = spec.phase_width, spec.data_width, spec.lut_size
     n0, count = int(n0) % (1 << pw), _check_count(count)
     device = _build.resolve_device(device)
     if device.type == "cpu":
-        return taylor_window_plain(torch.arange(n0, n0 + count), coeffs, spec)
+        return plain(torch.arange(n0, n0 + count), coeffs, spec)
     out = torch.empty(count, dtype=torch.int32, device=device)
     if count:
         cbuf = np.asarray(coeffs, np.int64)
-        _launch("taylor_window_block", device, out.data_ptr(), n0, count,
-                _rom_on(ls, w, device).data_ptr(), pw, w, ls, cbuf.ctypes.data,
-                len(coeffs), _ramb(pw, ls), _ramb(pw - 1, ls),
-                int(spec.overflow == "saturate"))
+        _launch(entry, device, out.data_ptr(), n0, count, _rom_on(ls, w, device).data_ptr(),
+                pw, w, ls, cbuf.ctypes.data, len(coeffs), _ramb(pw, ls), _ramb(pw - 1, ls),
+                *extra)
     return out
+
+
+def window_block(coeffs_q, spec: WindowSpec, n0, count: int, device=None):
+    """The HLS TAYLOR window over [n0, n0+count) as int32 on ``device``
+    (kernel ``taylor_window_block``)."""
+    return _window_write("taylor_window_block", taylor_window_plain, coeffs_q, spec, n0, count,
+                         device, int(spec.overflow == "saturate"))
+
+
+def window_rtl_block(coeffs_q, spec: WindowSpec, n0, count: int, device=None):
+    """The RTL TAYLOR window over [n0, n0+count) as int32 on ``device``
+    (kernel ``taylor_window_rtl``).  Its output register is W bits wide, so
+    ``spec.overflow`` does not change it."""
+    return _window_write("taylor_window_rtl", taylor_window_rtl_plain, coeffs_q, spec, n0, count,
+                         device)
 
 
 def checksum_range(n0, count: int, pw: int, w: int, ls: int, bias: int = 0, device=None):

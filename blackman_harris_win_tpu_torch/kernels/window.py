@@ -12,23 +12,23 @@ Two rounding modes (see ``WindowSpec``): "hls" (the coherent functional
 spec) and "rtl" (the VHDL cores' two round-half-up stages).
 
 ``window_samples`` is the indexed reference math on int64 lanes, on any
-device.  ``make_window`` and ``window_block`` produce contiguous blocks:
+device.  ``make_window`` and ``window_block`` produce contiguous blocks,
+each source and contract through its kernel's wrapper:
 
-- CORDIC: through ``window_kernel.window_block``;
-- TAYLOR, HLS: through ``taylor_kernel.window_block``;
-- taylor2: through ``fastwin_kernel.window_block``;
-- TAYLOR RTL (no kernel in the JAX package either): ``window_samples`` in
-  torch ops on the requested device.
+- CORDIC: ``window_kernel.window_block``;
+- TAYLOR, HLS: ``taylor_kernel.window_block``;
+- TAYLOR, RTL: ``taylor_kernel.window_rtl_block`` (a jnp path in the JAX
+  package, a hand-written kernel here);
+- taylor2: ``fastwin_kernel.window_block``.
 
 A kernel wrapper runs the CUDA kernel for a CUDA device and its plain
-version on the CPU.
+version on the CPU; there is no fallback between them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import _build
 from ..core.config import WindowSpec
 from ..core.fixedpoint import round_half_up_bit0, round_half_up_bit1, wrap
 from ..windows import catalog
@@ -175,20 +175,13 @@ def window_block(n0: int, block_len: int, coeffs_q, spec: WindowSpec,
                  device=None):
     """A contiguous block [n0, n0+block_len) of the window as int32 on
     ``device`` — the streaming building block (no host ever needs the full
-    window).  CORDIC, TAYLOR/HLS and taylor2 go through their kernels'
-    wrappers; TAYLOR RTL runs ``window_samples`` on ``device``."""
+    window) — through the kernel wrapper of its source and contract."""
     if spec.sin_type == "cordic":
         from .window_kernel import window_block as _block
-
-        return _block(coeffs_q, spec, n0, block_len, device)
-    if spec.sin_type == "taylor" and spec.rounding == "hls":
-        from .taylor_kernel import window_block as _block
-
-        return _block(coeffs_q, spec, n0, block_len, device)
-    if spec.sin_type == "taylor2":
+    elif spec.sin_type == "taylor2":
         from .fastwin_kernel import window_block as _block
-
-        return _block(coeffs_q, spec, n0, block_len, device)
-    n0, block_len = int(n0), int(block_len)
-    n = torch.arange(n0, n0 + block_len, device=_build.resolve_device(device))
-    return window_samples(n, coeffs_q, spec).to(torch.int32)
+    elif spec.rounding == "hls":
+        from .taylor_kernel import window_block as _block
+    else:
+        from .taylor_kernel import window_rtl_block as _block
+    return _block(coeffs_q, spec, n0, block_len, device)

@@ -49,6 +49,15 @@ FMA_OPS_PER_INSTR = 2.0
 TAYLOR_OPS = 14
 
 
+def taylor_window_rtl_ops(n_terms: int) -> int:
+    """Operations per sample of the TAYLOR window under the RTL contract
+    (``csrc/taylor_kernel.cu``, ``taylor_window_rtl``): per harmonic one
+    generator call (:data:`TAYLOR_OPS`) and its term, the product a_k *
+    cos_k, the rounding add, the slice's shift and the W-bit wrap (4); the
+    tree's n_terms - 1 adds, its rounding add, shift and W-bit wrap (3)."""
+    return (n_terms - 1) * (TAYLOR_OPS + 4) + (n_terms - 1) + 3
+
+
 def bound(nbytes: float, ops: float = 0.0, rate: float = INT32_OPS) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes over the memory rate
     or operations over their peak rate, the larger, and which one it is."""
@@ -200,7 +209,8 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     on that output's int32 I/Q (8 bytes a sample in, 8 an output out).
     ``taylor2_window_block`` writes the n-sample int32 window at n_terms
     terms, at LS = 12 (its correction takes the P_lo term), a period of PW
-    = log2(n)."""
+    = log2(n).  ``taylor_window_block`` and ``taylor_window_rtl`` write the
+    n-sample 3-term (Blackman) TAYLOR window, HLS and RTL."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
@@ -236,6 +246,8 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         "taylor_checksum": bound(4, n * (TAYLOR_OPS + 2)),
         # Blackman: two generator calls, a_k * cos, shift, accumulate, wrap
         "taylor_window_block": bound(4 * n, n * (2 * (TAYLOR_OPS + 3) + 2)),
+        # the same Blackman window under the RTL contract
+        "taylor_window_rtl": bound(4 * n, n * taylor_window_rtl_ops(3)),
         "materialize": bound(2 * mat_bytes),
         "ddc_nco_table": bound(8 * n_nco, n_nco * nco_ops(ddc_width)),
         "ddc_mixer": bound(4 * t_ddc + mat_bytes,

@@ -25,9 +25,11 @@ user calls, at the repository's real sizes:
    checksum of each (rows=64), the Blackman W=32 LS=12 wrap and Hamming W=16
    LS=10 saturate HLS windows through ``make_window`` (Taylor window
    kernel), the taylor2 BH-7 W=32 LS=12 wrap window through ``make_window``
-   (one launch of the taylor2 kernel ``taylor2_window_block``); and, in
-   torch ops on the card (no kernel exists for it), an RTL-contract TAYLOR
-   Hamming window;
+   (one launch of the taylor2 kernel ``taylor2_window_block``), and the
+   RTL-contract TAYLOR Hamming W=16 LS=10 and Blackman W=32 LS=12 windows
+   through ``make_window`` (one launch each of the RTL Taylor kernel
+   ``taylor_window_rtl``; the Blackman one's 3-term tree is 34 bits wide);
+   the phase's launches must be exactly these;
 7. the DDC at bench_all config 21: 2^26 float32 samples, fc = 1/8, decim 4,
    64 taps (``design_lowpass(64, 0.2)``), dds48 NCO at pw=20 W=16; its
    NCO repeats every 8 samples, so one launch of the table kernel
@@ -58,7 +60,8 @@ user calls, at the repository's real sizes:
    in this process on the inputs above, each output through a ``.npy`` in a
    temporary directory: ``gen`` at BH-7 W=32 pw=26 wrap in the exact,
    outer, float, comp-pair and taylor2 (LS=12) modes and a TAYLOR Hamming
-   W=16 window;
+   W=16 window, then, counted on its own, ``gen`` of 6's RTL TAYLOR Hamming
+   window (exactly one ``taylor_window_rtl`` launch);
    ``spectrum --fft-mode mxu`` at the analyzer configuration on 3's x as
    ``.npy`` and as a raw i16 capture (through ``SampleSource``); ``ddc`` at
    config 21 on 7's x; ``stft`` on 9's x; ``suggest``.  Then two child
@@ -71,7 +74,8 @@ user calls, at the repository's real sizes:
    phases hold: ``sharded_window`` HLS and RTL (1's and 2's windows, 0
    LSB, one ``window_block`` launch a shard), ``sharded_window_range`` at
    pw=31 over 4*2^20 samples around the peak (0 LSB against
-   ``window_block`` over the same range), the TAYLOR Blackman window and
+   ``window_block`` over the same range), the TAYLOR Blackman window, the
+   RTL TAYLOR Blackman window (one ``taylor_window_rtl`` a shard) and
    the taylor2 BH-7 window (6's, one ``taylor2_window_block`` a shard),
    ``sharded_float_window`` and ``sharded_comp_window`` (4's write-outs,
    bit for bit or within the outer kernels' derived bounds); the sharded
@@ -136,7 +140,10 @@ words), 0 LSB against the CPU plain versions; ``fm_demod_phase`` and
 version's layout), the taylor2 window bit-equal
 to ``window_values_fast`` on the card over all 2^26 samples and its blocks
 at n0 0, N/4+-1, N/2, 3N/4, N-1 for LS 9/10/12/14, W 16/17/32, wrap and
-saturate, 0 LSB against the CPU plain version, the STFT round trips and
+saturate, 0 LSB against the CPU plain version, the two RTL TAYLOR windows
+bit-equal to ``taylor_window_rtl_plain`` on the card over all 2^26 samples
+and RTL blocks (W 8..32, 2 and 3 terms, pw 12..31, unaligned starts, across
+the period end) 0 LSB against the CPU plain version, the STFT round trips and
 frames of each
 pair's stft against the golden window, every front-end output bit for bit
 against the earlier phase's (the two spectra also within the analyzer's
@@ -170,13 +177,15 @@ int: its IMAD.WIDE, IADD3, LEA.HI, SHF, LDS and STG), with their
 local-memory instructions, and of one CORDIC iteration of the DDC mixer
 kernel's compute path (its W=17 instantiation less its W=16 one, over the
 samples a thread computes), its table pass (the row loop, per sample) and
-its table kernel, and of the atan2 and taylor2 kernels (the median
-branch-free block: one unrolled iteration, or one harmonic of one sample),
+its table kernel, of the atan2 and taylor2 kernels (the median
+branch-free block: one unrolled iteration, or one harmonic of one sample)
+and of the RTL Taylor kernel's accumulate per sample (its branch-free
+block of the products a_k * cos_k + 2^(W-2), over the 8 samples of a lane),
 each split into the instructions of the integer ALU pipe, the FMA pipe
 (IMAD and f32 arithmetic) and the FP64 pipe; an int, a mixer or table, an
-atan2/discriminator or a taylor2 instantiation whose ptxas line shows a
-stack frame or spills, or whose SASS holds local-memory instructions, fails
-the run.
+atan2/discriminator, a taylor2 or an RTL Taylor instantiation whose ptxas
+line shows a stack frame or spills, or whose SASS holds local-memory
+instructions, fails the run.
 The mixer kernel's time on each path (beside its bound), its launches a
 DDC call, the DDC's device time and the torch-op NCO + mixer time (its
 plain version, a comparison row only) are printed for phases 7, 11 and 12,
@@ -718,6 +727,53 @@ def _taylor2_gates(win, q7, spec, dev, rng) -> int:
     return worst
 
 
+def _taylor_rtl_gates(wins: dict, specs: dict, dev, rng) -> int:
+    """The RTL Taylor kernel: phase 6's windows (``wins``, name -> window
+    at ``specs[name]``, the catalog set of its first word) bit-equal to
+    ``taylor_window_rtl_plain`` on the card over every sample; then blocks of
+    4099 samples at n0 in {0, N/4-1, N/2+1, N-7 (across the period end)}
+    and a random one, for W 8..32 x the Hamming (2-term), Blackman (3-term)
+    and a random 3-term |a_k| < 2^31 set (its slices and trees wrap) at
+    (pw, LS) (12, 10), (26, 12) and (31, 7) (the LUT regimes and tay1), 0 LSB
+    against the CPU plain version.  Returns the largest |difference|."""
+    import torch
+
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    worst = 0
+    for name, win in wins.items():
+        sp = specs[name]
+        q = catalog.get(name.split()[0]).quantized(sp.data_width)
+        want = tk.taylor_window_rtl_plain(torch.arange(sp.n, device=dev), q, sp)
+        worst = max(worst, int((want.long() - win.long()).abs().max()))
+        _require(torch.equal(want, win), f"taylor_window_rtl {name}: differs from "
+                 "taylor_window_rtl_plain on the card")
+        del want
+    blocks = 0
+    for w in range(8, 33):
+        big = tuple(int(a) for a in rng.integers(1 - (1 << 31), 1 << 31, 3))
+        for pw, ls in ((12, 10), (26, 12), (31, 7)):
+            sp = WindowSpec(pw, w, sin_type="taylor", rounding="rtl", lut_size=ls)
+            n = sp.n
+            for q in (catalog.get("hamming").quantized(w), catalog.get("blackman").quantized(w),
+                      big):
+                for n0 in (0, n // 4 - 1, n // 2 + 1, n - 7, int(rng.integers(n))):
+                    plain = tk.taylor_window_rtl_plain(torch.arange(n0, n0 + 4099), q, sp)
+                    got = tk.window_rtl_block(q, sp, n0, 4099, dev).cpu()
+                    worst = max(worst, int((got.long() - plain.long()).abs().max()))
+                    _require(torch.equal(got, plain), f"taylor_window_rtl W={w} pw={pw} "
+                             f"LS={ls} {q} n0={n0}: differs from the CPU plain version")
+                    blocks += 1
+    print(f"taylor_window_rtl: {', '.join(f'{k} ({specs[k].n} samples)' for k in wins)} "
+          f"bit-equal to taylor_window_rtl_plain on the card over every sample; {blocks} "
+          "blocks of 4099 (W 8..32, hamming, blackman "
+          "and a random 3-term set, (pw, LS) (12, 10) (26, 12) (31, 7), n0 0, N/4-1, N/2+1, "
+          "N-7 and random) 0 LSB against the CPU plain version")
+    return worst
+
+
 def _stft_frame_gate(name, fwd, x, dw_kernel: float, w_plain, gold, nfft: int, hop: int,
                      rng) -> None:
     """Three random frames of the pair's ``fwd(x)`` against a float64 rfft
@@ -949,6 +1005,12 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
           lambda: sharded_window(q_tb, spec_tb, m4),
           lambda: make_window("blackman", spec_tb, device=dev),
           equal_to(r["win_taylor_blackman"], "phase 6's window"))
+    spec_tr = r["spec_taylor_rtl"]
+    stage(f"gen taylor rtl blackman w32 ls12 pw{gpw}", "4 on one card",
+          {"taylor_window_rtl": 4},
+          lambda: sharded_window(r["q_taylor_rtl"], spec_tr, m4),
+          lambda: make_window("blackman", spec_tr, device=dev),
+          equal_to(r["win_taylor_rtl"], "phase 6's RTL window"))
     spec_t2 = r["spec_taylor2"]
     stage(f"gen taylor2 bh7 w32 ls12 pw{gpw}", "4 on one card", {"taylor2_window_block": 4},
           lambda: sharded_window(q7, spec_t2, m4),
@@ -1405,6 +1467,21 @@ def _front_end_inputs(tmp, x, x21, x_stft) -> dict:
     return paths
 
 
+def _cli_npy(tmp, argv: list) -> tuple[float, np.ndarray]:
+    """One CLI command writing a .npy in ``tmp``: (wall seconds, the array
+    read back)."""
+    f = tmp / "out.npy"
+    secs, _ = _cli(argv + ["--out", f])
+    out = (secs, np.load(f))
+    f.unlink()
+    return out
+
+
+#: phase 10's RTL TAYLOR window: phase 6's Hamming W=16 LS=10 through the CLI
+TAYLOR_RTL_GEN = ["gen", "hamming", "--sin-type", "taylor", "--rounding", "rtl",
+                  "--phase-width", "26", "--data-width", "16", "--lut-size", "10"]
+
+
 def _front_end_phase(tmp, paths: dict) -> dict:
     """Phase 10: the CLI in this process at the run's full sizes, each
     output to a .npy in ``tmp`` and read back; returns label -> (wall
@@ -1428,12 +1505,7 @@ def _front_end_phase(tmp, paths: dict) -> dict:
                 "64", "--phase-width", "20", "--data-width", "16", "--flavor", "dds48"],
         "stft": ["stft", *spec4, "--input", paths["x_stft"]],
     }
-    out = {}
-    for label, argv in runs.items():
-        f = tmp / "out.npy"
-        secs, _ = _cli(argv + ["--out", f])
-        out[label] = (secs, np.load(f))
-        f.unlink()
+    out = {label: _cli_npy(tmp, argv) for label, argv in runs.items()}
     secs, text = _cli(["suggest", "hamming", "--consumer", "int", "--exactness", "bit-exact"])
     out["suggest"] = (secs, json.loads(text))
     return out
@@ -1603,6 +1675,9 @@ def _print_sass(lib_path) -> None:
             print(f"sass materialize_bulk_kernel: {len(at)} instructions; main loop, one "
                   f"stage per pass, {loop}")
             continue
+        if "taylor_window_rtl_kernel" in name:
+            _print_taylor_rtl_sass(name, body)
+            continue
         if "taylor_" in name or "welch_stage1_kernel" in name:
             _print_block_sass(name, body)
             continue
@@ -1695,6 +1770,56 @@ def _print_block_sass(name: str, body: str) -> None:
               "local-memory instructions")
 
 
+def _sass_blocks(body: str) -> tuple[list, list]:
+    """A SASS function's (address, text) instructions, and its basic blocks
+    as lists of texts: split before every branch target and after every
+    branch, exit or call (what follows the last of them is left out)."""
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    targets = {int(m.group(1), 16) for _, text in ins
+               if (m := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text))}
+    blocks, run = [], []
+    for addr, text in ins:
+        if int(addr, 16) in targets and run:
+            blocks.append(run)
+            run = []
+        run.append(text)
+        if re.search(r"\b(BRA|EXIT|RET|BRX|JMP|CALL)\b", text):
+            blocks.append(run)
+            run = []
+    return ins, blocks
+
+
+#: an RTL term's product a_k * cos_k + 2^(W-2): a signed IMAD.WIDE whose
+#: 64-bit addend is a uniform register
+_RTL_PRODUCT = re.compile(r"\bIMAD\.WIDE\s+R\d+, R\d+, R\d+(\.reuse)?, UR\d+")
+
+
+def _print_taylor_rtl_sass(name: str, body: str) -> None:
+    """An RTL Taylor window instantiation's SASS: its instruction count, its
+    local-memory instructions (any fails the run), and its accumulate: the
+    branch-free block that holds a lane's 8 x (terms - 1) products a_k *
+    cos_k + 2^(W-2), the terms' slices and wraps and the tree, from the
+    join after the generators to the store's branch; its length over the
+    lane's 8 samples, split by pipe, is the accumulate per sample."""
+    ins, blocks = _sass_blocks(body)
+    local = sum(1 for _, text in ins if re.search(r"\b(LDL|STL)", text))
+    m = re.search(r"rtl_kernelILi(\d)ELi(\d)ELb([01])E", name)
+    regs = "/".join(_TAYLOR_REGIMES[g] for g in m.groups()[:2])
+    terms = 2 if m.group(2) == "0" else 3
+    kg = TAYLOR_KG["window"]
+    acc = next((b for b in blocks if sum(bool(_RTL_PRODUCT.search(t)) for t in b)
+                >= kg * (terms - 1)), None)
+    line = (f"sass taylor_window_rtl ({regs}, {terms} terms, {64 if m.group(3) == '1' else 32}-bit "
+            f"tree): {len(ins)} instructions; ")
+    if acc:
+        line += (f"the accumulate {len(acc)} for a lane's {kg} samples, {len(acc) / kg:.1f} a "
+                 f"sample ({_pipe_str(_pipes(acc), kg)}); ")
+    else:
+        line += "no accumulate block found; "
+    print(line + f"{local} local-memory instructions")
+    _require(local == 0, f"{name[:60]}: {local} local-memory instructions")
+
+
 def _print_unrolled_sass(name: str, body: str) -> None:
     """An atan2/discriminator or taylor2 instantiation's SASS: its
     instruction count, its local-memory instructions (a run with any
@@ -1704,18 +1829,7 @@ def _print_unrolled_sass(name: str, body: str) -> None:
     the compiler interleaves two outputs) or one harmonic of one sample
     (taylor2)."""
 
-    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
-    targets = {int(m.group(1), 16) for _, text in ins
-               if (m := re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text))}
-    runs, run = [], []
-    for addr, text in ins:
-        if int(addr, 16) in targets and run:
-            runs.append(run)
-            run = []
-        run.append(text)
-        if re.search(r"\b(BRA|EXIT|RET|BRX|JMP|CALL)\b", text):
-            runs.append(run)
-            run = []
+    ins, runs = _sass_blocks(body)
     local = sum(1 for _, text in ins if re.search(r"\b(LDL|STL)", text))
     m = re.search(r"(atan2_kernel|demod_int_kernel|demod_iq_kernel|taylor2_window_kernel)I"
                   r"([^E]*E(?:[^E]*E)?)", name)
@@ -2073,9 +2187,10 @@ def main(argv=None) -> int:
     print(f"build: {secs:.1f} s -> {path.name}")
     fn = "?"
     # may not spill ("demod_int_kernel" before "int_kernel": the first match counts)
-    in_registers = {"demod_int_kernel": 0, "int_kernel": 0, "ddc_mixer_kernel": 0,
-                    "ddc_table_mixer_kernel": 0, "ddc_nco_table_kernel": 0,
-                    "atan2_kernel": 0, "demod_iq_kernel": 0, "taylor2_window_kernel": 0}
+    in_registers = {"taylor_window_rtl_kernel": 0, "demod_int_kernel": 0, "int_kernel": 0,
+                    "ddc_mixer_kernel": 0, "ddc_table_mixer_kernel": 0,
+                    "ddc_nco_table_kernel": 0, "atan2_kernel": 0, "demod_iq_kernel": 0,
+                    "taylor2_window_kernel": 0}
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line.strip()
@@ -2091,10 +2206,12 @@ def main(argv=None) -> int:
         print("ptxas: the library was built before this run, no ptxas lines")
     # demod_int_kernel: I/Q type x word x mode x walk (lanes on t or on
     # rows); taylor2_window_kernel: ROM only, per sample, the run walk
-    # without and with the P_lo term
-    want_inst = {"demod_int_kernel": 16, "int_kernel": 30, "ddc_mixer_kernel": 40,
-                 "ddc_table_mixer_kernel": 2, "ddc_nco_table_kernel": 20,
-                 "atan2_kernel": 4, "demod_iq_kernel": 4, "taylor2_window_kernel": 4}
+    # without and with the P_lo term; taylor_window_rtl_kernel: the regime
+    # pairs on the 32-bit tree (10) and on the 64-bit one (6, W >= 31)
+    want_inst = {"taylor_window_rtl_kernel": 16, "demod_int_kernel": 16, "int_kernel": 30,
+                 "ddc_mixer_kernel": 40, "ddc_table_mixer_kernel": 2,
+                 "ddc_nco_table_kernel": 20, "atan2_kernel": 4, "demod_iq_kernel": 4,
+                 "taylor2_window_kernel": 4}
     _require(not log or in_registers == want_inst,
              f"ptxas reported {in_registers} instantiations, want {want_inst}")
     _print_sass(path)
@@ -2147,11 +2264,13 @@ def main(argv=None) -> int:
                                          fft_mode="rfft")))
     # the TAYLOR source, bench_all configs 16-18 (pw=26, 2^26 phases)
     tay_cfgs = ((16, 10), (32, 12))  # (W, LS)
-    tay_specs = {  # name -> spec: HLS and taylor2 through their kernels, RTL in torch ops
+    tay_specs = {  # name -> spec: HLS, RTL and taylor2, each through its kernel
         "blackman": WindowSpec(pw, 32, sin_type="taylor", lut_size=12, overflow="wrap"),
         "hamming": WindowSpec(pw, 16, sin_type="taylor", lut_size=10, overflow="saturate"),
         "hamming rtl": WindowSpec(pw, 16, sin_type="taylor", rounding="rtl", lut_size=10,
                                   overflow="saturate"),
+        "blackman rtl": WindowSpec(pw, 32, sin_type="taylor", rounding="rtl", lut_size=12,
+                                   overflow="wrap"),
         "bh7 taylor2": WindowSpec(pw, 32, sin_type="taylor2", lut_size=12, overflow="wrap"),
     }
 
@@ -2163,7 +2282,9 @@ def main(argv=None) -> int:
 
     tay_cs, tay_fns, tay_chk, tay_win = _counted(
         launched, "6 taylor", ("taylor_sincos_block", "taylor_checksum", "taylor_window_block",
-                               "taylor2_window_block"), taylor_phase)
+                               "taylor_window_rtl", "taylor2_window_block"), taylor_phase,
+        exact={"taylor_sincos_block": 2, "taylor_checksum": 2, "taylor_window_block": 2,
+               "taylor_window_rtl": 2, "taylor2_window_block": 1})
     # the DDC, bench_all config 21
     fc21, dec21, pw21, w21 = 1 / 8, 4, 20, 16
     h21 = design_lowpass(64, 0.8 / dec21)
@@ -2203,6 +2324,9 @@ def main(argv=None) -> int:
                        "outer_block_comp", "welch_stage1", "materialize", "ddc_nco_table",
                        "ddc_mixer", "taylor2_window_block"),
                       lambda: _front_end_phase(Path(tmp), paths))
+        fe["gen taylor rtl hamming"] = _counted(
+            launched, "10 gen taylor rtl", ("taylor_window_rtl",),
+            lambda: _cli_npy(Path(tmp), TAYLOR_RTL_GEN), exact={"taylor_window_rtl": 1})
         fe_route = _module_route(Path(tmp), dev)
         fe_pieces = _front_end_pieces(Path(tmp), paths, win_hls, (win_s, win_e))
     main_s = time.perf_counter() - t0
@@ -2388,6 +2512,8 @@ def main(argv=None) -> int:
     _require(err_twin == 0, f"taylor window kernel vs plain on the card: {err_twin} LSB")
     print("taylor kernels vs plain on the card: 0 LSB (sincos w16/w32, windows blackman "
           "w32 wrap, hamming w16 saturate)")
+    err_trtl = _taylor_rtl_gates({k: tay_win[k] for k in ("hamming rtl", "blackman rtl")},
+                                 tay_specs, dev, rng)
 
     # spectral floors at pw=16 from the kernels' output
     spec16 = WindowSpec(16, 32, overflow="wrap")
@@ -2482,6 +2608,7 @@ def main(argv=None) -> int:
         "gen float": win_f32.cpu().numpy(),
         "gen comp-pair": np.stack(normalize_pair(win_s, win_e)),
         "gen taylor hamming": tay_win["hamming"].cpu().numpy(),
+        "gen taylor rtl hamming": tay_win["hamming rtl"].cpu().numpy(),
         "gen taylor2": tay_win["bh7 taylor2"].cpu().numpy(),
         "ddc": bb.cpu().numpy(),
         "stft": stft_res["quantized"][0](x_stft).cpu().numpy(),
@@ -2496,6 +2623,9 @@ def main(argv=None) -> int:
         "win_hls": win_hls, "win_rtl": win_rtl, "spec_taylor_blackman": tay_specs["blackman"],
         "q_taylor_blackman": catalog.get("blackman").quantized(32),
         "win_taylor_blackman": tay_win["blackman"], "spec_taylor2": tay_specs["bh7 taylor2"],
+        "spec_taylor_rtl": tay_specs["blackman rtl"],
+        "q_taylor_rtl": catalog.get("blackman").quantized(32),
+        "win_taylor_rtl": tay_win["blackman rtl"],
         "win_taylor2": tay_win["bh7 taylor2"], "win_f32": win_f32, "win_s": win_s,
         "win_e": win_e, "x": x, "spec4": spec4, "nfft": nfft, "hop": hop, "win64_q": win64,
         "win64_f": win64_4, "q4_17": d4.quantized(17), "shift4": d4.shift, "x_stft": x_stft,
@@ -2594,6 +2724,11 @@ def main(argv=None) -> int:
             _time_ms(lambda k=k: tk.taylor_window_plain(
                 idx, catalog.get(k).quantized(tay_specs[k].data_width), tay_specs[k])),
         ) for k in ("blackman", "hamming")},
+        **{f"taylor_window_rtl {k}": (
+            _time_ms(lambda k=k: make_window(k.split()[0], tay_specs[k], device=dev)),
+            _time_ms(lambda k=k: tk.taylor_window_rtl_plain(
+                idx, catalog.get(k.split()[0]).quantized(tay_specs[k].data_width), tay_specs[k])),
+        ) for k in ("hamming rtl", "blackman rtl")},
         "analyzer float/mxu vs comp/rfft": (
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      win_mode="float", fft_mode="mxu")),
@@ -2767,8 +2902,16 @@ def main(argv=None) -> int:
         print(f"time {label} STFT {name} pair, 32*2^20 samples, nfft 2^20 hop 2^19: "
               f"stft {t_f:.3f} ms, istft {t_i:.3f} ms")
         del spec_x
-    ms = _time_ms(lambda: make_window("hamming", tay_specs["hamming rtl"], device=dev))
-    print(f"time {label} taylor window hamming rtl (torch ops, no kernel): {ms:.3f} ms")
+    for k, terms in (("hamming rtl", 2), ("blackman rtl", 3)):
+        sp, name = tay_specs[k], k.split()[0]
+        ms, plain_ms = t[f"taylor_window_rtl {k}"]
+        b_ms, b_by = profiling.bound(4 * n, n * profiling.taylor_window_rtl_ops(terms))
+        print(f"time {label} taylor_window_rtl {name} W={sp.data_width} LS={sp.lut_size} pw26 "
+              f"({terms} terms, make_window, {counts['taylor_window_rtl']} launches on the "
+              f"counted main path): {ms:.3f} ms, {n / ms / 1e6:.3f} Gsamples/s; plain "
+              f"taylor_window_rtl_plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}), "
+              f"roofline share {b_ms / ms:.1%}; its HLS twin taylor_window_block "
+              f"{t[f'taylor_window_block {name}'][0]:.3f} ms")
     for k, secs in fe_secs.items():
         print(f"time {label} cli {k}: {secs:.3f} s wall (phase 10, in process, file I/O "
               "included)")
@@ -2825,6 +2968,9 @@ def main(argv=None) -> int:
          "taylor_window_block blackman", err_twin),
         ("taylor_checksum", "taylor_kernel.cu", "taylor_kernel.py:71", "taylor_checksum w32",
          err_tck),
+        # no pallas_call: the jnp of _window_rtl with the TAYLOR cosine
+        ("taylor_window_rtl", "taylor_kernel.cu", "blackman_harris_win_tpu/kernels/window.py:208",
+         "taylor_window_rtl blackman rtl", err_trtl),
         ("materialize", "barrier_kernel.cu", "barrier.py:31", "materialize", err_mat),
         # no pallas_call: the jnp of nco_iq / mix_iq_int and ddc()'s front half
         ("ddc_nco_table", "ddc_kernel.cu", "blackman_harris_win_tpu/pipeline/ddc.py:49",

@@ -71,8 +71,16 @@ compared with in the same process.
    ``bhw_taylor2_window_block`` (an earlier one without a regime argument
    computes each sample on its own); outputs bit-equal, one call alone and
    per call of 16 queued, in turns.
+9. The TAYLOR windows (``csrc/taylor_kernel.cu``) over 2^26 samples at
+   pw=26, Hamming W=16 LS=10 and Blackman W=32 LS=12, under the HLS
+   contract (``bhw_taylor_window_block``) and the RTL one
+   (``bhw_taylor_window_rtl``): through ``make_window``, the port's C entry
+   and, with ``--against DIR``, DIR's (a revision without the RTL entry
+   gives the HLS one only); outputs bit-equal to ``make_window``'s, one call
+   alone and per call of 16 queued, in turns.
 
-``--only materialize|window|welch|taylor|outer|ddc|demod|taylor2`` runs one section.  Prints
+``--only materialize|window|welch|taylor|outer|ddc|demod|taylor2|taylor_window`` runs one
+section.  Prints
 one line per measurement with the card's name and power limit, and
 as its last line one JSON object with every time (ms, median over the
 rounds).  Exits non-zero without a CUDA device.
@@ -167,8 +175,8 @@ def main(argv=None) -> int:
                     help="run one section (default: all)")
     ap.add_argument("--against", type=Path, default=None,
                     help="a checkout of another revision whose materialize, welch_stage1, "
-                         "taylor_checksum, outer, DDC mixer, discriminator and taylor2 "
-                         "kernels are timed beside the port's")
+                         "taylor_checksum, outer, DDC mixer, discriminator, taylor2 and "
+                         "TAYLOR window kernels are timed beside the port's")
     args = ap.parse_args(argv)
 
     import torch
@@ -764,9 +772,61 @@ def _probe_taylor2(args, dev, label, stream, result) -> None:
             result["taylor2_window_block"][what][how] = tt
 
 
+def _probe_taylor_window(args, dev, label, stream, result) -> None:
+    """Section 9: the TAYLOR windows under both contracts, the port's beside
+    DIR's."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
+    from blackman_harris_win_tpu_torch.kernels.window import make_window
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    pw, n = 26, 1 << 26
+    libs = {"port": _build.lib()}
+    if args.against is not None:
+        libs[args.against.name] = _build_one(args.against, "taylor_kernel.cu", "other")
+    result["taylor_window"] = {}
+    for name, w, ls in (("hamming", 16, 10), ("blackman", 32, 12)):
+        cbuf = np.asarray(catalog.get(name).quantized(w), np.int64)
+        rom = tk._rom_on(ls, w, dev)
+        for rounding, entry, extra in (("hls", "bhw_taylor_window_block", (0,)),
+                                       ("rtl", "bhw_taylor_window_rtl", ())):
+            spec = WindowSpec(pw, w, sin_type="taylor", rounding=rounding, lut_size=ls,
+                              overflow="wrap")
+            want = make_window(name, spec, device=dev)
+            fns = {"port, make_window": lambda s=spec, nm=name: make_window(nm, s, device=dev)}
+            for k, lib in libs.items():
+                if not hasattr(lib, entry):  # a revision before the RTL kernel
+                    continue
+                out = torch.empty(n, dtype=torch.int32, device=dev)
+
+                def call(lib=lib, out=out, entry=entry, extra=extra, w=w, ls=ls, rom=rom,
+                         cbuf=cbuf, k=k):
+                    rc = getattr(lib, entry)(out.data_ptr(), 0, n, rom.data_ptr(), pw, w, ls,
+                                             cbuf.ctypes.data, len(cbuf), tk._ramb(pw, ls),
+                                             tk._ramb(pw - 1, ls), *extra, stream)
+                    if rc:
+                        raise RuntimeError(f"{entry} {k}: CUDA error {rc}")
+
+                call()
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"{entry} {k}: differs from make_window")
+                fns[f"{k}, C entry"] = call
+            what = f"{name} W={w} LS={ls} {rounding}"
+            alone = _in_turns(fns, args.rounds, lambda f: _event_ms(f, 1))
+            queued = _in_turns(fns, args.rounds, lambda f: _event_ms(f, 16))
+            for k in fns:
+                print(f"time {label} taylor_window {what} 2^26, {k}: {alone[k]:.4f} ms one "
+                      f"call alone, {queued[k]:.4f} ms per call of 16 queued")
+            result["taylor_window"][what] = {"alone": alone, "queued": queued}
+
+
 SECTIONS = {"materialize": _probe_materialize, "window": _probe_window,
             "welch": _probe_welch, "taylor": _probe_taylor, "outer": _probe_outer,
-            "ddc": _probe_ddc, "demod": _probe_demod, "taylor2": _probe_taylor2}
+            "ddc": _probe_ddc, "demod": _probe_demod, "taylor2": _probe_taylor2,
+            "taylor_window": _probe_taylor_window}
 
 
 if __name__ == "__main__":

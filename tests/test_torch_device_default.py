@@ -94,6 +94,8 @@ ENTRY_POINTS = {
     "taylor.taylor_window_range": lambda **d: taylor.taylor_window_range(0, 64, QH, TSPEC, **d),
     "taylor_kernel.sincos_block": lambda **d: taylor_kernel.sincos_block(0, 64, 10, 16, 6, **d)[0],
     "taylor_kernel.window_block": lambda **d: taylor_kernel.window_block(QH, TSPEC, 0, 64, **d),
+    "taylor_kernel.window_rtl_block":
+        lambda **d: taylor_kernel.window_rtl_block(QH, TSPEC.with_(rounding="rtl"), 0, 64, **d),
     "fastwin_kernel.window_block": lambda **d: fastwin_kernel.window_block(
         Q7, SPEC32.with_(sin_type="taylor2", lut_size=10), 0, 64, **d),
     "taylor_kernel.checksum_range": lambda **d: taylor_kernel.checksum_range(0, 64, 10, 16, 6, **d),

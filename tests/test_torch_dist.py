@@ -2,9 +2,10 @@
 the collectives and the halos against the JAX package's inside
 ``shard_map`` on the conftest's 8-device virtual CPU mesh, and sharded
 window generation 0 LSB against JAX's sharded generators and the port's
-single-device ``window_samples`` (CORDIC HLS and RTL, TAYLOR on both sides
-of ``_taylor_fast_ok``, taylor2, the pw=31 range at the quadrant seams and
-shard boundaries); the float32 window within ``f32_pair_bound`` of JAX and
+single-device ``window_samples`` (CORDIC HLS and RTL, TAYLOR HLS and RTL
+at aligned and unaligned starts, taylor2, each shard one call of its
+kernel's wrapper, the pw=31 range at the quadrant seams and shard
+boundaries); the float32 window within ``f32_pair_bound`` of JAX and
 bit-equal to the port's single-device window, the compensated pair's s
 bit-equal and e within ``comp_e_bound``.  The port's mesh is
 ``make_mesh(..., devices=["cpu"] * n)``."""
@@ -35,7 +36,13 @@ from blackman_harris_win_tpu_torch.dist.mesh import (
     shard,
     unshard,
 )
-from blackman_harris_win_tpu_torch.kernels import compwin, floatwin
+from blackman_harris_win_tpu_torch.kernels import (
+    compwin,
+    fastwin_kernel,
+    floatwin,
+    taylor_kernel,
+    window_kernel,
+)
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels.window import rtl_cordic_coeffs, window_samples
 from blackman_harris_win_tpu_torch.windows import catalog
@@ -264,6 +271,34 @@ def _coeffs(name, spec, rtl):
     return rtl_cordic_coeffs(q) if rtl else q
 
 
+WRAPPERS = {  # (source, contract) -> the kernel wrapper kernels.window.window_block calls
+    ("cordic", "hls"): (window_kernel, "window_block"),
+    ("cordic", "rtl"): (window_kernel, "window_block"),
+    ("taylor", "hls"): (taylor_kernel, "window_block"),
+    ("taylor", "rtl"): (taylor_kernel, "window_rtl_block"),
+    ("taylor2", "hls"): (fastwin_kernel, "window_block"),
+}
+
+
+def _wrapper_of(spec):
+    mod, fn = WRAPPERS[spec.sin_type, spec.rounding]
+    return f"{mod.__name__.rsplit('.', 1)[1]}.{fn}"
+
+
+def _spy_wrappers(monkeypatch):
+    """Record (wrapper, n0, count) at every call of a window kernel's
+    wrapper, passing the call through."""
+    seen = []
+    for mod, fn in set(WRAPPERS.values()):
+        def spy(coeffs_q, spec, n0, count, device=None, _real=getattr(mod, fn),
+                _key=f"{mod.__name__.rsplit('.', 1)[1]}.{fn}"):
+            seen.append((_key, n0, count))
+            return _real(coeffs_q, spec, n0, count, device)
+
+        monkeypatch.setattr(mod, fn, spy)
+    return seen
+
+
 @lru_cache(maxsize=None)
 def _jax_window(case):
     """JAX's sharded window of a GEN_CASES case on the 8-device mesh (its
@@ -291,18 +326,23 @@ class TestShardedWindow:
 
     @pytest.mark.parametrize("case", sorted(GEN_CASES))
     @pytest.mark.parametrize("blocks", [1, 8, 64])
-    def test_taylor_fast_ok_matches_jax(self, case, blocks):
+    def test_each_shard_is_one_kernel_wrapper_call(self, case, blocks, monkeypatch):
         name, spec, rtl = GEN_CASES[case]
-        q = _coeffs(name, spec, rtl)
+        seen = _spy_wrappers(monkeypatch)
+        s = generate.sharded_window(_coeffs(name, spec, rtl), spec, _pmesh(1, blocks))
         block = spec.n // blocks
-        assert generate._taylor_fast_ok(q, spec, block) == jgen._taylor_fast_ok(
-            q, _jspec(spec), block)
+        assert seen == [(_wrapper_of(spec), i * block, block) for i in range(blocks)]
+        np.testing.assert_array_equal(unshard(s).numpy(), _jax_window(case))
 
-    def test_both_taylor_routes_are_taken(self):
-        fast = GEN_CASES["taylor hls blackman fast"]
-        slow = GEN_CASES["taylor rtl hamming slow"]
-        assert generate._taylor_fast_ok(_coeffs(*fast), fast[1], fast[1].n // 8)
-        assert not generate._taylor_fast_ok(_coeffs(*slow), slow[1], slow[1].n // 8)
+    def test_both_taylor_routes_are_taken(self, monkeypatch):
+        """Each TAYLOR contract reaches its own kernel's wrapper, whatever
+        the block's alignment to the largest harmonic run."""
+        seen = _spy_wrappers(monkeypatch)
+        for case in ("taylor hls blackman fast", "taylor rtl hamming slow"):
+            name, spec, rtl = GEN_CASES[case]
+            generate.sharded_window_range(_coeffs(name, spec, rtl), spec, _pmesh(1, 4), 3, 4 * 99)
+        assert [k for k, _, _ in seen] == (["taylor_kernel.window_block"] * 4
+                                           + ["taylor_kernel.window_rtl_block"] * 4)
 
     @pytest.mark.parametrize("axis", ["blocks", "channels"])
     def test_shards_hold_their_own_blocks(self, axis):
@@ -380,14 +420,16 @@ class TestShardedWindowRange:
             got.numpy(), window_samples(torch.arange(n0, n0 + count), q, spec).numpy())
 
     @pytest.mark.parametrize("n0", [1 << 12, (1 << 12) + 3])
-    def test_taylor_range_both_routes(self, n0):
-        """An aligned start takes the Taylor block kernel, an unaligned one
-        (n0 not a multiple of R_1 = 16) window_samples; both equal JAX."""
+    def test_taylor_range_both_routes(self, n0, monkeypatch):
+        """An aligned start and an unaligned one (n0 not a multiple of
+        R_1 = 16, where the JAX package takes window_samples) both take the
+        Taylor window kernel's wrapper, one call a shard; both equal JAX."""
         spec = WindowSpec(16, 16, sin_type="taylor", lut_size=10, overflow="wrap")
         q = catalog.get("hamming").quantized(16)
         count = 8 * 1024
-        assert generate._taylor_fast_ok(q, spec, count // 8)
+        seen = _spy_wrappers(monkeypatch)
         got = unshard(generate.sharded_window_range(q, spec, _pmesh(1, 8), n0, count))
+        assert seen == [("taylor_kernel.window_block", n0 + i * 1024, 1024) for i in range(8)]
         np.testing.assert_array_equal(
             got.numpy(), window_samples(torch.arange(n0, n0 + count), q, spec).numpy())
         want = np.asarray(jgen.sharded_window_range(q, _jspec(spec), jmesh.make_mesh(blocks=8),

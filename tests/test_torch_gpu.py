@@ -533,23 +533,20 @@ def test_analyzer_float_modes_run_the_kernels(cuda, win_mode, fft_mode, kernels)
 
 @pytest.mark.parametrize("sin_type,rounding,name,kernel", [
     ("taylor", "hls", "blackman", "taylor_window_block"),
-    ("taylor", "rtl", "hann", None),
+    ("taylor", "rtl", "hann", "taylor_window_rtl"),
     ("taylor2", "hls", "bh4", "taylor2_window_block"),
 ])
 def test_analyzer_taylor_sources_on_the_card(cuda, sin_type, rounding, name, kernel):
     """The quantized analyzer's window through ``kernels.window.window_block``:
-    TAYLOR HLS launches the Taylor window kernel once, taylor2 its own
-    kernel once, TAYLOR RTL runs in torch ops; the spectrum matches the CPU
-    plain path."""
+    TAYLOR HLS launches the Taylor window kernel once, TAYLOR RTL the RTL
+    Taylor kernel once, taylor2 its own kernel once; the spectrum matches
+    the CPU plain path."""
     spec = WindowSpec(13, 16, sin_type=sin_type, rounding=rounding, lut_size=10)
     nfft = spec.n
     x = np.random.default_rng(6).normal(size=nfft * 9).astype(np.float32)
     _build.reset_launches()
     got = sp.windowed_power_spectrum(torch.from_numpy(x).to(cuda), name, spec).cpu()
-    want = dict.fromkeys(_build.launches, 0)
-    if kernel:
-        want[kernel] = 1
-    assert _build.launches == want
+    assert _build.launches == dict.fromkeys(_build.launches, 0) | {kernel: 1}
     ref = sp.windowed_power_spectrum(x, name, spec, device="cpu")
     rel = float(((got.double() - ref.double()).abs() / ref.double().abs()).max())
     assert rel < 32 * 2.0**-24 * np.sqrt(nfft), rel
@@ -734,9 +731,10 @@ def test_taylor_write_out_entries_refuse_unaligned_outputs(cuda):
 
 
 def test_taylor_torch_op_routes_launch_no_kernel(cuda):
-    # TAYLOR RTL runs window_samples on the card, as JAX runs it in plain
-    # jnp; taylor2 is one launch of its own kernel; both land on the
-    # requested device
+    # the two TAYLOR paths the JAX package runs in plain jnp: TAYLOR RTL is
+    # one launch of the RTL Taylor kernel, taylor2 one of its own kernel;
+    # neither runs window_samples in torch ops, both land on the requested
+    # device
     cases = [("hamming", WindowSpec(12, 16, sin_type="taylor", rounding="rtl", lut_size=10)),
              ("bh7", WindowSpec(12, 32, sin_type="taylor2", lut_size=12, overflow="wrap"))]
     _build.reset_launches()
@@ -744,8 +742,136 @@ def test_taylor_torch_op_routes_launch_no_kernel(cuda):
         got = kw.make_window(name, spec, device=cuda)
         assert got.device == cuda
         assert torch.equal(got.cpu(), kw.make_window(name, spec, device="cpu"))
-    want = dict.fromkeys(_build.launches, 0) | {"taylor2_window_block": 1}
+    want = dict.fromkeys(_build.launches, 0) | {"taylor2_window_block": 1,
+                                                "taylor_window_rtl": 1}
     assert _build.launches == want
+
+
+# --- the RTL Taylor window kernel (csrc/taylor_kernel.cu) ---
+
+#: (coefficients or name, pw, w, ls): 2 and 3 terms, every regime, the
+#: 32-bit tree and the 64-bit one (2-term W=32, 3-term W=31/32), pw 4..31,
+#: random |a_k| < 2^31 sets whose slices and trees wrap
+TAYLOR_RTL_CASES = [
+    ("hamming", 26, 16, 10),  # the main path's window
+    ("blackman", 26, 32, 12),  # the main path's 3-term window: a 34-bit tree
+    ("hann", 11, 16, 10),  # k=1 over-wide LUT
+    ("blackman", 12, 16, 10),  # k=1 exact LUT, k=2 over-wide
+    ("blackman", 13, 24, 10),  # k=1 tay1, k=2 exact
+    ("hamming", 12, 32, 9),  # a 33-bit 2-term tree
+    ("blackman", 14, 31, 9),  # a 33-bit 3-term tree
+    ("hamming", 14, 31, 9),  # W + 1 = 32: the 32-bit tree
+    ("blackman", 14, 30, 9),  # W + 2 = 32: the 32-bit tree
+    ("blackman", 31, 32, 9),
+    ("hamming", 4, 16, 1),
+    ("blackman", 20, 24, 15),
+    ((1_900_000_000, -1_500_000_000, 2_000_000_000), 14, 20, 10),  # wraps fire
+    ((-2_100_000_000, 1_700_000_000), 16, 31, 10),
+    ((2_000_000_000, 2_147_483_647, -2_147_483_647), 12, 32, 8),
+]
+
+
+def _rtl_coeffs(win, w):
+    return catalog.get(win).quantized(w) if isinstance(win, str) else win
+
+
+@pytest.mark.parametrize("win,pw,w,ls", TAYLOR_RTL_CASES)
+def test_taylor_window_rtl_kernel_matches_plain(cuda, win, pw, w, ls):
+    spec = WindowSpec(pw, w, sin_type="taylor", rounding="rtl", lut_size=ls)
+    q = _rtl_coeffs(win, w)
+    n = _spots(pw, np.random.default_rng(pw * 100 + w + ls), min(2048, 1 << (pw - 2)))
+    runs = np.split(n, np.nonzero(np.diff(n) != 1)[0] + 1)
+    runs.append(np.arange((1 << pw) - 37, (1 << pw) + 64))  # across the period end
+    _build.reset_launches()
+    for run in runs:
+        got = tk.window_rtl_block(q, spec, int(run[0]), len(run), cuda).cpu()
+        want = tk.taylor_window_rtl_plain(torch.from_numpy(run), q, spec)
+        assert torch.equal(got, want), (win, pw, w, int(run[0]))
+    assert _build.launches == dict.fromkeys(_build.launches, 0) | {"taylor_window_rtl": len(runs)}
+    if pw <= 16:  # the whole period against the plain version on the card
+        got = tk.window_rtl_block(q, spec, 0, 1 << pw, cuda)
+        idx = torch.arange(1 << pw, device=cuda)
+        assert torch.equal(got, tk.taylor_window_rtl_plain(idx, q, spec))
+        for overflow in ("wrap", "saturate"):  # a W-bit output register: no clamp
+            got_o = tk.window_rtl_block(q, spec.with_(overflow=overflow), 0, 1 << pw, cuda)
+            assert torch.equal(got_o, got)
+
+
+@pytest.mark.parametrize("w", range(8, 33))
+def test_taylor_window_rtl_sweep_every_width(cuda, w):
+    # the RTL Taylor kernel at every width, 2 and 3 terms, every regime
+    # (TAYLOR_SWEEP), on seam, run-boundary and random ranges and one past
+    # 2^32, 0 LSB against the CPU plain version
+    rng = np.random.default_rng(7000 + w)
+    sets = [catalog.get("hamming").quantized(w), catalog.get("blackman").quantized(w),
+            tuple(int(a) for a in rng.integers(1 - (1 << 31), 1 << 31, 3))]
+    for pw, ls in TAYLOR_SWEEP + [(4, 1), (5, 2)]:
+        spec = WindowSpec(pw, w, sin_type="taylor", rounding="rtl", lut_size=ls)
+        ranges = [(n0 % (1 << pw), c) for n0, c in _sweep_ranges(pw, rng)]
+        ranges.append((int(rng.integers(0, 1 << pw)) + (3 << 32), 999))
+        for q in sets:
+            if len(q) == 3 and ls >= pw - 1:
+                continue  # harmonic 2 runs at PW-1: LS must stay below it
+            for n0, count in ranges:
+                got = tk.window_rtl_block(q, spec, n0, count, cuda).cpu()
+                want = tk.taylor_window_rtl_plain(torch.arange(n0, n0 + count), q, spec)
+                assert torch.equal(got, want), (q, pw, ls, n0)
+
+
+def test_taylor_window_rtl_routes_launch_once(cuda):
+    # every contiguous caller of the RTL Taylor window launches the kernel
+    # exactly once and runs no torch-op window path
+    from blackman_harris_win_tpu_torch.pipeline import stft as pstft
+    from blackman_harris_win_tpu_torch.windows.selector import WinSelector
+
+    spec = WindowSpec(14, 16, sin_type="taylor", rounding="rtl", lut_size=10)
+    q = catalog.get("hamming").quantized(16)
+    want = kw.window_samples(torch.arange(spec.n), q, spec).to(torch.int32)
+    calls = {
+        "make_window": lambda: kw.make_window("hamming", spec, device=cuda),
+        "window_block": lambda: kw.window_block(0, spec.n, q, spec, cuda),
+        "WinSelector": lambda: WinSelector("HAMMING", 14, 16, sin_type="TAYLOR", lut_size=10,
+                                           rounding="rtl", overflow="wrap")(),
+        "quantized_stft_pair": lambda: pstft.quantized_stft_pair("hamming", spec,
+                                                                 device=cuda)[2],
+    }
+    for name, call in calls.items():
+        _build.reset_launches()
+        got = call()
+        assert _build.launches == dict.fromkeys(_build.launches, 0) | {"taylor_window_rtl": 1}, name
+        assert got.device == cuda, name
+        if got.dtype == torch.int32:
+            assert torch.equal(got.cpu(), want), name
+
+
+def test_taylor_window_rtl_refuses_what_it_does_not_take(cuda):
+    spec = WindowSpec(14, 16, sin_type="taylor", rounding="rtl", lut_size=10)
+    with pytest.raises(ValueError, match="2/3-term"):  # 4+ terms: the CORDIC cores only
+        tk.window_rtl_block(catalog.get("bh4").quantized(16), spec, 0, 64, cuda)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tk.window_rtl_block((1 << 31, 1), spec, 0, 64, cuda)
+    assert tk.window_rtl_block((1, 1), spec, 0, 0, cuda).shape == (0,)
+    # the C entry itself: misaligned outputs, 4 terms, |a_k| >= 2^31 and an
+    # invalid generator are cudaErrorInvalidValue; an aligned call is 0
+    rom, stream = tk._rom_on(10, 16, cuda), _build.stream_of(cuda)
+    buf = torch.zeros(4096 + 4, dtype=torch.int32, device=cuda)
+    lib = _build.lib()
+
+    def entry(out, coeffs, pw=14, ls=10):
+        c = np.asarray(coeffs, np.int64)
+        return lib.bhw_taylor_window_rtl(out, 0, 4096, rom.data_ptr(), pw, 16, ls,
+                                         c.ctypes.data, len(c), tk._ramb(pw, ls),
+                                         tk._ramb(pw - 1, ls), stream)
+
+    a = buf.data_ptr()
+    assert entry(a, (1 << 14, 1 << 14)) == 0
+    torch.cuda.synchronize()
+    for off in (4, 8, 12):
+        assert entry(a + off, (1 << 14, 1 << 14)) == 1
+    assert entry(a, (1, 2, 3, 4)) == 1
+    assert entry(a, (1 << 31, 1)) == 1 and entry(a, (1, -(1 << 31))) == 1
+    assert entry(a, (1, 2, 3), pw=11, ls=10) == 1  # harmonic 2 at PW-1 = LS
+    assert int(buf[4096:].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("sel", [1, 0])  # a known selector, an unknown one
@@ -1109,6 +1235,8 @@ GEN_CASES = [  # (gen arguments, kernels the card run launches)
     (["bh4", "--phase-width", "14", "--rounding", "rtl"], ("window_block",)),
     (["hamming", "--phase-width", "16", "--data-width", "16", "--sin-type", "taylor"],
      ("taylor_window_block",)),
+    (["blackman", "--phase-width", "16", "--data-width", "32", "--sin-type", "taylor",
+      "--rounding", "rtl", "--lut-size", "12"], ("taylor_window_rtl",)),
     (["bh7", "--phase-width", "16", "--data-width", "32", "--mode", "outer"], ("outer_block",)),
     (["bh7", "--phase-width", "14", "--data-width", "32", "--mode", "taylor2"],
      ("taylor2_window_block",)),
@@ -1126,6 +1254,8 @@ def test_cli_gen_on_the_card_matches_cpu_plain(cuda, tmp_path, args, kernels):
     _build.reset_launches()
     assert main(["gen", *args, "--out", str(f_card)]) == 0
     assert all(_build.launches[k] == 1 for k in kernels), _build.launches
+    if "rtl" in args and "taylor" in args:  # one launch and nothing else
+        assert _build.launches == dict.fromkeys(_build.launches, 0) | {kernels[0]: 1}
     assert main(["gen", *args, "--out", str(f_cpu), "--device", "cpu"]) == 0
     got, want = np.load(f_card), np.load(f_cpu)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -1152,10 +1282,10 @@ def test_win_selector_on_the_card(cuda, win_type, sin_type, rounding):
     _build.reset_launches()
     got = sel()
     kernel = {("CORDIC", "hls"): "window_block", ("CORDIC", "rtl"): "window_block",
-              ("TAYLOR", "hls"): "taylor_window_block"}.get((sin_type, rounding))
+              ("TAYLOR", "hls"): "taylor_window_block",
+              ("TAYLOR", "rtl"): "taylor_window_rtl"}[(sin_type, rounding)]
     assert got.device == cuda and got.dtype == torch.int32
-    if kernel:
-        assert _build.launches[kernel] == 1
+    assert _build.launches[kernel] == 1
     want = kw.window_samples(torch.arange(1 << 16), sel.coeffs_q, sel.spec)
     assert torch.equal(got.cpu().long(), want)
     idx = torch.tensor([0, 1, 16383, 16384, 16385, 32768, 49151, 65535])
@@ -1179,6 +1309,9 @@ SHARDED_GEN = {  # case -> (window, spec, rtl coefficients, kernel)
                                           overflow="wrap"), False, "taylor_window_block"),
     "taylor2": ("bh7", WindowSpec(16, 32, sin_type="taylor2", lut_size=12, overflow="wrap"),
                 False, "taylor2_window_block"),
+    # the full-scale TAYLOR source takes the raw coefficients under RTL
+    "taylor rtl": ("blackman", WindowSpec(16, 32, sin_type="taylor", rounding="rtl",
+                                          lut_size=12), False, "taylor_window_rtl"),
 }
 
 
@@ -1195,6 +1328,28 @@ def test_sharded_generation_on_the_card(cuda, case):
     assert all(t.device == cuda for row in s.shards for t in row)
     want = kw.window_samples(torch.arange(spec.n), q, spec)
     assert torch.equal(unshard(s).cpu().long(), want)
+
+
+@pytest.mark.parametrize("rounding,kernel,plain", [
+    ("hls", "taylor_window_block", "taylor_window_plain"),
+    ("rtl", "taylor_window_rtl", "taylor_window_rtl_plain"),
+])
+def test_sharded_taylor_range_at_an_unaligned_n0_on_the_card(cuda, rounding, kernel, plain):
+    """A TAYLOR range whose start and shards are no multiple of the largest
+    harmonic run R_1 = 2^(PW-LS-2) is one Taylor window kernel launch a
+    shard, 0 LSB against the plain version."""
+    from blackman_harris_win_tpu_torch.dist.generate import sharded_window_range
+    from blackman_harris_win_tpu_torch.dist.mesh import unshard
+
+    spec = WindowSpec(31, 16, sin_type="taylor", lut_size=10, rounding=rounding,
+                      overflow="wrap")
+    q = _coeffs("hamming", 16, "hls")
+    n0, count = (1 << 30) - 12345, 4 * 4099
+    _build.reset_launches()
+    s = sharded_window_range(q, spec, _card_mesh(cuda), n0, count)
+    assert _build.launches == dict.fromkeys(_build.launches, 0) | {kernel: 4}
+    want = getattr(tk, plain)(torch.arange(n0, n0 + count), q, spec)
+    assert torch.equal(unshard(s).cpu(), want)
 
 
 def test_sharded_float_and_comp_windows_on_the_card(cuda):

@@ -22,7 +22,7 @@ PERF_BOUNDS = {
     "taylor_checksum": (0.0321, 4), "materialize": (0.3205, 4), "ddc_mixer": (0.2404, 4),
     "fm_demod": (0.3205, 4), "fm_demod_half": (0.2865, 4), "cordic_atan2": (0.3205, 4),
     "fm_demod_phase": (0.3205, 4), "fm_demod_int_conj": (0.3205, 4),
-    "taylor2_window_block": (0.1844, 4),
+    "taylor2_window_block": (0.1844, 4), "taylor_window_rtl": (0.0821, 4),
 }
 
 
@@ -104,6 +104,10 @@ class TestBounds:
         assert prof.fm_demod_phase_ops(20) == (prof.atan2_ops(20), 4)
         assert prof.fm_demod_int_conj_ops(20) == prof.atan2_ops(20) + 10
         assert prof.taylor2_window_ops(7) == 6 * 15 + 2
+        # the RTL Taylor window: a generator and 4 operations a term, the
+        # tree's adds and 3 more
+        assert prof.taylor_window_rtl_ops(3) == 2 * (prof.TAYLOR_OPS + 4) + 2 + 3
+        assert prof.taylor_window_rtl_ops(2) == prof.TAYLOR_OPS + 4 + 1 + 3
         assert prof.taylor2_window_ops(7, p_lo=False) == 6 * 12 + 2
         # BH-7 at pw=26, LS=12 (rb = 12): harmonic k meets k 2^14 + 1 runs
         runs = sum(k * (1 << 14) + 1 for k in range(1, 7))

@@ -265,6 +265,34 @@ class TestTaylorWindows:
             plain = tk.taylor_window_plain(torch.from_numpy(n), q, spec)
             np.testing.assert_array_equal(plain.numpy(), got)
 
+    @pytest.mark.parametrize("name,pw,w,ls", [
+        ("hamming", 26, 16, 10), ("blackman", 26, 32, 12), ("blackman", 31, 24, 10),
+        ("hann", 31, 32, 9), ("blackman", 12, 8, 9), ("hamming", 4, 16, 1),
+        ("blackman", 14, 31, 2), ("hamming", 20, 32, 14),
+    ])
+    def test_window_rtl_plain_seams(self, name, pw, w, ls):
+        # the RTL Taylor kernel's plain version at the seams, 0 LSB against
+        # JAX window_samples; its output register is W bits, so both
+        # overflow modes give the same window, and n is taken mod 2^pw
+        q = catalog.get(name).quantized(w)
+        n = _seams(pw, half=8)
+        want = _np(jkw.window_samples(n, q, _jspec(WindowSpec(
+            pw, w, sin_type="taylor", rounding="rtl", lut_size=ls))))
+        for overflow in ("wrap", "saturate"):
+            spec = WindowSpec(pw, w, sin_type="taylor", rounding="rtl", lut_size=ls,
+                              overflow=overflow)
+            plain = tk.taylor_window_rtl_plain(torch.from_numpy(n), q, spec)
+            assert plain.dtype == torch.int32
+            np.testing.assert_array_equal(plain.numpy(), want)
+            past = tk.taylor_window_rtl_plain(torch.from_numpy(n + (7 << 32)), q, spec)
+            np.testing.assert_array_equal(past.numpy(), want)
+        # the wrapper on the CPU runs the plain version, n0 taken mod 2^pw
+        n0 = (1 << pw) - 5 + (3 << 32)
+        got = tk.window_rtl_block(q, spec, n0, 11, device="cpu")
+        idx = np.arange(n0, n0 + 11)
+        np.testing.assert_array_equal(
+            got.numpy(), _np(jkw.window_samples(idx, q, _jspec(spec))))
+
     def test_4term_raises_in_both_contracts(self):
         q = catalog.get("bh4").quantized(16)
         for rounding in ("hls", "rtl"):
@@ -332,6 +360,8 @@ class TestCpuWrappers:
             tk.make_checksum_fn_taylor(12, 16, 8, device="cuda")
         with pytest.raises(RuntimeError, match="CUDA"):
             kw.make_window("hamming", spec.with_(rounding="rtl"), device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tk.window_rtl_block(q, spec.with_(rounding="rtl"), 0, 16, "cuda")
         with pytest.raises(ValueError):
             tk.sincos_block(0, 16, 12, 16, 8, "meta")
 
@@ -340,8 +370,9 @@ class TestCpuWrappers:
         spec = WindowSpec(12, 16, sin_type="taylor", lut_size=8)
         pt.taylor_sincos_block(0, 64, 12, 16, 8, device="cpu")
         kw.make_window("hamming", spec, device="cpu")
+        kw.make_window("blackman", spec.with_(rounding="rtl"), device="cpu")
         tk.make_checksum_fn_taylor(12, 16, 8, rows=8, device="cpu")(0, 1)
-        assert {"taylor_sincos_block", "taylor_window_block",
+        assert {"taylor_sincos_block", "taylor_window_block", "taylor_window_rtl",
                 "taylor_checksum"} <= set(_build.launches)
         assert _build.launches == dict.fromkeys(_build.launches, 0)
 
@@ -524,6 +555,57 @@ def emulate_window(n0, count, coeffs, pw, w, ls, saturate, stats):
     return out
 
 
+def _wrap(v, bits):
+    """Two's-complement wrap of int64 values to ``bits`` bits."""
+    return ((v + (1 << (bits - 1))) % (1 << bits)) - (1 << (bits - 1))
+
+
+def emulate_window_rtl(n0, count, coeffs, pw, w, ls, stats):
+    """The RTL Taylor window as ``taylor_window_rtl_kernel`` computes it:
+    each term's field f_k = b_k * 2^(32-W), the funnel shift of the int64
+    multiply-add a_k * cos_k + 2^(W-2) by W-1 times 2^(32-W) in a uint32
+    word; the tree a0 + 2^(s-1) - b1 (+ b2), s = 1 (2 terms) or 2 (3
+    terms), in one uint32 word scaled by 2^(32-W-s) where W + s <= 32 (the
+    terms f_k >> s, the sum shifted right by 32-W) and exact in int64
+    otherwise (its funnel shift by s, wrapped to W).  ``stats`` counts the
+    lanes and trees each way and the reference's wraps that fire: the
+    W+1-bit slice of a product, the W-bit round of a term and the W+s-bit
+    tree."""
+    i0, n_a, left, steps, valid = _lanes(n0, count, True)
+    cs = [_gen_values(_gen_consts(pw, w, ls), n_a, left, steps, stats)[0]]
+    if len(coeffs) == 3:  # harmonic 2: the generator one phase bit narrower
+        cs.append(_gen_values(_gen_consts(pw - 1, w, ls), n_a, left, steps, stats)[0])
+    s, ws = len(coeffs) - 1, 32 - w
+    fs = []
+    for a, c in zip(coeffs[1:], cs):
+        p = a * c + (1 << (w - 2))  # |a * c| < 2^62: exact in int64
+        word = (_u64(p) >> np.uint64(w - 1)) & M32
+        fs.append(((word << np.uint64(ws)) & M32).astype(np.uint32).view(np.int32)
+                  .astype(np.int64))
+        # the reference's two wraps of the term, on the same samples
+        t = (a * c) >> (w - 2)
+        r = _wrap(t, w + 1)
+        stats["slice_wraps"] += int((r != t)[valid].sum())
+        rhu = (r >> 1) + (r & 1)
+        stats["round_wraps"] += int((rhu != _wrap(rhu, w))[valid].sum())
+    f2 = fs[1] if s == 2 else 0
+    a0h = coeffs[0] + (1 << (s - 1))
+    if w + s <= 32:
+        stats["tree32"] += 1
+        a0s = np.uint64((a0h << (ws - s)) & 0xFFFFFFFF)
+        acc = (a0s - _u64(fs[0] >> s) + _u64(f2 >> s)) & M32
+        v = (acc.astype(np.uint32).view(np.int32) >> ws).astype(np.int64)
+    else:
+        stats["tree64"] += 1
+        acc = a0h - (fs[0] >> ws) + (f2 >> ws)  # |acc| < 2^33: exact in int64
+        v = _wrapw((_u64(acc) >> np.uint64(s)) & M32, ws)
+    tree = coeffs[0] - (fs[0] >> ws) + (f2 >> ws)
+    stats["tree_wraps"] += int((tree != _wrap(tree, w + s))[valid].sum())
+    out = np.zeros(count, np.int64)
+    out[(i0[:, None] + steps[None, :])[valid]] = v[valid]
+    return out
+
+
 RUN_WALK_CONFIGS = [  # (pw, ls): PW-LS 1..24, every regime
     (11, 10), (12, 10),  # over-wide and exact LUT
     (13, 10), (14, 10),  # tay1, PW-LS 3 and 4 (R = 2, 4: below a lane's span)
@@ -586,3 +668,43 @@ class TestRunWalkEmulation:
                 np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{name} {pw} {n0}")
                 np.testing.assert_array_equal(got, _np(jkw.window_samples(n, q, _jspec(spec))))
         assert 0 < stats["fast"] < stats["lanes"]
+
+    @pytest.mark.parametrize("w", range(8, 33))
+    def test_window_rtl(self, w):
+        # the RTL kernel's accumulate over the run walk, 0 LSB against the
+        # plain version and JAX: 2-term (hamming, hann) and 3-term (blackman)
+        # sets and random |a_k| < 2^31 ones (where the reference's wraps
+        # fire), every regime (LS 1..14, PW-LS 1..24, pw 4..31), unaligned
+        # and ragged ranges across the seams and the period end, n0 past 2^32
+        stats = dict.fromkeys(("fast", "lanes", "tree32", "tree64", "slice_wraps",
+                               "round_wraps", "tree_wraps"), 0)
+        rng = np.random.default_rng(1000 + w)
+
+        def big(k):  # |a_0| in [3 * 2^29, 2^31): the tree overflows its W+s bits
+            a0 = int(rng.integers(3 << 29, 1 << 31)) * int(rng.choice((-1, 1)))
+            return (a0, *(int(a) for a in rng.integers(1 - (1 << 31), 1 << 31, k - 1)))
+
+        cases = [("hamming", 26, 10), ("blackman", 26, 12), ("hann", 4, 1),
+                 ("blackman", 13, 10), ("hamming", 11, 10), ("blackman", 12, 9),
+                 ("blackman", 30, 7), ("hann", 31, 7), ("blackman", 28, 14),
+                 ("blackman", 14, 2), (3, 20, 8), (2, 16, 10), (3, 29, 7)]
+        for name, pw, ls in cases:
+            q = big(name) if isinstance(name, int) else catalog.get(name).quantized(w)
+            spec = WindowSpec(pw, w, sin_type="taylor", rounding="rtl", lut_size=ls)
+            n = 1 << pw
+            ranges = [(a % n, c) for a, c in _ranges(pw, rng)[:5]]
+            ranges.append((int(rng.integers(0, n)) + (5 << 32), 1001))  # past 2^32
+            for n0, count in ranges:
+                got = emulate_window_rtl(n0, count, q, pw, w, ls, stats)
+                idx = n0 + np.arange(count, dtype=np.int64)
+                want = tk.taylor_window_rtl_plain(torch.from_numpy(idx), q, spec)
+                np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{name} {pw} {n0}")
+                np.testing.assert_array_equal(got, _np(jkw.window_samples(idx, q, _jspec(spec))))
+        assert 0 < stats["fast"] < stats["lanes"]  # the run walk and sample by sample
+        # the 32-bit tree up to W + s = 32, the 64-bit one past it: both at W = 31
+        assert (stats["tree32"] > 0) == (w <= 31) and (stats["tree64"] > 0) == (w >= 31)
+        if w <= 31:  # the random sets make the slice's and the tree's wraps fire
+            assert stats["slice_wraps"] > 0 and stats["tree_wraps"] > 0, stats
+        else:  # |a_k|, |cos_k| < 2^31 keep a W=32 slice in 33 bits and the tree
+            # in 33-34: the 64-bit tree is needed for the width, not a wrap
+            assert stats["slice_wraps"] == stats["tree_wraps"] == 0, stats
