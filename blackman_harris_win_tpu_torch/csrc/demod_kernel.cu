@@ -40,9 +40,9 @@
 // issue 64 lanes a clock an SM each:
 //
 // - The state sits at the top of a word: X = x << sh, sh = B - iw, for a
-//   B-bit word (B = 32 while iw <= 32, else 64).  An add of two such words
-//   wraps at iw bits by itself, so the reference's per-add wrap costs
-//   nothing.  The wrap does fire: with P=1 the state reaches 1.16 *
+//   B-bit word (B = 32 while iw <= 32 and P >= 1, else 64).  An add of two
+//   such words wraps at iw bits by itself, so the reference's per-add wrap
+//   costs nothing.  The wrap does fire: with P=1 the state reaches 1.16 *
 //   2^(iw-1) near |x| == |y| (the CORDIC gain 1.647 times sqrt 2), and
 //   tests/test_torch_demod_kernel.py holds a case where it does.
 // - 32-bit words: the shifted operand floor(x / 2^i) << sh is the shift
@@ -52,26 +52,37 @@
 //   (Y >> (i + sh)) and Y -= (d << sh) * (X >> (i + sh)) are one shift and
 //   one IMAD each.  z, which steers nothing, is zbase + sum m_i * (-2
 //   lut[i]) (zbase = -sum lut[i]), one IMAD an iteration.  The sign and the
-//   two shifts issue on the ALU pipe, the four IMAD on the FMA pipe; with
-//   the negated operand of Y's update and the test that ends the loop at
-//   AW-1, an iteration is 11 SASS instructions (chip_smoke.py prints them
-//   by pipe).
+//   two shifts issue on the ALU pipe, the four IMAD on the FMA pipe, and
+//   ptxas puts Y's negated operand on either: 8 SASS instructions an
+//   iteration (chip_smoke.py prints them by pipe).  Moving that negation to
+//   its own IMAD of m, building d << sh with a LOP3, or a shift or the sign
+//   as the high word of a multiply (IMAD.HI) each measured slower in turns
+//   on the H100 (PERF.md, Findings).
+// - 32-bit words, the count: the iterations are one unrolled chain of
+//   positions 2..31 in which position j shifts by the immediate j - 2, and
+//   a switch jumps into it at position sh + 2 (fill's entry): iteration i
+//   runs at position i + sh + 2 and the last, AW-2, at 32 - P, so no
+//   iteration tests the count and no shift amount needs a register.  The
+//   z steps sit at their positions in the parameter bank (zpos, 0 where no
+//   iteration runs: the P - 1 positions after the last move x and y, which
+//   nothing reads).  P = 0 would need a 32nd position and takes the 64-bit
+//   word (words32).
 // - 64-bit words: the shifted operand is (X >> i) with its low sh bits
-//   cleared (one AND a word), steered by a xor and subtract with m.
+//   cleared (one AND a word), steered by a xor and subtract with m; the
+//   iterations unroll up to 48 and stop at AW-1 by a uniform branch.
 // - z needs no wrap: |z| <= sum lut[i] < 0.56 * 2^(iw-1) on every path.
-// - The iterations unroll at compile time up to the word's most (31 or 48)
-//   and stop at AW-1 by a uniform branch: lut[i] and the steps are
-//   constant-bank operands.
 // - All wrapping adds, negations and the 32-bit conjugate products are done
 //   in unsigned types (signed overflow is undefined); right shifts of
 //   negative values are arithmetic under nvcc.
 //
-// Grids: atan2 walks its outputs in a grid-stride loop, one output a
-// thread, so each warp's loads and stores are coalesced.  The complex front
-// end gives each thread a strip of consecutive frames of one channel: it
-// reads and quantizes each sample once, carries it in registers to the next
-// output and has the next sample's load in flight while it computes this
-// one; consecutive lanes take consecutive channels, then the next strip, so
+// Grids: atan2 walks its outputs in a grid-stride loop over at most one
+// full load of the card (stride_blocks), so each warp's loads and stores
+// are coalesced and a thread, taking many outputs, reads the chain's z
+// steps from the parameter bank once for them all, not once an output.
+// The complex front end gives each thread a strip of consecutive frames of
+// one channel: it reads and quantizes each sample once, carries it in
+// registers to the next output and has the next sample's load in flight
+// while it computes this one; consecutive lanes take consecutive channels, then the next strip, so
 // each warp's loads and stores are whole 32-byte sectors (a 128-byte line
 // at 16 channels), and the strip length is chosen so the grid holds at
 // least one full load of the card (2048 threads an SM), within 4 to 64
@@ -111,6 +122,7 @@ typedef unsigned long long u64;
 
 constexpr int kThreads = 256;
 constexpr int kMaxLut = 48;  // LUT_ATAN_PI entries: AW - 1 <= 48
+constexpr int kChain = 32;   // 32-bit words: chain positions 2..31
 constexpr int kThreadsPerSm = 2048;
 constexpr i64 kMinStrip = 4, kMaxStrip = 64;  // frames a thread of demod_iq walks
 
@@ -119,7 +131,11 @@ enum Mode : int { kConj = 0, kPhase = 1 };          // fm_demod_conj, fm_demod_p
 
 struct Params {
   i64 lut[kMaxLut];  // LUT_ATAN_PI[i] >> (49 - AW - P), i < AW - 1
-  i64 zstep[kMaxLut];  // -2 lut[i]
+  // 32-bit words: iteration i runs at chain position j = i + entry, entry =
+  // sh + 2, and shifts by j - 2; zpos[j] is its z step -2 lut[i], 0 at the
+  // positions of no iteration
+  int entry;
+  unsigned zpos[kChain];
   i64 zbase;  // -sum lut[i], i < AW - 1
   int aw;            // angle width AW
   int p;             // guard bits P
@@ -134,13 +150,26 @@ template <typename S> struct Word;
 template <> struct Word<int> {
   typedef unsigned U;
   static constexpr int kBits = 32;
-  static constexpr int kMaxIter = 31;  // AW - 1 with iw = AW + P <= 32
 };
 template <> struct Word<i64> {
   typedef u64 U;
   static constexpr int kBits = 64;
   static constexpr int kMaxIter = kMaxLut;  // AW - 1 with AW + P <= 49
 };
+
+// One vectoring iteration in 32-bit words at chain position J: its shift
+// J - 2 an immediate, its z step a parameter-bank operand.
+#define BHW_ITER(J)                                                     \
+  case J: {                                                             \
+    const U m = (U)((S)ys >> (B - 1)); /* 0 for y >= 0, all ones below */ \
+    const U dsh = m * p2x2 + p2;       /* d << sh, d = +-1 */             \
+    const U xa = (U)((S)xs >> ((J) - 2)), ya = (U)((S)ys >> ((J) - 2));   \
+    xs += dsh * ya;                                                     \
+    ys -= dsh * xa;                                                     \
+    z += m * P.zpos[J];                                                 \
+  }                                                                     \
+    [[fallthrough]];
+#define BHW_ITER4(J) BHW_ITER(J) BHW_ITER((J) + 1) BHW_ITER((J) + 2) BHW_ITER((J) + 3)
 
 // the angle of (x, y), an AW-bit word in an int64, of the convention
 // (y and x arrive sign-extended to int64, whatever they were read as)
@@ -155,21 +184,20 @@ __device__ __forceinline__ i64 atan2_word(i64 y, i64 x, const Params& P) {
   U xs = (U)((x ^ -sx) & mask_lo) << sh;  // one's-complement abs, low AW-1 bits
   U ys = (U)((y ^ -sy) & mask_lo) << sh;
   U z;
-  const int niter = P.aw - 1;
   if constexpr (B == 32) {
     const U p2 = (U)1 << sh, p2x2 = p2 << 1;
     z = (U)P.zbase;
-#pragma unroll
-    for (int i = 0; i < Word<S>::kMaxIter; ++i) {
-      if (i >= niter) break;
-      const U m = (U)((S)ys >> (B - 1));  // 0 for y >= 0, all ones below
-      const U dsh = m * p2x2 + p2;        // d << sh, d = +-1
-      const U xa = (U)((S)xs >> (i + sh)), ya = (U)((S)ys >> (i + sh));
-      xs += dsh * ya;
-      ys -= dsh * xa;
-      z += m * (U)P.zstep[i];
+    // a jump into the unrolled chain: iterations 0..AW-2 are positions
+    // entry..32-P, whatever AW, so the shifts are immediates and no
+    // iteration tests the count (P >= 1; the P - 1 positions past the last
+    // run with z steps of 0)
+    switch (P.entry) {
+      BHW_ITER4(2) BHW_ITER4(6) BHW_ITER4(10) BHW_ITER4(14) BHW_ITER4(18) BHW_ITER4(22)
+      BHW_ITER4(26) BHW_ITER(30) BHW_ITER(31)
+      default: break;
     }
   } else {
+    const int niter = P.aw - 1;
     const U keep = ~(U)0 << sh;
     z = 0;
 #pragma unroll
@@ -355,6 +383,11 @@ demod_int_kernel(i64* __restrict__ out, const T* __restrict__ i, const T* __rest
   }
 }
 
+// The 32-bit word takes AW + P <= 32 with P >= 1: its chain ends at
+// position 31, where the last iteration of P = 1 runs; P = 0 would need a
+// 32nd position and takes the 64-bit word.
+bool words32(int aw, int p) { return aw + p <= 32 && p >= 1; }
+
 bool fill(Params& P, const i64* lut, int aw, int p, int input_width, int convention, int drop,
           int shift, double iq_scale) {
   if (aw < 2 || p < 0 || aw + p > 49 || input_width < 1 || input_width > 64) return false;
@@ -363,8 +396,12 @@ bool fill(Params& P, const i64* lut, int aw, int p, int input_width, int convent
   P.zbase = 0;
   for (int k = 0; k < kMaxLut; ++k) {
     P.lut[k] = k < aw - 1 ? lut[k] : 0;
-    P.zstep[k] = -2 * P.lut[k];
     P.zbase -= P.lut[k];
+  }
+  P.entry = 34 - aw - p;  // sh + 2 for 32-bit words (aw + p <= 32, p >= 1)
+  for (int j = 0; j < kChain; ++j) {
+    const int i = j - P.entry;
+    P.zpos[j] = words32(aw, p) && i >= 0 && i < aw - 1 ? (unsigned)(-2 * P.lut[i]) : 0u;
   }
   P.aw = aw;
   P.p = p;
@@ -376,10 +413,12 @@ bool fill(Params& P, const i64* lut, int aw, int p, int input_width, int convent
   return true;
 }
 
-// blocks of a grid-stride walk over n items: enough to fill the card
-unsigned stride_blocks(i64 n) {
-  const i64 want = (n + kThreads - 1) / kThreads;
-  return (unsigned)(want < (1 << 20) ? (want > 0 ? want : 1) : (1 << 20));
+// blocks of a grid-stride walk over n items: at most one full load of the
+// card (kThreadsPerSm threads an SM), so a thread takes several items and
+// reads the parameter bank's chain steps into registers once for them all
+unsigned stride_blocks(i64 n, int sms) {
+  const i64 want = (n + kThreads - 1) / kThreads, most = (i64)sms * (kThreadsPerSm / kThreads);
+  return (unsigned)(want < most ? (want > 0 ? want : 1) : most);
 }
 
 // the quantizer of sdr_chain: rint(v * iq_scale) to int32 in the
@@ -459,7 +498,11 @@ int launch_iq(int elem, i64* out, const void* y, i64 batches, i64 nf, i64 c, i64
 template <typename S>
 int launch_atan2(int elem, i64* out, const void* y, const void* x, i64 n, const Params& P,
                  cudaStream_t st) {
-  const unsigned g = stride_blocks(n);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned g = stride_blocks(n, sms);
   if (elem == 4) {
     atan2_kernel<int, S><<<g, kThreads, 0, st>>>(out, (const int*)y, (const int*)x, n, P);
   } else {
@@ -528,8 +571,8 @@ int bhw_cordic_atan2(void* out, const void* y, const void* x, i64 n, int elem, c
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  return aw + p <= 32 ? launch_atan2<int>(elem, (i64*)out, y, x, n, P, st)
-                      : launch_atan2<i64>(elem, (i64*)out, y, x, n, P, st);
+  return words32(aw, p) ? launch_atan2<int>(elem, (i64*)out, y, x, n, P, st)
+                        : launch_atan2<i64>(elem, (i64*)out, y, x, n, P, st);
 }
 
 // out: int64, contiguous, (rows, t - 1) for walk 0 (lanes on t) or (t - 1,
@@ -552,7 +595,7 @@ int bhw_fm_demod(void* out, const void* i, const void* q, i64 rows, i64 t, i64 i
   const Layout L{rows, t, ir, it, qr, qt, 0, 0, 0};
   const cudaStream_t st = (cudaStream_t)stream;
   i64* o = (i64*)out;
-  if (aw + 1 <= 32) {
+  if (words32(aw, 1)) {
     return elem == 4 ? launch_demod<int, int>(mode, walk, o, i, q, L, P, st)
                      : launch_demod<i64, int>(mode, walk, o, i, q, L, P, st);
   }
@@ -573,8 +616,8 @@ int bhw_fm_demod_iq(void* out, const void* y, i64 batches, i64 nf, i64 c, i64 bi
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  return aw + 1 <= 32 ? launch_iq<int>(elem, (i64*)out, y, batches, nf, c, bins, P, st)
-                      : launch_iq<i64>(elem, (i64*)out, y, batches, nf, c, bins, P, st);
+  return words32(aw, 1) ? launch_iq<int>(elem, (i64*)out, y, batches, nf, c, bins, P, st)
+                        : launch_iq<i64>(elem, (i64*)out, y, batches, nf, c, bins, P, st);
 }
 
 }  // extern "C"

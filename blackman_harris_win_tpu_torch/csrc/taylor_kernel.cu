@@ -361,6 +361,10 @@ struct WinParams {
   int coeffs[kMaxTerms];
   GenK gen[kMaxTerms - 1];  // harmonic k runs gen[k-1]
   int w, saturate;
+  // taylor_window_rtl_kernel's tree (rtl_tree_consts): the fields' scale
+  // 2^(32-W) and its negation, n1's bias beta and the constant c
+  u32 rscale, rnscale, rbeta;
+  u64 rc;
 };
 
 // The window write-outs' walk: per lane, harmonic 1's cosine (gen[0], at
@@ -430,58 +434,89 @@ taylor_window_kernel(int* __restrict__ out, u64 n0, i64 count, const int2* __res
 // 2^(W-1)).  So b_k = wrap((p + 2^(W-2)) >> (W-1), W): one multiply-add
 // (|p| < 2^62, exact in int64) and the funnel shift of its two words by
 // W-1 <= 31, whose low W bits are b_k's (W <= 32).  rtl_field returns that
-// word times 2^(32-W) (pw2): b_k * 2^(32-W) as an int32, exact.  The scale
-// is a multiply, which issues on the FMA pipe beside the ALU's shifts.
-__device__ __forceinline__ int rtl_field(int a, int c, i64 half, int sh, u32 pw2) {
+// word times scale plus bias, mod 2^32: with scale = +-2^(32-W) (pw2) it is
+// bias +- b_k * 2^(32-W), the field f_k = b_k * 2^(32-W) being an exact
+// int32.  The scale and the bias are one IMAD on the FMA pipe, beside the
+// ALU's funnel shift.
+__device__ __forceinline__ u32 rtl_field(int a, int c, i64 half, int sh, u32 scale, u32 bias) {
   const i64 p = (i64)a * c + half;
-  return (int)(__funnelshift_r((u32)p, (u32)(p >> 32), sh) * pw2);
+  return __funnelshift_r((u32)p, (u32)(p >> 32), sh) * scale + bias;
 }
 
-// RTL: the alternating tree acc = a0 - b1 (+ b2) is wrapped to W+s bits
-// and rounded half up off bit s-1 to W bits: s = 1 for the 2-term core
-// (hamming_win.vhd:211-231, a W+1-bit subtract, (pp >> 1) + (pp & 1)), s = 2
-// for the 3-term one (bh_win_3term.vhd:282-306, a W+2-bit tree, (pp >> 2)
-// + ((pp >> 1) & 1)).  Both are floor((pp + 2^(s-1)) / 2^s) wrapped to W
-// bits, which depends on acc mod 2^(W+s) only, so the W+s-bit wrap needs
-// no instruction: out = bits [s, s+W-1] of acc + 2^(s-1), sign-extended.
-// Where W + s <= 32 (kWide false) the tree runs in one uint32 word scaled
-// by 2^(32-W-s): each term is rtl_field >> s (arithmetic, exact: b_k *
-// 2^(32-W-s)), a0 + 2^(s-1) is scaled once, and the sum's arithmetic shift
-// right by 32-W is the output.  Where W + s > 32 (W = 32 2-term; W = 31, 32
-// 3-term: a W+1 = 33 or W+2 = 33..34-bit tree), b_k = rtl_field >> (32-W)
-// and a0 + 2^(s-1) - b1 (+ b2) is exact in int64 (|.| < 2^33); the output
-// is its funnel shift by s, wrapped to W.  The output register is W bits
-// wide: "saturate" and "wrap" give the same result and nothing is clamped.
-// Five blocks an SM (up to 48 registers a thread): without the bound,
-// ptxas held 3 of the 16 instantiations to 32 or 40 registers by spilling
-// a value to the stack; with it none spills.
-template <int kReg1, int kReg2, bool kWide>
+// RTL: the alternating tree T = a0 - b1 (+ b2) is wrapped to W+s bits and
+// rounded half up off bit s-1 to W bits: s = 1 for the 2-term core
+// (hamming_win.vhd:211-231, a W+1-bit subtract, (pp >> 1) + (pp & 1)), s =
+// 2 for the 3-term one (bh_win_3term.vhd:282-306, a W+2-bit tree, (pp >> 2)
+// + ((pp >> 1) & 1)).  Both are floor((T + 2^(s-1)) / 2^s) wrapped to W
+// bits, which depends on T mod 2^(W+s) only: out = bits [s, s+W-1] of T +
+// 2^(s-1), sign-extended.  The tree is 33 or 34 bits wide at W = 31, 32, so
+// it is taken at the fields' scale in 32-bit words, T' = (T + 2^(s-1)) *
+// 2^(32-W) = A - f1 + f2 with A = (a0 + 2^(s-1)) * 2^(32-W), and out =
+// floor(T' / 2^s) mod 2^32, shifted right by 32-W (arithmetic).  The terms
+// enter as unsigned words, biased in their IMAD so that each lies in [0,
+// 2^32) for every int32 field: n1 = beta - f1, u2 = f2 + 2^31.
+// - 3 terms: n1 = 2^31 - 1 - f1, T' = C + n1 + u2 with the constant C = A +
+//   1 - 2^32.  Its low word is (C_lo + n1 + u2) mod 2^32 and its high word
+//   C_hi plus the two carries out of that sum: one IADD3 with two carry-outs
+//   and one IADD3.X, and floor(T' / 4) mod 2^32 is the funnel shift of the
+//   two words by 2.
+// - 2 terms: T' = C + n1 with C = A - beta odd, so floor(T' / 2) = (C - 1) /
+//   2 + ceil(n1 / 2) = (C - 1) / 2 + n1 - (n1 >> 1): one shift, one IADD3,
+//   no carry.  beta = 2^31 - 1 + (A & 1): where A is even (always, for W <
+//   32) n1 = 2^31 - 1 - f1 is in [0, 2^32) for every f1; A is odd only at W
+//   = 32, where f1 = b1 >= -(2^31 - 1) (|a_1| < 2^31, |cos_1| <= 2^31: b1 =
+//   floor((p + 2^30) / 2^31) >= floor(-(2^31 - 1) + 1/2)), so n1 = 2^31 - f1
+//   is too.
+// Every W from 2 to 32 takes this code, with as many ALU instructions a
+// sample as a tree held in one uint32 word (the fields' two shifts to its
+// scale, a sum, the output's shift) would take: a sum, its carry word, the
+// funnel shift and the output's shift for 3 terms; a shift, a sum and the
+// output's shift for 2.  The output register is W bits wide: "saturate" and
+// "wrap" give the same result and nothing is clamped.  Five blocks an SM (up
+// to 48 registers a thread): without the bound, ptxas held 3 of the
+// instantiations to 32 or 40 registers by spilling a value to the stack;
+// with it none spills.
+template <int kReg1, int kReg2>
 __global__ void __launch_bounds__(kThreads, 5)
 taylor_window_rtl_kernel(int* __restrict__ out, u64 n0, i64 count,
                          const int2* __restrict__ rom, const WinParams P) {
   constexpr int s = kReg2 == kNone ? 1 : 2;
   const int sh = P.w - 1, ws = 32 - P.w;
-  const u32 pw2 = 1u << ws;
   const i64 half = 1ll << (P.w - 2);
-  const i64 a0h = (i64)P.coeffs[0] + (1 << (s - 1));
-  // the 32-bit tree's a0 + 2^(s-1), scaled by 2^(32-W-s) (unused if kWide)
-  const u32 a0s = kWide ? 0u : (u32)a0h << (ws - s);
   window_tiles<kReg1, kReg2>(out, n0, count, rom, P, [&](const int (&c1)[kG<true>],
                                                          const int (&c2)[kG<true>],
                                                          int (&v)[kG<true>]) {
 #pragma unroll
     for (int k = 0; k < kG<true>; ++k) {
-      const int f1 = rtl_field(P.coeffs[1], c1[k], half, sh, pw2);
-      int f2 = 0;
-      if constexpr (kReg2 != kNone) f2 = rtl_field(P.coeffs[2], c2[k], half, sh, pw2);
-      if constexpr (kWide) {
-        const i64 acc = a0h - (f1 >> ws) + (f2 >> ws);
-        v[k] = (int)(__funnelshift_r((u32)acc, (u32)(acc >> 32), s) * pw2) >> ws;
+      const u32 n1 = rtl_field(P.coeffs[1], c1[k], half, sh, P.rnscale, P.rbeta);
+      u32 t;
+      if constexpr (s == 1) {
+        t = (u32)P.rc + n1 - (n1 >> 1);
       } else {
-        v[k] = (int)(a0s - (u32)(f1 >> s) + (u32)(f2 >> s)) >> ws;
+        const u32 u2 = rtl_field(P.coeffs[2], c2[k], half, sh, P.rscale, 0x80000000u);
+        // zero-extended words: ptxas adds them as one IADD3 with two
+        // carry-outs and an IADD3.X of c's high word
+        const u64 acc = P.rc + n1 + u2;
+        t = __funnelshift_r((u32)acc, (u32)(acc >> 32), 2);
       }
+      v[k] = (int)t >> ws;
     }
   });
+}
+
+// The constants of taylor_window_rtl_kernel's tree, from a0, W and the
+// term count, set on the host: read from the parameter bank they cost the
+// kernel nothing, and the scale, unknown to the compiler, stays a multiply
+// (an IMAD with the bias as its addend) where 1u << ws would become a shift
+// and an XOR on the ALU pipe.
+void rtl_tree_consts(WinParams& P, int nterms) {
+  const int s = nterms - 1, ws = 32 - P.w;
+  const i64 a = ((i64)P.coeffs[0] + (1 << (s - 1))) * (1ll << ws);  // A, |A| < 2^62
+  P.rscale = 1u << ws;
+  P.rnscale = 0u - P.rscale;
+  P.rbeta = s == 1 ? 0x7fffffffu + (u32)(a & 1) : 0x7fffffffu;
+  // 2 terms: (C - 1) / 2 with C = A - beta; 3 terms: C = A + 1 - 2^32
+  P.rc = s == 1 ? (u64)((a - (i64)P.rbeta - 1) >> 1) : (u64)(a + 1 - (1ll << 32));
 }
 
 // Sum mod 2^32 is associative and commutative, so the per-lane, per-warp
@@ -554,6 +589,7 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 bool win_setup(WinParams& P, int& r1, int& r2, const int* out, i64 n0, int pw, int w, int ls,
                const i64* coeffs, int nterms, int ramb_pi1, int ramb_pi2, int saturate) {
   if (nterms < 2 || nterms > kMaxTerms || n0 < 0 || !aligned16(out)) return false;
+  P = WinParams{};
   for (int k = 0; k < kMaxTerms; ++k) {
     const i64 a = k < nterms ? coeffs[k] : 0;
     if (a <= -(1ll << 31) || a >= (1ll << 31)) return false;
@@ -614,21 +650,17 @@ int bhw_taylor_window_rtl(int* out, i64 n0, i64 count, const int* rom, int pw, i
   int r1, r2;
   if (!win_setup(P, r1, r2, out, n0, pw, w, ls, coeffs, nterms, ramb_pi1, ramb_pi2, 0))
     return (int)cudaErrorInvalidValue;
-  // the tree's W+s bits: W+1 (2 terms) or W+2 (3 terms) past a 32-bit word
-  const bool wide = w + (nterms == 3 ? 2 : 1) > 32;
+  rtl_tree_consts(P, nterms);
   const cudaStream_t st = (cudaStream_t)stream;
   const int2* r = (const int2*)rom;
-#define BHW_RTL(A, B, WIDE)                   \
-  if (r1 == A && r2 == B && wide == WIDE)     \
-    return launch(taylor_window_rtl_kernel<A, B, WIDE>, count, st, out, (u64)n0, count, r, P);
-  // the 32-bit tree: every regime pair the HLS entry takes
-  BHW_RTL(kLut, kNone, false) BHW_RTL(kTayNarrow, kNone, false) BHW_RTL(kTayWide, kNone, false)
-  BHW_RTL(kLut, kLut, false) BHW_RTL(kLut, kTayNarrow, false) BHW_RTL(kLut, kTayWide, false)
-  BHW_RTL(kTayNarrow, kLut, false) BHW_RTL(kTayNarrow, kTayNarrow, false)
-  BHW_RTL(kTayWide, kLut, false) BHW_RTL(kTayWide, kTayWide, false)
-  // the 64-bit tree, W >= 31: the W < 19 regime cannot occur
-  BHW_RTL(kLut, kNone, true) BHW_RTL(kTayWide, kNone, true) BHW_RTL(kLut, kLut, true)
-  BHW_RTL(kLut, kTayWide, true) BHW_RTL(kTayWide, kLut, true) BHW_RTL(kTayWide, kTayWide, true)
+#define BHW_RTL(A, B)         \
+  if (r1 == A && r2 == B)     \
+    return launch(taylor_window_rtl_kernel<A, B>, count, st, out, (u64)n0, count, r, P);
+  // every regime pair the HLS entry takes
+  BHW_RTL(kLut, kNone) BHW_RTL(kTayNarrow, kNone) BHW_RTL(kTayWide, kNone)
+  BHW_RTL(kLut, kLut) BHW_RTL(kLut, kTayNarrow) BHW_RTL(kLut, kTayWide)
+  BHW_RTL(kTayNarrow, kLut) BHW_RTL(kTayNarrow, kTayNarrow)
+  BHW_RTL(kTayWide, kLut) BHW_RTL(kTayWide, kTayWide)
 #undef BHW_RTL
   return (int)cudaErrorInvalidValue;
 }

@@ -153,12 +153,25 @@ def sincos_block(n0, count: int, pw: int, w: int, ls: int, device=None):
     return c, s
 
 
+@lru_cache(maxsize=64)
+def _window_consts(coeffs: tuple[int, ...], spec: WindowSpec):
+    """What a window write-out's launch needs and only its coefficients and
+    spec decide, validated once per (coefficients, spec): the coefficients,
+    their int64 buffer for the C entry (read-only) and the two generators'
+    tay1 constants."""
+    coeffs = _window_params(coeffs, spec)
+    cbuf = np.asarray(coeffs, np.int64)
+    cbuf.flags.writeable = False
+    pw, ls = spec.phase_width, spec.lut_size
+    return coeffs, cbuf, _ramb(pw, ls), _ramb(pw - 1, ls)
+
+
 def _window_write(entry: str, plain, coeffs_q, spec: WindowSpec, n0, count: int, device,
                   *extra):
     """A TAYLOR window write-out over [n0, n0+count) as int32 on ``device``:
     ``plain`` on the CPU, the C entry ``bhw_<entry>`` on a card (its
     launch counter ``entry``), given ``extra`` after the generators."""
-    coeffs = _window_params(coeffs_q, spec)
+    coeffs, cbuf, ramb1, ramb2 = _window_consts(tuple(int(c) for c in coeffs_q), spec)
     pw, w, ls = spec.phase_width, spec.data_width, spec.lut_size
     n0, count = int(n0) % (1 << pw), _check_count(count)
     device = _build.resolve_device(device)
@@ -166,10 +179,8 @@ def _window_write(entry: str, plain, coeffs_q, spec: WindowSpec, n0, count: int,
         return plain(torch.arange(n0, n0 + count), coeffs, spec)
     out = torch.empty(count, dtype=torch.int32, device=device)
     if count:
-        cbuf = np.asarray(coeffs, np.int64)
         _launch(entry, device, out.data_ptr(), n0, count, _rom_on(ls, w, device).data_ptr(),
-                pw, w, ls, cbuf.ctypes.data, len(coeffs), _ramb(pw, ls), _ramb(pw - 1, ls),
-                *extra)
+                pw, w, ls, cbuf.ctypes.data, len(coeffs), ramb1, ramb2, *extra)
     return out
 
 

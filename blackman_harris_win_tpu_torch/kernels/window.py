@@ -27,6 +27,8 @@ version on the CPU; there is no fallback between them.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..core.config import WindowSpec
@@ -142,9 +144,14 @@ def make_window(name: str, spec: WindowSpec, coeffs=None, device=None):
     """The full 2^phase_width-point quantized window for a named coefficient
     set (the ``win_selector`` equivalent, src/win_selector.vhd:93-199), as
     int32 on ``device`` (routed as :func:`window_block`)."""
-    d = catalog.get(name)
-    coeffs_q = coeffs if coeffs is not None else d.quantized(spec.data_width)
+    coeffs_q = coeffs if coeffs is not None else _quantized(name, spec.data_width)
     return window_block(0, spec.n, coeffs_q, spec, device)
+
+
+@lru_cache(maxsize=64)
+def _quantized(name: str, data_width: int) -> tuple[int, ...]:
+    """A named set's coefficients quantized to ``data_width``, once per pair."""
+    return catalog.get(name).quantized(data_width)
 
 
 def rtl_cordic_coeffs(coeffs_q) -> tuple[int, ...]:

@@ -177,9 +177,10 @@ int: its IMAD.WIDE, IADD3, LEA.HI, SHF, LDS and STG), with their
 local-memory instructions, and of one CORDIC iteration of the DDC mixer
 kernel's compute path (its W=17 instantiation less its W=16 one, over the
 samples a thread computes), its table pass (the row loop, per sample) and
-its table kernel, of the atan2 and taylor2 kernels (the median
-branch-free block: one unrolled iteration, or one harmonic of one sample)
-and of the RTL Taylor kernel's accumulate per sample (its branch-free
+its table kernel, of the atan2 kernels (one vectoring iteration of the
+unrolled chain: the spacing of its sign masks of y), of the taylor2
+kernels (the median branch-free block: one harmonic of one sample) and of
+the RTL Taylor kernel's accumulate per sample (its branch-free
 block of the products a_k * cos_k + 2^(W-2), over the 8 samples of a lane),
 each split into the instructions of the integer ALU pipe, the FMA pipe
 (IMAD and f32 arithmetic) and the FP64 pipe; an int, a mixer or table, an
@@ -598,7 +599,7 @@ def _sdr_gates(label, x, out, proto, n_ch: int, aw: int, offset, rng, frames=Non
     return err
 
 
-#: (AW, P) of the atan2 gates: 32-bit words (AW + P <= 32), then 64-bit ones
+#: (AW, P) of the atan2 gates: 32-bit words (AW + P <= 32, P >= 1), then 64-bit ones
 ATAN2_GATE_WIDTHS = ((16, 1), (20, 1), (24, 1), (31, 1), (30, 2), (31, 2), (40, 1))
 
 
@@ -1800,19 +1801,19 @@ def _print_taylor_rtl_sass(name: str, body: str) -> None:
     branch-free block that holds a lane's 8 x (terms - 1) products a_k *
     cos_k + 2^(W-2), the terms' slices and wraps and the tree, from the
     join after the generators to the store's branch; its length over the
-    lane's 8 samples, split by pipe, is the accumulate per sample."""
+    lane's 8 samples, split by pipe, is the accumulate per sample.  One
+    instantiation serves every W of its regime pair, W + s > 32 included."""
     ins, blocks = _sass_blocks(body)
     local = sum(1 for _, text in ins if re.search(r"\b(LDL|STL)", text))
-    m = re.search(r"rtl_kernelILi(\d)ELi(\d)ELb([01])E", name)
-    regs = "/".join(_TAYLOR_REGIMES[g] for g in m.groups()[:2])
+    m = re.search(r"rtl_kernelILi(\d)ELi(\d)E", name)
+    regs = "/".join(_TAYLOR_REGIMES[g] for g in m.groups())
     terms = 2 if m.group(2) == "0" else 3
     kg = TAYLOR_KG["window"]
     acc = next((b for b in blocks if sum(bool(_RTL_PRODUCT.search(t)) for t in b)
                 >= kg * (terms - 1)), None)
-    line = (f"sass taylor_window_rtl ({regs}, {terms} terms, {64 if m.group(3) == '1' else 32}-bit "
-            f"tree): {len(ins)} instructions; ")
+    line = f"sass taylor_window_rtl ({regs}, {terms} terms, every W): {len(ins)} instructions; "
     if acc:
-        line += (f"the accumulate {len(acc)} for a lane's {kg} samples, {len(acc) / kg:.1f} a "
+        line += (f"the accumulate {len(acc)} for a lane's {kg} samples, {len(acc) / kg:.2f} a "
                  f"sample ({_pipe_str(_pipes(acc), kg)}); ")
     else:
         line += "no accumulate block found; "
@@ -1820,25 +1821,41 @@ def _print_taylor_rtl_sass(name: str, body: str) -> None:
     _require(local == 0, f"{name[:60]}: {local} local-memory instructions")
 
 
+#: an atan2 iteration's sign mask of y, (S)ys >> (B - 1): the one shift by 31
+_SIGN_MASK = re.compile(r"^SHF\.R\.S32\.HI R\d+, RZ, 0x1f, R\d+")
+
+
 def _print_unrolled_sass(name: str, body: str) -> None:
     """An atan2/discriminator or taylor2 instantiation's SASS: its
     instruction count, its local-memory instructions (a run with any
-    fails) and the median length of its branch-free blocks.  Their loops
-    unroll at compile time and leave by a uniform branch at the runtime
-    count, so that block is one vectoring iteration (atan2, or two where
-    the compiler interleaves two outputs) or one harmonic of one sample
-    (taylor2)."""
+    fails), and its repeated unit.  atan2: one vectoring iteration of the
+    unrolled chain, the instructions from one sign mask of y to the next
+    (the median spacing, split by pipe at a span of that length); taylor2:
+    the median branch-free block, one harmonic of one sample."""
 
     ins, runs = _sass_blocks(body)
     local = sum(1 for _, text in ins if re.search(r"\b(LDL|STL)", text))
     m = re.search(r"(atan2_kernel|demod_int_kernel|demod_iq_kernel|taylor2_window_kernel)I"
                   r"([^E]*E(?:[^E]*E)?)", name)
     what = m.group(1) + "<" + m.group(2) + ">" if m else name[:60]
-    blocks = [r for r in runs if len(r) >= 4]
-    median = float(np.median([len(r) for r in blocks])) if blocks else 0.0
-    block = min(blocks, key=lambda r: abs(len(r) - median)) if blocks else []
-    print(f"sass {what}: {len(ins)} instructions; median branch-free block {median:.0f} "
-          f"({_pipe_str(_pipes(block))}); {local} local-memory instructions")
+    if "taylor2" in what:
+        blocks = [r for r in runs if len(r) >= 4]
+        median = float(np.median([len(r) for r in blocks])) if blocks else 0.0
+        block = min(blocks, key=lambda r: abs(len(r) - median)) if blocks else []
+        unit = f"median branch-free block {median:.0f} ({_pipe_str(_pipes(block))})"
+    else:
+        texts = [re.sub(r"^@!?U?P\w+\s+", "", t.strip()) for _, t in ins]
+        at = [i for i, t in enumerate(texts) if _SIGN_MASK.match(t)]
+        gaps = [b - a for a, b in zip(at, at[1:])]
+        if gaps:
+            g = int(np.median(gaps))
+            k = [i for i, d in enumerate(gaps) if d == g][len([d for d in gaps if d == g]) // 2]
+            span = [t for _, t in ins[at[k]:at[k + 1]]]
+            unit = (f"one vectoring iteration {g} ({_pipe_str(_pipes(span))}; "
+                    f"{len(at)} sign masks)")
+        else:
+            unit = "no iteration found"
+    print(f"sass {what}: {len(ins)} instructions; {unit}; {local} local-memory instructions")
     _require(local == 0, f"{what}: {local} local-memory instructions")
 
 
@@ -2207,8 +2224,8 @@ def main(argv=None) -> int:
     # demod_int_kernel: I/Q type x word x mode x walk (lanes on t or on
     # rows); taylor2_window_kernel: ROM only, per sample, the run walk
     # without and with the P_lo term; taylor_window_rtl_kernel: the regime
-    # pairs on the 32-bit tree (10) and on the 64-bit one (6, W >= 31)
-    want_inst = {"taylor_window_rtl_kernel": 16, "demod_int_kernel": 16, "int_kernel": 30,
+    # pairs (10), each one tree for every W (W + s > 32 included)
+    want_inst = {"taylor_window_rtl_kernel": 10, "demod_int_kernel": 16, "int_kernel": 30,
                  "ddc_mixer_kernel": 40, "ddc_table_mixer_kernel": 2,
                  "ddc_nco_table_kernel": 20, "atan2_kernel": 4, "demod_iq_kernel": 4,
                  "taylor2_window_kernel": 4}
@@ -2273,6 +2290,8 @@ def main(argv=None) -> int:
                                    overflow="wrap"),
         "bh7 taylor2": WindowSpec(pw, 32, sin_type="taylor2", lut_size=12, overflow="wrap"),
     }
+    tay_q = {k: catalog.get(k.split()[0]).quantized(sp.data_width)
+             for k, sp in tay_specs.items()}
 
     def taylor_phase():
         cs = {cfg: taylor_sincos_block(0, n, pw, *cfg, device=dev) for cfg in tay_cfgs}
@@ -2729,6 +2748,12 @@ def main(argv=None) -> int:
             _time_ms(lambda k=k: tk.taylor_window_rtl_plain(
                 idx, catalog.get(k.split()[0]).quantized(tay_specs[k].data_width), tay_specs[k])),
         ) for k in ("hamming rtl", "blackman rtl")},
+        # the wrapper on its own: one call alone, and per call of 16 queued
+        **{f"taylor_window_rtl {k} wrapper": (
+            _time_ms(lambda k=k: tk.window_rtl_block(tay_q[k], tay_specs[k], 0, n, dev)),
+            _time_batch_ms(lambda b, k=k: tk.window_rtl_block(tay_q[k], tay_specs[k], 0, n,
+                                                              dev)),
+        ) for k in ("hamming rtl", "blackman rtl")},
         "analyzer float/mxu vs comp/rfft": (
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      win_mode="float", fft_mode="mxu")),
@@ -2905,13 +2930,15 @@ def main(argv=None) -> int:
     for k, terms in (("hamming rtl", 2), ("blackman rtl", 3)):
         sp, name = tay_specs[k], k.split()[0]
         ms, plain_ms = t[f"taylor_window_rtl {k}"]
+        alone, queued = t[f"taylor_window_rtl {k} wrapper"]
         b_ms, b_by = profiling.bound(4 * n, n * profiling.taylor_window_rtl_ops(terms))
         print(f"time {label} taylor_window_rtl {name} W={sp.data_width} LS={sp.lut_size} pw26 "
               f"({terms} terms, make_window, {counts['taylor_window_rtl']} launches on the "
-              f"counted main path): {ms:.3f} ms, {n / ms / 1e6:.3f} Gsamples/s; plain "
-              f"taylor_window_rtl_plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}), "
-              f"roofline share {b_ms / ms:.1%}; its HLS twin taylor_window_block "
-              f"{t[f'taylor_window_block {name}'][0]:.3f} ms")
+              f"counted main path): {ms:.3f} ms, {n / ms / 1e6:.3f} Gsamples/s; the wrapper "
+              f"window_rtl_block {alone:.4f} ms alone, {queued:.4f} ms per call of 16 queued "
+              f"({b_ms / queued:.1%} of the bound); plain taylor_window_rtl_plain "
+              f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}), roofline share {b_ms / ms:.1%}; "
+              f"its HLS twin taylor_window_block {t[f'taylor_window_block {name}'][0]:.3f} ms")
     for k, secs in fe_secs.items():
         print(f"time {label} cli {k}: {secs:.3f} s wall (phase 10, in process, file I/O "
               "included)")

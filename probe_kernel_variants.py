@@ -60,11 +60,12 @@ compared with in the same process.
    (``atan2_fixed``) on the quantized (Q, I), and the integer entry
    (``fm_demod_phase`` and ``fm_demod_conj``) on that I/Q as the (16, T)
    transpose of its (T, 16) array and as contiguous rows, through the
-   port's wrappers, the port's C entry in the walk its wrapper does not
-   pick for the layout and, with ``--against DIR``, DIR's C entries (an earlier
+   port's wrappers, the port's C entries (``fm_demod`` on both spectra,
+   ``cordic_atan2``, the integer entry in the walk its wrapper picks and in
+   the other) and, with ``--against DIR``, DIR's C entries (an earlier
    ``bhw_fm_demod_iq`` without a bins argument takes the full spectrum; an
    earlier ``bhw_fm_demod`` without a walk argument writes (rows, T-1));
-   outputs bit-equal, one call alone, in turns.
+   outputs bit-equal, one call alone and per call of 10 queued, in turns.
 8. The taylor2 window (``csrc/fastwin_kernel.cu``) over 2^26 samples: BH-7
    W=32 LS=12 pw=26 (the main path's) and BH-7 W=32 LS=14 pw=32, through
    the port's wrapper, its C entry and, with ``--against DIR``, DIR's
@@ -77,7 +78,9 @@ compared with in the same process.
    (``bhw_taylor_window_rtl``): through ``make_window``, the port's C entry
    and, with ``--against DIR``, DIR's (a revision without the RTL entry
    gives the HLS one only); outputs bit-equal to ``make_window``'s, one call
-   alone and per call of 16 queued, in turns.
+   alone and per call of 16 queued, in turns; and the host time per call of
+   the RTL Blackman ``make_window``, its wrapper, its C entry and each of
+   the wrapper's steps alone.
 
 ``--only materialize|window|welch|taylor|outer|ddc|demod|taylor2|taylor_window`` runs one
 section.  Prints
@@ -602,6 +605,36 @@ def _probe_demod(args, dev, label, stream, result) -> None:
         raise RuntimeError("fm_demod: the half- and full-spectrum entries differ")
     ang = atan2_fixed(q, i, 16, aw)
     afns = {"port, wrapper": lambda: atan2_fixed(q, i, 16, aw)}
+    # the port's C entries with no Python around them, beside DIR's
+    drop, shift = dmk.conj_shifts(dmk.IQ_WIDTH, aw)
+    lut = dmk.atan2_lut(aw, 1)
+    pout, paout, nf, c_bins = torch.empty_like(want), torch.empty_like(ang), y.shape[0], yh.shape[-1]
+
+    def port_iq(src, bins):
+        def call():
+            rc = _build.lib().bhw_fm_demod_iq(pout.data_ptr(), src.data_ptr(), 1, nf, c, bins, 8,
+                                              2.0**14, lut.ctypes.data, aw, drop, shift, stream)
+            if rc:
+                raise RuntimeError(f"fm_demod port: CUDA error {rc}")
+        return call
+
+    def port_atan2():
+        rc = _build.lib().bhw_cordic_atan2(paout.data_ptr(), q.data_ptr(), i.data_ptr(), q.numel(),
+                                           4, lut.ctypes.data, aw, 1, 16, 1, stream)
+        if rc:
+            raise RuntimeError(f"cordic_atan2 port: CUDA error {rc}")
+
+    yhc = yh.contiguous()
+    for name, call in (("port, C entry, half spectrum", port_iq(yhc, c_bins)),
+                       ("port, C entry, full spectrum", port_iq(y.contiguous(), c))):
+        call()
+        if not torch.equal(pout, want):
+            raise RuntimeError(f"fm_demod {name} differs from the wrapper")
+        fns[name] = call
+    port_atan2()
+    if not torch.equal(paout, ang):
+        raise RuntimeError("cordic_atan2 port, C entry differs from the wrapper")
+    afns["port, C entry"] = port_atan2
     other = None
     if args.against is not None:
         other = _build_one(args.against, "demod_kernel.cu", "other")
@@ -609,10 +642,7 @@ def _probe_demod(args, dev, label, stream, result) -> None:
         if not with_bins:  # out, y, batches, nf, c, elem, iq_scale, lut, aw, drop, shift, stream
             sig = list(_build._SIGNATURES["bhw_fm_demod_iq"])
             other.bhw_fm_demod_iq.argtypes = sig[:5] + sig[6:]
-        drop, shift = dmk.conj_shifts(dmk.IQ_WIDTH, aw)
-        lut = dmk.atan2_lut(aw, 1)
         out, aout = torch.empty_like(want), torch.empty_like(ang)
-        nf = y.shape[0]
 
         def theirs():
             bins = (c,) if with_bins else ()
@@ -636,9 +666,11 @@ def _probe_demod(args, dev, label, stream, result) -> None:
     result["fm_demod"], result["cordic_atan2"] = {}, {}
     for name, group in (("fm_demod", fns), ("cordic_atan2", afns)):
         tt = _in_turns(group, args.rounds, lambda f: _event_ms(f, 1))
+        tq = _in_turns(group, args.rounds, lambda f: _event_ms(f, 10))
         print(f"time {label} {name} config 5 {tuple(y.shape)} one call alone: " + ", ".join(
-            f"{k} {ms:.4f} ms" for k, ms in tt.items()))
-        result[name] = tt
+            f"{k} {ms:.4f} ms" for k, ms in tt.items()) + "; per call of 10 queued: " + ", ".join(
+            f"{k} {ms:.4f} ms" for k, ms in tq.items()))
+        result[name] = {"alone": tt, "queued": tq}
     _probe_demod_int(args, dev, label, stream, result, i, q, aw, other)
 
 
@@ -685,6 +717,22 @@ def _probe_demod_int(args, dev, label, stream, result, i, q, aw, other) -> None:
             port_other()
             if not torch.equal(oout, want):
                 raise RuntimeError(f"fm_demod {mode} {layout}: the walk {other_walk} differs")
+            own_walk = "rows" if other_walk == "t" else "t"
+            pmem, pout = dmk.demod_output(want.shape, own_walk, dev)
+
+            def port_own(ii=ii, qq=qq, mode=mode, pmem=pmem, drop=drop, shift=shift,
+                         walk=own_walk):
+                rc = _build.lib().bhw_fm_demod(
+                    pmem.data_ptr(), ii.data_ptr(), qq.data_ptr(), rows, t, *ii.stride(),
+                    *qq.stride(), 4, dmk.MODES.index(mode), lut.ctypes.data, aw, 16, drop, shift,
+                    dmk.WALKS.index(walk), stream)
+                if rc:
+                    raise RuntimeError(f"fm_demod port, walk {walk}: CUDA error {rc}")
+
+            port_own()
+            if not torch.equal(pout, want):
+                raise RuntimeError(f"fm_demod {mode} {layout}: the port's C entry differs")
+            fns["port, C entry"] = port_own
             fns[f"port, C entry, walk {other_walk}"] = port_other
             if other is not None:
                 walk = dmk.walk_of(rows, ii.stride(), qq.stride()) if with_walk else "t"
@@ -703,13 +751,17 @@ def _probe_demod_int(args, dev, label, stream, result, i, q, aw, other) -> None:
                     raise RuntimeError(f"fm_demod {mode} {layout}: {args.against.name} differs")
                 fns[f"{args.against.name}, C entry"] = theirs
             tt = _in_turns(fns, args.rounds, lambda f: _event_ms(f, 1))
+            tq = _in_turns(fns, args.rounds, lambda f: _event_ms(f, 10))
             ratio = ""
-            if len(tt) == 3:
-                a, b = tt["port, wrapper"], list(tt.values())[2]
-                ratio = f"; {b / a:.3f}x"
+            if other is not None:  # DIR's C entry against the port's, in the same walk
+                k = f"{args.against.name}, C entry"
+                ratio = (f"; {k} / port, C entry: {tt[k] / tt['port, C entry']:.3f}x alone, "
+                         f"{tq[k] / tq['port, C entry']:.3f}x queued")
             print(f"time {label} fm_demod {mode} int32 {layout} {tuple(ii.shape)} one call "
-                  "alone: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in tt.items()) + ratio)
-            result["fm_demod int"][f"{mode} {layout}"] = tt
+                  "alone: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in tt.items())
+                  + "; per call of 10 queued: " + ", ".join(
+                      f"{k} {ms:.4f} ms" for k, ms in tq.items()) + ratio)
+            result["fm_demod int"][f"{mode} {layout}"] = {"alone": tt, "queued": tq}
 
 
 def _probe_taylor2(args, dev, label, stream, result) -> None:
@@ -821,6 +873,54 @@ def _probe_taylor_window(args, dev, label, stream, result) -> None:
                 print(f"time {label} taylor_window {what} 2^26, {k}: {alone[k]:.4f} ms one "
                       f"call alone, {queued[k]:.4f} ms per call of 16 queued")
             result["taylor_window"][what] = {"alone": alone, "queued": queued}
+    _probe_window_host(dev, label, stream, result)
+
+
+def _probe_window_host(dev, label, stream, result) -> None:
+    """Section 9, the host side of one RTL Blackman W=32 call: host time per
+    call of ``make_window``, of the wrapper and of its C entry, and of the
+    wrapper's steps alone (the coefficients' quantization and the launch
+    constants uncached, as a first call takes them), each call's device work
+    finished outside the clock."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.core.config import WindowSpec
+    from blackman_harris_win_tpu_torch.kernels import taylor_kernel as tk
+    from blackman_harris_win_tpu_torch.kernels.window import make_window
+    from blackman_harris_win_tpu_torch.windows import catalog
+
+    pw, w, ls, n = 26, 32, 12, 1 << 26
+    spec = WindowSpec(pw, w, sin_type="taylor", rounding="rtl", lut_size=ls, overflow="wrap")
+    q = catalog.get("blackman").quantized(w)
+    cbuf = np.asarray(q, np.int64)
+    rom, out, lib = tk._rom_on(ls, w, dev), torch.empty(n, dtype=torch.int32, device=dev), _build.lib()
+
+    def entry():
+        lib.bhw_taylor_window_rtl(out.data_ptr(), 0, n, rom.data_ptr(), pw, w, ls,
+                                  cbuf.ctypes.data, len(q), tk._ramb(pw, ls),
+                                  tk._ramb(pw - 1, ls), stream)
+
+    def device_and_stream():
+        with torch.cuda.device(dev):
+            _build.stream_of(dev)
+
+    pieces = {
+        "make_window": lambda: make_window("blackman", spec, device=dev),
+        "window_rtl_block (the wrapper)": lambda: tk.window_rtl_block(q, spec, 0, n, dev),
+        "the C entry through ctypes": entry,
+        "quantized coefficients, uncached": lambda: catalog.get("blackman").quantized(w),
+        "_window_consts, uncached (validation, int64 buffer, tay1 constants)":
+            lambda: tk._window_consts.__wrapped__(tuple(q), spec),
+        "torch.empty of the output": lambda: torch.empty(n, dtype=torch.int32, device=dev),
+        "torch.cuda.device and the stream": device_and_stream,
+        "resolve_device": lambda: _build.resolve_device(dev),
+    }
+    result["taylor_window_host_us"] = {}
+    for k, fn in pieces.items():
+        us = _host_us(fn)
+        result["taylor_window_host_us"][k] = us
+        print(f"host {label} taylor_window blackman W=32 LS=12 rtl, {k}: {us:.1f} us a call")
 
 
 SECTIONS = {"materialize": _probe_materialize, "window": _probe_window,

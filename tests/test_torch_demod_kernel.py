@@ -7,11 +7,14 @@ cordic_atan2`` / ``atan2_fixed``, ``pipeline/demod.py:fm_demod_conj`` /
 ``fm_demod_phase``, run on the CPU with x64) and the exact-int model
 ``model/golden.py:cordic_atan2``, on seeded numpy inputs:
 
-- the state at the top of a 32-bit word while AW+P <= 32, else of a 64-bit
-  one, so that every add wraps at AW+P bits by itself; in 32-bit words the
-  shifted operand is the shift pair (X >> (i + sh)) << sh with its left
-  shift folded into the steering product (d << sh = m * 2^(sh+1) + 2^sh,
-  m the sign mask of y) and z is zbase + sum m_i * (-2 lut[i]); in 64-bit
+- the state at the top of a 32-bit word while AW+P <= 32 and P >= 1, else
+  of a 64-bit one, so that every add wraps at AW+P bits by itself; in
+  32-bit words the shifted operand is the shift pair (X >> (i + sh)) << sh
+  with its left shift folded into the steering product (d << sh = m *
+  2^(sh+1) + 2^sh, m the sign mask of y), the iterations run as the
+  kernel's unrolled chain entered at position sh + 2 (iteration i at
+  position j = i + sh + 2 shifts by j - 2, the P - 1 positions past the
+  last take z steps of 0) and z is zbase + sum m_j * zpos[j]; in 64-bit
   words the shifted operand's fraction bits are cleared and the steering is
   a xor-and-subtract negation; z unwrapped (its bound asserted);
 - the conjugate products in wrapping uint32 arithmetic on the inputs
@@ -63,7 +66,7 @@ def _words(aw, p, top=True):
     word, where no AW+P bit wrap happens."""
     if not top:
         return 64, np.uint64, np.int64, 0
-    bits = 32 if aw + p <= 32 else 64
+    bits = 32 if aw + p <= 32 and p >= 1 else 64  # words32
     u, s = (np.uint32, np.int32) if bits == 32 else (np.uint64, np.int64)
     return bits, u, s, bits - (aw + p)
 
@@ -81,22 +84,29 @@ def _atan2_emulation(y, x, input_width, aw, p, convention, top=True, trace=None)
     xs = ((x ^ -sx) & mask_lo).astype(u) << u(sh)
     ys = ((y ^ -sy) & mask_lo).astype(u) << u(sh)
     lut = dk.atan2_lut(aw, p)
-    # 32-bit words: z starts at zbase = -sum lut[i] and takes m * (-2 lut[i])
+    # 32-bit words: z starts at zbase = -sum lut[i] and takes m * zpos[j] at
+    # chain position j (the jump into the unrolled chain: iteration i at
+    # position i + entry, its shift j - 2); 64-bit words: the iteration loop
     z = np.full(xs.shape, u((-int(lut.sum())) % (1 << bits)) if bits == 32 else u(0), u)
     p2 = u(1 << sh)
     zmax = 0
-    for i in range(aw - 1):
+    if bits == 32:
+        entry, zpos = _chain(aw, p)
+        steps = [(j - entry, j - 2, u(int(zpos[j]))) for j in range(entry, CHAIN)]
+    else:
+        steps = [(i, i, None) for i in range(aw - 1)]
+    for i, k, zstep in steps:
         m = (ys.view(s) >> s(bits - 1)).view(u)
-        lk = u(int(lut[i]) & ((1 << bits) - 1))
         if bits == 32:
             dsh = m * (p2 << u(1)) + p2  # d << sh
-            xa = (xs.view(s) >> s(i + sh)).view(u)
-            ya = (ys.view(s) >> s(i + sh)).view(u)
+            xa = (xs.view(s) >> s(k)).view(u)
+            ya = (ys.view(s) >> s(k)).view(u)
             xs, ys = xs + dsh * ya, ys - dsh * xa
-            z = z + m * u((-2 * int(lut[i])) % (1 << bits))
+            z = z + m * zstep
             zt = (z.view(s).astype(np.int64)
                   + sum(int(lut[j]) for j in range(i + 1, aw - 1)))  # z of the reference
         else:
+            lk = u(int(lut[i]) & ((1 << bits) - 1))
             xi = (xs.view(s) >> s(i)).view(u) & keep
             yi = (ys.view(s) >> s(i)).view(u) & keep
             xs, ys, z = xs + ((yi ^ m) - m), ys - ((xi ^ m) - m), z - ((lk ^ m) - m)
@@ -117,6 +127,22 @@ def _atan2_emulation(y, x, input_width, aw, p, convention, top=True, trace=None)
                                                      np.where(quadrant == 2, pi_u + phi,
                                                               -phi - pi_u)))
     return _wrap(out, aw)
+
+
+#: ``demod_kernel.cu:kChain``: the 32-bit chain's positions 2..31
+CHAIN = 32
+
+
+def _chain(aw, p):
+    """``fill``'s chain for 32-bit words (AW + P <= 32, P >= 1): the entry position
+    sh + 2 and the z step -2 lut[i] of each position j = i + entry (mod
+    2^32), 0 at positions of no iteration."""
+    lut = dk.atan2_lut(aw, p)
+    entry = 34 - aw - p
+    zpos = np.zeros(CHAIN, np.int64)
+    for i in range(aw - 1):
+        zpos[i + entry] = (-2 * int(lut[i])) % (1 << 32)
+    return entry, zpos
 
 
 def _wrap(v, bits):
@@ -633,6 +659,49 @@ class TestIterationIdentities:
         want = (-d * lut).sum(axis=1)
         got = (-int(lut.sum()) + (m * (-2 * lut)).sum(axis=1)) % (1 << 32)
         np.testing.assert_array_equal(np.where(got >= 1 << 31, got - (1 << 32), got), want)
+
+
+    def test_chain_positions_are_the_iterations(self):
+        # every AW + P <= 32, P >= 1: iterations 0..AW-2 at positions
+        # entry..32-P of the 2..31 chain, each shift j - 2 the reference's
+        # i + sh, a z step at each and 0 at the P - 1 positions past the last
+        for aw in range(2, 32):
+            for p in range(1, 33 - aw):
+                entry, zpos = _chain(aw, p)
+                sh = 32 - aw - p
+                assert 2 <= entry and entry + aw - 2 == 32 - p
+                for i in range(aw - 1):
+                    assert 0 <= (i + entry) - 2 == i + sh <= 30
+                run = range(entry, CHAIN)
+                assert len(run) == aw - 1 + p - 1
+                lut = dk.atan2_lut(aw, p)
+                want = [(-2 * int(lut[j - entry])) % (1 << 32) if j - entry < aw - 1 else 0
+                        for j in run]
+                np.testing.assert_array_equal(zpos[entry:], want)
+                assert not zpos[:entry].any()
+
+    @pytest.mark.parametrize("aw,p", [(20, 2), (24, 3), (16, 5), (12, 0), (28, 4), (31, 0)])
+    def test_positions_past_the_last_leave_the_angle(self, aw, p):
+        # P >= 2 runs P - 1 positions past the last iteration with a z step
+        # of 0: x and y move, nothing reads them, the angle is JAX's; P = 0
+        # takes the 64-bit word
+        y, x = _seam_inputs(aw, aw, 1500, seed=aw * 11 + p)
+        for conv in CONVENTIONS:
+            np.testing.assert_array_equal(_atan2_emulation(y, x, aw, aw, p, conv),
+                                          _jax_atan2(y, x, aw, aw, p, conv))
+
+    @pytest.mark.parametrize("n", [1, 255, 256, 257, 132 * 2048 - 1, 132 * 2048,
+                                   132 * 2048 + 1, 5 * 132 * 2048 + 17])
+    def test_grid_stride_takes_each_output_once(self, n):
+        # stride_blocks: at most one full load of the card (132 SMs x 2048
+        # threads), the grid-stride loop of atan2_kernel over it
+        threads = 256
+        want = -(-n // threads)
+        blocks = min(want, 132 * (2048 // threads))
+        seen = np.zeros(n, np.int64)
+        for e0 in range(blocks * threads):
+            seen[e0::blocks * threads] += 1
+        assert (seen == 1).all()
 
 
 class TestDispatch:

@@ -750,8 +750,8 @@ def test_taylor_torch_op_routes_launch_no_kernel(cuda):
 # --- the RTL Taylor window kernel (csrc/taylor_kernel.cu) ---
 
 #: (coefficients or name, pw, w, ls): 2 and 3 terms, every regime, the
-#: 32-bit tree and the 64-bit one (2-term W=32, 3-term W=31/32), pw 4..31,
-#: random |a_k| < 2^31 sets whose slices and trees wrap
+#: trees up to 32 bits wide and past them (2-term W=32, 3-term W=31/32: the
+#: carry word), pw 4..31, random |a_k| < 2^31 sets whose slices and trees wrap
 TAYLOR_RTL_CASES = [
     ("hamming", 26, 16, 10),  # the main path's window
     ("blackman", 26, 32, 12),  # the main path's 3-term window: a 34-bit tree
@@ -760,8 +760,8 @@ TAYLOR_RTL_CASES = [
     ("blackman", 13, 24, 10),  # k=1 tay1, k=2 exact
     ("hamming", 12, 32, 9),  # a 33-bit 2-term tree
     ("blackman", 14, 31, 9),  # a 33-bit 3-term tree
-    ("hamming", 14, 31, 9),  # W + 1 = 32: the 32-bit tree
-    ("blackman", 14, 30, 9),  # W + 2 = 32: the 32-bit tree
+    ("hamming", 14, 31, 9),  # W + 1 = 32
+    ("blackman", 14, 30, 9),  # W + 2 = 32
     ("blackman", 31, 32, 9),
     ("hamming", 4, 16, 1),
     ("blackman", 20, 24, 15),
@@ -1508,7 +1508,8 @@ def test_sharded_steps_across_processes_on_cards(cuda, tmp_path, backend):
 
 # --- the atan2 / FM discriminator kernel (csrc/demod_kernel.cu) ---
 
-#: (AW, P): 32-bit words (AW + P <= 32), then 64-bit words
+#: (AW, P): 32-bit words (AW + P <= 32, P >= 1; (32, 0) takes the 64-bit word),
+#: then 64-bit words
 ATAN2_WIDTHS = [(16, 1), (20, 1), (24, 1), (31, 1), (30, 2), (32, 0), (2, 1), (31, 2), (40, 1),
                 (49, 0)]
 

@@ -560,46 +560,66 @@ def _wrap(v, bits):
     return ((v + (1 << (bits - 1))) % (1 << bits)) - (1 << (bits - 1))
 
 
+def rtl_tree(a0, words, w):
+    """``taylor_window_rtl_kernel``'s tree on uint64 arrays of the terms'
+    funnel words g_k (bits [W-1, W+30] of a_k * cos_k + 2^(W-2)): the
+    output's bits [s, s+W-1] of a0 + 2^(s-1) - b1 (+ b2), sign-extended, in
+    32-bit words at the fields' scale 2^(32-W).  Each term enters as an
+    unsigned word, its scale IMAD g_k * (+-2^(32-W)) + bias: n1 = beta - f1,
+    u2 = f2 + 2^31 (f_k = b_k * 2^(32-W) as an int32).  3 terms: the low
+    word (C_lo + n1 + u2) mod 2^32 and the high word C_hi plus the two
+    carries out of it (the carry chain), C = A + 1 - 2^32, funnel-shifted by
+    2; 2 terms: (C - 1) / 2 + n1 - (n1 >> 1), C = A - beta odd.  Returns
+    (output, n1's value beta - f1 as an exact integer)."""
+    s, ws = len(words), 32 - w
+    pw2 = 1 << ws
+    a = (a0 + (1 << (s - 1))) * pw2
+    beta = 0x7FFFFFFF + (a & 1) if s == 1 else 0x7FFFFFFF
+    n1 = (words[0] * np.uint64((1 << 32) - pw2) + np.uint64(beta)) & M32
+    f1 = ((words[0] << np.uint64(ws)) & M32).astype(np.uint32).view(np.int32).astype(np.int64)
+    if s == 1:
+        t = (np.uint64(((a - beta - 1) >> 1) & 0xFFFFFFFF) + n1 - (n1 >> np.uint64(1))) & M32
+    else:
+        u2 = (words[1] * np.uint64(pw2) + np.uint64(1 << 31)) & M32
+        c = (a + 1 - (1 << 32)) % (1 << 64)
+        s1 = n1 + u2  # < 2^33: no uint64 wrap
+        s2 = (s1 & M32) + np.uint64(c & 0xFFFFFFFF)
+        hi = (np.uint64(c >> 32) + (s1 >> np.uint64(32)) + (s2 >> np.uint64(32))) & M32
+        t = ((s2 & M32) >> np.uint64(2)) | ((hi << np.uint64(30)) & M32)
+    v = (t.astype(np.uint32).view(np.int32) >> np.int32(ws)).astype(np.int64)
+    return v, beta - f1
+
+
 def emulate_window_rtl(n0, count, coeffs, pw, w, ls, stats):
     """The RTL Taylor window as ``taylor_window_rtl_kernel`` computes it:
-    each term's field f_k = b_k * 2^(32-W), the funnel shift of the int64
-    multiply-add a_k * cos_k + 2^(W-2) by W-1 times 2^(32-W) in a uint32
-    word; the tree a0 + 2^(s-1) - b1 (+ b2), s = 1 (2 terms) or 2 (3
-    terms), in one uint32 word scaled by 2^(32-W-s) where W + s <= 32 (the
-    terms f_k >> s, the sum shifted right by 32-W) and exact in int64
-    otherwise (its funnel shift by s, wrapped to W).  ``stats`` counts the
-    lanes and trees each way and the reference's wraps that fire: the
-    W+1-bit slice of a product, the W-bit round of a term and the W+s-bit
-    tree."""
+    each term's funnel word, the funnel shift of the int64 multiply-add
+    a_k * cos_k + 2^(W-2) by W-1, then ``rtl_tree``.  ``stats`` counts the
+    lanes, the trees past 32 bits (W + s > 32), the samples whose n1 bias
+    is 2^31 (2 terms, W = 32, A odd) and the reference's wraps that fire:
+    the W+1-bit slice of a product, the W-bit round of a term and the
+    W+s-bit tree.  Asserts that n1 lies in [0, 2^32) as an exact integer."""
     i0, n_a, left, steps, valid = _lanes(n0, count, True)
     cs = [_gen_values(_gen_consts(pw, w, ls), n_a, left, steps, stats)[0]]
     if len(coeffs) == 3:  # harmonic 2: the generator one phase bit narrower
         cs.append(_gen_values(_gen_consts(pw - 1, w, ls), n_a, left, steps, stats)[0])
     s, ws = len(coeffs) - 1, 32 - w
-    fs = []
+    words, bs = [], []
     for a, c in zip(coeffs[1:], cs):
         p = a * c + (1 << (w - 2))  # |a * c| < 2^62: exact in int64
-        word = (_u64(p) >> np.uint64(w - 1)) & M32
-        fs.append(((word << np.uint64(ws)) & M32).astype(np.uint32).view(np.int32)
-                  .astype(np.int64))
+        words.append((_u64(p) >> np.uint64(w - 1)) & M32)
+        bs.append(((words[-1] << np.uint64(ws)) & M32).astype(np.uint32).view(np.int32)
+                  .astype(np.int64) >> ws)
         # the reference's two wraps of the term, on the same samples
         t = (a * c) >> (w - 2)
         r = _wrap(t, w + 1)
         stats["slice_wraps"] += int((r != t)[valid].sum())
         rhu = (r >> 1) + (r & 1)
         stats["round_wraps"] += int((rhu != _wrap(rhu, w))[valid].sum())
-    f2 = fs[1] if s == 2 else 0
-    a0h = coeffs[0] + (1 << (s - 1))
-    if w + s <= 32:
-        stats["tree32"] += 1
-        a0s = np.uint64((a0h << (ws - s)) & 0xFFFFFFFF)
-        acc = (a0s - _u64(fs[0] >> s) + _u64(f2 >> s)) & M32
-        v = (acc.astype(np.uint32).view(np.int32) >> ws).astype(np.int64)
-    else:
-        stats["tree64"] += 1
-        acc = a0h - (fs[0] >> ws) + (f2 >> ws)  # |acc| < 2^33: exact in int64
-        v = _wrapw((_u64(acc) >> np.uint64(s)) & M32, ws)
-    tree = coeffs[0] - (fs[0] >> ws) + (f2 >> ws)
+    v, n1 = rtl_tree(coeffs[0], words, w)
+    assert ((n1 >= 0) & (n1 < 1 << 32))[valid].all()
+    stats["past32"] += int(w + s > 32)
+    stats["beta_odd"] += int(s == 1 and (coeffs[0] + 1) * (1 << ws) % 2 == 1)
+    tree = coeffs[0] - bs[0] + (bs[1] if s == 2 else 0)
     stats["tree_wraps"] += int((tree != _wrap(tree, w + s))[valid].sum())
     out = np.zeros(count, np.int64)
     out[(i0[:, None] + steps[None, :])[valid]] = v[valid]
@@ -676,7 +696,7 @@ class TestRunWalkEmulation:
         # sets and random |a_k| < 2^31 ones (where the reference's wraps
         # fire), every regime (LS 1..14, PW-LS 1..24, pw 4..31), unaligned
         # and ragged ranges across the seams and the period end, n0 past 2^32
-        stats = dict.fromkeys(("fast", "lanes", "tree32", "tree64", "slice_wraps",
+        stats = dict.fromkeys(("fast", "lanes", "past32", "beta_odd", "slice_wraps",
                                "round_wraps", "tree_wraps"), 0)
         rng = np.random.default_rng(1000 + w)
 
@@ -701,10 +721,47 @@ class TestRunWalkEmulation:
                 np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{name} {pw} {n0}")
                 np.testing.assert_array_equal(got, _np(jkw.window_samples(idx, q, _jspec(spec))))
         assert 0 < stats["fast"] < stats["lanes"]  # the run walk and sample by sample
-        # the 32-bit tree up to W + s = 32, the 64-bit one past it: both at W = 31
-        assert (stats["tree32"] > 0) == (w <= 31) and (stats["tree64"] > 0) == (w >= 31)
+        # trees past 32 bits (3 terms at W = 31, 2 and 3 at W = 32) on the same
+        # code; at W = 32 a 2-term set with a0 even biases n1 by 2^31
+        assert (stats["past32"] > 0) == (w >= 31)
+        assert (stats["beta_odd"] > 0) == (w == 32)
         if w <= 31:  # the random sets make the slice's and the tree's wraps fire
             assert stats["slice_wraps"] > 0 and stats["tree_wraps"] > 0, stats
         else:  # |a_k|, |cos_k| < 2^31 keep a W=32 slice in 33 bits and the tree
-            # in 33-34: the 64-bit tree is needed for the width, not a wrap
+            # in 33-34: the tree's words are needed for the width, not a wrap
             assert stats["slice_wraps"] == stats["tree_wraps"] == 0, stats
+
+
+class TestRtlTree:
+    """``rtl_tree``, the RTL kernel's tree in 32-bit words, against the
+    int64 tree it replaces: bits [s, s+W-1] of a0 + 2^(s-1) - b1 (+ b2),
+    b_k = wrap(floor((a_k * cos_k + 2^(W-2)) / 2^(W-1)), W), over random
+    and extreme terms (|a_k| up to 2^31 - 1, cos_k over the whole W-bit
+    range), a0 of both parities."""
+
+    @pytest.mark.parametrize("terms", [2, 3])
+    @pytest.mark.parametrize("w", [2, 8, 16, 24, 29, 30, 31, 32])
+    def test_words_equal_the_int64_tree(self, w, terms):
+        rng = np.random.default_rng(100 * w + terms)
+        amax, cmax, n = (1 << 31) - 1, 1 << (w - 1), 4096
+        a = rng.integers(-amax, amax + 1, (terms - 1, n))
+        c = rng.integers(-cmax, cmax, (terms - 1, n))
+        ext_a = np.array([amax, -amax, amax - 1, 1 - amax, 0, 1, -1, 1 << 30])
+        ext_c = np.array([-cmax, cmax - 1, 1 - cmax, 0, 1, -1])
+        pick = rng.random(a.shape) < 0.25
+        a[pick] = rng.choice(ext_a, int(pick.sum()))
+        pick = rng.random(c.shape) < 0.25
+        c[pick] = rng.choice(ext_c, int(pick.sum()))
+        s = terms - 1
+        words, b = [], []
+        for k in range(s):
+            p = a[k] * c[k] + (1 << (w - 2))  # |a * c| < 2^62: exact in int64
+            words.append((_u64(p) >> np.uint64(w - 1)) & M32)
+            b.append(_wrap(p >> (w - 1), w))
+        a0s = [amax, -amax, amax - 1, 1 - amax, 0, -1, 1, 2, -2]
+        a0s += [int(v) for v in rng.integers(-amax, amax + 1, 23)]
+        for a0 in a0s:
+            got, n1 = rtl_tree(a0, words, w)
+            assert ((n1 >= 0) & (n1 < 1 << 32)).all(), a0  # n1 fits its word
+            tree = a0 + (1 << (s - 1)) - b[0] + (b[1] if s == 2 else 0)  # < 2^34: exact
+            np.testing.assert_array_equal(got, _wrap(tree >> s, w), err_msg=f"a0={a0}")
