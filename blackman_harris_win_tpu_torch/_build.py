@@ -8,9 +8,9 @@ hash of the sources and flags, so an edited source rebuilds.  Nothing here
 runs at import time.
 
 Each C entry point launches on the stream it is given, allocates nothing
-and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
-``launches`` counts, per kernel, the launches its wrapper made in this
-process.
+and returns ``cudaGetLastError()``.  Every wrapper calls one through
+:func:`launch`, which raises on a non-zero code and counts, in
+``launches``, the launches of each kernel in this process.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from . import _trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
@@ -180,12 +182,18 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(name: str, rc: int) -> None:
-    """Raise if a C entry point reported a CUDA error; count the launch."""
-    if rc:
-        msg = lib().bhw_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
-    launches[name] += 1
+def launch(counter: str, device: torch.device, *args, entry: str | None = None) -> None:
+    """Call the C entry point ``bhw_<entry>`` (``entry`` defaults to
+    ``counter``) with ``args`` and the device's current stream, inside the
+    device's context, under the span ``bhw.launch.<counter>``; raise if it
+    reports a CUDA error, else count the launch under ``counter``."""
+    with _trace.span("bhw.launch." + counter):
+        with torch.cuda.device(device):
+            rc = getattr(lib(), "bhw_" + (entry or counter))(*args, stream_of(device))
+        if rc:
+            msg = lib().bhw_error_string(rc).decode()
+            raise RuntimeError(f"{counter} kernel launch failed: CUDA error {rc} ({msg})")
+        launches[counter] += 1
 
 
 def resolve_device(device=None) -> torch.device:

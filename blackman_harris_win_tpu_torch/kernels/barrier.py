@@ -34,8 +34,5 @@ def materialize(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(src)
     nbytes = src.numel() * src.element_size()
     if nbytes:
-        with torch.cuda.device(device):
-            rc = _build.lib().bhw_materialize(out.data_ptr(), src.data_ptr(), nbytes,
-                                              _build.stream_of(device))
-        _build.check("materialize", rc)
+        _build.launch("materialize", device, out.data_ptr(), src.data_ptr(), nbytes)
     return out

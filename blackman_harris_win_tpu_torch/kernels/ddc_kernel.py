@@ -108,13 +108,6 @@ def _check_widths(fw: int, phase_width: int, data_width: int, flavor: str) -> tu
             lut.ctypes.data, len(lut), gain, zshift, oshift), lut
 
 
-def _launch_table(table: torch.Tensor, nco: tuple) -> None:
-    with torch.cuda.device(table.device):
-        rc = _build.lib().bhw_ddc_nco_table(table.data_ptr(), table.shape[0], *nco,
-                                            _build.stream_of(table.device))
-    _build.check("ddc_nco_table", rc)
-
-
 def nco_table(fw: int, phase_width: int, data_width: int, flavor: str = "dds48",
               device=None) -> torch.Tensor:
     """Launch the table kernel alone: the (P, 2) int32 (cos, -sin) pairs at
@@ -129,7 +122,7 @@ def nco_table(fw: int, phase_width: int, data_width: int, flavor: str = "dds48",
     if p > MAX_TABLE:
         raise ValueError(f"the NCO period {p} exceeds the table's {MAX_TABLE}")
     table = torch.empty((p, 2), dtype=torch.int32, device=dev)
-    _launch_table(table, nco)
+    _build.launch("ddc_nco_table", dev, table.data_ptr(), p, *nco)
     return table
 
 
@@ -164,11 +157,8 @@ def mixer(x: torch.Tensor, fw: int, phase_width: int, data_width: int, flavor: s
     table = None
     if p:  # made for this call: nothing is cached across calls
         table = torch.empty((p, 2), dtype=torch.int32, device=x.device)
-        _launch_table(table, nco)
-    with torch.cuda.device(x.device):
-        rc = _build.lib().bhw_ddc_mixer(
-            out.data_ptr(), src.data_ptr(), src.numel() // t, t, n0, int(period), *nco,
-            mixer_scale(data_width), int(raw), table.data_ptr() if p else None, p,
-            _build.stream_of(x.device))
-    _build.check("ddc_mixer", rc)
+        _build.launch("ddc_nco_table", x.device, table.data_ptr(), p, *nco)
+    _build.launch("ddc_mixer", x.device, out.data_ptr(), src.data_ptr(), src.numel() // t, t,
+                  n0, int(period), *nco, mixer_scale(data_width), int(raw),
+                  table.data_ptr() if p else None, p)
     return out

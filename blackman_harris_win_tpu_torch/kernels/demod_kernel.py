@@ -104,12 +104,6 @@ def _int_pair(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     return a.to(torch.int64), b.to(torch.int64)
 
 
-def _launch(name: str, fn: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        rc = getattr(_build.lib(), fn)(*args, _build.stream_of(device))
-    _build.check(name, rc)
-
-
 def atan2(y: torch.Tensor, x: torch.Tensor, input_width: int, angle_width: int,
           precision: int = 1, convention: str = "cordic") -> torch.Tensor:
     """``cordic_atan2`` (convention "cordic") or ``atan2_fixed`` ("fixed")
@@ -123,9 +117,9 @@ def atan2(y: torch.Tensor, x: torch.Tensor, input_width: int, angle_width: int,
     out = torch.empty(y.shape, dtype=torch.int64, device=dev)
     if out.numel():
         lut = atan2_lut(angle_width, precision)
-        _launch("cordic_atan2", "bhw_cordic_atan2", dev, out.data_ptr(), y.data_ptr(),
-                x.data_ptr(), out.numel(), y.element_size(), lut.ctypes.data, angle_width,
-                precision, input_width, CONVENTIONS.index(convention))
+        _build.launch("cordic_atan2", dev, out.data_ptr(), y.data_ptr(), x.data_ptr(),
+                      out.numel(), y.element_size(), lut.ctypes.data, angle_width, precision,
+                      input_width, CONVENTIONS.index(convention))
     return out
 
 
@@ -180,9 +174,9 @@ def fm_demod(i: torch.Tensor, q: torch.Tensor, input_width: int, angle_width: in
     mem, out = demod_output(shape, walk, dev)
     drop, shift = conj_shifts(input_width, angle_width) if mode == "conj" else (0, 0)
     lut = atan2_lut(angle_width, 1)
-    _launch("fm_demod", "bhw_fm_demod", dev, mem.data_ptr(), i2.data_ptr(), q2.data_ptr(),
-            rows, t, *i2.stride(), *q2.stride(), i2.element_size(), MODES.index(mode),
-            lut.ctypes.data, angle_width, input_width, drop, shift, WALKS.index(walk))
+    _build.launch("fm_demod", dev, mem.data_ptr(), i2.data_ptr(), q2.data_ptr(), rows, t,
+                  *i2.stride(), *q2.stride(), i2.element_size(), MODES.index(mode),
+                  lut.ctypes.data, angle_width, input_width, drop, shift, WALKS.index(walk))
     return out
 
 
@@ -214,7 +208,7 @@ def iq_demod(y: torch.Tensor, angle_width: int = 20, iq_scale: float = 2.0**14,
     src = y.resolve_conj().contiguous()
     drop, shift = conj_shifts(IQ_WIDTH, angle_width)
     lut = atan2_lut(angle_width, 1)
-    _launch("fm_demod", "bhw_fm_demod_iq", dev, out.data_ptr(), src.data_ptr(),
-            src.numel() // (nf * bins), nf, c, bins, src.element_size(), float(iq_scale),
-            lut.ctypes.data, angle_width, drop, shift)
+    _build.launch("fm_demod", dev, out.data_ptr(), src.data_ptr(), src.numel() // (nf * bins),
+                  nf, c, bins, src.element_size(), float(iq_scale), lut.ctypes.data,
+                  angle_width, drop, shift, entry="fm_demod_iq")
     return out

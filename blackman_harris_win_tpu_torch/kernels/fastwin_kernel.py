@@ -121,10 +121,8 @@ def window_block(coeffs_q, spec: WindowSpec, n0, count: int, device=None) -> tor
     if rb <= 0:
         p_hi = p_lo = 0  # the ROM-only regime takes no correction
     cbuf = np.asarray(coeffs, np.int32)
-    with torch.cuda.device(device):
-        rc = _build.lib().bhw_taylor2_window_block(
-            out.data_ptr(), n0 % (1 << 32), count, _rom_on(ls, w, device).data_ptr(), pw, w, ls,
-            cbuf.ctypes.data, len(coeffs), p_hi, p_lo, int(spec.overflow == "saturate"),
-            REGIMES.index(walk_regime(pw, ls, len(coeffs))), _build.stream_of(device))
-    _build.check("taylor2_window_block", rc)
+    _build.launch("taylor2_window_block", device, out.data_ptr(), n0 % (1 << 32), count,
+                  _rom_on(ls, w, device).data_ptr(), pw, w, ls, cbuf.ctypes.data, len(coeffs),
+                  p_hi, p_lo, int(spec.overflow == "saturate"),
+                  REGIMES.index(walk_regime(pw, ls, len(coeffs))))
     return out

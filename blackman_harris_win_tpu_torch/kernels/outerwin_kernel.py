@@ -273,11 +273,9 @@ def _block(name: str, t: _Tiles, h0: int, rows: int, device: torch.device):
     dt = torch.int32 if t.mode == _INT else torch.float32
     out0 = torch.empty(n, dtype=dt, device=device)
     out1 = torch.empty(n, dtype=torch.float32, device=device) if t.mode == _COMP else None
-    with torch.cuda.device(device):
-        rc = _build.lib().bhw_outer_block(
-            t.mode, out0.data_ptr(), None if out1 is None else out1.data_ptr(),
-            *_c_args(t, h0, rows), _build.stream_of(device))
-    _build.check(name, rc)
+    _build.launch(name, device, t.mode, out0.data_ptr(),
+                  None if out1 is None else out1.data_ptr(), *_c_args(t, h0, rows),
+                  entry="outer_block")
     return out0 if out1 is None else (out0, out1)
 
 
@@ -326,11 +324,9 @@ def _checksum_fn(name: str, t: _Tiles, rows: int, device: torch.device):
         else:  # per call, on the stream it launches on
             out = torch.empty((), dtype=torch.float32, device=device)
             partials = torch.empty(npart, dtype=torch.float32, device=device)
-        with torch.cuda.device(device):
-            rc = _build.lib().bhw_outer_checksum(
-                t.mode, out.data_ptr(), None if partials is None else partials.data_ptr(),
-                npart, bias, *_c_args(t, 0, nh), _build.stream_of(device))
-        _build.check(name, rc)
+        _build.launch(name, device, t.mode, out.data_ptr(),
+                      None if partials is None else partials.data_ptr(), npart, bias,
+                      *_c_args(t, 0, nh), entry="outer_checksum")
         return out
 
     return checksum

@@ -131,12 +131,6 @@ def taylor_checksum_plain(pw: int, w: int, ls: int, n0: int = 0, bias: int = 0,
     return wrap(acc + int(bias), 32).to(torch.int32)
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        rc = getattr(_build.lib(), "bhw_" + name)(*args, _build.stream_of(device))
-    _build.check(name, rc)
-
-
 def sincos_block(n0, count: int, pw: int, w: int, ls: int, device=None):
     """(c, s) int32 (count,) over [n0, n0+count) on ``device`` (kernel
     ``taylor_sincos_block``)."""
@@ -148,8 +142,8 @@ def sincos_block(n0, count: int, pw: int, w: int, ls: int, device=None):
     c = torch.empty(count, dtype=torch.int32, device=device)
     s = torch.empty(count, dtype=torch.int32, device=device)
     if count:
-        _launch("taylor_sincos_block", device, c.data_ptr(), s.data_ptr(), n0, count,
-                _rom_on(ls, w, device).data_ptr(), pw, w, ls, _ramb(pw, ls))
+        _build.launch("taylor_sincos_block", device, c.data_ptr(), s.data_ptr(), n0, count,
+                      _rom_on(ls, w, device).data_ptr(), pw, w, ls, _ramb(pw, ls))
     return c, s
 
 
@@ -179,8 +173,9 @@ def _window_write(entry: str, plain, coeffs_q, spec: WindowSpec, n0, count: int,
         return plain(torch.arange(n0, n0 + count), coeffs, spec)
     out = torch.empty(count, dtype=torch.int32, device=device)
     if count:
-        _launch(entry, device, out.data_ptr(), n0, count, _rom_on(ls, w, device).data_ptr(),
-                pw, w, ls, cbuf.ctypes.data, len(coeffs), ramb1, ramb2, *extra)
+        _build.launch(entry, device, out.data_ptr(), n0, count,
+                      _rom_on(ls, w, device).data_ptr(), pw, w, ls, cbuf.ctypes.data,
+                      len(coeffs), ramb1, ramb2, *extra)
     return out
 
 
@@ -210,8 +205,8 @@ def checksum_range(n0, count: int, pw: int, w: int, ls: int, bias: int = 0, devi
         return taylor_checksum_plain(pw, w, ls, n0, bias, device, count=count)
     out = torch.full((), wrap(int(bias), 32), dtype=torch.int32, device=device)
     if count:
-        _launch("taylor_checksum", device, out.data_ptr(), n0, count,
-                _rom_on(ls, w, device).data_ptr(), pw, w, ls, _ramb(pw, ls))
+        _build.launch("taylor_checksum", device, out.data_ptr(), n0, count,
+                      _rom_on(ls, w, device).data_ptr(), pw, w, ls, _ramb(pw, ls))
     return out
 
 

@@ -126,11 +126,7 @@ def welch_stage1_fused(x, win, nfft: int, r0: int = 128):
     wr, wi, t1r, t1i = _kernel_tables_on(nfft, device)
     out_r = torch.empty((npair, r0, rest), dtype=torch.float32, device=device)
     out_i = torch.empty_like(out_r)
-    with torch.cuda.device(device):
-        rc = _build.lib().bhw_welch_stage1(
-            x.data_ptr(), t, win.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            t1r.data_ptr(), t1i.data_ptr(), out_r.data_ptr(), out_i.data_ptr(),
-            nfft, npair, nf % 2, _build.stream_of(device),
-        )
-    _build.check("welch_stage1", rc)
+    _build.launch("welch_stage1", device, x.data_ptr(), t, win.data_ptr(), wr.data_ptr(),
+                  wi.data_ptr(), t1r.data_ptr(), t1i.data_ptr(), out_r.data_ptr(),
+                  out_i.data_ptr(), nfft, npair, nf % 2)
     return out_r, out_i, nf

@@ -31,6 +31,7 @@ from functools import lru_cache
 
 import torch
 
+from .. import _trace
 from ..core.config import WindowSpec
 from ..core.fixedpoint import round_half_up_bit0, round_half_up_bit1, wrap
 from ..windows import catalog
@@ -182,13 +183,15 @@ def window_block(n0: int, block_len: int, coeffs_q, spec: WindowSpec,
                  device=None):
     """A contiguous block [n0, n0+block_len) of the window as int32 on
     ``device`` — the streaming building block (no host ever needs the full
-    window) — through the kernel wrapper of its source and contract."""
-    if spec.sin_type == "cordic":
-        from .window_kernel import window_block as _block
-    elif spec.sin_type == "taylor2":
-        from .fastwin_kernel import window_block as _block
-    elif spec.rounding == "hls":
-        from .taylor_kernel import window_block as _block
-    else:
-        from .taylor_kernel import window_rtl_block as _block
-    return _block(coeffs_q, spec, n0, block_len, device)
+    window) — through the kernel wrapper of its source and contract.  Under
+    a profiler session the call is the span ``bhw.window_block``."""
+    with _trace.span("bhw.window_block"):
+        if spec.sin_type == "cordic":
+            from .window_kernel import window_block as _block
+        elif spec.sin_type == "taylor2":
+            from .fastwin_kernel import window_block as _block
+        elif spec.rounding == "hls":
+            from .taylor_kernel import window_block as _block
+        else:
+            from .taylor_kernel import window_rtl_block as _block
+        return _block(coeffs_q, spec, n0, block_len, device)

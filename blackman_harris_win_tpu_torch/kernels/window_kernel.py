@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, _trace
 from ..core.config import WindowSpec
 from ..core.fixedpoint import wrap
 from .cordic import cordic_constants
@@ -99,31 +99,32 @@ def window_checksum_plain(coeffs_q, spec: WindowSpec, n_start: int, count: int,
     return wrap(acc + bias, 32).to(torch.int32)
 
 
-def _launch(name: str, out, start: int, count: int, coeffs_q, spec: WindowSpec,
-            device: torch.device):
-    coeffs, lut, gain = _kernel_params(coeffs_q, spec)
-    with torch.cuda.device(device):
-        rc = getattr(_build.lib(), "bhw_" + name)(
-            out.data_ptr(), start, count,
-            coeffs.ctypes.data, len(coeffs), lut.ctypes.data, len(lut), gain,
+def _c_args(params, spec: WindowSpec) -> tuple:
+    """The C entry points' arguments after (out, start, count), from
+    :func:`_kernel_params`; the caller holds ``params`` over the launch."""
+    coeffs, lut, gain = params
+    return (coeffs.ctypes.data, len(coeffs), lut.ctypes.data, len(lut), gain,
             spec.phase_width, spec.data_width, spec.precision,
             int(spec.rounding == "rtl"), int(spec.overflow == "saturate"),
-            _DATAPATHS.index(_datapath(spec)), _build.stream_of(device),
-        )
-    _build.check(name, rc)
+            _DATAPATHS.index(_datapath(spec)))
 
 
 def window_block(coeffs_q, spec: WindowSpec, n0: int, length: int, device=None):
     """Window samples [n0, n0+length) as int32 (length,) on ``device``
     (kernel 1a; replaces ``pallas_window_block``)."""
-    n0, length = int(n0), int(length)
-    _check_range(n0, length)
-    device = _build.resolve_device(device)
+    with _trace.span("bhw.params"):
+        n0, length = int(n0), int(length)
+        _check_range(n0, length)
+        device = _build.resolve_device(device)
+        if device.type != "cpu" and length:
+            params = _kernel_params(coeffs_q, spec)
     if device.type == "cpu":
         return window_values_plain(torch.arange(n0, n0 + length), coeffs_q, spec)
-    out = torch.empty(length, dtype=torch.int32, device=device)
+    with _trace.span("bhw.alloc"):
+        out = torch.empty(length, dtype=torch.int32, device=device)
     if length:
-        _launch("window_block", out, n0, length, coeffs_q, spec, device)
+        _build.launch("window_block", device, out.data_ptr(), n0, length,
+                      *_c_args(params, spec))
     return out
 
 
@@ -139,5 +140,7 @@ def window_checksum(coeffs_q, spec: WindowSpec, n_start: int, count: int,
         return window_checksum_plain(coeffs_q, spec, n_start, count, bias, device)
     out = torch.full((), wrap(int(bias), 32), dtype=torch.int32, device=device)
     if count:
-        _launch("window_checksum", out, n_start, count, coeffs_q, spec, device)
+        params = _kernel_params(coeffs_q, spec)
+        _build.launch("window_checksum", device, out.data_ptr(), n_start, count,
+                      *_c_args(params, spec))
     return out

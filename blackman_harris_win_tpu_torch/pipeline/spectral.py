@@ -31,7 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, _trace
 from ..core.config import WindowSpec
 from ..dist.collectives import pmean
 from ..dist.halo import right_halo
@@ -86,6 +86,11 @@ def _check_float_window_arg(name_or_coeffs):
     return coeffs
 
 
+def _nbytes(*ts) -> int:
+    """The bytes of tensors, from their sizes (a view counts its elements)."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def frames_view(x, nfft: int, hop: int):
     """Overlapped frames of the last axis: (..., T) -> (..., nF, nfft) with
     frame m = x[..., m*hop : m*hop+nfft]; requires T >= nfft and exact
@@ -111,7 +116,9 @@ def welch_power(x, win, nfft: int, hop: int, fft_mode: str = "rfft", device=None
             and x.shape[-1] % hop == 0 and x.shape[-1] >= nfft
             and _fused_ok(nfft) and x.is_cuda):
         return _mxu_fused_mean_power(x, win, nfft)
-    fr = frames_view(x, nfft, hop) * win
+    fr = frames_view(x, nfft, hop)
+    with _trace.span("bhw.welch.apply", x.device, 2 * _nbytes(fr) + _nbytes(win)):
+        fr = fr * win
     return frame_mean_power(fr, fft_mode)
 
 
@@ -128,32 +135,39 @@ def _mxu_fused_mean_power(x, win, nfft: int):
     """Welch mean power via the stage-1 kernel + tensordot tail."""
     radices = _mxu_radices(nfft)
     r0 = radices[0]
-    xr, xi, nf = welch_stage1_fused(x, win, nfft, r0=r0)
-    npair = xr.shape[0]
-    xr = xr.reshape((npair, r0) + radices[1:])
-    xi = xi.reshape((npair, r0) + radices[1:])
-    mats, tws = _dft_tables_on(nfft, x.device)
-    ns = len(radices)
-    for s in range(1, ns):
-        mr, mi = mats[s]
-        # contract the first remaining sample axis (always axis 2); the
-        # output digit k_s lands at the tail
-        yr = (torch.tensordot(xr, mr, dims=([2], [1]))
-              - torch.tensordot(xi, mi, dims=([2], [1])))
-        yi = (torch.tensordot(xr, mi, dims=([2], [1]))
-              + torch.tensordot(xi, mr, dims=([2], [1])))
-        xr, xi = yr, yi
-        if s < ns - 1:
-            # layout (pair, k_0, rest_dims..., k_1..k_{s-1}, k_s): k_0 sits
-            # ahead of the rest dims because the kernel did stage 0
-            shape = (1, 1) + tuple(radices[s + 1:]) + (1,) * (s - 1) + (radices[s],)
-            twr, twi = (v.T.reshape(shape) for v in tws[s])
-            xr, xi = (xr * twr - xi * twi, xr * twi + xi * twr)
-    p = torch.sum(xr * xr + xi * xi, dim=0)  # (k_0, .., k_{ns-1})
-    pk = p.permute(tuple(reversed(range(ns)))).reshape(nfft)
-    k = nfft // 2 + 1
-    pk_rev = torch.cat([pk[:1], torch.flip(pk[1:], dims=(0,))])
-    return 0.5 * (pk[:k] + pk_rev[:k]) / nf
+    # one of the (xr, xi) pair: a frame of each pair of frames
+    pair_bytes = ((x.shape[-1] - nfft) // (nfft // 2) + 2) // 2 * nfft * x.element_size()
+    with _trace.span("bhw.welch.fft", x.device, _nbytes(x, win) + 2 * pair_bytes):
+        xr, xi, nf = welch_stage1_fused(x, win, nfft, r0=r0)
+        npair = xr.shape[0]
+        xr = xr.reshape((npair, r0) + radices[1:])
+        xi = xi.reshape((npair, r0) + radices[1:])
+        mats, tws = _dft_tables_on(nfft, x.device)
+        ns = len(radices)
+        for s in range(1, ns):
+            mr, mi = mats[s]
+            # contract the first remaining sample axis (always axis 2); the
+            # output digit k_s lands at the tail
+            yr = (torch.tensordot(xr, mr, dims=([2], [1]))
+                  - torch.tensordot(xi, mi, dims=([2], [1])))
+            yi = (torch.tensordot(xr, mi, dims=([2], [1]))
+                  + torch.tensordot(xi, mr, dims=([2], [1])))
+            xr, xi = yr, yi
+            if s < ns - 1:
+                # layout (pair, k_0, rest_dims..., k_1..k_{s-1}, k_s): k_0
+                # sits ahead of the rest dims because the kernel did stage 0
+                shape = (1, 1) + tuple(radices[s + 1:]) + (1,) * (s - 1) + (radices[s],)
+                twr, twi = (v.T.reshape(shape) for v in tws[s])
+                xr, xi = (xr * twr - xi * twi, xr * twi + xi * twr)
+    with _trace.span("bhw.welch.power", x.device, 3 * pair_bytes):
+        power = xr * xr + xi * xi
+    with _trace.span("bhw.welch.mean", x.device,
+                     pair_bytes + (nfft // 2 + 1) * x.element_size()):
+        p = torch.sum(power, dim=0)  # (k_0, .., k_{ns-1})
+        pk = p.permute(tuple(reversed(range(ns)))).reshape(nfft)
+        k = nfft // 2 + 1
+        pk_rev = torch.cat([pk[:1], torch.flip(pk[1:], dims=(0,))])
+        return 0.5 * (pk[:k] + pk_rev[:k]) / nf
 
 
 @_full_fp32()
@@ -165,24 +179,36 @@ def frame_mean_power(fr, fft_mode: str = "rfft"):
     Cooley-Tukey stages whose small DFTs are fp32 matmuls (radices <= 128,
     f64-host-exact tables).  Requires power-of-two nfft >= 256.
     """
-    if fft_mode == "rfft":
-        spec = torch.fft.rfft(fr, dim=-1)
-        return torch.mean(spec.abs() ** 2, dim=-2)
     if fft_mode == "mxu":
         return _mxu_packed_mean_power(fr)
-    if fft_mode != "packed":
+    if fft_mode not in ("rfft", "packed"):
         raise ValueError("fft_mode must be 'rfft', 'packed' or 'mxu'")
-    nfft = fr.shape[-1]
-    nf = fr.shape[-2]
-    if nf % 2:  # pad one zero frame; it adds nothing to the power sum
-        fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
-    z = torch.complex(fr[..., 0::2, :], fr[..., 1::2, :])
-    p = torch.fft.fft(z, dim=-1).abs() ** 2  # (..., nF/2, nfft)
+    dev, es = fr.device, fr.element_size()
+    nfft, nf = fr.shape[-1], fr.shape[-2]
     k = nfft // 2 + 1
-    # |Z(-k)|^2 for k = 0..nfft/2 is p reversed with the k=0 bin fixed
-    p_rev = torch.cat([p[..., :1], torch.flip(p[..., 1:], dims=(-1,))], dim=-1)
-    ps = 0.5 * (p[..., :k] + p_rev[..., :k])
-    return torch.sum(ps, dim=-2) / nf
+    half = fr.numel() // nfft * k * es  # one float per bin of every frame
+    if fft_mode == "rfft":
+        with _trace.span("bhw.welch.fft", dev, _nbytes(fr) + 2 * half):
+            spec = torch.fft.rfft(fr, dim=-1)
+        with _trace.span("bhw.welch.power", dev, 3 * half):
+            mag = spec.abs()
+            power = mag ** 2
+        with _trace.span("bhw.welch.mean", dev, half + half // nf):
+            return torch.mean(power, dim=-2)
+    with _trace.span("bhw.welch.fft", dev, 2 * _nbytes(fr)):
+        if nf % 2:  # pad one zero frame; it adds nothing to the power sum
+            fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
+        z = torch.complex(fr[..., 0::2, :], fr[..., 1::2, :])
+        zf = torch.fft.fft(z, dim=-1)
+    with _trace.span("bhw.welch.power", dev, _nbytes(zf) + half // nf * ((nf + 1) // 2)):
+        p = zf.abs()
+        del zf  # freed where the one expression freed it
+        p = p ** 2  # (..., nF/2, nfft)
+        # |Z(-k)|^2 for k = 0..nfft/2 is p reversed with the k=0 bin fixed
+        p_rev = torch.cat([p[..., :1], torch.flip(p[..., 1:], dims=(-1,))], dim=-1)
+        ps = 0.5 * (p[..., :k] + p_rev[..., :k])
+    with _trace.span("bhw.welch.mean", dev, _nbytes(ps) + half // nf):
+        return torch.sum(ps, dim=-2) / nf
 
 
 def _mxu_radices(nfft: int) -> tuple[int, ...]:
@@ -278,24 +304,29 @@ def _mxu_packed_mean_power(fr):
     nfft = fr.shape[-1]
     nf = fr.shape[-2]
     radices = _mxu_radices(nfft)
-    if nf % 2:
-        fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
     lead = tuple(fr.shape[:-2])
-    npair = fr.shape[-2] // 2
-    xr = fr[..., 0::2, :].reshape(lead + (npair,) + radices)
-    xi = fr[..., 1::2, :].reshape(lead + (npair,) + radices)
+    npair = (nf + 1) // 2
     nlead = len(lead) + 1
-
-    xr, xi, radices = _mxu_stages(xr, xi, nfft, nlead)
+    # one of the (xr, xi) pair
+    dev, pair_bytes = fr.device, _nbytes(fr) // nf * npair
+    with _trace.span("bhw.welch.fft", dev, 4 * pair_bytes):
+        if nf % 2:
+            fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
+        xr = fr[..., 0::2, :].reshape(lead + (npair,) + radices)
+        xi = fr[..., 1::2, :].reshape(lead + (npair,) + radices)
+        xr, xi, radices = _mxu_stages(xr, xi, nfft, nlead)
     ns = len(radices)
-    p = torch.sum(xr * xr + xi * xi, dim=nlead - 1)  # sum over frame pairs
-    # natural bin order = transpose to reversed radix axes, flatten
-    nl = len(lead)
-    perm = tuple(range(nl)) + tuple(nl + i for i in reversed(range(ns)))
-    pk = p.permute(perm).reshape(lead + (nfft,))
+    with _trace.span("bhw.welch.power", dev, 3 * pair_bytes):
+        power = xr * xr + xi * xi
     k = nfft // 2 + 1
-    pk_rev = torch.cat([pk[..., :1], torch.flip(pk[..., 1:], dims=(-1,))], dim=-1)
-    return 0.5 * (pk[..., :k] + pk_rev[..., :k]) / nf
+    with _trace.span("bhw.welch.mean", dev, pair_bytes + _nbytes(power) // npair // nfft * k):
+        p = torch.sum(power, dim=nlead - 1)  # sum over frame pairs
+        # natural bin order = transpose to reversed radix axes, flatten
+        nl = len(lead)
+        perm = tuple(range(nl)) + tuple(nl + i for i in reversed(range(ns)))
+        pk = p.permute(perm).reshape(lead + (nfft,))
+        pk_rev = torch.cat([pk[..., :1], torch.flip(pk[..., 1:], dims=(-1,))], dim=-1)
+        return 0.5 * (pk[..., :k] + pk_rev[..., :k]) / nf
 
 
 @_full_fp32()
@@ -339,37 +370,46 @@ def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
     goes to ``device`` (default the card); a tensor runs where it lies.
 
     ``win_mode="quantized"`` reproduces the reference's integer window
-    datapath (``kernels.window.window_block``: the CORDIC or TAYLOR/HLS
-    window kernel, TAYLOR RTL and taylor2 in torch ops), then scales to
-    float for the FFT.  ``win_mode="float"``
-    generates the window natively in float32 (``kernels/floatwin.py``) and
-    runs the same Welch path, so 1-D CUDA input at ``fft_mode="mxu"`` reaches
-    the fused stage-1 kernel.  ``win_mode="comp"`` generates the raw
-    compensated (s, e) pair (``kernels/compwin.py``) and applies it as two
-    products per sample, ``frame*s + frame*e``.
+    datapath (``kernels.window.window_block``: the kernel of the window's
+    source and contract), then scales to float for the FFT.
+    ``win_mode="float"`` generates the window natively in float32
+    (``kernels/floatwin.py``) and runs the same Welch path, so 1-D CUDA
+    input at ``fft_mode="mxu"`` reaches the fused stage-1 kernel.
+    ``win_mode="comp"`` generates the raw compensated (s, e) pair
+    (``kernels/compwin.py``) and applies it as two products per sample,
+    ``frame*s + frame*e``.
+
+    Under a profiler session the call is the span ``bhw.welch`` and its
+    stages ``bhw.welch.window``, ``.apply``, ``.fft``, ``.power`` and
+    ``.mean`` (``_trace``).
     """
-    x = _build.as_tensor(x, device=device)
-    nfft = spec.n
-    hop = hop or nfft // 2
-    if win_mode == "float":
-        win = float_window(_check_float_window_arg(name_or_coeffs), spec.phase_width,
-                           device=x.device)
+    with _trace.span("bhw.welch"):
+        x = _build.as_tensor(x, device=device)
+        nfft = spec.n
+        hop = hop or nfft // 2
+        if win_mode == "comp":
+            with _trace.span("bhw.welch.window", x.device, 8 * nfft):
+                whi, wlo = comp_window_pair(_check_float_window_arg(name_or_coeffs),
+                                            spec.phase_width, device=x.device)
+            fr = frames_view(x, nfft, hop)
+            with _trace.span("bhw.welch.apply", x.device, 2 * _nbytes(fr) + 8 * nfft):
+                fr = fr * whi + fr * wlo
+            return frame_mean_power(fr, fft_mode)
+        if win_mode not in ("quantized", "float"):
+            raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
+        with _trace.span("bhw.welch.window", x.device, 4 * nfft):
+            if win_mode == "float":
+                win = float_window(_check_float_window_arg(name_or_coeffs), spec.phase_width,
+                                   device=x.device)
+            else:
+                if isinstance(name_or_coeffs, str):
+                    d = catalog.get(name_or_coeffs)
+                    coeffs_q, shift = d.quantized(spec.data_width), d.shift
+                else:
+                    coeffs_q, shift = tuple(name_or_coeffs), 1
+                wq = _window.window_block(0, nfft, coeffs_q, spec, x.device)
+                win = wq.to(torch.float32) * window_scale(spec, shift)
         return welch_power(x, win, nfft, hop, fft_mode)
-    if win_mode == "comp":
-        whi, wlo = comp_window_pair(_check_float_window_arg(name_or_coeffs),
-                                    spec.phase_width, device=x.device)
-        fr = frames_view(x, nfft, hop)
-        return frame_mean_power(fr * whi + fr * wlo, fft_mode)
-    if win_mode != "quantized":
-        raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
-    if isinstance(name_or_coeffs, str):
-        d = catalog.get(name_or_coeffs)
-        coeffs_q, shift = d.quantized(spec.data_width), d.shift
-    else:
-        coeffs_q, shift = tuple(name_or_coeffs), 1
-    wq = _window.window_block(0, nfft, coeffs_q, spec, x.device)
-    win = wq.to(torch.float32) * window_scale(spec, shift)
-    return welch_power(x, win, nfft, hop, fft_mode)
 
 
 def _quantized_window_fn(spec: WindowSpec, coeffs_q, shift: int, nfft: int):

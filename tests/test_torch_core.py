@@ -21,6 +21,7 @@ from blackman_harris_win_tpu_torch.windows import catalog
 PORT_MODULES = [
     "blackman_harris_win_tpu_torch",
     "blackman_harris_win_tpu_torch._build",
+    "blackman_harris_win_tpu_torch._trace",
     "blackman_harris_win_tpu_torch.interop",
     "blackman_harris_win_tpu_torch.core.config",
     "blackman_harris_win_tpu_torch.core.fixedpoint",

@@ -1,9 +1,7 @@
-"""PyTorch port, ``utils/profiling.py``: the twin of
-``tests/test_utils.py::TestRooflineAccounting`` against the H100 peaks
-(shares at most 1, zero operations giving zero fields), the bounds
-``chip_smoke.py`` prints at the main path's shapes equal to the ones
-``PERF.md`` lists, the H100 operation models beside the JAX package's TPU
-models, ``KernelReport`` and the ``torch.profiler`` trace."""
+"""PyTorch port, ``utils/profiling.py``: the bounds ``chip_smoke.py``
+prints at the main path's shapes equal to the ones ``PERF.md`` lists, the
+H100 operation models beside the JAX package's TPU models, and the
+``torch.profiler`` trace (its span table: ``tests/test_torch_trace.py``)."""
 
 import json
 
@@ -35,37 +33,6 @@ DDC_PERIOD = 8
 def _main_path_bounds():
     return prof.kernel_bounds(N, 7, 128 << 20, 1 << 20, 1 << 19, 2 * N * 4, SDR_SHAPE,
                               DDC_PERIOD)
-
-
-class TestRooflineAccounting:
-    def test_ops_frac_is_fma_credited(self):
-        peak = prof.INT32_OPS
-        f = prof.roofline_fields(1.0, int_ops=int(1.4 * peak))
-        assert f["ops_frac"] == round(1.4 / prof.FMA_OPS_PER_INSTR, 3) <= 1.0
-        assert f["opmodel_nofma_x"] == 1.4
-        # even a kernel at the all-FMA ceiling reads at most 1
-        f2 = prof.roofline_fields(1.0, int_ops=int(prof.FMA_OPS_PER_INSTR * peak))
-        assert f2["ops_frac"] <= 1.0
-
-    def test_zero_ops_fields(self):
-        f = prof.roofline_fields(1.0, bytes_moved=3_350_000_000)
-        assert f["ops_frac"] == 0.0 and f["opmodel_nofma_x"] == 0.0
-        assert 0.0009 < f["hbm_frac"] < 0.0011
-        assert prof.roofline_fields(1.0) == {"ops_frac": 0.0, "opmodel_nofma_x": 0.0,
-                                             "hbm_frac": 0.0}
-
-    def test_kernel_report(self):
-        r = prof.KernelReport("window_block", N, 8.889e-3, bytes_moved=4 * N,
-                              int_ops=prof.cordic_window_int_ops(N, 7, 32))
-        assert r.msamples_per_s == pytest.approx(N / 8.889e-3 / 1e6)
-        assert 0 < r.hbm_fraction < 1 and 0 < r.ops_fraction <= 1
-        line = json.loads(r.json_line())
-        assert line["kernel"] == "window_block"
-        assert line["ops_frac"] == round(r.ops_fraction, 3)
-        # the share of the bound: the operations bound over the time
-        b_ms, by = prof.bound(4 * N, r.int_ops)
-        assert by == "operations"
-        assert r.ops_fraction * prof.FMA_OPS_PER_INSTR == pytest.approx(b_ms / 8.889)
 
 
 class TestBounds:
