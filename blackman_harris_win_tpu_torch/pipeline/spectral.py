@@ -36,6 +36,7 @@ from ..core.config import WindowSpec
 from ..dist.collectives import pmean
 from ..dist.halo import right_halo
 from ..dist.mesh import Mesh, from_rows, local_map, shard
+from ..kernels import welchpower_kernel as _welchpower
 from ..kernels import window as _window
 from ..kernels.compwin import comp_window_pair
 from ..kernels.floatwin import float_window
@@ -190,11 +191,9 @@ def frame_mean_power(fr, fft_mode: str = "rfft"):
     if fft_mode == "rfft":
         with _trace.span("bhw.welch.fft", dev, _nbytes(fr) + 2 * half):
             spec = torch.fft.rfft(fr, dim=-1)
-        with _trace.span("bhw.welch.power", dev, 3 * half):
-            mag = spec.abs()
-            power = mag ** 2
-        with _trace.span("bhw.welch.mean", dev, half + half // nf):
-            return torch.mean(power, dim=-2)
+        # the kernel on the card (span bhw.welch.power), the plain version's
+        # bhw.welch.power and bhw.welch.mean on the CPU
+        return _welchpower.frame_power_mean(spec)
     with _trace.span("bhw.welch.fft", dev, 2 * _nbytes(fr)):
         if nf % 2:  # pad one zero frame; it adds nothing to the power sum
             fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))

@@ -206,7 +206,9 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     ``taylor2_window_block`` writes the n-sample int32 window at n_terms
     terms, at LS = 12 (its correction takes the P_lo term), a period of PW
     = log2(n).  ``taylor_window_block`` and ``taylor_window_rtl`` write the
-    n-sample 3-term (Blackman) TAYLOR window, HLS and RTL."""
+    n-sample 3-term (Blackman) TAYLOR window, HLS and RTL.
+    ``welch_power_mean`` reads the analyzer's half spectrum once and writes
+    its mean over frames."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
@@ -254,6 +256,9 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         "fm_demod_phase": bound(8 * n_iq + 8 * n_disc, n_iq * per_angle + n_disc * per_diff),
         "fm_demod_int_conj": bound(8 * n_iq + 8 * n_disc, n_disc * fm_demod_int_conj_ops(aw_sdr)),
         "taylor2_window_block": bound(4 * n, taylor2_window_work(n, n_terms, rb_t2)),
+        # the analyzer's rfft half spectrum, (nf, nfft/2 + 1) complex64, read
+        # once; its mean over frames written as float32
+        "welch_power_mean": bound(8 * nf * (nfft // 2 + 1) + 4 * (nfft // 2 + 1)),
     }
 
 

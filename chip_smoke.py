@@ -12,14 +12,17 @@ user calls, at the repository's real sizes:
 2. the same window under the RTL (VHDL) rounding contract (kernel 1a);
 3. the Welch analyzer: BH-4 W=17 pw=20 saturate window, nfft = 2^20,
    hop = 2^19, over 128 * 2^20 float32 samples, fft_mode="mxu" (kernel 1a
-   for the window, kernel 2 for framing + window + DFT stage 1);
+   for the window, kernel 2 for framing + window + DFT stage 1) and
+   fft_mode="rfft" (kernel 1a, cuFFT, then one launch of the power mean
+   kernel ``welch_power_mean``); the phase's launches must be exactly
+   these;
 4. the outer-product fast modes at the bench_all size (BH-7, W=32, pw=26,
    wrap, m=11): the int window (outer write-out) and its in-kernel
    checksum, the float32 window and its checksum, the compensated (s, e)
    pair and its checksum;
 5. the analyzer with the new window modes at the size of 3: float32 window
    (f32 outer write-out) into fft_mode="mxu" (kernel 2), and the comp pair
-   (comp outer write-out) into fft_mode="rfft";
+   (comp outer write-out) into fft_mode="rfft" (``welch_power_mean``);
 6. the TAYLOR source at the bench_all size of configs 16-18 (pw=26): the raw
    (cos, sin) engine written out at W=16/LS=10 and W=32/LS=12, the in-kernel
    checksum of each (rows=64), the Blackman W=32 LS=12 wrap and Hamming W=16
@@ -120,6 +123,10 @@ generation 0-LSB against the plain PyTorch version on the CPU on random and
 quadrant-seam blocks, the exact checksum identities, the float windows
 against the float64 golden on every sample, the spectral floors at pw=16,
 the analyzers against a float64 reference within the derived f32 budget,
+the Welch power mean kernel against its plain version on the card (per
+bin within 2e-6, the same bits run again) on the analyzer's half spectrum,
+the 2-D one of the sharded analyzer, a small-K one that cuts the frames
+into slabs and a complex128 one,
 the DDC against a float64 FIR of its exact integer mixer products, the DDC
 mixer kernel bit-equal to its plain version on the card over 2^26 samples
 on each of its paths (config 21's table of P = 8, the odd word 104857 at
@@ -344,6 +351,66 @@ def _f64_welch(x, win64, nfft: int, hop: int, chunk: int = 32):
         fr = frames[a:a + chunk].double() * win64
         acc += (torch.fft.rfft(fr, dim=-1).abs() ** 2).sum(dim=0)
     return acc / frames.shape[0]
+
+
+def _welch_power_gates(x, win32, nfft: int, hop: int, dev) -> tuple[float, tuple]:
+    """The Welch power mean kernel (``welchpower_kernel.frame_power_mean``)
+    against its plain version on the card: per bin within 2e-6 relative
+    (the plain version rounds ``hypot``, the square and a float32 tree of
+    255 terms, about 16 float32 ulps; the kernel sums in float64), one
+    launch a call and the same bits when run again, on the analyzer's
+    (255, 524289) complex64 half spectrum, ``make_sharded_welch``'s 2-D
+    (2, 127, 524289), a (65535, 2049) one at nfft 4096 (the slab path) and a
+    complex128 (31, 524289).  Then the analyzer's shape timed: one call
+    alone, per call of 16 queued, the plain version, beside the byte bound.
+    Returns (the widest relative gap, (ms alone, plain ms))."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import welchpower_kernel as wp
+    from blackman_harris_win_tpu_torch.pipeline.spectral import frames_view
+
+    def spec_of(xx, n, h):
+        w = win32 if n == nfft else torch.hann_window(n, device=dev)
+        return torch.fft.rfft(frames_view(xx, n, h) * w.to(xx.dtype), dim=-1)
+
+    cases = {"analyzer": lambda: spec_of(x, nfft, hop),
+             "sharded rows": lambda: spec_of(x.view(2, -1), nfft, hop),
+             "slabs, nfft 4096": lambda: spec_of(x, 4096, 2048),
+             "complex128": lambda: spec_of(x[:16 << 20].double(), nfft, hop)}
+    worst = 0.0
+    for label, make in cases.items():
+        spec = make()
+        _build.reset_launches()
+        got = wp.frame_power_mean(spec)
+        torch.cuda.synchronize()
+        _require(_build.launches["welch_power_mean"] == 1,
+                 f"welch_power_mean {label}: {_build.launches['welch_power_mean']} launches")
+        _require(torch.equal(got, wp.frame_power_mean(spec)),
+                 f"welch_power_mean {label}: another run gave other bits")
+        plain = wp.frame_power_mean_plain(spec).double()
+        rel = float(((got.double() - plain).abs() / plain).max())
+        _require(got.shape == plain.shape and rel <= 2e-6,
+                 f"welch_power_mean {label}: per-bin rel vs plain {rel:.3e} > 2e-6")
+        nf = spec.shape[-2]
+        print(f"welch_power_mean {label} {tuple(spec.shape)} {spec.dtype}: "
+              f"{wp.frame_slabs(spec.numel() // nf, nf)} slab(s), per-bin rel vs plain "
+              f"{rel:.3e} (<= 2e-6), one launch, the same bits run again")
+        worst = max(worst, rel)
+        if label == "analyzer":
+            nbytes = spec.numel() * spec.element_size() + got.numel() * got.element_size()
+            alone = _time_ms(lambda: wp.frame_power_mean(spec))
+            queued = _time_ms(lambda: [wp.frame_power_mean(spec) for _ in range(16)]) / 16
+            plain_ms = _time_ms(lambda: wp.frame_power_mean_plain(spec))
+            bound_ms = nbytes / 3.35e12 * 1e3
+            print(f"welch_power_mean {label}: {alone:.4f} ms alone, {queued:.4f} ms per call of "
+                  f"16 queued ({nbytes / queued / 1e9:.1f} TB/s), plain {plain_ms:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms (bytes), share {bound_ms / alone:.1%} alone, "
+                  f"{bound_ms / queued:.1%} queued")
+            times = (alone, plain_ms)
+        del spec, got, plain
+    torch.cuda.empty_cache()
+    return worst, times
 
 
 def _counted(launched: dict, label: str, expect, fn, exact: dict | None = None):
@@ -1071,8 +1138,9 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
             return (f"{tuple(got.shape)}, per-bin rel vs float64 of the circularly extended "
                     f"input {rel:.3e} (< 32*2^-24*sqrt(nfft) = {budget:.3e})")
 
+        shards = m.shape["blocks"] * m.shape["channels"]
         stage(f"welch {wm}/{fm} bh4 w17 nfft {nfft}, x {tuple(x2.shape)}", mname,
-              {welch_kernel[wm]: m.shape["blocks"] * m.shape["channels"]},
+              {welch_kernel[wm]: shards} | ({"welch_power_mean": shards} if fm == "rfft" else {}),
               lambda step=step: step(x2),
               lambda wm=wm, fm=fm: windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode=wm,
                                                            fft_mode=fm),
@@ -1254,8 +1322,8 @@ def _mp_steps(mesh_a, mesh_b, x, x21, x_stft) -> list:
         ("gen hls bh7 w32 pw26", ("window_block",), lambda: sharded_window(q7, spec_hls, mesh_a)),
         (f"welch quantized/mxu bh4 w17 nfft {nfft}, x (1, {x.numel()})", ("window_block",),
          lambda: welch["mxu"](x.view(1, -1))),
-        (f"welch quantized/rfft bh4 w17 nfft {nfft}, x (1, {x.numel()})", ("window_block",),
-         lambda: welch["rfft"](x.view(1, -1))),
+        (f"welch quantized/rfft bh4 w17 nfft {nfft}, x (1, {x.numel()})",
+         ("window_block", "welch_power_mean"), lambda: welch["rfft"](x.view(1, -1))),
         (f"stft quantized bh4 nfft {nfft} hop {hop}, {x_stft.numel()} samples", ("window_block",),
          stft_step),
         ("istft quantized (the round trip)", ("window_block",), lambda: inv(frames["s"])),
@@ -2253,8 +2321,11 @@ def main(argv=None) -> int:
                                      window_checksum(q7, spec_hls, 0, 4 * n, bias=0, device=dev)))
     win_rtl = _counted(launched, "2 rtl generation", ("window_block",),
                        lambda: make_window("bh7", spec_rtl, coeffs=q7_rtl, device=dev))
-    ps_mxu = _counted(launched, "3 analyzer", ("window_block", "welch_stage1"),
-                      lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu"))
+    ps_mxu, ps_rfft = _counted(
+        launched, "3 analyzer", ("window_block", "welch_stage1", "welch_power_mean"),
+        lambda: (windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="mxu"),
+                 windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="rfft")),
+        exact={"window_block": 2, "welch_stage1": 1, "welch_power_mean": 1})
     # outer-product modes, bench_all configs 11/13/15 (BH-7, pw=26, m=11)
     m = 11
     nrows = n >> m
@@ -2274,7 +2345,8 @@ def main(argv=None) -> int:
         ("outer_block", "outer_checksum", "outer_block_f32", "outer_checksum_f32",
          "outer_block_comp", "outer_checksum_comp"), outer_phase)
     ps_float, ps_comp = _counted(
-        launched, "5 analyzer float/comp", ("outer_block_f32", "welch_stage1", "outer_block_comp"),
+        launched, "5 analyzer float/comp",
+        ("outer_block_f32", "welch_stage1", "outer_block_comp", "welch_power_mean"),
         lambda: (windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="float",
                                          fft_mode="mxu"),
                  windowed_power_spectrum(x, "bh4", spec4, hop=hop, win_mode="comp",
@@ -2370,7 +2442,6 @@ def main(argv=None) -> int:
     d4 = catalog.get("bh4")
     _require(ps_mxu.shape == (nfft // 2 + 1,) and bool(torch.isfinite(ps_mxu).all()),
              "analyzer output is not finite of shape (nfft/2+1,)")
-    ps_rfft = windowed_power_spectrum(x, "bh4", spec4, hop=hop, fft_mode="rfft")
     rel_sum = abs(float(ps_mxu.double().sum() - ps_rfft.double().sum())) / float(
         ps_rfft.double().sum())
     _require(rel_sum < 1e-5, f"mxu vs rfft summed spectrum rel diff {rel_sum:.3e}")
@@ -2380,8 +2451,11 @@ def main(argv=None) -> int:
     budget = 32 * 2.0**-24 * np.sqrt(nfft)
     rel_bin = float(((ps_mxu.double() - ref).abs() / ref.abs()).max())
     _require(rel_bin < budget, f"analyzer per-bin rel err {rel_bin:.3e} > {budget:.3e}")
+    rel_rfft = float(((ps_rfft.double() - ref).abs() / ref.abs()).max())
+    _require(rel_rfft < budget, f"analyzer rfft per-bin rel err {rel_rfft:.3e} > {budget:.3e}")
     print(f"analyzer: mxu vs rfft summed rel {rel_sum:.3e} (< 1e-5); per-bin rel "
-          f"vs float64 {rel_bin:.3e} (< 32*2^-24*sqrt(nfft) = {budget:.3e})")
+          f"vs float64 {rel_bin:.3e}, rfft {rel_rfft:.3e} (< 32*2^-24*sqrt(nfft) = "
+          f"{budget:.3e})")
 
     win32 = (wq.to(torch.float32) * window_scale(spec4, d4.shift)).contiguous()
     s1r, s1i, _ = welch_stage1_fused(x, win32, nfft)
@@ -2393,6 +2467,7 @@ def main(argv=None) -> int:
     print(f"stage-1 kernel vs plain: max abs err {err_s1:.3e}, "
           f"relative to max {err_s1 / scale_s1:.3e} (< 1e-5)")
     del s1r, s1i, p1r, p1i
+    err_wpm, t_wpm = _welch_power_gates(x, win32, nfft, hop, dev)
 
     # the analyzer with the float32 and the compensated window
     win64_4 = torch.from_numpy(catalog.float_window_value("bh4", np.arange(nfft), nfft)).to(dev)
@@ -2699,6 +2774,7 @@ def main(argv=None) -> int:
             _time_ms(lambda: welch_stage1_fused(x, win32, nfft)),
             _time_ms(lambda: welch_stage1_plain(x, win32, nfft)),
         ),
+        "welch_power_mean": t_wpm,
         "analyzer mxu vs rfft": (
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      fft_mode="mxu")),
@@ -3012,6 +3088,9 @@ def main(argv=None) -> int:
         # no pallas_call: the jnp of cos_sin_taylor2 / window_values_fast
         ("taylor2_window_block", "fastwin_kernel.cu",
          "blackman_harris_win_tpu/kernels/fastwin.py:123", "taylor2_window_block", err_t2),
+        # no pallas_call: the jnp of frame_mean_power's rfft branch (a relative gap)
+        ("welch_power_mean", "welchpower_kernel.cu",
+         "blackman_harris_win_tpu/pipeline/spectral.py:172", "welch_power_mean", err_wpm),
     ]
     kernels = []
     b_full = bounds["fm_demod"]

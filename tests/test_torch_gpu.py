@@ -539,14 +539,16 @@ def test_analyzer_float_modes_run_the_kernels(cuda, win_mode, fft_mode, kernels)
 def test_analyzer_taylor_sources_on_the_card(cuda, sin_type, rounding, name, kernel):
     """The quantized analyzer's window through ``kernels.window.window_block``:
     TAYLOR HLS launches the Taylor window kernel once, TAYLOR RTL the RTL
-    Taylor kernel once, taylor2 its own kernel once; the spectrum matches
-    the CPU plain path."""
+    Taylor kernel once, taylor2 its own kernel once, and the rfft branch
+    the Welch power mean kernel once; the spectrum matches the CPU plain
+    path."""
     spec = WindowSpec(13, 16, sin_type=sin_type, rounding=rounding, lut_size=10)
     nfft = spec.n
     x = np.random.default_rng(6).normal(size=nfft * 9).astype(np.float32)
     _build.reset_launches()
     got = sp.windowed_power_spectrum(torch.from_numpy(x).to(cuda), name, spec).cpu()
-    assert _build.launches == dict.fromkeys(_build.launches, 0) | {kernel: 1}
+    want = dict.fromkeys(_build.launches, 0) | {kernel: 1, "welch_power_mean": 1}
+    assert _build.launches == want
     ref = sp.windowed_power_spectrum(x, name, spec, device="cpu")
     rel = float(((got.double() - ref.double()).abs() / ref.double().abs()).max())
     assert rel < 32 * 2.0**-24 * np.sqrt(nfft), rel
