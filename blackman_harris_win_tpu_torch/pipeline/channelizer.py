@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, _trace
 from .fir import design_lowpass
 from .spectral import _full_fp32
 
@@ -60,9 +60,22 @@ def channel_bins(x, prototype, n_channels: int, device=None):
     n_frames, C//2 + 1), whose channel k > C/2 is the conjugate of bin C - k
     (:func:`full_spectrum`); for a complex stream :func:`polyphase_channelize`'s
     (..., n_frames, C).  The half spectrum spares the full one's conjugate
-    fill, which is a pass of its own over the output."""
-    y = _branches(x, prototype, n_channels, device)
-    return torch.fft.fft(y, dim=-1) if y.is_complex() else torch.fft.rfft(y, dim=-1)
+    fill, which is a pass of its own over the output.
+
+    Under a profiler session its stages are the spans ``bhw.sdr.branches``
+    (the commutator, the branch FIRs and, for a complex stream, the complex
+    assembly) and ``bhw.sdr.dft`` (the DFT across the branches), each with
+    the bytes its input and output hold (``_trace``)."""
+    x = _build.as_tensor(x, device=device)
+    frames = max(x.shape[-1] // n_channels - len(prototype) // n_channels + 1, 0)
+    nb = x.element_size() * (x.numel() // max(x.shape[-1], 1) * frames * n_channels)
+    with _trace.span("bhw.sdr.branches", x.device, x.numel() * x.element_size() + nb):
+        y = _branches(x, prototype, n_channels, device)
+    if y.is_complex():
+        with _trace.span("bhw.sdr.dft", x.device, 2 * nb):
+            return torch.fft.fft(y, dim=-1)
+    with _trace.span("bhw.sdr.dft", x.device, nb + 2 * nb // n_channels * (n_channels // 2 + 1)):
+        return torch.fft.rfft(y, dim=-1)
 
 
 def full_spectrum(y, n_channels: int):

@@ -10,8 +10,11 @@ communicated and the outputs stay split over 'blocks'.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .. import _trace
 from ..dist.halo import left_halo
 from ..dist.mesh import Mesh, from_rows, local_map, shard
 from .channelizer import channel_bins, design_prototype, full_spectrum
@@ -34,11 +37,18 @@ def sdr_chain(x, prototype, n_channels: int, angle_width: int = 20,
     conjugates of their bins, and on the CPU the plain discriminator takes
     the conjugate fill (``channelizer.full_spectrum``): both are the chain
     over ``polyphase_channelize``'s full spectrum, bit for bit.
+
+    Under a profiler session the call is the span ``bhw.sdr``, with the
+    channelizer's stages ``bhw.sdr.branches`` and ``bhw.sdr.dft``
+    (``channel_bins``) and the discriminator's ``bhw.sdr.demod`` (``_trace``).
     """
-    y = channel_bins(x, prototype, n_channels, device)  # (nf, C//2 + 1) or (nf, C)
-    if y.device.type == "cuda":
-        return iq_demod(y, angle_width, iq_scale, n_channels)
-    return discriminate_plain(full_spectrum(y, n_channels), angle_width, iq_scale)
+    with _trace.span("bhw.sdr"):
+        y = channel_bins(x, prototype, n_channels, device)  # (nf, C//2 + 1) or (nf, C)
+        out_bytes = 8 * math.prod(y.shape[:-2]) * max(y.shape[-2] - 1, 0) * n_channels
+        with _trace.span("bhw.sdr.demod", y.device, y.numel() * y.element_size() + out_bytes):
+            if y.device.type == "cuda":
+                return iq_demod(y, angle_width, iq_scale, n_channels)
+            return discriminate_plain(full_spectrum(y, n_channels), angle_width, iq_scale)
 
 
 def discriminate_plain(y, angle_width: int = 20, iq_scale: float = 2.0**14):

@@ -1,5 +1,6 @@
 """PyTorch port, ``_trace``: the spans of the window router, the window
-wrapper, the launch helper and the Welch analyzer's stages.
+wrapper, the launch helper, the Welch analyzer's stages and the SDR
+chain's (``bhw.sdr``: on a card one ``fm_demod`` launch a call).
 
 Without a profiler session a span is one shared no-op (``record_function``
 is never entered); under one each span is a ``user_annotation`` of the
@@ -19,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 from blackman_harris_win_tpu_torch import _build, _trace
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import window as kw
+from blackman_harris_win_tpu_torch.pipeline import sdr as sdr_pipe
 from blackman_harris_win_tpu_torch.pipeline import spectral
 from blackman_harris_win_tpu_torch.utils import profiling
 from blackman_harris_win_tpu_torch.windows import catalog
@@ -261,3 +263,85 @@ def test_launch_span_under_a_session(stub, tmp_path):
     snap = _trace.snapshot()
     assert snap["spans"]["bhw.window_block/bhw.launch.stub"]["count"] == 1
     assert snap["launches"]["stub"] == 1
+
+
+# --- the SDR chain: bhw.sdr and its stages ---
+
+SDR_STAGES = ("branches", "dft", "demod")
+
+
+def _sdr_input(kind: str, c: int = 8, tpb: int = 4, frames: int = 64):
+    g = torch.Generator().manual_seed(5)
+    dtype = torch.complex64 if kind == "complex" else torch.float32
+    return torch.randn(c * frames, generator=g, dtype=dtype), sdr_pipe.design_prototype(c, tpb)
+
+
+def _chain(x, proto, c: int = 8):
+    return sdr_pipe.sdr_chain(x, proto, c, angle_width=20, iq_scale=2.0**12)
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_sdr_chain_enters_no_record_function_without_a_session(no_record_function, kind):
+    x, proto = _sdr_input(kind)
+    assert _chain(x, proto).shape == (64 - 4, 8)
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_sdr_spans_in_the_trace_and_the_table(tmp_path, kind):
+    x, proto = _sdr_input(kind)
+    _trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            _chain(x, proto)
+    events = _annotations(prof, tmp_path)
+    roots = [e for e in events if e["name"] == "bhw.sdr"]
+    assert len(roots) == 3
+    assert {e["name"] for e in events} == {"bhw.sdr"} | {f"bhw.sdr.{s}" for s in SDR_STAGES}
+    assert all(_inside(e, roots) for e in events)
+    spans = _trace.snapshot()["spans"]
+    assert set(spans) == {"bhw.sdr"} | {f"bhw.sdr/bhw.sdr.{s}" for s in SDR_STAGES}
+    assert spans["bhw.sdr"]["count"] == 3
+    # each stage's bytes: its input read once, its output written once
+    nb, nf, bins = x.element_size(), 64 - 4 + 1, 8 if kind == "complex" else 5
+    branches = (x.numel() + nf * 8) * nb
+    dft = nf * 8 * nb + nf * bins * 8
+    demod = nf * bins * 8 + (nf - 1) * 8 * 8
+    for stage, want in zip(SDR_STAGES, (branches, dft, demod)):
+        row = spans[f"bhw.sdr/bhw.sdr.{stage}"]
+        assert row["count"] == 3 and row["nbytes"] == 3 * want
+        assert row["stream_n"] == 0  # no stream on the CPU
+    for row in spans.values():
+        assert 0 <= row["self_s"] <= row["host_s"]
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_sdr_bits_are_the_same_traced(kind):
+    x, proto = _sdr_input(kind)
+    off = _chain(x, proto)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = _chain(x, proto)
+    assert torch.equal(on, off)
+
+
+@pytest.mark.gpu
+def test_sdr_chain_on_the_card_is_one_fm_demod_launch_a_call(tmp_path):
+    """On a card: one ``fm_demod`` launch a chain call, inside its demod
+    stage, and every stage timed on the stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; torch sees none")
+    x, proto = _sdr_input("complex", c=128, tpb=16, frames=4096)
+    x = x.cuda()
+    want = _chain(x, proto)
+    _build.reset_launches()
+    _trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(3):
+            got = _chain(x, proto)
+        torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {"fm_demod": 3}
+    assert torch.equal(got, want)
+    spans = _trace.snapshot()["spans"]
+    assert spans["bhw.sdr/bhw.sdr.demod/bhw.launch.fm_demod"]["count"] == 3
+    for s in SDR_STAGES:
+        row = spans[f"bhw.sdr/bhw.sdr.{s}"]
+        assert row["count"] == row["stream_n"] == 3 and row["stream_s"] > 0
