@@ -4,9 +4,10 @@ of ``blackman_harris_win_tpu/pipeline/channelizer.py``).
 Splits a wideband stream into C uniformly spaced channels, each decimated by
 C:
 
-- the polyphase decomposition is a reshape;
-- the C branch FIRs are one grouped ``conv1d`` (groups = C) with flipped
-  taps (``conv1d`` correlates), in full fp32;
+- the polyphase decomposition and the C branch FIRs are
+  ``kernels.polyphase_kernel.branch_fir``: on a card one launch of the
+  polyphase kernel, which reads the stream in place, on the CPU its plain
+  version (a reshape and one grouped ``conv1d``, in full fp32);
 - the cross-branch DFT is ``torch.fft.fft`` along the branch axis; the SDR
   chain takes a real stream's half spectrum (``torch.fft.rfft``,
   :func:`channel_bins`), which its discriminator kernel reads in place.
@@ -22,8 +23,8 @@ import numpy as np
 import torch
 
 from .. import _build, _trace
+from ..kernels.polyphase_kernel import branch_fir
 from .fir import design_lowpass
-from .spectral import _full_fp32
 
 
 def design_prototype(
@@ -51,7 +52,8 @@ def polyphase_channelize(x, prototype, n_channels: int, device=None):
     centered at f = k/C * fs.
     """
     # DFT across branches (e^{-j 2 pi p k / C}) so channel k sits at +k/C
-    return torch.fft.fft(_branches(x, prototype, n_channels, device), dim=-1)
+    x = _build.as_tensor(x, device=device)
+    return torch.fft.fft(branch_fir(x, prototype, n_channels), dim=-1)
 
 
 def channel_bins(x, prototype, n_channels: int, device=None):
@@ -63,14 +65,14 @@ def channel_bins(x, prototype, n_channels: int, device=None):
     fill, which is a pass of its own over the output.
 
     Under a profiler session its stages are the spans ``bhw.sdr.branches``
-    (the commutator, the branch FIRs and, for a complex stream, the complex
-    assembly) and ``bhw.sdr.dft`` (the DFT across the branches), each with
-    the bytes its input and output hold (``_trace``)."""
+    (the commutator and the branch FIRs: on a card one launch of the
+    polyphase kernel) and ``bhw.sdr.dft`` (the DFT across the branches),
+    each with the bytes its input and output hold (``_trace``)."""
     x = _build.as_tensor(x, device=device)
     frames = max(x.shape[-1] // n_channels - len(prototype) // n_channels + 1, 0)
     nb = x.element_size() * (x.numel() // max(x.shape[-1], 1) * frames * n_channels)
     with _trace.span("bhw.sdr.branches", x.device, x.numel() * x.element_size() + nb):
-        y = _branches(x, prototype, n_channels, device)
+        y = branch_fir(x, prototype, n_channels)
     if y.is_complex():
         with _trace.span("bhw.sdr.dft", x.device, 2 * nb):
             return torch.fft.fft(y, dim=-1)
@@ -85,35 +87,3 @@ def full_spectrum(y, n_channels: int):
     if y.shape[-1] == n_channels:
         return y
     return torch.cat([y, y[..., 1:(n_channels - 1) // 2 + 1].flip(-1).conj()], dim=-1)
-
-
-def _branches(x, prototype, n_channels: int, device):
-    """The polyphase branch FIRs of x: (..., T) -> (..., n_frames, C), real
-    or complex as x."""
-    c = n_channels
-    h = np.asarray(prototype, np.float64)
-    if h.size % c:
-        raise ValueError("prototype length must be a multiple of n_channels")
-    tpb = h.size // c
-    x = _build.as_tensor(x, device=device)
-    if x.shape[-1] % c:
-        raise ValueError("input length must be a multiple of n_channels")
-
-    lead = x.shape[:-1]
-    # commutator: sample n -> branch p = n mod C, frame n // C
-    xp = x.reshape(lead + (x.shape[-1] // c, c))  # (..., frame, branch)
-    rdt = x.real.dtype if x.is_complex() else x.dtype
-    # branch FIR y_p[m] = sum_t h[t*C + p] x[(m - t)*C + p] is a true
-    # convolution: flip the taps for conv1d's correlation
-    hp = torch.as_tensor(h.reshape(tpb, c), dtype=rdt, device=x.device)
-    kk = torch.flip(hp, dims=(0,)).T.reshape(c, 1, tpb)  # (out, in/groups, width)
-
-    def branches_conv(sig):  # (..., nf, c) -> (..., nf_out, c)
-        s = sig.reshape((-1,) + tuple(sig.shape[-2:])).transpose(1, 2)  # (B, c, nf)
-        y = torch.nn.functional.conv1d(s, kk, groups=c).transpose(1, 2)  # (B, nf_out, c)
-        return y.reshape(tuple(sig.shape[:-2]) + tuple(y.shape[-2:]))
-
-    with _full_fp32():
-        if xp.is_complex():
-            return torch.complex(branches_conv(xp.real), branches_conv(xp.imag))
-        return branches_conv(xp)

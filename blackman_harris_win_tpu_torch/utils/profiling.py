@@ -184,9 +184,20 @@ def taylor2_window_work(n: int, n_terms: int, rb: int, p_lo: bool = True) -> int
     return n * taylor2_window_ops(n_terms, p_lo) + runs * TAYLOR2_RUN_OPS
 
 
+def polyphase_fir_bound(samples: int, c: int, tpb: int, lanes: int = 1,
+                        elem: int = 4) -> tuple[float, str]:
+    """The polyphase branch FIRs' bound (``polyphase_fir``) on one stream of
+    ``samples`` samples of ``lanes`` values (1 real, 2 complex) of ``elem``
+    bytes, C = ``c`` branches of ``tpb`` taps: the stream read once, the
+    (samples // c - tpb + 1, c) outputs written once, an FMA (2 flops) a
+    tap of each output value at the float32 rate."""
+    outs = max(samples // c - tpb + 1, 0) * c * lanes
+    return bound(samples * lanes * elem + outs * elem, 2 * tpb * outs, F32_FLOPS)
+
+
 def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
                   mat_bytes: int, sdr_shape: tuple[int, int, int], ddc_period: int,
-                  ddc_width: int = 16) -> dict:
+                  ddc_width: int = 16, sdr_taps: int = 8) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
     path's shapes (``chip_smoke.py``): each input read once, each output
     written once (tables and scalars are negligible); integer operations at
@@ -208,7 +219,8 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     = log2(n).  ``taylor_window_block`` and ``taylor_window_rtl`` write the
     n-sample 3-term (Blackman) TAYLOR window, HLS and RTL.
     ``welch_power_mean`` reads the analyzer's half spectrum once and writes
-    its mean over frames."""
+    its mean over frames.  ``polyphase_fir`` computes that output's branch
+    FIRs (``sdr_taps`` taps a branch) from its real float32 stream."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
@@ -259,6 +271,7 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         # the analyzer's rfft half spectrum, (nf, nfft/2 + 1) complex64, read
         # once; its mean over frames written as float32
         "welch_power_mean": bound(8 * nf * (nfft // 2 + 1) + 4 * (nfft // 2 + 1)),
+        "polyphase_fir": polyphase_fir_bound((nf_sdr + sdr_taps - 1) * c_sdr, c_sdr, sdr_taps),
     }
 
 

@@ -41,15 +41,16 @@ user calls, at the repository's real sizes:
    kernel (``ddc_mixer``); its decimating FIR takes the bulk branch, which
    runs the materialization kernel (kernel 7) before the strided conv:
    exactly one launch of each;
-8. the SDR chain (the channelizer's grouped conv1d and the half-spectrum
-   FFT ``torch.fft.rfft`` of its real branches, then one launch of the
-   discriminator kernel ``fm_demod``, which reads the C/2 + 1 bins in
+8. the SDR chain (one launch of the polyphase branch FIR kernel
+   ``polyphase_fir`` and the half-spectrum FFT ``torch.fft.rfft`` of its
+   real branches, then one launch of the discriminator kernel ``fm_demod``, which reads the C/2 + 1 bins in
    place, the channels past C/2 as conjugates, quantizes the channel I/Q
    and runs the conjugate-product CORDIC atan2; no DDC, so no mixer
    launch) at the multichip dryrun's stage-4 configuration (4 channels, 6
    taps per branch, AW=20) over a 2^22-sample tone, a latency check, and at
    bench_all config 5 (16 channels, 8 taps per branch) over 16 * 2^22 noise
-   samples: exactly one ``fm_demod`` launch a call; then
+   samples: exactly one ``polyphase_fir`` and one ``fm_demod`` launch a
+   call; then
    the demod module's other entry points on config 5's quantized channel
    I/Q: ``atan2_fixed`` (one launch of ``cordic_atan2``) and
    ``fm_demod_phase`` on the (16, T) transpose of its (T, 16) I/Q (one of
@@ -93,7 +94,8 @@ user calls, at the repository's real sizes:
    and one ``materialize`` a shard; the mixer kernel's time at a shard's
    size and the sharded call's device time are printed); the sharded SDR
    chain at config 5
-   (one ``fm_demod`` a shard; 0 LSB against ``sdr_chain`` of the circularly
+   (one ``polyphase_fir`` and one ``fm_demod`` a shard; 0 LSB against
+   ``sdr_chain`` of the circularly
    extended input, or differing only where the two channelizers round the
    int I/Q differently).  Each stage's launches must be exactly one a shard
    of each of its kernels; its wall time (CUDA events, median of 5 after a warm-up)
@@ -126,7 +128,11 @@ the analyzers against a float64 reference within the derived f32 budget,
 the Welch power mean kernel against its plain version on the card (per
 bin within 2e-6, the same bits run again) on the analyzer's half spectrum,
 the 2-D one of the sharded analyzer, a small-K one that cuts the frames
-into slabs and a complex128 one,
+into slabs and a complex128 one, the polyphase branch FIR kernel against
+its plain version on the card (each output within 2 gamma(tpb + 1) x
+sum |h| |x|, one launch, the same bits run again) at config 5 and at the
+SDR cell's shape (2^26 complex64 samples, 128 branches of 16 taps), each
+timed alone, queued and beside its plain version and byte bound,
 the DDC against a float64 FIR of its exact integer mixer products, the DDC
 mixer kernel bit-equal to its plain version on the card over 2^26 samples
 on each of its paths (config 21's table of P = 8, the odd word 104857 at
@@ -156,7 +162,7 @@ pair's stft against the golden window, every front-end output bit for bit
 against the earlier phase's (the two spectra also within the analyzer's
 budget), and each kernel against its plain
 version on the card; torch.profiler breakdowns of one DDC call, of one
-config-5 SDR call (discriminator kernel, channelizer conv1d, FFT, the rest)
+config-5 SDR call (discriminator kernel, polyphase kernel, FFT, the rest)
 and of one fft_mode="mxu" analyzer call (stage-1 kernel, window kernel,
 GEMMs, elementwise and permute passes) must record device time.  Last, each kernel and its plain version are timed
 with CUDA events (median of 5 after a warm-up; a checksum kernel's time is
@@ -409,6 +415,98 @@ def _welch_power_gates(x, win32, nfft: int, hop: int, dev) -> tuple[float, tuple
                   f"{bound_ms / queued:.1%} queued")
             times = (alone, plain_ms)
         del spec, got, plain
+    torch.cuda.empty_cache()
+    return worst, times
+
+
+def _polyphase_gates(x5, proto5, c5: int, tpb5: int, seed: int, dev) -> tuple[float, dict]:
+    """The polyphase branch FIR kernel (``polyphase_kernel.branch_fir``)
+    against its plain version on the card (the grouped ``conv1d``s), at
+    config 5 (the real float32 stream of phase 8, 16 branches of 8 taps)
+    and at the SDR cell's shape (2^26 seeded complex64 samples, 128
+    branches of 16 taps): one launch a call, the same bits run again, and
+    each output of each within 2 gamma(tpb + 1) x sum |h| |x| of the
+    other's (both sum tpb float32 products; sum |h| |x| by the plain
+    version in float64).  Then each timed: one call alone, per call of 16
+    queued, its C entry alone and queued (and queued at fixed strips of 256
+    frames), the wrapper's host path and the plain version, beside the byte
+    bound.  Returns (the widest gap over its bound at config 5, shape label
+    -> (ms alone, plain ms))."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import polyphase_kernel as pk
+    from blackman_harris_win_tpu_torch.pipeline.channelizer import design_prototype
+    from blackman_harris_win_tpu_torch.utils import profiling
+
+    g = torch.Generator(device=dev).manual_seed(seed + 24)
+    cases = {"config 5": (lambda: x5, proto5, c5, tpb5),
+             "sdr cell": (lambda: torch.randn(1 << 26, generator=g, device=dev,
+                                              dtype=torch.complex64),
+                          design_prototype(128, 16), 128, 16)}
+    worst, times = 0.0, {}
+    for label, (make, proto, c, tpb) in cases.items():
+        x = make()
+        _build.reset_launches()
+        got = pk.branch_fir(x, proto, c)
+        torch.cuda.synchronize()
+        _require(_build.launches["polyphase_fir"] == 1,
+                 f"polyphase_fir {label}: {_build.launches['polyphase_fir']} launches")
+        _require(torch.equal(got, pk.branch_fir(x, proto, c)),
+                 f"polyphase_fir {label}: another run gave other bits")
+        plain = pk.branch_fir_plain(x, proto, c)
+        ax = (torch.complex(x.real.abs(), x.imag.abs()) if x.is_complex() else x.abs()).to(
+            torch.complex128 if x.is_complex() else torch.float64)
+        s64 = pk.branch_fir_plain(ax, np.abs(proto.astype(np.float32)), c)
+        u = 2.0**-24
+        gam = 2 * (tpb + 1) * u / (1 - (tpb + 1) * u)
+        d = (got - plain).to(s64.dtype)
+        if x.is_complex():
+            ratio = max(float((d.real.abs() / (gam * s64.real)).nan_to_num().max()),
+                        float((d.imag.abs() / (gam * s64.imag)).nan_to_num().max()))
+        else:
+            ratio = float((d.abs() / (gam * s64)).nan_to_num().max())
+        del ax, s64, d
+        _require(got.shape == plain.shape and ratio <= 1.0,
+                 f"polyphase_fir {label}: kernel vs plain {ratio:.3f} of the bound")
+        print(f"polyphase_fir {label} {tuple(x.shape)} {x.dtype} -> {tuple(got.shape)}: one "
+              f"launch, the same bits run again, kernel vs plain {ratio:.4f} of 2 gamma({tpb + 1})"
+              f" x sum|h||x|")
+        if label == "config 5":
+            worst = ratio
+        del plain
+        lanes = 2 if x.is_complex() else 1
+        b_ms, b_by = profiling.polyphase_fir_bound(x.shape[-1], c, tpb, lanes, 4)
+        alone = _time_ms(lambda: pk.branch_fir(x, proto, c))
+        queued = _time_ms(lambda: [pk.branch_fir(x, proto, c) for _ in range(16)]) / 16
+        plain_ms = _time_ms(lambda: pk.branch_fir_plain(x, proto, c))
+        nbytes = (x.numel() + got.numel()) * x.element_size()
+        # the C entry alone, without the wrapper's host path: at the strips
+        # the launch chooses (strip 0) and at fixed strips of 256 frames
+        taps = pk.prototype_taps(proto, torch.float32, dev)
+
+        def entry(strip=0):
+            _require(_build.lib().bhw_polyphase_fir(
+                got.data_ptr(), x.data_ptr(), taps.data_ptr(), 1, x.shape[-1] // c, c, tpb,
+                strip, lanes, 4, _build.stream_of(dev)) == 0, "polyphase_fir C entry failed")
+
+        e_alone = _time_ms(entry)
+        e_queued = _time_ms(lambda: [entry() for _ in range(16)]) / 16
+        f_queued = _time_ms(lambda: [entry(256) for _ in range(16)]) / 16
+        t0 = time.perf_counter()
+        for _ in range(20):
+            pk.branch_fir(x, proto, c)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        print(f"polyphase_fir {label}: {alone:.4f} ms alone, {queued:.4f} ms per call of 16 "
+              f"queued ({nbytes / queued / 1e9:.1f} GB/s), plain {plain_ms:.4f} ms; its C entry "
+              f"{e_alone:.4f} ms alone, {e_queued:.4f} ms queued; the wrapper's host path "
+              f"{host_us:.1f} us a call; bound {b_ms:.4f} ms ({b_by}), share {b_ms / alone:.1%} "
+              f"alone, {b_ms / queued:.1%} queued, C entry {b_ms / e_alone:.1%} alone, "
+              f"{b_ms / e_queued:.1%} queued; fixed strips of 256 frames {f_queued:.4f} ms "
+              f"queued ({b_ms / f_queued:.1%})")
+        times[label] = (alone, plain_ms)
+        del x, got
     torch.cuda.empty_cache()
     return worst, times
 
@@ -1248,7 +1346,7 @@ def _sharded_phase(launched: dict, dev, label: str, r: dict) -> dict:
     x5, proto5, c5, tpb5, aw = r["x_sdr5"], r["proto5"], r["c5"], r["tpb5"], r["aw"]
     sdr4 = make_sharded_sdr_chain(m4, c5, tpb5, angle_width=aw)
     stage(f"sdr config 5 ({c5} ch x {tpb5} taps, {x5.numel()} samples)", "4 on one card",
-          {"fm_demod": 4},
+          {"polyphase_fir": 4, "fm_demod": 4},
           lambda: sdr4(x5), lambda: sdr_chain(x5, proto5, c5, angle_width=aw),
           lambda out: _sdr_sharded_gate(unshard(out), x5, proto5, c5, aw, 4))
     print(f"phase 11: {time.perf_counter() - t0:.1f} s host clock, gates and timing included")
@@ -2098,27 +2196,40 @@ def _library_outer(name: str, pw: int, m: int, dev):
     return f32, comp
 
 
+def _device_rows(prof):
+    """(name, ms, count) of each CUDA kernel and copy a profile holds.  The
+    port's spans (``bhw.*``) also appear on the device timeline, as
+    annotations around the kernels they hold: they are left out, or the
+    kernels would count twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("bhw."):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3, e.count))
+    return rows
+
+
 def _device_ms(fn, calls: int = 5) -> float:
     """Device time per call of ``fn`` under torch.profiler: every CUDA
     kernel and copy it ran, summed, over ``calls`` calls after a warm-up.
-    No device time fails the run."""
+    The profile records the CPU too: a CUDA-only profile once recorded no
+    device time for the ctypes-launched outer kernels (H100, PyTorch
+    2.11).  No device time fails the run."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    _require(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / calls
+    ms = sum(r[1] for r in _device_rows(prof))
+    _require(ms > 0, "torch.profiler recorded no device time")
+    return ms / calls
 
 
 #: device-time groups of the two profiled calls, in match order: name ->
@@ -2127,8 +2238,7 @@ DDC_GROUPS = {"ddc_mixer": ("ddc_mixer", "ddc_table_mixer"), "ddc_nco_table": ("
               "materialize": ("materialize",),
               "FIR (conv, gemm)": ("conv", "cudnn", "gemm", "xmma", "cutlass", "gemv", "dot"),
               "elementwise": ()}
-SDR_GROUPS = {"fm_demod": ("demod",),
-              "channelizer conv1d": ("conv", "cudnn", "xmma", "depthwise", "implicit", "gemm"),
+SDR_GROUPS = {"fm_demod": ("demod",), "polyphase_fir": ("polyphase",),
               "fft": ("fft",), "elementwise or copy": ()}
 ANALYZER_GROUPS = {"welch_stage1": ("welch_stage1",),
                    "window_block": ("window_block",),
@@ -2142,7 +2252,6 @@ def _profile(fn, label: str, groups: dict) -> dict:
     profile without device time fails the run.  Returns group -> ms, with
     the wall and busy times."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2153,14 +2262,7 @@ def _profile(fn, label: str, groups: dict) -> dict:
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end)
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((e.key, us / 1e3, e.count))
+    rows = _device_rows(prof)
     _require(bool(rows) and sum(r[1] for r in rows) > 0,
              f"{label} profile: torch.profiler recorded no device time")
     out = dict.fromkeys(groups, 0.0)
@@ -2391,10 +2493,10 @@ def main(argv=None) -> int:
     nn = torch.arange(1 << 22, device=dev, dtype=torch.float64)
     x_sdr = torch.cos(2 * np.pi * (1 / n_ch + offset) * nn).to(torch.float32)
     del nn
-    sdr_out, sdr5_out = _counted(launched, "8 sdr", ("fm_demod",),
+    sdr_out, sdr5_out = _counted(launched, "8 sdr", ("polyphase_fir", "fm_demod"),
                                  lambda: (sdr_chain(x_sdr, proto, n_ch, angle_width=aw),
                                           sdr_chain(x_sdr5, proto5, c5, angle_width=aw)),
-                                 exact={"fm_demod": 2})
+                                 exact={"polyphase_fir": 2, "fm_demod": 2})
     # the demod module's other entry points on config 5's quantized channel
     # I/Q: each channel's phase angle, and the phase-difference discriminator
     y5 = polyphase_channelize(x_sdr5, proto5, c5)
@@ -2468,6 +2570,7 @@ def main(argv=None) -> int:
           f"relative to max {err_s1 / scale_s1:.3e} (< 1e-5)")
     del s1r, s1i, p1r, p1i
     err_wpm, t_wpm = _welch_power_gates(x, win32, nfft, hop, dev)
+    err_pf, t_pf = _polyphase_gates(x_sdr5, proto5, c5, tpb5, args.seed, dev)
 
     # the analyzer with the float32 and the compensated window
     win64_4 = torch.from_numpy(catalog.float_window_value("bh4", np.arange(nfft), nfft)).to(dev)
@@ -2775,6 +2878,7 @@ def main(argv=None) -> int:
             _time_ms(lambda: welch_stage1_plain(x, win32, nfft)),
         ),
         "welch_power_mean": t_wpm,
+        "polyphase_fir": t_pf["config 5"],
         "analyzer mxu vs rfft": (
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      fft_mode="mxu")),
@@ -2982,8 +3086,8 @@ def main(argv=None) -> int:
     t_sdr5 = _time_ms(lambda: sdr_chain(x_sdr5, proto5, c5, angle_width=aw))
     print(f"time {label} SDR chain bench_all config 5, 16*2^22 samples, 16 channels x 8 taps, "
           f"AW=20: {t_sdr5:.3f} ms; {(c5 << 22) / t_sdr5 / 1e3:.1f} Msamples/s in; pieces: "
-          f"channelizer (conv1d + rfft) {t_chan5:.3f} ms, fm_demod kernel on the half spectrum "
-          f"{t['fm_demod'][0]:.3f} ms, on the full spectrum {t_fm_full:.3f} ms (plain "
+          f"channelizer (polyphase_fir + rfft) {t_chan5:.3f} ms, fm_demod kernel on the half "
+          f"spectrum {t['fm_demod'][0]:.3f} ms, on the full spectrum {t_fm_full:.3f} ms (plain "
           f"discriminator in torch ops {t['fm_demod'][1]:.3f} ms, comparison only)")
     n_out5 = (y5.shape[0] - 1) * c5
     print(f"fm_demod {label}: {counts['fm_demod']} launch(es) on the counted main path "
@@ -3046,7 +3150,8 @@ def main(argv=None) -> int:
     src = "blackman_harris_win_tpu_torch/csrc/"
     bounds = profiling.kernel_bounds(n, len(q7), nsamp, nfft, hop,
                                      m21.numel() * m21.element_size(), ddc_width=w21,
-                                     sdr_shape=(y5.shape[0], c5, aw), ddc_period=p21)
+                                     sdr_shape=(y5.shape[0], c5, aw), ddc_period=p21,
+                                     sdr_taps=tpb5)
     err_mat = ddc_res["mat_err"]
     tpu = "blackman_harris_win_tpu/kernels/pallas/"
     rows = [  # name, source, replaces (under tpu unless a full path), timing key, max abs err
@@ -3091,6 +3196,10 @@ def main(argv=None) -> int:
         # no pallas_call: the jnp of frame_mean_power's rfft branch (a relative gap)
         ("welch_power_mean", "welchpower_kernel.cu",
          "blackman_harris_win_tpu/pipeline/spectral.py:172", "welch_power_mean", err_wpm),
+        # no pallas_call: the jnp of polyphase_channelize's branch FIRs (the
+        # gap over its bound)
+        ("polyphase_fir", "polyphase_kernel.cu",
+         "blackman_harris_win_tpu/pipeline/channelizer.py:43", "polyphase_fir", err_pf),
     ]
     kernels = []
     b_full = bounds["fm_demod"]

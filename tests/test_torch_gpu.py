@@ -1206,7 +1206,8 @@ def test_sharded_ddc_is_one_mixer_launch_a_shard(cuda, monkeypatch, flavor):
 
 def test_sdr_chain_on_the_card_runs_no_mixer(cuda):
     # the SDR chain is channelizer + discriminator: no DDC, so no mixer
-    # launch, and one launch of the discriminator kernel; its output on the
+    # launch, one launch of the polyphase kernel and one of the
+    # discriminator kernel; its output on the
     # card equals the CPU plain version on the card's int I/Q
     from blackman_harris_win_tpu_torch.pipeline.channelizer import (
         design_prototype,
@@ -1222,7 +1223,7 @@ def test_sdr_chain_on_the_card_runs_no_mixer(cuda):
     _build.reset_launches()
     out = sdr_chain(xd, proto, n_ch, angle_width=aw)
     torch.cuda.synchronize()
-    assert {k: v for k, v in _build.launches.items() if v} == {"fm_demod": 1}
+    assert {k: v for k, v in _build.launches.items() if v} == {"polyphase_fir": 1, "fm_demod": 1}
     y = polyphase_channelize(xd, proto, n_ch)
     i = torch.round(y.real * 2.0**14).to(torch.int32).mT.cpu()
     q = torch.round(y.imag * 2.0**14).to(torch.int32).mT.cpu()
@@ -1693,7 +1694,7 @@ def test_sharded_sdr_chain_is_one_demod_launch_a_shard(cuda):
     x = torch.from_numpy(np.random.default_rng(9).normal(size=c * 4096).astype(np.float32))
     _build.reset_launches()
     out = unshard(make_sharded_sdr_chain(_card_mesh(cuda), c, tpb)(x.to(cuda)))
-    assert {k: v for k, v in _build.launches.items() if v} == {"fm_demod": 4}
+    assert {k: v for k, v in _build.launches.items() if v} == {"polyphase_fir": 4, "fm_demod": 4}
     halo = c * tpb
     want = sdr_chain(torch.cat([x[-halo:], x]), design_prototype(c, tpb), c)
     assert out.shape == want.shape

@@ -21,6 +21,7 @@ PERF_BOUNDS = {
     "fm_demod": (0.3205, 4), "fm_demod_half": (0.2865, 4), "cordic_atan2": (0.3205, 4),
     "fm_demod_phase": (0.3205, 4), "fm_demod_int_conj": (0.3205, 4),
     "taylor2_window_block": (0.1844, 4), "taylor_window_rtl": (0.0821, 4),
+    "polyphase_fir": (0.1603, 4),
 }
 
 

@@ -1,6 +1,7 @@
 """PyTorch port, ``_trace``: the spans of the window router, the window
 wrapper, the launch helper, the Welch analyzer's stages and the SDR
-chain's (``bhw.sdr``: on a card one ``fm_demod`` launch a call).
+chain's (``bhw.sdr``: on a card one ``polyphase_fir`` and one ``fm_demod``
+launch a call).
 
 Without a profiler session a span is one shared no-op (``record_function``
 is never entered); under one each span is a ``user_annotation`` of the
@@ -325,8 +326,9 @@ def test_sdr_bits_are_the_same_traced(kind):
 
 @pytest.mark.gpu
 def test_sdr_chain_on_the_card_is_one_fm_demod_launch_a_call(tmp_path):
-    """On a card: one ``fm_demod`` launch a chain call, inside its demod
-    stage, and every stage timed on the stream."""
+    """On a card: one ``polyphase_fir`` launch a chain call inside its
+    branches stage and one ``fm_demod`` inside its demod stage, and every
+    stage timed on the stream."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; torch sees none")
     x, proto = _sdr_input("complex", c=128, tpb=16, frames=4096)
@@ -338,9 +340,10 @@ def test_sdr_chain_on_the_card_is_one_fm_demod_launch_a_call(tmp_path):
         for _ in range(3):
             got = _chain(x, proto)
         torch.cuda.synchronize()
-    assert {k: v for k, v in _build.launches.items() if v} == {"fm_demod": 3}
+    assert {k: v for k, v in _build.launches.items() if v} == {"polyphase_fir": 3, "fm_demod": 3}
     assert torch.equal(got, want)
     spans = _trace.snapshot()["spans"]
+    assert spans["bhw.sdr/bhw.sdr.branches/bhw.launch.polyphase_fir"]["count"] == 3
     assert spans["bhw.sdr/bhw.sdr.demod/bhw.launch.fm_demod"]["count"] == 3
     for s in SDR_STAGES:
         row = spans[f"bhw.sdr/bhw.sdr.{s}"]
