@@ -15,9 +15,7 @@ path (its parents' names and its own, joined by ``/``):
   between two events recorded on the device's current stream at its entry
   and exit, summed over the ``stream_n`` pairs resolved so far (a pair is
   resolved once both events have completed, so nothing grows with the
-  calls);
-- ``nbytes``: the bytes the span's caller states its stage's tensors read
-  and write.
+  calls).
 
 With no session recording, :func:`span` returns one shared no-op context
 after one check: no ``record_function``, no clock, no table.  A session is
@@ -50,22 +48,21 @@ _free: dict[int, list] = {}
 PENDING = 32
 
 
-def span(name: str, device=None, nbytes: int = 0):
+def span(name: str, device=None):
     """A context that records the stage ``name`` while a profiler session
     records, and does nothing otherwise.  ``device``: a CUDA device whose
     current stream the stage runs on, for its stream time (any other
-    device, or none, records none).  ``nbytes``: what the stage's tensors
-    read and write, from their sizes."""
+    device, or none, records none)."""
     if not _profiler_enabled():
         return _OFF
-    return _Span(name, device, nbytes)
+    return _Span(name, device)
 
 
 class _Span:
-    __slots__ = ("name", "device", "nbytes", "key", "child_s", "rf", "stream", "events", "t0")
+    __slots__ = ("name", "device", "key", "child_s", "rf", "stream", "events", "t0")
 
-    def __init__(self, name: str, device, nbytes: int):
-        self.name, self.nbytes = name, nbytes
+    def __init__(self, name: str, device):
+        self.name = name
         self.device = device if device is not None and device.type == "cuda" else None
 
     def __enter__(self):
@@ -93,11 +90,10 @@ class _Span:
         row = _table.get(self.key)
         if row is None:
             row = _table[self.key] = {"count": 0, "host_s": 0.0, "self_s": 0.0,
-                                      "stream_s": 0.0, "stream_n": 0, "nbytes": 0}
+                                      "stream_s": 0.0, "stream_n": 0}
         row["count"] += 1
         row["host_s"] += host_s
         row["self_s"] += host_s - self.child_s
-        row["nbytes"] += self.nbytes
         if self.events is not None:
             _pending.append((row, self.device.index, *self.events))
             if len(_pending) > PENDING:

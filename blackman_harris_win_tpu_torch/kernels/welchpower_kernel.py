@@ -65,11 +65,9 @@ def check_spec(spec: torch.Tensor) -> torch.device:
 
 def frame_power_mean_plain(spec: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel: ``torch.mean(spec.abs() ** 2, dim=-2)``."""
-    nf = spec.shape[-2]
-    half = spec.numel() * spec.element_size() // 2  # one real per bin of every frame
-    with _trace.span("bhw.welch.power", spec.device, 3 * half):
+    with _trace.span("bhw.welch.power", spec.device):
         power = spec.abs() ** 2
-    with _trace.span("bhw.welch.mean", spec.device, half + half // nf):
+    with _trace.span("bhw.welch.mean", spec.device):
         return torch.mean(power, dim=-2)
 
 
@@ -86,8 +84,7 @@ def frame_power_mean(spec: torch.Tensor) -> torch.Tensor:
     cols = out.numel()
     if not cols:
         return out
-    with _trace.span("bhw.welch.power", device,
-                     spec.numel() * spec.element_size() + cols * out.element_size()):
+    with _trace.span("bhw.welch.power", device):
         slabs = frame_slabs(cols, nf)
         part = torch.empty((slabs, cols), dtype=torch.float64, device=device) if slabs > 1 else None
         _build.launch("welch_power_mean", device, out.data_ptr(), spec.data_ptr(),

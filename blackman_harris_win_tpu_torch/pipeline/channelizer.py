@@ -66,18 +66,13 @@ def channel_bins(x, prototype, n_channels: int, device=None):
 
     Under a profiler session its stages are the spans ``bhw.sdr.branches``
     (the commutator and the branch FIRs: on a card one launch of the
-    polyphase kernel) and ``bhw.sdr.dft`` (the DFT across the branches),
-    each with the bytes its input and output hold (``_trace``)."""
+    polyphase kernel) and ``bhw.sdr.dft`` (the DFT across the branches)
+    (``_trace``)."""
     x = _build.as_tensor(x, device=device)
-    frames = max(x.shape[-1] // n_channels - len(prototype) // n_channels + 1, 0)
-    nb = x.element_size() * (x.numel() // max(x.shape[-1], 1) * frames * n_channels)
-    with _trace.span("bhw.sdr.branches", x.device, x.numel() * x.element_size() + nb):
+    with _trace.span("bhw.sdr.branches", x.device):
         y = branch_fir(x, prototype, n_channels)
-    if y.is_complex():
-        with _trace.span("bhw.sdr.dft", x.device, 2 * nb):
-            return torch.fft.fft(y, dim=-1)
-    with _trace.span("bhw.sdr.dft", x.device, nb + 2 * nb // n_channels * (n_channels // 2 + 1)):
-        return torch.fft.rfft(y, dim=-1)
+    with _trace.span("bhw.sdr.dft", x.device):
+        return torch.fft.fft(y, dim=-1) if y.is_complex() else torch.fft.rfft(y, dim=-1)
 
 
 def full_spectrum(y, n_channels: int):

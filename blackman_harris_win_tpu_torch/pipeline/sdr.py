@@ -10,8 +10,6 @@ communicated and the outputs stay split over 'blocks'.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from .. import _trace
@@ -44,8 +42,7 @@ def sdr_chain(x, prototype, n_channels: int, angle_width: int = 20,
     """
     with _trace.span("bhw.sdr"):
         y = channel_bins(x, prototype, n_channels, device)  # (nf, C//2 + 1) or (nf, C)
-        out_bytes = 8 * math.prod(y.shape[:-2]) * max(y.shape[-2] - 1, 0) * n_channels
-        with _trace.span("bhw.sdr.demod", y.device, y.numel() * y.element_size() + out_bytes):
+        with _trace.span("bhw.sdr.demod", y.device):
             if y.device.type == "cuda":
                 return iq_demod(y, angle_width, iq_scale, n_channels)
             return discriminate_plain(full_spectrum(y, n_channels), angle_width, iq_scale)

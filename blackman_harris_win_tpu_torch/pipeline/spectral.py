@@ -87,9 +87,44 @@ def _check_float_window_arg(name_or_coeffs):
     return coeffs
 
 
-def _nbytes(*ts) -> int:
-    """The bytes of tensors, from their sizes (a view counts its elements)."""
-    return sum(t.numel() * t.element_size() for t in ts)
+def _analyzer_window(win_mode: str, name_or_coeffs, spec: WindowSpec, nfft: int | None = None,
+                     shift: int = 1):
+    """``win(device)``: the analyzer's window of ``nfft`` samples (default
+    ``spec.n``) for ``win_mode``, made on ``device`` at each call.
+
+    - ``"quantized"``: ``kernels.window.window_block`` (looked up at each
+      call) of a catalog name at its quantization and shift, or of integer
+      coefficients at ``shift``, in float32 times :func:`window_scale`;
+    - ``"float"``: :func:`float_window`, float32;
+    - ``"comp"``: the raw compensated (s, e) pair of :func:`comp_window_pair`.
+
+    The last two take a name or float coefficients and need nfft ==
+    spec.n.  The arguments are checked here, before any window is made."""
+    nfft = nfft or spec.n
+    if win_mode == "quantized":
+        if isinstance(name_or_coeffs, str):
+            d = catalog.get(name_or_coeffs)
+            name_or_coeffs, shift = d.quantized(spec.data_width), d.shift
+        coeffs_q = tuple(int(c) for c in name_or_coeffs)
+        scale = window_scale(spec, shift)
+        return lambda device: (_window.window_block(0, nfft, coeffs_q, spec, device)
+                               .to(torch.float32) * scale)
+    if win_mode not in ("float", "comp"):
+        raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
+    if nfft != spec.n:
+        raise ValueError(f"{win_mode} win_mode needs nfft == 2^phase_width")
+    name_or_coeffs = _check_float_window_arg(name_or_coeffs)
+    make = float_window if win_mode == "float" else comp_window_pair
+    return lambda device: make(name_or_coeffs, spec.phase_width, device=device)
+
+
+def _apply_window(fr, win):
+    """Frames times a window, or times the raw compensated (s, e) pair as
+    two products a sample, ``fr*s + fr*e``."""
+    if isinstance(win, tuple):
+        s, e = win
+        return fr * s + fr * e
+    return fr * win
 
 
 def frames_view(x, nfft: int, hop: int):
@@ -112,14 +147,23 @@ def welch_power(x, win, nfft: int, hop: int, fft_mode: str = "rfft", device=None
     input at hop == nfft/2 goes through the fused stage-1 kernel.
     """
     x = _build.as_tensor(x, device=device)
-    win = torch.as_tensor(win, dtype=_float_dtype(x), device=x.device)
-    if (fft_mode == "mxu" and hop * 2 == nfft and x.ndim == 1
-            and x.shape[-1] % hop == 0 and x.shape[-1] >= nfft
-            and _fused_ok(nfft) and x.is_cuda):
-        return _mxu_fused_mean_power(x, win, nfft)
+    return _welch(x, torch.as_tensor(win, dtype=_float_dtype(x), device=x.device), nfft, hop,
+                  fft_mode)
+
+
+def _welch(x, win, nfft: int, hop: int, fft_mode: str):
+    """:func:`welch_power` of a tensor ``x`` under a window tensor, cast to
+    x's floating dtype, or under the raw compensated (s, e) pair, which
+    never takes the fused route."""
+    if not isinstance(win, tuple):
+        win = win.to(_float_dtype(x))
+        if (fft_mode == "mxu" and hop * 2 == nfft and x.ndim == 1
+                and x.shape[-1] % hop == 0 and x.shape[-1] >= nfft
+                and _fused_ok(nfft) and x.is_cuda):
+            return _mxu_fused_mean_power(x, win, nfft)
     fr = frames_view(x, nfft, hop)
-    with _trace.span("bhw.welch.apply", x.device, 2 * _nbytes(fr) + _nbytes(win)):
-        fr = fr * win
+    with _trace.span("bhw.welch.apply", x.device):
+        fr = _apply_window(fr, win)
     return frame_mean_power(fr, fft_mode)
 
 
@@ -133,42 +177,15 @@ def _fused_ok(nfft: int) -> bool:
 
 @_full_fp32()
 def _mxu_fused_mean_power(x, win, nfft: int):
-    """Welch mean power via the stage-1 kernel + tensordot tail."""
+    """Welch mean power via the stage-1 kernel, then the matmul DFT stages
+    from stage 1 with the pair axis and k_0 as lead axes."""
     radices = _mxu_radices(nfft)
-    r0 = radices[0]
-    # one of the (xr, xi) pair: a frame of each pair of frames
-    pair_bytes = ((x.shape[-1] - nfft) // (nfft // 2) + 2) // 2 * nfft * x.element_size()
-    with _trace.span("bhw.welch.fft", x.device, _nbytes(x, win) + 2 * pair_bytes):
-        xr, xi, nf = welch_stage1_fused(x, win, nfft, r0=r0)
-        npair = xr.shape[0]
-        xr = xr.reshape((npair, r0) + radices[1:])
-        xi = xi.reshape((npair, r0) + radices[1:])
-        mats, tws = _dft_tables_on(nfft, x.device)
-        ns = len(radices)
-        for s in range(1, ns):
-            mr, mi = mats[s]
-            # contract the first remaining sample axis (always axis 2); the
-            # output digit k_s lands at the tail
-            yr = (torch.tensordot(xr, mr, dims=([2], [1]))
-                  - torch.tensordot(xi, mi, dims=([2], [1])))
-            yi = (torch.tensordot(xr, mi, dims=([2], [1]))
-                  + torch.tensordot(xi, mr, dims=([2], [1])))
-            xr, xi = yr, yi
-            if s < ns - 1:
-                # layout (pair, k_0, rest_dims..., k_1..k_{s-1}, k_s): k_0
-                # sits ahead of the rest dims because the kernel did stage 0
-                shape = (1, 1) + tuple(radices[s + 1:]) + (1,) * (s - 1) + (radices[s],)
-                twr, twi = (v.T.reshape(shape) for v in tws[s])
-                xr, xi = (xr * twr - xi * twi, xr * twi + xi * twr)
-    with _trace.span("bhw.welch.power", x.device, 3 * pair_bytes):
-        power = xr * xr + xi * xi
-    with _trace.span("bhw.welch.mean", x.device,
-                     pair_bytes + (nfft // 2 + 1) * x.element_size()):
-        p = torch.sum(power, dim=0)  # (k_0, .., k_{ns-1})
-        pk = p.permute(tuple(reversed(range(ns)))).reshape(nfft)
-        k = nfft // 2 + 1
-        pk_rev = torch.cat([pk[:1], torch.flip(pk[1:], dims=(0,))])
-        return 0.5 * (pk[:k] + pk_rev[:k]) / nf
+    with _trace.span("bhw.welch.fft", x.device):
+        xr, xi, nf = welch_stage1_fused(x, win, nfft, r0=radices[0])
+        planes = [t.reshape((t.shape[0],) + radices) for t in (xr, xi)]
+        del xr, xi  # stage 1 frees the kernel's output once it has read it
+        xr, xi = _mxu_stages(planes, nfft, 2, first=1)
+    return _pairs_mean_power(xr, xi, 0, nfft, nf)
 
 
 @_full_fp32()
@@ -184,29 +201,27 @@ def frame_mean_power(fr, fft_mode: str = "rfft"):
         return _mxu_packed_mean_power(fr)
     if fft_mode not in ("rfft", "packed"):
         raise ValueError("fft_mode must be 'rfft', 'packed' or 'mxu'")
-    dev, es = fr.device, fr.element_size()
-    nfft, nf = fr.shape[-1], fr.shape[-2]
-    k = nfft // 2 + 1
-    half = fr.numel() // nfft * k * es  # one float per bin of every frame
+    dev, nf = fr.device, fr.shape[-2]
     if fft_mode == "rfft":
-        with _trace.span("bhw.welch.fft", dev, _nbytes(fr) + 2 * half):
+        with _trace.span("bhw.welch.fft", dev):
             spec = torch.fft.rfft(fr, dim=-1)
         # the kernel on the card (span bhw.welch.power), the plain version's
         # bhw.welch.power and bhw.welch.mean on the CPU
         return _welchpower.frame_power_mean(spec)
-    with _trace.span("bhw.welch.fft", dev, 2 * _nbytes(fr)):
+    with _trace.span("bhw.welch.fft", dev):
         if nf % 2:  # pad one zero frame; it adds nothing to the power sum
             fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
         z = torch.complex(fr[..., 0::2, :], fr[..., 1::2, :])
         zf = torch.fft.fft(z, dim=-1)
-    with _trace.span("bhw.welch.power", dev, _nbytes(zf) + half // nf * ((nf + 1) // 2)):
+    with _trace.span("bhw.welch.power", dev):
         p = zf.abs()
         del zf  # freed where the one expression freed it
         p = p ** 2  # (..., nF/2, nfft)
         # |Z(-k)|^2 for k = 0..nfft/2 is p reversed with the k=0 bin fixed
+        k = fr.shape[-1] // 2 + 1
         p_rev = torch.cat([p[..., :1], torch.flip(p[..., 1:], dims=(-1,))], dim=-1)
         ps = 0.5 * (p[..., :k] + p_rev[..., :k])
-    with _trace.span("bhw.welch.mean", dev, _nbytes(ps) + half // nf):
+    with _trace.span("bhw.welch.mean", dev):
         return torch.sum(ps, dim=-2) / nf
 
 
@@ -254,19 +269,24 @@ def _dft_tables_on(nfft: int, device: torch.device):
     return [on(m) for m in mats], [on(t) for t in tws]
 
 
-@_full_fp32()
-def _mxu_stages(xr, xi, nfft: int, nlead: int):
-    """Run the mixed-radix matmul DFT stages over the trailing radix axes
-    of (lead..., r_0, .., r_{ns-1}) real/imag tensors.  On return, axis
-    nlead+i indexes output digit k_i with bin k = k_0 + r_0*k_1 + ...
+def _mxu_stages(planes: list, nfft: int, nlead: int, first: int = 0):
+    """Run the mixed-radix matmul DFT stages ``first``.. over the trailing
+    radix axes of (lead..., r_first, .., r_{ns-1}) real/imag tensors, given
+    as the list ``planes`` = [real, imag], which is emptied, so that each
+    plane is freed once the first stage has read it.  Returns (real, imag):
+    axis nlead+i indexes output digit k_{first+i}, bin k = k_0 + r_0*k_1 +
+    ...  The caller turns TF32 off.
 
     tensordot appends the contracted-output axis, so stage s always
     contracts the FIRST remaining sample axis (position ``nlead``) and the
     k axes accumulate at the tail in stage order, with no transposes."""
+    xr, xi = planes
+    planes.clear()
     radices = _mxu_radices(nfft)
     mats, tws = _dft_tables_on(nfft, xr.device)
     ns = len(radices)
-    for s_i, r in enumerate(radices):
+    for s_i in range(first, ns):
+        r = radices[s_i]
         mr, mi = mats[s_i]
         yr = (torch.tensordot(xr, mr, dims=([nlead], [1]))
               - torch.tensordot(xi, mi, dims=([nlead], [1])))
@@ -275,13 +295,33 @@ def _mxu_stages(xr, xi, nfft: int, nlead: int):
         xr, xi = yr, yi
         if s_i < ns - 1:
             # table is (k_s, rest); broadcast it TRANSPOSED in the layout
-            # (lead, rest_dims..., k_0..k_{s-1}, k_s)
-            shape = (1,) * nlead + tuple(radices[s_i + 1:]) + (1,) * s_i + (r,)
+            # (lead, rest_dims..., k_first..k_{s-1}, k_s)
+            shape = (1,) * nlead + tuple(radices[s_i + 1:]) + (1,) * (s_i - first) + (r,)
             twr, twi = (v.T.reshape(shape) for v in tws[s_i])
             xr, xi = (xr * twr - xi * twi, xr * twi + xi * twr)
-    return xr, xi, radices
+    return xr, xi
 
 
+def _pairs_mean_power(xr, xi, nlead: int, nfft: int, nf: int):
+    """The Welch mean from the matmul DFT stages' output over packed frame
+    pairs, (lead..., pair, k_0, .., k_{ns-1}) real/imag with ``nlead`` lead
+    axes: |Z|^2 summed over the pairs, put in natural bin order, and
+    unpacked through conjugate symmetry, (|Z(k)|^2 + |Z(-k)|^2) / 2, over
+    the ``nf`` frames -> (lead..., nfft//2+1)."""
+    with _trace.span("bhw.welch.power", xr.device):
+        power = xr * xr + xi * xi
+    with _trace.span("bhw.welch.mean", xr.device):
+        p = torch.sum(power, dim=nlead)  # sum over frame pairs
+        # natural bin order = transpose to reversed radix axes, flatten
+        ns = p.ndim - nlead
+        perm = tuple(range(nlead)) + tuple(nlead + i for i in reversed(range(ns)))
+        pk = p.permute(perm).reshape(p.shape[:nlead] + (nfft,))
+        k = nfft // 2 + 1
+        pk_rev = torch.cat([pk[..., :1], torch.flip(pk[..., 1:], dims=(-1,))], dim=-1)
+        return 0.5 * (pk[..., :k] + pk_rev[..., :k]) / nf
+
+
+@_full_fp32()
 def mxu_cfft(zr, zi):
     """Complex FFT over the last axis through matmul DFT stages, natural
     bin order: (..., M) real/imag f32 -> (..., M) real/imag f32.
@@ -290,8 +330,7 @@ def mxu_cfft(zr, zi):
     radices = _mxu_radices(m)
     lead = tuple(zr.shape[:-1])
     nl = len(lead)
-    xr, xi, _ = _mxu_stages(zr.reshape(lead + radices),
-                            zi.reshape(lead + radices), m, nl)
+    xr, xi = _mxu_stages([zr.reshape(lead + radices), zi.reshape(lead + radices)], m, nl)
     perm = tuple(range(nl)) + tuple(nl + i for i in reversed(range(len(radices))))
     return (xr.permute(perm).reshape(lead + (m,)),
             xi.permute(perm).reshape(lead + (m,)))
@@ -300,32 +339,14 @@ def mxu_cfft(zr, zi):
 def _mxu_packed_mean_power(fr):
     """The fft_mode="mxu" body: two real frames per complex input, matmul
     DFT stages, power-only unpack via conjugate symmetry."""
-    nfft = fr.shape[-1]
-    nf = fr.shape[-2]
-    radices = _mxu_radices(nfft)
-    lead = tuple(fr.shape[:-2])
-    npair = (nf + 1) // 2
-    nlead = len(lead) + 1
-    # one of the (xr, xi) pair
-    dev, pair_bytes = fr.device, _nbytes(fr) // nf * npair
-    with _trace.span("bhw.welch.fft", dev, 4 * pair_bytes):
+    nfft, nf, nl = fr.shape[-1], fr.shape[-2], fr.ndim - 2
+    pair = tuple(fr.shape[:-2]) + ((nf + 1) // 2,) + _mxu_radices(nfft)
+    with _trace.span("bhw.welch.fft", fr.device):
         if nf % 2:
             fr = torch.nn.functional.pad(fr, (0, 0, 0, 1))
-        xr = fr[..., 0::2, :].reshape(lead + (npair,) + radices)
-        xi = fr[..., 1::2, :].reshape(lead + (npair,) + radices)
-        xr, xi, radices = _mxu_stages(xr, xi, nfft, nlead)
-    ns = len(radices)
-    with _trace.span("bhw.welch.power", dev, 3 * pair_bytes):
-        power = xr * xr + xi * xi
-    k = nfft // 2 + 1
-    with _trace.span("bhw.welch.mean", dev, pair_bytes + _nbytes(power) // npair // nfft * k):
-        p = torch.sum(power, dim=nlead - 1)  # sum over frame pairs
-        # natural bin order = transpose to reversed radix axes, flatten
-        nl = len(lead)
-        perm = tuple(range(nl)) + tuple(nl + i for i in reversed(range(ns)))
-        pk = p.permute(perm).reshape(lead + (nfft,))
-        pk_rev = torch.cat([pk[..., :1], torch.flip(pk[..., 1:], dims=(-1,))], dim=-1)
-        return 0.5 * (pk[..., :k] + pk_rev[..., :k]) / nf
+        xr, xi = _mxu_stages([fr[..., 0::2, :].reshape(pair), fr[..., 1::2, :].reshape(pair)],
+                             nfft, nl + 1)
+    return _pairs_mean_power(xr, xi, nl, nfft, nf)
 
 
 @_full_fp32()
@@ -384,41 +405,9 @@ def windowed_power_spectrum(x, name_or_coeffs, spec: WindowSpec, hop=None,
     """
     with _trace.span("bhw.welch"):
         x = _build.as_tensor(x, device=device)
-        nfft = spec.n
-        hop = hop or nfft // 2
-        if win_mode == "comp":
-            with _trace.span("bhw.welch.window", x.device, 8 * nfft):
-                whi, wlo = comp_window_pair(_check_float_window_arg(name_or_coeffs),
-                                            spec.phase_width, device=x.device)
-            fr = frames_view(x, nfft, hop)
-            with _trace.span("bhw.welch.apply", x.device, 2 * _nbytes(fr) + 8 * nfft):
-                fr = fr * whi + fr * wlo
-            return frame_mean_power(fr, fft_mode)
-        if win_mode not in ("quantized", "float"):
-            raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
-        with _trace.span("bhw.welch.window", x.device, 4 * nfft):
-            if win_mode == "float":
-                win = float_window(_check_float_window_arg(name_or_coeffs), spec.phase_width,
-                                   device=x.device)
-            else:
-                if isinstance(name_or_coeffs, str):
-                    d = catalog.get(name_or_coeffs)
-                    coeffs_q, shift = d.quantized(spec.data_width), d.shift
-                else:
-                    coeffs_q, shift = tuple(name_or_coeffs), 1
-                wq = _window.window_block(0, nfft, coeffs_q, spec, x.device)
-                win = wq.to(torch.float32) * window_scale(spec, shift)
-        return welch_power(x, win, nfft, hop, fft_mode)
-
-
-def _quantized_window_fn(spec: WindowSpec, coeffs_q, shift: int, nfft: int):
-    """win(device): the quantized float32 window of the sharded steps,
-    generated on a shard's device by ``kernels.window.window_block`` (the
-    window kernel for the CORDIC source) and scaled in float32."""
-    coeffs_q = tuple(int(c) for c in coeffs_q)
-    scale = float(np.float32(window_scale(spec, shift)))
-    return lambda device: (_window.window_block(0, nfft, coeffs_q, spec, device)
-                           .to(torch.float32) * scale)
+        with _trace.span("bhw.welch.window", x.device):
+            win = _analyzer_window(win_mode, name_or_coeffs, spec)(x.device)
+        return _welch(x, win, spec.n, hop or spec.n // 2, fft_mode)
 
 
 def make_sharded_welch(mesh: Mesh, spec: WindowSpec, coeffs_q, shift: int, nfft: int, hop: int,
@@ -443,28 +432,11 @@ def make_sharded_welch(mesh: Mesh, spec: WindowSpec, coeffs_q, shift: int, nfft:
     fused stage-1 kernel takes 1-D input only, in both packages).
     """
     halo = nfft - hop
-    if win_mode in ("float", "comp"):
-        if nfft != spec.n:
-            raise ValueError(f"{win_mode} win_mode needs nfft == 2^phase_width")
-        name_or_coeffs = _check_float_window_arg(coeffs_q)
-        if win_mode == "float":
-            def make_win(device):
-                return float_window(name_or_coeffs, spec.phase_width, device=device)
-        else:
-            def make_win(device):
-                return comp_window_pair(name_or_coeffs, spec.phase_width, device=device)
-    elif win_mode == "quantized":
-        make_win = _quantized_window_fn(spec, coeffs_q, shift, nfft)
-    else:
-        raise ValueError("win_mode must be 'quantized', 'float' or 'comp'")
+    make_win = _analyzer_window(win_mode, coeffs_q, spec, nfft, shift)
 
     def shard_power(x, head):
         win = make_win(x.device)
-        xh = torch.cat([x, head], dim=-1)
-        if isinstance(win, tuple):  # the raw compensated (s, e) pair
-            fr = frames_view(xh, nfft, hop)
-            return frame_mean_power(fr * win[0] + fr * win[1], fft_mode)
-        return welch_power(xh, win, nfft, hop, fft_mode)
+        return _welch(torch.cat([x, head], dim=-1), win, nfft, hop, fft_mode)
 
     def step(x):
         xs = shard(x, mesh, ("channels", "blocks"))

@@ -14,6 +14,7 @@ from blackman_harris_win_tpu.pipeline import spectral as jsp
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import welchfft_kernel as wk
 from blackman_harris_win_tpu_torch.pipeline import spectral as sp
+from blackman_harris_win_tpu_torch.pipeline import stft as pstft
 from blackman_harris_win_tpu_torch.windows import catalog
 
 
@@ -411,6 +412,54 @@ class TestNonCordicWindows:
             jsp.windowed_power_spectrum(jnp.asarray(x), name, jconfig.WindowSpec(**vars(spec)))
         with pytest.raises((ValueError, NotImplementedError)):
             sp.windowed_power_spectrum(torch.from_numpy(x), name, spec)
+
+
+class TestAnalyzerWindow:
+    """The one place the analyzer's window is made
+    (``spectral._analyzer_window``): the quantized window comes from
+    ``kernels.window.window_block`` as the module holds it at the call, once
+    a call (a watcher swaps that attribute to see the window), and the STFT
+    pairs' windows are its windows, bit for bit."""
+
+    @pytest.mark.parametrize("fft_mode", ["rfft", "packed", "mxu"])
+    @pytest.mark.parametrize("by", ["name", "coeffs"])
+    def test_quantized_window_through_window_block(self, monkeypatch, fft_mode, by):
+        from blackman_harris_win_tpu_torch.kernels import window as kw
+
+        spec = WindowSpec(10, 17)
+        d = catalog.get("bh4")
+        arg, shift = ("bh4", d.shift) if by == "name" else (d.quantized(17), 1)
+        block, seen = kw.window_block, []
+
+        def watched(*args, **kwargs):
+            seen.append(block(*args, **kwargs))
+            return seen[-1]
+
+        monkeypatch.setattr(kw, "window_block", watched)
+        x = torch.from_numpy(_signal(spec.n // 2 * 7, 61))
+        for calls in (1, 2):
+            got = sp.windowed_power_spectrum(x, arg, spec, fft_mode=fft_mode)
+            assert len(seen) == calls
+        assert seen[-1].dtype == torch.int32 and seen[-1].shape == (spec.n,)
+        assert torch.equal(seen[-1], block(0, spec.n, d.quantized(17), spec, "cpu"))
+        win = seen[-1].to(torch.float32) * sp.window_scale(spec, shift)
+        assert torch.equal(got, sp.welch_power(x, win, spec.n, spec.n // 2, fft_mode))
+
+    @pytest.mark.parametrize("pw", [8, 11])
+    @pytest.mark.parametrize("win_mode", ["quantized", "float", "comp"])
+    def test_stft_pair_window_is_the_analyzers(self, win_mode, pw):
+        spec = WindowSpec(pw, 17)
+        if win_mode == "quantized":
+            *_, got = pstft.quantized_stft_pair("bh4", spec, device="cpu")
+        elif win_mode == "float":
+            *_, got = pstft.float_stft_pair("bh4", pw, device="cpu")
+        else:
+            *_, got = pstft.comp_stft_pair("bh4", pw, device="cpu")
+        want = sp._analyzer_window(win_mode, "bh4", spec)("cpu")
+        assert isinstance(got, tuple) == isinstance(want, tuple) == (win_mode == "comp")
+        for g, w in zip(got, want) if win_mode == "comp" else [(got, want)]:
+            assert g.dtype == w.dtype == torch.float32 and g.shape == (spec.n,)
+            assert torch.equal(g, w)
 
 
 class TestRfftPowerSplit:

@@ -29,6 +29,8 @@ from blackman_harris_win_tpu_torch.windows import catalog
 WIN_MODES = ("quantized", "float", "comp")
 FFT_MODES = ("rfft", "packed", "mxu")
 STAGES = ("window", "apply", "fft", "power", "mean")
+#: the sums a span path keeps
+ROW_KEYS = {"count", "host_s", "self_s", "stream_s", "stream_n"}
 SPEC = WindowSpec(phase_width=10, data_width=17)
 #: (name, spec): one window of each route of ``kernels.window.window_block``
 ROUTES = {
@@ -90,7 +92,7 @@ def no_record_function(monkeypatch):
 
 def test_a_span_without_a_session_is_one_shared_noop():
     assert not torch.autograd._profiler_enabled()
-    assert _trace.span("bhw.a") is _trace.span("bhw.b", torch.device("cpu"), 1 << 20)
+    assert _trace.span("bhw.a") is _trace.span("bhw.b", torch.device("cpu"))
 
 
 @pytest.mark.parametrize("fft_mode", FFT_MODES)
@@ -126,7 +128,7 @@ def test_welch_spans_in_the_trace_and_the_table(tmp_path, win_mode, fft_mode):
     assert spans["bhw.welch"]["count"] == 3
     for s in STAGES:
         row = spans[f"bhw.welch/bhw.welch.{s}"]
-        assert row["count"] == 3 and row["nbytes"] > 0
+        assert row["count"] == 3 and set(row) == ROW_KEYS
         assert row["stream_n"] == 0  # no stream on the CPU
     for row in spans.values():
         assert 0 <= row["self_s"] <= row["host_s"]
@@ -172,16 +174,17 @@ def test_paths_and_self_time():
     _trace.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         with _trace.span("bhw.a"):
-            with _trace.span("bhw.b", nbytes=10):
+            with _trace.span("bhw.b"):
                 time.sleep(0.02)
-            with _trace.span("bhw.b", nbytes=5):
+            with _trace.span("bhw.b"):
                 pass
         with _trace.span("bhw.b"):
             pass
     spans = _trace.snapshot()["spans"]
     assert set(spans) == {"bhw.a", "bhw.a/bhw.b", "bhw.b"}
     a, ab = spans["bhw.a"], spans["bhw.a/bhw.b"]
-    assert ab["count"] == 2 and ab["nbytes"] == 15 and ab["host_s"] >= 0.02
+    assert ab["count"] == 2 and ab["host_s"] >= 0.02
+    assert all(set(row) == ROW_KEYS for row in spans.values())
     assert a["host_s"] >= ab["host_s"]
     assert a["self_s"] == pytest.approx(a["host_s"] - ab["host_s"])
     _trace.reset()
@@ -302,14 +305,9 @@ def test_sdr_spans_in_the_trace_and_the_table(tmp_path, kind):
     spans = _trace.snapshot()["spans"]
     assert set(spans) == {"bhw.sdr"} | {f"bhw.sdr/bhw.sdr.{s}" for s in SDR_STAGES}
     assert spans["bhw.sdr"]["count"] == 3
-    # each stage's bytes: its input read once, its output written once
-    nb, nf, bins = x.element_size(), 64 - 4 + 1, 8 if kind == "complex" else 5
-    branches = (x.numel() + nf * 8) * nb
-    dft = nf * 8 * nb + nf * bins * 8
-    demod = nf * bins * 8 + (nf - 1) * 8 * 8
-    for stage, want in zip(SDR_STAGES, (branches, dft, demod)):
+    for stage in SDR_STAGES:
         row = spans[f"bhw.sdr/bhw.sdr.{stage}"]
-        assert row["count"] == 3 and row["nbytes"] == 3 * want
+        assert row["count"] == 3 and set(row) == ROW_KEYS
         assert row["stream_n"] == 0  # no stream on the CPU
     for row in spans.values():
         assert 0 <= row["self_s"] <= row["host_s"]

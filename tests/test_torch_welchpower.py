@@ -169,10 +169,10 @@ def test_cpu_spans_are_the_plain_version_s():
     with profile(activities=[ProfilerActivity.CPU]):
         wp.frame_power_mean(spec)
     spans = _trace.snapshot()["spans"]
-    half = 5 * 129 * 4
     assert spans["bhw.welch.power"]["count"] == 1
-    assert spans["bhw.welch.power"]["nbytes"] == 3 * half
-    assert spans["bhw.welch.mean"]["nbytes"] == half + half // 5
+    assert spans["bhw.welch.mean"]["count"] == 1
+    for row in spans.values():
+        assert set(row) == {"count", "host_s", "self_s", "stream_s", "stream_n"}
 
 
 # --- the slab rule ---
