@@ -42,7 +42,7 @@ launches = {
     "taylor_sincos_block": 0, "taylor_window_block": 0, "taylor_window_rtl": 0,
     "taylor_checksum": 0,
     "materialize": 0, "ddc_nco_table": 0, "ddc_mixer": 0, "cordic_atan2": 0, "fm_demod": 0,
-    "taylor2_window_block": 0, "welch_power_mean": 0, "polyphase_fir": 0,
+    "taylor2_window_block": 0, "welch_power_mean": 0, "polyphase_fir": 0, "polyphase_dft": 0,
 }
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -103,6 +103,9 @@ _SIGNATURES = {
     # by the launch), lanes (1: real, 2: complex), elem (4: float, 8:
     # double), stream
     "bhw_polyphase_fir": (_P, _P, _P, _L, _L, _L, _I, _L, _I, _I, _P),
+    # y (16-byte aligned), x, taps, twiddles (the 128 of W_128^e), rows, nf,
+    # tpb (1..16), strip (as above), stream: 128 channels of complex64
+    "bhw_polyphase_dft": (_P, _P, _P, _P, _L, _L, _I, _L, _P),
 }
 #: host-side queries of a kernel's launch geometry: name -> (args, result)
 _QUERIES = {

@@ -1,4 +1,5 @@
-"""The polyphase channelizer's branch FIRs as one CUDA kernel: binding of
+"""The polyphase channelizer's branch FIRs as one CUDA kernel, and with
+the DFT across the branches as a second one: bindings of
 ``csrc/polyphase_kernel.cu``.
 
 ``branch_fir(x, prototype, n_channels)`` is the commutator and the C branch
@@ -26,6 +27,15 @@ float32 or complex64 for it and its output rounded back, and any other dtype
 raises.  A conjugated or negated view is read as its value.  The taps reach
 the card once per prototype, dtype and device (:func:`prototype_taps`).  An
 input with no valid frame gives an empty (..., 0, C) output, with no launch.
+
+``branch_dft(x, prototype, n_channels)`` is the filter bank's whole output,
+the channel bins Y[..., m, k] = sum_p e^{-2 pi i p k / C} y[..., m, p]: on a
+card, where :func:`fuses_dft` admits the input (complex64, C = 128, at most
+16 taps a branch: the SDR monitor's call), one launch (counter
+``polyphase_dft``) that runs the DFT on the branch sums inside the kernel,
+so they never reach device memory and no FFT reads them back; on the CPU
+the plain versions, :func:`branch_fir_plain` then ``torch.fft.fft``.  Its
+twiddles are :func:`dft_twiddles`, a float64 table rounded once.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 #: half types the wrapper widens for the kernel, and back
 _WIDEN = {torch.float16: torch.float32, torch.bfloat16: torch.float32,
           torch.complex32: torch.complex64}
+#: the fused launch's channels and its most taps a branch
+DFT_CHANNELS, DFT_MAX_TAPS = 128, 16
 
 
 def check_prototype(prototype, n_channels: int) -> tuple[np.ndarray, int]:
@@ -98,24 +110,81 @@ def branch_fir_plain(x: torch.Tensor, prototype, n_channels: int) -> torch.Tenso
         return branches_conv(xp)
 
 
+def fuses_dft(dtype: torch.dtype, n_channels: int, taps_per_branch: int) -> bool:
+    """Whether a card runs the branch FIRs of this input and the DFT across
+    its branches as one launch (:func:`branch_dft`): complex64 (complex32
+    widened for it), C = 128 and at most 16 taps a branch, so that one block
+    holds every branch of its frames and the taps fit one pass.  Anything
+    else takes :func:`branch_fir`, then ``torch.fft``."""
+    return (dtype in (torch.complex64, torch.complex32) and n_channels == DFT_CHANNELS
+            and 1 <= taps_per_branch <= DFT_MAX_TAPS)
+
+
+@lru_cache(maxsize=1)
+def dft_twiddles() -> np.ndarray:
+    """W_128^e = exp(-2 pi i e / 128), e = 0..127, the fused kernel's
+    twiddles: float64 values rounded once to complex64 (read-only)."""
+    e = np.arange(DFT_CHANNELS)
+    t = np.exp(-2j * np.pi * e / DFT_CHANNELS).astype(np.complex64)
+    t.flags.writeable = False
+    return t
+
+
+@lru_cache(maxsize=16)
+def _twiddles_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(dft_twiddles().copy()).to(device)
+
+
+def route(x: torch.Tensor, prototype, n_channels: int) -> tuple[np.ndarray, bool]:
+    """The prototype's float64 taps, checked against ``n_channels``, and
+    whether ``x``'s channel bins are one launch of the fused kernel
+    (:func:`branch_dft`): on a card, for what :func:`fuses_dft` admits."""
+    h, tpb = check_prototype(prototype, n_channels)
+    return h, x.device.type == "cuda" and fuses_dft(x.dtype, n_channels, tpb)
+
+
 def branch_fir(x: torch.Tensor, prototype, n_channels: int) -> torch.Tensor:
     """The polyphase branch FIRs of ``x``: (..., T) -> (..., n_frames, C),
     real or complex as ``x``.  A CPU tensor takes the plain version, a CUDA
     tensor one launch of the kernel (a half type widened for it); a
     prototype or an input whose length is no multiple of C raises, and so
     does a CUDA tensor of a dtype the kernel does not take."""
+    return _bank(x, prototype, n_channels, dft=False)
+
+
+def branch_dft(x: torch.Tensor, prototype, n_channels: int) -> torch.Tensor:
+    """The channel bins of ``x``: (..., T) -> (..., n_frames, C) complex,
+    the DFT across the branches (``torch.fft.fft``'s sign) of
+    :func:`branch_fir`'s output.  A CPU tensor takes the plain versions; a
+    CUDA tensor one launch of the fused kernel, which takes what
+    :func:`fuses_dft` admits and raises on anything else.  A conjugated view
+    is read as its value; an input with no valid frame gives an empty
+    (..., 0, C) output, with no launch."""
+    return _bank(x, prototype, n_channels, dft=True)
+
+
+def _bank(x: torch.Tensor, prototype, n_channels: int, dft: bool) -> torch.Tensor:
+    """:func:`branch_fir` (``dft`` false) or :func:`branch_dft`: the checks,
+    the CPU's plain route, widening, and one launch of ``polyphase_fir`` or
+    ``polyphase_dft`` into a new (..., n_frames, C) output."""
     c = n_channels
     h, tpb = check_prototype(prototype, c)
     if x.shape[-1] % c:
         raise ValueError("input length must be a multiple of n_channels")
     device = _build.resolve_device(x.device)
+    if dft and device.type == "cuda" and not fuses_dft(x.dtype, c, tpb):
+        raise TypeError(f"the fused polyphase kernel takes complex64 or complex32 at "
+                        f"{DFT_CHANNELS} channels and up to {DFT_MAX_TAPS} taps a branch, got "
+                        f"{x.dtype} at {c} channels and {tpb} taps")
     nf = x.shape[-1] // c
     if nf < tpb:
-        return x.new_empty(x.shape[:-1] + (0, c))
+        return x.new_empty(x.shape[:-1] + (0, c), dtype=torch.promote_types(
+            x.dtype, torch.complex64) if dft else x.dtype)
     if device.type == "cpu":
-        return branch_fir_plain(x, h, c)
+        y = branch_fir_plain(x, h, c)
+        return torch.fft.fft(y, dim=-1) if dft else y
     if x.dtype in _WIDEN:
-        return branch_fir(x.to(_WIDEN[x.dtype]), h, c).to(x.dtype)
+        return _bank(x.to(_WIDEN[x.dtype]), h, c, dft).to(x.dtype)
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the polyphase kernel takes float32, float64, complex64 or complex128, "
                         f"got {x.dtype}")
@@ -128,8 +197,11 @@ def branch_fir(x: torch.Tensor, prototype, n_channels: int) -> torch.Tensor:
     # kernel reads the storage, so the bits are resolved first
     x = x.resolve_conj().resolve_neg().contiguous()
     taps = prototype_taps(h, _REAL.get(x.dtype, x.dtype), device)
-    lanes = 2 if x.is_complex() else 1
     # strip 0: the launch sizes the strips to the card's resident threads
-    _build.launch("polyphase_fir", device, y.data_ptr(), x.data_ptr(), taps.data_ptr(), rows, nf,
-                  c, tpb, 0, lanes, taps.element_size())
+    if dft:
+        _build.launch("polyphase_dft", device, y.data_ptr(), x.data_ptr(), taps.data_ptr(),
+                      _twiddles_on(device).data_ptr(), rows, nf, tpb, 0)
+    else:
+        _build.launch("polyphase_fir", device, y.data_ptr(), x.data_ptr(), taps.data_ptr(), rows,
+                      nf, c, tpb, 0, 2 if x.is_complex() else 1, taps.element_size())
     return y

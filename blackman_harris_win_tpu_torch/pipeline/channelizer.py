@@ -10,7 +10,12 @@ C:
   version (a reshape and one grouped ``conv1d``, in full fp32);
 - the cross-branch DFT is ``torch.fft.fft`` along the branch axis; the SDR
   chain takes a real stream's half spectrum (``torch.fft.rfft``,
-  :func:`channel_bins`), which its discriminator kernel reads in place.
+  :func:`channel_bins`), which its discriminator kernel reads in place;
+- on a card, where ``polyphase_kernel.route`` finds that
+  ``polyphase_kernel.fuses_dft`` admits the input
+  (complex64, C = 128, at most 16 taps a branch), both are one launch,
+  ``polyphase_kernel.branch_dft``: the DFT runs inside the branch kernel
+  and its bins are the kernel's output.
 
 Channel k of frame m:  Y[m, k] = sum_p e^{-j 2 pi p k / C} *
 (sum_t h_p[t] x[(m - t) C + p])  (h_p[t] = h[t C + p]); a tone at +k/C of
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import _build, _trace
-from ..kernels.polyphase_kernel import branch_fir
+from ..kernels.polyphase_kernel import branch_dft, branch_fir, route
 from .fir import design_lowpass
 
 
@@ -53,7 +58,10 @@ def polyphase_channelize(x, prototype, n_channels: int, device=None):
     """
     # DFT across branches (e^{-j 2 pi p k / C}) so channel k sits at +k/C
     x = _build.as_tensor(x, device=device)
-    return torch.fft.fft(branch_fir(x, prototype, n_channels), dim=-1)
+    h, fused = route(x, prototype, n_channels)
+    if fused:
+        return branch_dft(x, h, n_channels)
+    return torch.fft.fft(branch_fir(x, h, n_channels), dim=-1)
 
 
 def channel_bins(x, prototype, n_channels: int, device=None):
@@ -67,10 +75,15 @@ def channel_bins(x, prototype, n_channels: int, device=None):
     Under a profiler session its stages are the spans ``bhw.sdr.branches``
     (the commutator and the branch FIRs: on a card one launch of the
     polyphase kernel) and ``bhw.sdr.dft`` (the DFT across the branches)
-    (``_trace``)."""
+    (``_trace``); where the card runs both as one launch
+    (``polyphase_kernel.branch_dft``), that launch is ``bhw.sdr.branches``
+    and there is no ``bhw.sdr.dft``."""
     x = _build.as_tensor(x, device=device)
+    h, fused = route(x, prototype, n_channels)
     with _trace.span("bhw.sdr.branches", x.device):
-        y = branch_fir(x, prototype, n_channels)
+        y = (branch_dft if fused else branch_fir)(x, h, n_channels)
+    if fused:
+        return y
     with _trace.span("bhw.sdr.dft", x.device):
         return torch.fft.fft(y, dim=-1) if y.is_complex() else torch.fft.rfft(y, dim=-1)
 

@@ -38,7 +38,9 @@ def sdr_chain(x, prototype, n_channels: int, angle_width: int = 20,
 
     Under a profiler session the call is the span ``bhw.sdr``, with the
     channelizer's stages ``bhw.sdr.branches`` and ``bhw.sdr.dft``
-    (``channel_bins``) and the discriminator's ``bhw.sdr.demod`` (``_trace``).
+    (``channel_bins``; on a complex64 capture at C = 128 the card runs both
+    as one launch, in ``bhw.sdr.branches``) and the discriminator's
+    ``bhw.sdr.demod`` (``_trace``).
     """
     with _trace.span("bhw.sdr"):
         y = channel_bins(x, prototype, n_channels, device)  # (nf, C//2 + 1) or (nf, C)

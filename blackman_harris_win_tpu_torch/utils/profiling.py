@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 from pathlib import Path
 
 import torch
@@ -195,9 +196,20 @@ def polyphase_fir_bound(samples: int, c: int, tpb: int, lanes: int = 1,
     return bound(samples * lanes * elem + outs * elem, 2 * tpb * outs, F32_FLOPS)
 
 
+def polyphase_dft_bound(samples: int, c: int, tpb: int) -> tuple[float, str]:
+    """The fused channelizer's bound (``polyphase_dft``) on one stream of
+    ``samples`` complex64 samples, C = ``c`` branches of ``tpb`` taps: the
+    stream read once, the (samples // c - tpb + 1, c) complex64 channel bins
+    written once; the branch FIRs' flops and the C-point DFT's 5 log2 C a
+    complex bin at the float32 rate."""
+    bins = max(samples // c - tpb + 1, 0) * c
+    return bound(8 * samples + 8 * bins, (4 * tpb + 5 * math.log2(c)) * bins, F32_FLOPS)
+
+
 def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
                   mat_bytes: int, sdr_shape: tuple[int, int, int], ddc_period: int,
-                  ddc_width: int = 16, sdr_taps: int = 8) -> dict:
+                  ddc_width: int = 16, sdr_taps: int = 8, *,
+                  dft_shape: tuple[int, int, int]) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
     path's shapes (``chip_smoke.py``): each input read once, each output
     written once (tables and scalars are negligible); integer operations at
@@ -220,7 +232,9 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     n-sample 3-term (Blackman) TAYLOR window, HLS and RTL.
     ``welch_power_mean`` reads the analyzer's half spectrum once and writes
     its mean over frames.  ``polyphase_fir`` computes that output's branch
-    FIRs (``sdr_taps`` taps a branch) from its real float32 stream."""
+    FIRs (``sdr_taps`` taps a branch) from its real float32 stream;
+    ``polyphase_dft`` the channel bins of ``dft_shape`` = (complex64
+    samples, channels, taps a branch) (:func:`polyphase_dft_bound`)."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
@@ -272,6 +286,7 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         # once; its mean over frames written as float32
         "welch_power_mean": bound(8 * nf * (nfft // 2 + 1) + 4 * (nfft // 2 + 1)),
         "polyphase_fir": polyphase_fir_bound((nf_sdr + sdr_taps - 1) * c_sdr, c_sdr, sdr_taps),
+        "polyphase_dft": polyphase_dft_bound(*dft_shape),
     }
 
 

@@ -50,7 +50,10 @@ user calls, at the repository's real sizes:
    taps per branch, AW=20) over a 2^22-sample tone, a latency check, and at
    bench_all config 5 (16 channels, 8 taps per branch) over 16 * 2^22 noise
    samples: exactly one ``polyphase_fir`` and one ``fm_demod`` launch a
-   call; then
+   call; at the SDR cell's configuration (a complex64 capture, 128 channels
+   of 16 taps) over 2^22 noise samples: exactly one launch of the fused
+   channelizer ``polyphase_dft`` (branch FIRs and the DFT across the
+   branches) and one ``fm_demod``; then
    the demod module's other entry points on config 5's quantized channel
    I/Q: ``atan2_fixed`` (one launch of ``cordic_atan2``) and
    ``fm_demod_phase`` on the (16, T) transpose of its (T, 16) I/Q (one of
@@ -132,7 +135,10 @@ into slabs and a complex128 one, the polyphase branch FIR kernel against
 its plain version on the card (each output within 2 gamma(tpb + 1) x
 sum |h| |x|, one launch, the same bits run again) at config 5 and at the
 SDR cell's shape (2^26 complex64 samples, 128 branches of 16 taps), each
-timed alone, queued and beside its plain version and byte bound,
+timed alone, queued and beside its plain version and byte bound, and at
+the cell's shape the fused entry that adds the DFT across the branches
+(``polyphase_dft``: one launch, the same bits run again, within its
+bound of the branch kernel and cuFFT, timed beside them; its ptxas line),
 the DDC against a float64 FIR of its exact integer mixer products, the DDC
 mixer kernel bit-equal to its plain version on the card over 2^26 samples
 on each of its paths (config 21's table of P = 8, the odd word 104857 at
@@ -197,8 +203,8 @@ the RTL Taylor kernel's accumulate per sample (its branch-free
 block of the products a_k * cos_k + 2^(W-2), over the 8 samples of a lane),
 each split into the instructions of the integer ALU pipe, the FMA pipe
 (IMAD and f32 arithmetic) and the FP64 pipe; an int, a mixer or table, an
-atan2/discriminator, a taylor2 or an RTL Taylor instantiation whose ptxas
-line shows a stack frame or spills, or whose SASS holds local-memory
+atan2/discriminator, a taylor2, an RTL Taylor or the fused polyphase
+instantiation whose ptxas line shows a stack frame or spills, or whose SASS holds local-memory
 instructions, fails the run.
 The mixer kernel's time on each path (beside its bound), its launches a
 DDC call, the DDC's device time and the torch-op NCO + mixer time (its
@@ -419,7 +425,8 @@ def _welch_power_gates(x, win32, nfft: int, hop: int, dev) -> tuple[float, tuple
     return worst, times
 
 
-def _polyphase_gates(x5, proto5, c5: int, tpb5: int, seed: int, dev) -> tuple[float, dict]:
+def _polyphase_gates(x5, proto5, c5: int, tpb5: int, seed: int, dev,
+                     fused_ptxas: list) -> tuple[float, dict, tuple]:
     """The polyphase branch FIR kernel (``polyphase_kernel.branch_fir``)
     against its plain version on the card (the grouped ``conv1d``s), at
     config 5 (the real float32 stream of phase 8, 16 branches of 8 taps)
@@ -430,8 +437,11 @@ def _polyphase_gates(x5, proto5, c5: int, tpb5: int, seed: int, dev) -> tuple[fl
     version in float64).  Then each timed: one call alone, per call of 16
     queued, its C entry alone and queued (and queued at fixed strips of 256
     frames), the wrapper's host path and the plain version, beside the byte
-    bound.  Returns (the widest gap over its bound at config 5, shape label
-    -> (ms alone, plain ms))."""
+    bound.  At the SDR cell's shape also the fused entry
+    (:func:`_fused_dft_gates`).  Returns (the widest gap over its bound at
+    config 5, shape label -> (ms alone, plain ms), the fused entry's (gap
+    over its bound against its plain version, (ms alone, plain ms), (samples,
+    C, taps a branch)))."""
     import torch
 
     from blackman_harris_win_tpu_torch import _build
@@ -444,7 +454,7 @@ def _polyphase_gates(x5, proto5, c5: int, tpb5: int, seed: int, dev) -> tuple[fl
              "sdr cell": (lambda: torch.randn(1 << 26, generator=g, device=dev,
                                               dtype=torch.complex64),
                           design_prototype(128, 16), 128, 16)}
-    worst, times = 0.0, {}
+    worst, times, dft = 0.0, {}, None
     for label, (make, proto, c, tpb) in cases.items():
         x = make()
         _build.reset_launches()
@@ -506,9 +516,97 @@ def _polyphase_gates(x5, proto5, c5: int, tpb5: int, seed: int, dev) -> tuple[fl
               f"{b_ms / e_queued:.1%} queued; fixed strips of 256 frames {f_queued:.4f} ms "
               f"queued ({b_ms / f_queued:.1%})")
         times[label] = (alone, plain_ms)
+        if label == "sdr cell":
+            dft = (*_fused_dft_gates(x, proto, c, tpb, got, dev, fused_ptxas),
+                   (x.shape[-1], c, tpb))
         del x, got
     torch.cuda.empty_cache()
-    return worst, times
+    return worst, times, dft
+
+
+def _fused_dft_gates(x, proto, c: int, tpb: int, branches, dev,
+                     fused_ptxas: list) -> tuple[float, tuple[float, float]]:
+    """The fused entry (``polyphase_kernel.branch_dft``: the branch FIRs and
+    the DFT across the 128 branches in one launch) at the SDR cell's shape,
+    ``branches`` the branch kernel's output of ``x``: one ``polyphase_dft``
+    launch and nothing else, the same bits run again, and each bin within 2
+    gamma(tpb + 1 + 4 log2 C) x S of its plain version (``torch.fft.fft`` of
+    ``branch_fir_plain``) and of cuFFT on ``branches`` (S: over the
+    branches, sum |h| |x| of the real and the imaginary part, added).  Then
+    timed beside its plain version and ``polyphase_fir`` + cuFFT: the
+    wrappers alone and per call of 16 queued, the C entries likewise,
+    against the byte bound; with the kernel's ptxas lines (registers, shared
+    memory a block, spills).  Returns (the gap over that bound against the
+    plain version, (ms alone, plain ms))."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import polyphase_kernel as pk
+    from blackman_harris_win_tpu_torch.utils import profiling
+
+    _build.reset_launches()
+    bins = pk.branch_dft(x, proto, c)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    _require(launched == {"polyphase_dft": 1}, f"polyphase_dft sdr cell: launches {launched}")
+    _require(torch.equal(bins, pk.branch_dft(x, proto, c)),
+             "polyphase_dft sdr cell: another run gave other bits")
+    ax = torch.complex(x.real.abs(), x.imag.abs()).to(torch.complex128)
+    s64 = pk.branch_fir_plain(ax, np.abs(proto.astype(np.float32)), c)
+    scale = (s64.real + s64.imag).sum(-1, keepdim=True)
+    del ax, s64
+    u, n = 2.0**-24, tpb + 1 + 4 * int(np.log2(c))
+    lim = 2 * n * u / (1 - n * u) * scale
+
+    def gap(other):
+        d = (bins - other).to(torch.complex128)
+        return max(float((d.real.abs() / lim).max()), float((d.imag.abs() / lim).max()))
+
+    ratios = {"plain": gap(torch.fft.fft(pk.branch_fir_plain(x, proto, c), dim=-1)),
+              "polyphase_fir + cuFFT": gap(torch.fft.fft(branches, dim=-1))}
+    del lim
+    for what, ratio in ratios.items():
+        _require(ratio <= 1.0, f"polyphase_dft sdr cell: fused vs {what} {ratio:.3f} of the bound")
+    print(f"polyphase_dft sdr cell {tuple(x.shape)} -> {tuple(bins.shape)}: one launch, the same "
+          f"bits run again; of 2 gamma({n}) x S, fused vs " + ", vs ".join(
+              f"{what} {ratio:.4f}" for what, ratio in ratios.items()))
+    nf = x.shape[-1] // c
+    taps = pk.prototype_taps(proto, torch.float32, dev)
+    tw = pk._twiddles_on(dev)
+    stream = _build.stream_of(dev)
+
+    def fused_entry():
+        _require(_build.lib().bhw_polyphase_dft(bins.data_ptr(), x.data_ptr(), taps.data_ptr(),
+                                                tw.data_ptr(), 1, nf, tpb, 0, stream) == 0,
+                 "polyphase_dft C entry failed")
+
+    def two_entries():
+        _require(_build.lib().bhw_polyphase_fir(branches.data_ptr(), x.data_ptr(),
+                                                taps.data_ptr(), 1, nf, c, tpb, 0, 2, 4,
+                                                stream) == 0, "polyphase_fir C entry failed")
+        return torch.fft.fft(branches, dim=-1)
+
+    b_ms, b_by = profiling.polyphase_dft_bound(x.shape[-1], c, tpb)
+    t = {"fused": (_time_ms(lambda: pk.branch_dft(x, proto, c)),
+                   _time_ms(lambda: [pk.branch_dft(x, proto, c) for _ in range(16)]) / 16),
+         "fused C entry": (_time_ms(fused_entry),
+                           _time_ms(lambda: [fused_entry() for _ in range(16)]) / 16),
+         "polyphase_fir + cuFFT": (
+             _time_ms(lambda: torch.fft.fft(pk.branch_fir(x, proto, c), dim=-1)),
+             _time_ms(lambda: [torch.fft.fft(pk.branch_fir(x, proto, c), dim=-1)
+                               for _ in range(16)]) / 16),
+         "polyphase_fir C entry + cuFFT": (
+             _time_ms(two_entries), _time_ms(lambda: [two_entries() for _ in range(16)]) / 16)}
+    plain_ms = _time_ms(lambda: torch.fft.fft(pk.branch_fir_plain(x, proto, c), dim=-1))
+    for what, (alone, queued) in t.items():
+        print(f"polyphase_dft sdr cell, {what}: {alone:.4f} ms alone, {queued:.4f} ms per call "
+              f"of 16 queued; bound {b_ms:.4f} ms ({b_by}), share {b_ms / alone:.1%} alone, "
+              f"{b_ms / queued:.1%} queued")
+    print(f"polyphase_dft sdr cell, plain (branch_fir_plain + torch.fft.fft): {plain_ms:.4f} ms")
+    for line in fused_ptxas:
+        print(f"polyphase_dft ptxas (polyphase_dft_kernel): {line}")
+    del bins
+    return ratios["plain"], (t["fused"][0], plain_ms)
 
 
 def _counted(launched: dict, label: str, expect, fn, exact: dict | None = None):
@@ -2374,15 +2472,19 @@ def main(argv=None) -> int:
     print(f"build: {secs:.1f} s -> {path.name}")
     fn = "?"
     # may not spill ("demod_int_kernel" before "int_kernel": the first match counts)
+    fused = "polyphase_dft_kernel"
     in_registers = {"taylor_window_rtl_kernel": 0, "demod_int_kernel": 0, "int_kernel": 0,
                     "ddc_mixer_kernel": 0, "ddc_table_mixer_kernel": 0,
                     "ddc_nco_table_kernel": 0, "atan2_kernel": 0, "demod_iq_kernel": 0,
-                    "taylor2_window_kernel": 0}
+                    "taylor2_window_kernel": 0, fused: 0}
+    fused_ptxas = []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line.strip()
         elif "Used" in line or "spill" in line:
             print(f"  ptxas {fn}: {line.split('info    :')[-1].strip()}")
+            if fused in fn:
+                fused_ptxas.append(line.split("info    :")[-1].strip())
             family = next((k for k in in_registers if k in fn), None)
             if family and "spill" in line:
                 in_registers[family] += 1
@@ -2398,7 +2500,7 @@ def main(argv=None) -> int:
     want_inst = {"taylor_window_rtl_kernel": 10, "demod_int_kernel": 16, "int_kernel": 30,
                  "ddc_mixer_kernel": 40, "ddc_table_mixer_kernel": 2,
                  "ddc_nco_table_kernel": 20, "atan2_kernel": 4, "demod_iq_kernel": 4,
-                 "taylor2_window_kernel": 4}
+                 "taylor2_window_kernel": 4, fused: 1}
     _require(not log or in_registers == want_inst,
              f"ptxas reported {in_registers} instantiations, want {want_inst}")
     _print_sass(path)
@@ -2497,6 +2599,12 @@ def main(argv=None) -> int:
                                  lambda: (sdr_chain(x_sdr, proto, n_ch, angle_width=aw),
                                           sdr_chain(x_sdr5, proto5, c5, angle_width=aw)),
                                  exact={"polyphase_fir": 2, "fm_demod": 2})
+    g_cell = torch.Generator(device=dev).manual_seed(args.seed + 26)
+    x_cell = torch.randn(1 << 22, generator=g_cell, device=dev, dtype=torch.complex64)
+    proto_cell = design_prototype(128, 16)
+    cell_out = _counted(launched, "8 sdr cell", ("polyphase_dft", "fm_demod"),
+                        lambda: sdr_chain(x_cell, proto_cell, 128, angle_width=aw),
+                        exact={"polyphase_dft": 1, "fm_demod": 1})
     # the demod module's other entry points on config 5's quantized channel
     # I/Q: each channel's phase angle, and the phase-difference discriminator
     y5 = polyphase_channelize(x_sdr5, proto5, c5)
@@ -2570,7 +2678,8 @@ def main(argv=None) -> int:
           f"relative to max {err_s1 / scale_s1:.3e} (< 1e-5)")
     del s1r, s1i, p1r, p1i
     err_wpm, t_wpm = _welch_power_gates(x, win32, nfft, hop, dev)
-    err_pf, t_pf = _polyphase_gates(x_sdr5, proto5, c5, tpb5, args.seed, dev)
+    err_pf, t_pf, (err_pd, t_pd, dft_shape) = _polyphase_gates(x_sdr5, proto5, c5, tpb5,
+                                                                args.seed, dev, fused_ptxas)
 
     # the analyzer with the float32 and the compensated window
     win64_4 = torch.from_numpy(catalog.float_window_value("bh4", np.arange(nfft), nfft)).to(dev)
@@ -2744,6 +2853,10 @@ def main(argv=None) -> int:
     _require(sdr5_out.shape == ((c5 << 22) // c5 - tpb5, c5), "SDR config 5 output shape")
     err_fm = max(err_fm, _sdr_gates("config 5 16x8", x_sdr5, sdr5_out, proto5, c5, aw, None, rng,
                                     frames=1 << 16))
+    _require(cell_out.shape == ((1 << 22) // 128 - 16, 128), "SDR cell output shape")
+    err_fm = max(err_fm, _sdr_gates("sdr cell 128x16", x_cell, cell_out, proto_cell, 128, aw,
+                                    None, rng, frames=1 << 12))
+    del cell_out, x_cell
     # the discriminator's two entries on config 5: the chain's half spectrum
     # and the full one (a complex stream's) give the chain's output
     y5h = channel_bins(x_sdr5, proto5, c5)
@@ -2879,6 +2992,7 @@ def main(argv=None) -> int:
         ),
         "welch_power_mean": t_wpm,
         "polyphase_fir": t_pf["config 5"],
+        "polyphase_dft": t_pd,
         "analyzer mxu vs rfft": (
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      fft_mode="mxu")),
@@ -3151,7 +3265,7 @@ def main(argv=None) -> int:
     bounds = profiling.kernel_bounds(n, len(q7), nsamp, nfft, hop,
                                      m21.numel() * m21.element_size(), ddc_width=w21,
                                      sdr_shape=(y5.shape[0], c5, aw), ddc_period=p21,
-                                     sdr_taps=tpb5)
+                                     sdr_taps=tpb5, dft_shape=dft_shape)
     err_mat = ddc_res["mat_err"]
     tpu = "blackman_harris_win_tpu/kernels/pallas/"
     rows = [  # name, source, replaces (under tpu unless a full path), timing key, max abs err
@@ -3200,6 +3314,11 @@ def main(argv=None) -> int:
         # gap over its bound)
         ("polyphase_fir", "polyphase_kernel.cu",
          "blackman_harris_win_tpu/pipeline/channelizer.py:43", "polyphase_fir", err_pf),
+        # no pallas_call: the jnp of polyphase_channelize's branch FIRs and
+        # its DFT across the branches, at the SDR cell's shape (the gap over
+        # its bound against the plain version)
+        ("polyphase_dft", "polyphase_kernel.cu",
+         "blackman_harris_win_tpu/pipeline/channelizer.py:43", "polyphase_dft", err_pd),
     ]
     kernels = []
     b_full = bounds["fm_demod"]

@@ -21,7 +21,7 @@ PERF_BOUNDS = {
     "fm_demod": (0.3205, 4), "fm_demod_half": (0.2865, 4), "cordic_atan2": (0.3205, 4),
     "fm_demod_phase": (0.3205, 4), "fm_demod_int_conj": (0.3205, 4),
     "taylor2_window_block": (0.1844, 4), "taylor_window_rtl": (0.0821, 4),
-    "polyphase_fir": (0.1603, 4),
+    "polyphase_fir": (0.1603, 4), "polyphase_dft": (0.3205, 4),
 }
 
 
@@ -29,11 +29,13 @@ PERF_BOUNDS = {
 SDR_SHAPE = ((1 << 22) - 7, 16, 20)
 #: bench_all config 21's NCO period: fc = 1/8 at PW = 20
 DDC_PERIOD = 8
+#: the SDR monitor's call: (complex64 samples, channels, taps a branch)
+SDR_CELL = (N, 128, 16)
 
 
 def _main_path_bounds():
     return prof.kernel_bounds(N, 7, 128 << 20, 1 << 20, 1 << 19, 2 * N * 4, SDR_SHAPE,
-                              DDC_PERIOD)
+                              DDC_PERIOD, dft_shape=SDR_CELL)
 
 
 class TestBounds:

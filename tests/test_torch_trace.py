@@ -1,7 +1,8 @@
 """PyTorch port, ``_trace``: the spans of the window router, the window
 wrapper, the launch helper, the Welch analyzer's stages and the SDR
 chain's (``bhw.sdr``: on a card one ``polyphase_fir`` and one ``fm_demod``
-launch a call).
+launch a call, or for the SDR cell's complex capture at 128 channels one
+``polyphase_dft`` and one ``fm_demod``).
 
 Without a profiler session a span is one shared no-op (``record_function``
 is never entered); under one each span is a ``user_annotation`` of the
@@ -323,26 +324,33 @@ def test_sdr_bits_are_the_same_traced(kind):
 
 
 @pytest.mark.gpu
-def test_sdr_chain_on_the_card_is_one_fm_demod_launch_a_call(tmp_path):
-    """On a card: one ``polyphase_fir`` launch a chain call inside its
+@pytest.mark.parametrize("route", ["fused", "two-stage"])
+def test_sdr_chain_on_the_card_is_one_fm_demod_launch_a_call(tmp_path, route):
+    """On a card: one launch of the channelizer a chain call inside its
     branches stage and one ``fm_demod`` inside its demod stage, and every
-    stage timed on the stream."""
+    stage timed on the stream.  At the SDR cell's 128 channels of 16 taps
+    (``fused``) the launch is ``polyphase_dft``, with the DFT in it: no
+    ``bhw.sdr.dft``; at 8 channels of the same prototype (``two-stage``)
+    it is ``polyphase_fir``, and cuFFT runs in ``bhw.sdr.dft``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; torch sees none")
     x, proto = _sdr_input("complex", c=128, tpb=16, frames=4096)
     x = x.cuda()
-    want = _chain(x, proto)
+    c, kernel, stages = ((128, "polyphase_dft", ("branches", "demod")) if route == "fused"
+                         else (8, "polyphase_fir", SDR_STAGES))
+    want = _chain(x, proto, c)
     _build.reset_launches()
     _trace.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         for _ in range(3):
-            got = _chain(x, proto)
+            got = _chain(x, proto, c)
         torch.cuda.synchronize()
-    assert {k: v for k, v in _build.launches.items() if v} == {"polyphase_fir": 3, "fm_demod": 3}
+    assert {k: v for k, v in _build.launches.items() if v} == {kernel: 3, "fm_demod": 3}
     assert torch.equal(got, want)
     spans = _trace.snapshot()["spans"]
-    assert spans["bhw.sdr/bhw.sdr.branches/bhw.launch.polyphase_fir"]["count"] == 3
+    assert spans[f"bhw.sdr/bhw.sdr.branches/bhw.launch.{kernel}"]["count"] == 3
     assert spans["bhw.sdr/bhw.sdr.demod/bhw.launch.fm_demod"]["count"] == 3
-    for s in SDR_STAGES:
+    assert ("bhw.sdr/bhw.sdr.dft" in spans) == ("dft" in stages)
+    for s in stages:
         row = spans[f"bhw.sdr/bhw.sdr.{s}"]
         assert row["count"] == row["stream_n"] == 3 and row["stream_s"] > 0
