@@ -5,7 +5,8 @@ the DFT across the branches as a second one: bindings of
 ``branch_fir(x, prototype, n_channels)`` is the commutator and the C branch
 FIRs of a critically sampled DFT filter bank: x (..., T) real or complex, T
 a multiple of C, the prototype C * tpb taps -> (..., n_frames, C) in x's
-dtype, n_frames = T // C - tpb + 1 (the valid region):
+dtype (float32 for int8 ADC words), n_frames = T // C - tpb + 1 (the valid
+region):
 
     y[..., m, p] = sum_t h[t C + p] * x[..., (m + tpb - 1 - t) C + p]
 
@@ -23,7 +24,9 @@ A CPU tensor takes the plain version, :func:`branch_fir_plain` (the
 commutator reshape and grouped ``conv1d``s, TF32 off); a CUDA tensor the
 kernel (counter ``polyphase_fir``), which takes float32, float64, complex64
 and complex128: a half type (float16, bfloat16, complex32) is widened to
-float32 or complex64 for it and its output rounded back, and any other dtype
+float32 or complex64 for it and its output rounded back; int8 (an ADC's
+words) is taken as float32 on both routes, which holds it exactly, and its
+output stays float32, the bits of its float32 copy's; any other dtype
 raises.  A conjugated or negated view is read as its value.  The taps reach
 the card once per prototype, dtype and device (:func:`prototype_taps`).  An
 input with no valid frame gives an empty (..., 0, C) output, with no launch.
@@ -53,6 +56,9 @@ _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 #: half types the wrapper widens for the kernel, and back
 _WIDEN = {torch.float16: torch.float32, torch.bfloat16: torch.float32,
           torch.complex32: torch.complex64}
+#: integer words taken as float32 on both routes (exactly), the output kept
+#: float32
+_EXACT = {torch.int8: torch.float32}
 #: the fused launch's channels and its most taps a branch
 DFT_CHANNELS, DFT_MAX_TAPS = 128, 16
 
@@ -145,10 +151,11 @@ def route(x: torch.Tensor, prototype, n_channels: int) -> tuple[np.ndarray, bool
 
 def branch_fir(x: torch.Tensor, prototype, n_channels: int) -> torch.Tensor:
     """The polyphase branch FIRs of ``x``: (..., T) -> (..., n_frames, C),
-    real or complex as ``x``.  A CPU tensor takes the plain version, a CUDA
-    tensor one launch of the kernel (a half type widened for it); a
-    prototype or an input whose length is no multiple of C raises, and so
-    does a CUDA tensor of a dtype the kernel does not take."""
+    real or complex as ``x`` (float32 for int8).  A CPU tensor takes the
+    plain version, a CUDA tensor one launch of the kernel (a half type
+    widened for it, int8 taken as float32); a prototype or an input whose
+    length is no multiple of C raises, and so does a CUDA tensor of a dtype
+    the kernel does not take."""
     return _bank(x, prototype, n_channels, dft=False)
 
 
@@ -166,7 +173,9 @@ def branch_dft(x: torch.Tensor, prototype, n_channels: int) -> torch.Tensor:
 def _bank(x: torch.Tensor, prototype, n_channels: int, dft: bool) -> torch.Tensor:
     """:func:`branch_fir` (``dft`` false) or :func:`branch_dft`: the checks,
     the CPU's plain route, widening, and one launch of ``polyphase_fir`` or
-    ``polyphase_dft`` into a new (..., n_frames, C) output."""
+    ``polyphase_dft`` into a new (..., n_frames, C) output.  Takes what the
+    kernel takes, half types (widened, the output rounded back) and int8
+    (taken as float32, the output float32)."""
     c = n_channels
     h, tpb = check_prototype(prototype, c)
     if x.shape[-1] % c:
@@ -176,6 +185,8 @@ def _bank(x: torch.Tensor, prototype, n_channels: int, dft: bool) -> torch.Tenso
         raise TypeError(f"the fused polyphase kernel takes complex64 or complex32 at "
                         f"{DFT_CHANNELS} channels and up to {DFT_MAX_TAPS} taps a branch, got "
                         f"{x.dtype} at {c} channels and {tpb} taps")
+    if x.dtype in _EXACT:
+        x = x.to(_EXACT[x.dtype])
     nf = x.shape[-1] // c
     if nf < tpb:
         return x.new_empty(x.shape[:-1] + (0, c), dtype=torch.promote_types(

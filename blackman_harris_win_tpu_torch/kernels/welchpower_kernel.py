@@ -15,9 +15,11 @@ are cut into slabs (:func:`frame_slabs`); each slab's float64 partial sums
 go to scratch and a second pass adds them in slab order, so the result is
 the same bits on every run.
 
-Under a profiler session the card's pass is one span, ``bhw.welch.power``
+Under a profiler session the card's pass is one span, ``<span>.power``
 (the spectrum read once, the mean written); the plain version keeps two,
-``bhw.welch.power`` (``abs``, ``** 2``) and ``bhw.welch.mean``.
+``<span>.power`` (``abs``, ``** 2``) and ``<span>.mean``: ``span`` is the
+caller's root, the Welch analyzer's ``bhw.welch`` unless given (the
+spectrometer's ``bhw.pfb``).
 """
 
 from __future__ import annotations
@@ -63,28 +65,28 @@ def check_spec(spec: torch.Tensor) -> torch.device:
     return device
 
 
-def frame_power_mean_plain(spec: torch.Tensor) -> torch.Tensor:
+def frame_power_mean_plain(spec: torch.Tensor, span: str = "bhw.welch") -> torch.Tensor:
     """Plain version of the kernel: ``torch.mean(spec.abs() ** 2, dim=-2)``."""
-    with _trace.span("bhw.welch.power", spec.device):
+    with _trace.span(f"{span}.power", spec.device):
         power = spec.abs() ** 2
-    with _trace.span("bhw.welch.mean", spec.device):
+    with _trace.span(f"{span}.mean", spec.device):
         return torch.mean(power, dim=-2)
 
 
-def frame_power_mean(spec: torch.Tensor) -> torch.Tensor:
+def frame_power_mean(spec: torch.Tensor, span: str = "bhw.welch") -> torch.Tensor:
     """Mean over frames of ``|spec|**2``: (..., nF, K) complex -> (..., K)
     real.  A CPU tensor takes the plain version, a CUDA tensor the kernel
     (counter ``welch_power_mean``); anything :func:`check_spec` refuses
-    raises."""
+    raises.  ``span``: the root of its spans (the module's docstring)."""
     device = check_spec(spec)
     if device.type == "cpu":
-        return frame_power_mean_plain(spec)
+        return frame_power_mean_plain(spec, span)
     nf, k = spec.shape[-2], spec.shape[-1]
     out = torch.empty(spec.shape[:-2] + (k,), dtype=spec.real.dtype, device=device)
     cols = out.numel()
     if not cols:
         return out
-    with _trace.span("bhw.welch.power", device):
+    with _trace.span(f"{span}.power", device):
         slabs = frame_slabs(cols, nf)
         part = torch.empty((slabs, cols), dtype=torch.float64, device=device) if slabs > 1 else None
         _build.launch("welch_power_mean", device, out.data_ptr(), spec.data_ptr(),

@@ -7,7 +7,8 @@ C:
 - the polyphase decomposition and the C branch FIRs are
   ``kernels.polyphase_kernel.branch_fir``: on a card one launch of the
   polyphase kernel, which reads the stream in place, on the CPU its plain
-  version (a reshape and one grouped ``conv1d``, in full fp32);
+  version (a reshape and one grouped ``conv1d``, in full fp32); int8 ADC
+  words are taken as float32 on both;
 - the cross-branch DFT is ``torch.fft.fft`` along the branch axis; the SDR
   chain takes a real stream's half spectrum (``torch.fft.rfft``,
   :func:`channel_bins`), which its discriminator kernel reads in place;

@@ -186,14 +186,14 @@ def taylor2_window_work(n: int, n_terms: int, rb: int, p_lo: bool = True) -> int
 
 
 def polyphase_fir_bound(samples: int, c: int, tpb: int, lanes: int = 1,
-                        elem: int = 4) -> tuple[float, str]:
-    """The polyphase branch FIRs' bound (``polyphase_fir``) on one stream of
-    ``samples`` samples of ``lanes`` values (1 real, 2 complex) of ``elem``
-    bytes, C = ``c`` branches of ``tpb`` taps: the stream read once, the
-    (samples // c - tpb + 1, c) outputs written once, an FMA (2 flops) a
-    tap of each output value at the float32 rate."""
-    outs = max(samples // c - tpb + 1, 0) * c * lanes
-    return bound(samples * lanes * elem + outs * elem, 2 * tpb * outs, F32_FLOPS)
+                        elem: int = 4, rows: int = 1) -> tuple[float, str]:
+    """The polyphase branch FIRs' bound (``polyphase_fir``) on ``rows``
+    streams (one launch) of ``samples`` samples of ``lanes`` values (1 real,
+    2 complex) of ``elem`` bytes, C = ``c`` branches of ``tpb`` taps: each
+    stream read once, its (samples // c - tpb + 1, c) outputs written once,
+    an FMA (2 flops) a tap of each output value at the float32 rate."""
+    outs = rows * max(samples // c - tpb + 1, 0) * c * lanes
+    return bound(rows * samples * lanes * elem + outs * elem, 2 * tpb * outs, F32_FLOPS)
 
 
 def polyphase_dft_bound(samples: int, c: int, tpb: int) -> tuple[float, str]:
@@ -209,7 +209,8 @@ def polyphase_dft_bound(samples: int, c: int, tpb: int) -> tuple[float, str]:
 def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
                   mat_bytes: int, sdr_shape: tuple[int, int, int], ddc_period: int,
                   ddc_width: int = 16, sdr_taps: int = 8, *,
-                  dft_shape: tuple[int, int, int]) -> dict:
+                  dft_shape: tuple[int, int, int],
+                  pfb_shape: tuple[int, int, int, int, int]) -> dict:
     """name -> (bound ms, "bytes" | "operations") of each kernel at the main
     path's shapes (``chip_smoke.py``): each input read once, each output
     written once (tables and scalars are negligible); integer operations at
@@ -234,7 +235,8 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     its mean over frames.  ``polyphase_fir`` computes that output's branch
     FIRs (``sdr_taps`` taps a branch) from its real float32 stream;
     ``polyphase_dft`` the channel bins of ``dft_shape`` = (complex64
-    samples, channels, taps a branch) (:func:`polyphase_dft_bound`)."""
+    samples, channels, taps a branch) (:func:`polyphase_dft_bound`); and
+    :func:`pfb_bounds` of ``pfb_shape``, the PFB spectrometer's."""
     nf = (nsamp - nfft) // hop + 1
     npair = (nf + 1) // 2
     t_ddc = mat_bytes // 8
@@ -250,7 +252,7 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
     # TwoSum, which no kernel does
     f32, comp = float_window_flops(n, n_terms), comp_window_flops(n, "bh7") - 6 * n
     outer = outer_window_int_ops(n, n_terms)
-    return {
+    return pfb_bounds(*pfb_shape) | {
         "window_block": bound(4 * n, cordic_window_int_ops(n, n_terms, 32)),
         "window_checksum": bound(4, 4 * n * (cordic_ops(n_terms, 32) + 1)),
         # the work the function needs, not the kernel's direct DFT-matrix
@@ -288,6 +290,19 @@ def kernel_bounds(n: int, n_terms: int, nsamp: int, nfft: int, hop: int,
         "polyphase_fir": polyphase_fir_bound((nf_sdr + sdr_taps - 1) * c_sdr, c_sdr, sdr_taps),
         "polyphase_dft": polyphase_dft_bound(*dft_shape),
     }
+
+
+def pfb_bounds(feeds: int, samples: int, c: int, tpb: int, n_acc: int) -> dict:
+    """The PFB spectrometer's two kernels on ``feeds`` streams of
+    ``samples`` float32 words, C = ``c`` channels of ``tpb`` taps a branch,
+    ``n_acc`` spectra an integration: ``polyphase_fir pfb cell``, every
+    feed's branch FIRs in one launch (:func:`polyphase_fir_bound`), and
+    ``welch_power_mean pfb cell``, the half spectrum's (feeds, n_int, n_acc,
+    C//2 + 1) complex64 bins read once and their float32 means written."""
+    nf, k = samples // c - tpb + 1, c // 2 + 1
+    return {"polyphase_fir pfb cell": polyphase_fir_bound(samples, c, tpb, rows=feeds),
+            "welch_power_mean pfb cell": bound(8 * feeds * nf * k
+                                               + 4 * feeds * (nf // n_acc) * k)}
 
 
 @contextlib.contextmanager

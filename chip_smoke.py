@@ -53,7 +53,12 @@ user calls, at the repository's real sizes:
    call; at the SDR cell's configuration (a complex64 capture, 128 channels
    of 16 taps) over 2^22 noise samples: exactly one launch of the fused
    channelizer ``polyphase_dft`` (branch FIRs and the DFT across the
-   branches) and one ``fm_demod``; then
+   branches) and one ``fm_demod``; the PFB spectrometer
+   (``pipeline.spectrometer.pfb_power``) at its cell's shape, one board's
+   16 seeded int8 feeds of (8 * 1024 + 3) * 2048 words through a
+   2048-channel bank of 4 taps a branch, 8 integrations of 1024 spectra:
+   exactly one ``polyphase_fir`` (every feed in one launch) and one
+   ``welch_power_mean`` (its slab path) a call; then
    the demod module's other entry points on config 5's quantized channel
    I/Q: ``atan2_fixed`` (one launch of ``cordic_atan2``) and
    ``fm_demod_phase`` on the (16, T) transpose of its (T, 16) I/Q (one of
@@ -139,6 +144,13 @@ timed alone, queued and beside its plain version and byte bound, and at
 the cell's shape the fused entry that adds the DFT across the branches
 (``polyphase_dft``: one launch, the same bits run again, within its
 bound of the branch kernel and cuFFT, timed beside them; its ptxas line),
+the PFB spectrometer's two kernels at its cell's shape (the branch FIRs
+of the int8 capture the same bits as of its float32 copy and within 2
+gamma(tpb + 1) x sum |h| |x| of the plain version; the power mean on the
+(16, 8, 1024, 1025) bins within one float32 rounding of their float64
+mean and within gamma(n_acc + 3) of its plain version, one launch each,
+the same bits run again and the same bits as the phase's call; each
+timed beside its plain version and byte bound, and the whole call),
 the DDC against a float64 FIR of its exact integer mixer products, the DDC
 mixer kernel bit-equal to its plain version on the card over 2^26 samples
 on each of its paths (config 21's table of P = 8, the odd word 104857 at
@@ -607,6 +619,132 @@ def _fused_dft_gates(x, proto, c: int, tpb: int, branches, dev,
         print(f"polyphase_dft ptxas (polyphase_dft_kernel): {line}")
     del bins
     return ratios["plain"], (t["fused"][0], plain_ms)
+
+
+def _int8_capture(seed: int, dev, feeds: int, samples: int):
+    """Seeded int8 ADC words (feeds, samples) made on the card: Gaussian at
+    an rms of 40 LSB, rounded and clipped at +-127 (some 0.15% of the words
+    clip)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 27)
+    x = torch.empty((feeds, samples), dtype=torch.int8, device=dev)
+    for f in range(feeds):
+        v = torch.randn(samples, generator=g, device=dev).mul_(40.0)
+        x[f] = v.round_().clamp_(-127, 127).to(torch.int8)
+    return x
+
+
+def _spectrometer_gates(x, power, proto, c: int, tpb: int, n_acc: int,
+                        dev) -> dict:
+    """The PFB spectrometer's kernels at its cell's shape, ``x`` the int8
+    capture (feeds, T) and ``power`` the main path's ``pfb_power`` of it.
+    ``branch_fir`` of ``x``: one ``polyphase_fir`` launch, the same bits as
+    of its float32 copy and run again, each output within 2 gamma(tpb + 1)
+    x sum |h| |x| of ``branch_fir_plain`` (both sum tpb float32 products of
+    exact words).  ``frame_power_mean`` of its half spectrum viewed as
+    (feeds, n_int, n_acc, C//2 + 1): one ``welch_power_mean`` launch (the
+    slab path), the same bits run again and as ``power``, each bin within
+    2 u of the float64 mean of the same bins (the kernel's squares and sums
+    are float64, its one rounding the float32 output's) and within
+    gamma(n_acc + 3) of ``frame_power_mean_plain`` (a float32 ``hypot``, a
+    square and a sum of n_acc positive terms).  Then each timed alone, per
+    call of 16 queued and beside its plain version and byte bound
+    (``profiling.kernel_bounds``), the branch FIRs on the float32 words
+    and, beside them, on the int8 ones (the widening included), and the
+    whole ``pfb_power`` call.  Returns label -> (gap over its bound, (ms
+    alone, plain ms)) for ``polyphase_fir pfb cell`` and
+    ``welch_power_mean pfb cell``."""
+    import torch
+
+    from blackman_harris_win_tpu_torch import _build
+    from blackman_harris_win_tpu_torch.kernels import polyphase_kernel as pk
+    from blackman_harris_win_tpu_torch.kernels import welchpower_kernel as wp
+    from blackman_harris_win_tpu_torch.pipeline.spectrometer import pfb_power
+    from blackman_harris_win_tpu_torch.utils import profiling
+
+    feeds, t_len = x.shape
+    bounds = profiling.pfb_bounds(feeds, t_len, c, tpb, n_acc)
+    u = 2.0**-24
+    xf = x.to(torch.float32)
+    _build.reset_launches()
+    got = pk.branch_fir(x, proto, c)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    _require(launched == {"polyphase_fir": 1}, f"polyphase_fir pfb cell: launches {launched}")
+    _require(got.dtype == torch.float32 and torch.equal(got, pk.branch_fir(xf, proto, c))
+             and torch.equal(got, pk.branch_fir(x, proto, c)),
+             "polyphase_fir pfb cell: int8 words not the bits of their float32 copy's")
+    plain = pk.branch_fir_plain(xf, proto, c)
+    s64 = pk.branch_fir_plain(xf.abs().double(), np.abs(proto.astype(np.float32)), c)
+    gam = 2 * (tpb + 1) * u / (1 - (tpb + 1) * u)
+    ratio_fir = float(((got - plain).double().abs() / (gam * s64)).nan_to_num().max())
+    _require(got.shape == plain.shape and ratio_fir <= 1.0,
+             f"polyphase_fir pfb cell: kernel vs plain {ratio_fir:.3f} of the bound")
+    del plain, s64
+    print(f"polyphase_fir pfb cell {tuple(x.shape)} {x.dtype} -> {tuple(got.shape)}: one launch, "
+          f"the bits of the float32 copy's and of a second run, kernel vs plain "
+          f"{ratio_fir:.4f} of 2 gamma({tpb + 1}) x sum|h||x|")
+
+    bins = torch.fft.rfft(got, dim=-1)
+    n_int = bins.shape[-2] // n_acc
+    spec = bins.view(feeds, n_int, n_acc, bins.shape[-1])
+    _build.reset_launches()
+    mean = wp.frame_power_mean(spec)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    _require(launched == {"welch_power_mean": 1},
+             f"welch_power_mean pfb cell: launches {launched}")
+    _require(torch.equal(mean, wp.frame_power_mean(spec)) and torch.equal(mean, power),
+             "welch_power_mean pfb cell: not the bits of a second run and of pfb_power's")
+    spec64 = spec.to(torch.complex128)
+    p64 = (spec64.real ** 2 + spec64.imag ** 2).mean(dim=-2)
+    del spec64
+    rel64 = float(((mean.double() - p64).abs() / p64).max())
+    plain = wp.frame_power_mean_plain(spec).double()
+    lim = (n_acc + 3) * u / (1 - (n_acc + 3) * u)
+    rel_plain = float(((mean.double() - plain).abs() / plain).max())
+    _require(mean.shape == plain.shape == (feeds, n_int, c // 2 + 1) and rel64 <= 2 * u
+             and rel_plain <= lim,
+             f"welch_power_mean pfb cell: per-bin rel vs float64 {rel64:.3e} (<= 2u), "
+             f"vs plain {rel_plain:.3e} (<= {lim:.3e})")
+    del p64, plain
+    slabs = wp.frame_slabs(spec.numel() // n_acc, n_acc)
+    print(f"welch_power_mean pfb cell {tuple(spec.shape)} {spec.dtype}: {slabs} slab(s), one "
+          f"launch, the bits of a second run and of pfb_power's; per-bin rel vs float64 "
+          f"{rel64:.3e} (<= 2u = {2 * u:.3e}), vs plain {rel_plain:.3e} (<= gamma({n_acc + 3}) "
+          f"= {lim:.3e})")
+
+    taps = pk.prototype_taps(proto, torch.float32, dev)
+
+    def entry():
+        _require(_build.lib().bhw_polyphase_fir(
+            got.data_ptr(), xf.data_ptr(), taps.data_ptr(), feeds, t_len // c, c, tpb, 0, 1, 4,
+            _build.stream_of(dev)) == 0, "polyphase_fir C entry failed")
+
+    t = {"polyphase_fir pfb cell": (lambda: pk.branch_fir(xf, proto, c),
+                                    lambda: pk.branch_fir_plain(xf, proto, c)),
+         "polyphase_fir pfb cell, int8 (widening included)": (
+             lambda: pk.branch_fir(x, proto, c), None),
+         "polyphase_fir pfb cell, C entry": (entry, None),
+         "welch_power_mean pfb cell": (lambda: wp.frame_power_mean(spec),
+                                       lambda: wp.frame_power_mean_plain(spec)),
+         "pfb_power pfb cell": (lambda: pfb_power(x, proto, c, n_acc), None)}
+    times = {}
+    for label, (fn, plain_fn) in t.items():
+        alone = _time_ms(fn)
+        queued = _time_ms(lambda: [fn() for _ in range(16)]) / 16
+        plain_ms = _time_ms(plain_fn) if plain_fn else None
+        b = bounds.get(label.split(",")[0])
+        share = (f"; bound {b[0]:.4f} ms ({b[1]}), share {b[0] / alone:.1%} alone, "
+                 f"{b[0] / queued:.1%} queued" if b else "")
+        print(f"{label}: {alone:.4f} ms alone, {queued:.4f} ms per call of 16 queued"
+              + (f", plain {plain_ms:.4f} ms" if plain_ms else "") + share)
+        times[label] = (alone, plain_ms)
+    del got, bins, spec, mean, xf
+    torch.cuda.empty_cache()
+    return {"polyphase_fir pfb cell": (ratio_fir, times["polyphase_fir pfb cell"]),
+            "welch_power_mean pfb cell": (rel64 / (2 * u), times["welch_power_mean pfb cell"])}
 
 
 def _counted(launched: dict, label: str, expect, fn, exact: dict | None = None):
@@ -2447,6 +2585,7 @@ def main(argv=None) -> int:
     )
     from blackman_harris_win_tpu_torch.pipeline.fir import decimating_fir, design_lowpass
     from blackman_harris_win_tpu_torch.pipeline.sdr import discriminate_plain, sdr_chain
+    from blackman_harris_win_tpu_torch.pipeline.spectrometer import pfb_power
     from blackman_harris_win_tpu_torch.pipeline.spectral import (
         window_scale,
         windowed_power_spectrum,
@@ -2605,6 +2744,14 @@ def main(argv=None) -> int:
     cell_out = _counted(launched, "8 sdr cell", ("polyphase_dft", "fm_demod"),
                         lambda: sdr_chain(x_cell, proto_cell, 128, angle_width=aw),
                         exact={"polyphase_dft": 1, "fm_demod": 1})
+    # the PFB spectrometer at its cell's shape: one board's 16 int8 feeds
+    # through 2048 channels of 4 taps, 8 integrations of 1024 spectra
+    c_pfb, tpb_pfb, acc_pfb = 2048, 4, 1024
+    proto_pfb = design_prototype(c_pfb, tpb_pfb)
+    x_pfb = _int8_capture(args.seed, dev, 16, (8 * acc_pfb + tpb_pfb - 1) * c_pfb)
+    pfb_out = _counted(launched, "8 pfb cell", ("polyphase_fir", "welch_power_mean"),
+                       lambda: pfb_power(x_pfb, proto_pfb, c_pfb, acc_pfb),
+                       exact={"polyphase_fir": 1, "welch_power_mean": 1})
     # the demod module's other entry points on config 5's quantized channel
     # I/Q: each channel's phase angle, and the phase-difference discriminator
     y5 = polyphase_channelize(x_sdr5, proto5, c5)
@@ -2680,6 +2827,9 @@ def main(argv=None) -> int:
     err_wpm, t_wpm = _welch_power_gates(x, win32, nfft, hop, dev)
     err_pf, t_pf, (err_pd, t_pd, dft_shape) = _polyphase_gates(x_sdr5, proto5, c5, tpb5,
                                                                 args.seed, dev, fused_ptxas)
+    pfb_res = _spectrometer_gates(x_pfb, pfb_out, proto_pfb, c_pfb, tpb_pfb, acc_pfb, dev)
+    pfb_shape = (*x_pfb.shape, c_pfb, tpb_pfb, acc_pfb)
+    del x_pfb, pfb_out
 
     # the analyzer with the float32 and the compensated window
     win64_4 = torch.from_numpy(catalog.float_window_value("bh4", np.arange(nfft), nfft)).to(dev)
@@ -2993,6 +3143,7 @@ def main(argv=None) -> int:
         "welch_power_mean": t_wpm,
         "polyphase_fir": t_pf["config 5"],
         "polyphase_dft": t_pd,
+        **{k: v[1] for k, v in pfb_res.items()},
         "analyzer mxu vs rfft": (
             _time_ms(lambda: windowed_power_spectrum(x, "bh4", spec4, hop=hop,
                                                      fft_mode="mxu")),
@@ -3265,7 +3416,7 @@ def main(argv=None) -> int:
     bounds = profiling.kernel_bounds(n, len(q7), nsamp, nfft, hop,
                                      m21.numel() * m21.element_size(), ddc_width=w21,
                                      sdr_shape=(y5.shape[0], c5, aw), ddc_period=p21,
-                                     sdr_taps=tpb5, dft_shape=dft_shape)
+                                     sdr_taps=tpb5, dft_shape=dft_shape, pfb_shape=pfb_shape)
     err_mat = ddc_res["mat_err"]
     tpu = "blackman_harris_win_tpu/kernels/pallas/"
     rows = [  # name, source, replaces (under tpu unless a full path), timing key, max abs err
@@ -3319,6 +3470,15 @@ def main(argv=None) -> int:
         # its bound against the plain version)
         ("polyphase_dft", "polyphase_kernel.cu",
          "blackman_harris_win_tpu/pipeline/channelizer.py:43", "polyphase_dft", err_pd),
+        # the PFB spectrometer's cell: 16 feeds in one launch of the branch
+        # FIRs (the gap over its bound), and the power mean's slab path (its
+        # gap to the float64 mean over 2u); no JAX counterpart
+        ("polyphase_fir", "polyphase_kernel.cu",
+         "blackman_harris_win_tpu/pipeline/channelizer.py:43", "polyphase_fir pfb cell",
+         pfb_res["polyphase_fir pfb cell"][0]),
+        ("welch_power_mean", "welchpower_kernel.cu",
+         "blackman_harris_win_tpu/pipeline/spectral.py:172", "welch_power_mean pfb cell",
+         pfb_res["welch_power_mean pfb cell"][0]),
     ]
     kernels = []
     b_full = bounds["fm_demod"]
@@ -3332,14 +3492,14 @@ def main(argv=None) -> int:
         print(f"bound {label} fm_demod {mode} int32 {layout} (16, {i5.shape[0]}): {b_ms:.4f} ms "
               f"({b_by}); measured {ms:.3f} ms, roofline share {b_ms / ms:.1%}")
     for name, source, replaces, key, err in rows:
-        bound_ms, bound_by = bounds[name]
-        kernels.append({"name": name, "route": "cuda", "source": src + source,
+        bound_ms, bound_by = bounds[key if key in bounds else name]
+        kernels.append({"name": name, "at": key, "route": "cuda", "source": src + source,
                         "replaces": replaces if replaces.startswith("blackman") else tpu + replaces,
                         "launches": counts[name],
                         "max_abs_err": err, "ms": t[key][0], "plain_ms": t[key][1],
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib_ms.get(name)})
-        print(f"bound {label} {name}: {bound_ms:.4f} ms ({bound_by}); measured {t[key][0]:.3f} ms,"
+        print(f"bound {label} {key}: {bound_ms:.4f} ms ({bound_by}); measured {t[key][0]:.3f} ms,"
               f" roofline share {bound_ms / t[key][0]:.1%}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s host clock in all, build included")
     print(json.dumps({"kernels": kernels}))

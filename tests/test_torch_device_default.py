@@ -22,7 +22,8 @@ from blackman_harris_win_tpu_torch.kernels import compwin, fastwin_kernel, float
 from blackman_harris_win_tpu_torch.kernels import outerwin_kernel as ok
 from blackman_harris_win_tpu_torch.kernels import taylor, taylor_kernel
 from blackman_harris_win_tpu_torch.kernels import window, window_kernel
-from blackman_harris_win_tpu_torch.pipeline import channelizer, ddc, demod, fir, sdr, spectral, stft
+from blackman_harris_win_tpu_torch.pipeline import (channelizer, ddc, demod, fir, sdr, spectral,
+                                                    spectrometer, stft)
 from blackman_harris_win_tpu_torch.windows import catalog
 from blackman_harris_win_tpu_torch.windows.selector import WinSelector
 
@@ -34,6 +35,8 @@ TSPEC = WindowSpec(10, 16, sin_type="taylor", lut_size=6)
 QH = catalog.get("hamming").quantized(16)
 X = np.random.default_rng(0).normal(size=1024).astype(np.float32)
 PROTO = channelizer.design_prototype(4, 6)
+#: int8 ADC words: 255 frames of 4, 250 valid, 10 integrations of 25
+X8 = np.clip(np.round(X[:1020] * 10), -127, 127).astype(np.int8)
 S = np.fft.rfft(X[:896].reshape(7, 128), n=256).astype(np.complex64)
 
 
@@ -113,6 +116,7 @@ ENTRY_POINTS = {
     "channelizer.polyphase_channelize":
         lambda **d: channelizer.polyphase_channelize(X, PROTO, 4, **d),
     "sdr.sdr_chain": lambda **d: sdr.sdr_chain(X, PROTO, 4, **d),
+    "spectrometer.pfb_power": lambda **d: spectrometer.pfb_power(X8, PROTO, 4, 25, **d),
     "stft.stft": lambda **d: stft.stft(X, np.hanning(256), 256, 128, **d),
     "stft.istft": lambda **d: stft.istft(S, np.hanning(256), 128, **d),
     "spectral.welch_power": lambda **d: spectral.welch_power(X, np.hanning(256), 256, 128, **d),
@@ -157,6 +161,7 @@ def test_tensor_input_runs_where_it_lies():
     x = torch.from_numpy(X)
     for out in (fir.decimating_fir(x, np.ones(8) / 8, 4), ddc.ddc(x, 0.125, 4, taps=16),
                 channelizer.polyphase_channelize(x, PROTO, 4), sdr.sdr_chain(x, PROTO, 4),
+                spectrometer.pfb_power(torch.from_numpy(X8), PROTO, 4, 25),
                 stft.stft(x, torch.hann_window(256), 256, 128),
                 demod.fm_demod_conj(torch.arange(64), torch.arange(64), 16, 20)):
         assert out.device == x.device

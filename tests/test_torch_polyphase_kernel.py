@@ -378,7 +378,8 @@ def test_bounds_are_perf_md_s():
     bins = (CELL[0] // CELL[1] - CELL[2] + 1) * CELL[1]
     assert (4 * 16 + 5 * 7) * bins / profiling.F32_FLOPS * 1e3 < 0.32 / 3
     bounds = profiling.kernel_bounds(1 << 26, 7, 128 << 20, 1 << 20, 1 << 19, 2 * 4 << 26,
-                                     ((1 << 22) - 7, 16, 20), 8, dft_shape=CELL)
+                                     ((1 << 22) - 7, 16, 20), 8, dft_shape=CELL,
+                                     pfb_shape=(16, (8 * 1024 + 3) * 2048, 2048, 4, 1024))
     assert bounds["polyphase_fir"] == (pytest.approx(0.16026, abs=5e-5), "bytes")
     assert bounds["polyphase_dft"] == profiling.polyphase_dft_bound(*CELL)
 

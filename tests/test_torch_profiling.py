@@ -22,6 +22,7 @@ PERF_BOUNDS = {
     "fm_demod_phase": (0.3205, 4), "fm_demod_int_conj": (0.3205, 4),
     "taylor2_window_block": (0.1844, 4), "taylor_window_rtl": (0.0821, 4),
     "polyphase_fir": (0.1603, 4), "polyphase_dft": (0.3205, 4),
+    "polyphase_fir pfb cell": (0.6412, 4), "welch_power_mean pfb cell": (0.3210, 4),
 }
 
 
@@ -31,11 +32,14 @@ SDR_SHAPE = ((1 << 22) - 7, 16, 20)
 DDC_PERIOD = 8
 #: the SDR monitor's call: (complex64 samples, channels, taps a branch)
 SDR_CELL = (N, 128, 16)
+#: the PFB spectrometer's call: (feeds, samples a feed, channels, taps a
+#: branch, spectra an integration)
+PFB_CELL = (16, (8 * 1024 + 3) * 2048, 2048, 4, 1024)
 
 
 def _main_path_bounds():
     return prof.kernel_bounds(N, 7, 128 << 20, 1 << 20, 1 << 19, 2 * N * 4, SDR_SHAPE,
-                              DDC_PERIOD, dft_shape=SDR_CELL)
+                              DDC_PERIOD, dft_shape=SDR_CELL, pfb_shape=PFB_CELL)
 
 
 class TestBounds:
@@ -49,10 +53,22 @@ class TestBounds:
 
         bounds = _main_path_bounds()
         # fm_demod's other rows: its entry for a real stream's half spectrum,
-        # and the integer discriminator's two modes on config 5's I/Q
-        assert set(bounds) == set(_build.launches) | {"fm_demod_half", "fm_demod_phase",
-                                                      "fm_demod_int_conj"}
+        # and the integer discriminator's two modes on config 5's I/Q; the
+        # PFB spectrometer's two kernels at its cell's shape
+        assert set(bounds) == set(_build.launches) | {
+            "fm_demod_half", "fm_demod_phase", "fm_demod_int_conj", "polyphase_fir pfb cell",
+            "welch_power_mean pfb cell"}
         assert all(by in ("bytes", "operations") and ms > 0 for ms, by in bounds.values())
+
+    def test_the_pfb_cell_s_bounds(self):
+        """Sixteen feeds in one launch bound as sixteen single feeds; the
+        power mean reads the (16, 8192, 1025) complex64 bins once."""
+        feeds, t, c, tpb, n_acc = PFB_CELL
+        one = prof.polyphase_fir_bound(t, c, tpb)[0]
+        b = prof.pfb_bounds(*PFB_CELL)
+        assert b["polyphase_fir pfb cell"][0] == pytest.approx(feeds * one, rel=1e-12)
+        assert b["welch_power_mean pfb cell"] == prof.bound(8 * 16 * 8192 * 1025
+                                                             + 4 * 16 * 8 * 1025)
 
     def test_bound_is_the_larger_time(self):
         assert prof.bound(prof.HBM_BPS / 1e3) == (1.0, "bytes")

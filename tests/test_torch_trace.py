@@ -1,8 +1,10 @@
 """PyTorch port, ``_trace``: the spans of the window router, the window
-wrapper, the launch helper, the Welch analyzer's stages and the SDR
-chain's (``bhw.sdr``: on a card one ``polyphase_fir`` and one ``fm_demod``
-launch a call, or for the SDR cell's complex capture at 128 channels one
-``polyphase_dft`` and one ``fm_demod``).
+wrapper, the launch helper, the Welch analyzer's stages, the SDR chain's
+(``bhw.sdr``: on a card one ``polyphase_fir`` and one ``fm_demod`` launch a
+call, or for the SDR cell's complex capture at 128 channels one
+``polyphase_dft`` and one ``fm_demod``) and the PFB spectrometer's
+(``bhw.pfb``: on a card one ``polyphase_fir`` and one ``welch_power_mean``
+launch a call), each chain's stage paths those the benchmark reads.
 
 Without a profiler session a span is one shared no-op (``record_function``
 is never entered); under one each span is a ``user_annotation`` of the
@@ -23,7 +25,7 @@ from blackman_harris_win_tpu_torch import _build, _trace
 from blackman_harris_win_tpu_torch.core.config import WindowSpec
 from blackman_harris_win_tpu_torch.kernels import window as kw
 from blackman_harris_win_tpu_torch.pipeline import sdr as sdr_pipe
-from blackman_harris_win_tpu_torch.pipeline import spectral
+from blackman_harris_win_tpu_torch.pipeline import channelizer, spectral, spectrometer
 from blackman_harris_win_tpu_torch.utils import profiling
 from blackman_harris_win_tpu_torch.windows import catalog
 
@@ -353,4 +355,104 @@ def test_sdr_chain_on_the_card_is_one_fm_demod_launch_a_call(tmp_path, route):
     assert ("bhw.sdr/bhw.sdr.dft" in spans) == ("dft" in stages)
     for s in stages:
         row = spans[f"bhw.sdr/bhw.sdr.{s}"]
+        assert row["count"] == row["stream_n"] == 3 and row["stream_s"] > 0
+
+
+# --- the PFB spectrometer: bhw.pfb and its stages ---
+
+PFB_STAGES = ("branches", "dft", "power")
+
+
+def _pfb_input(c: int = 16, tpb: int = 4, feeds: int = 3, n_acc: int = 8, n_int: int = 2):
+    g = torch.Generator().manual_seed(6)
+    x = (torch.randn((feeds, (n_acc * n_int + tpb - 1) * c), generator=g) * 10).round()
+    return x.clamp(-127, 127).to(torch.int8), channelizer.design_prototype(c, tpb)
+
+
+def _pfb(x, proto, c: int = 16, n_acc: int = 8):
+    return spectrometer.pfb_power(x, proto, c, n_acc)
+
+
+def test_pfb_enters_no_record_function_without_a_session(no_record_function):
+    x, proto = _pfb_input()
+    assert _pfb(x, proto).shape == (3, 2, 9)
+
+
+def test_pfb_spans_in_the_trace_and_the_table(tmp_path):
+    """The root ``bhw.pfb`` with the filter bank's ``.branches`` and ``.dft``
+    and the integration's ``.power``; the plain power mean keeps ``.mean``
+    apart, as the Welch analyzer's does on the CPU."""
+    x, proto = _pfb_input()
+    _trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            _pfb(x, proto)
+    events = _annotations(prof, tmp_path)
+    roots = [e for e in events if e["name"] == "bhw.pfb"]
+    assert len(roots) == 3
+    stages = PFB_STAGES + ("mean",)
+    assert {e["name"] for e in events} == {"bhw.pfb"} | {f"bhw.pfb.{s}" for s in stages}
+    assert all(_inside(e, roots) for e in events)
+    spans = _trace.snapshot()["spans"]
+    assert set(spans) == {"bhw.pfb"} | {f"bhw.pfb/bhw.pfb.{s}" for s in stages}
+    assert spans["bhw.pfb"]["count"] == 3
+    for stage in stages:
+        row = spans[f"bhw.pfb/bhw.pfb.{stage}"]
+        assert row["count"] == 3 and set(row) == ROW_KEYS and row["stream_n"] == 0
+
+
+def test_pfb_bits_are_the_same_traced():
+    x, proto = _pfb_input()
+    off = _pfb(x, proto)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = _pfb(x, proto)
+    assert torch.equal(on, off)
+
+
+def test_the_chains_keep_the_span_paths_their_metrics_read():
+    """The SDR chain's and the Welch analyzer's stage paths, which
+    ``sdr_channelize_ms_per_call`` and ``welch_passes_ms_per_call`` read,
+    are theirs alone after a spectrometer call, and its are its own."""
+    x, proto = _pfb_input()
+    xs, sproto = _sdr_input("real")
+    _trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _pfb(x, proto)
+        _chain(xs, sproto)
+        _welch("quantized", "rfft")
+    paths = set(_trace.snapshot()["spans"])
+    assert {"bhw.sdr/bhw.sdr.branches", "bhw.sdr/bhw.sdr.dft"} <= paths
+    assert {f"bhw.welch/bhw.welch.{s}" for s in ("apply", "fft", "power", "mean")} <= paths
+    assert {f"bhw.pfb/bhw.pfb.{s}" for s in PFB_STAGES} <= paths
+    # every stage lies under its own chain's root, named after it
+    stages = [p.split("/") for p in paths if p.count("/") == 1]
+    assert stages and all(stage.startswith(root + ".") for root, stage in stages)
+
+
+@pytest.mark.gpu
+def test_pfb_on_the_card_is_one_branch_and_one_power_launch_a_call():
+    """On a card: one ``polyphase_fir`` launch a call inside
+    ``bhw.pfb.branches`` (the int8 widening there too), cuFFT in
+    ``bhw.pfb.dft`` and one ``welch_power_mean`` inside ``bhw.pfb.power``,
+    every stage timed on the stream, and no ``.mean``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; torch sees none")
+    x, proto = _pfb_input(c=2048, feeds=16, n_acc=64)
+    x = x.cuda()
+    want = _pfb(x, proto, 2048, 64)
+    _build.reset_launches()
+    _trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(3):
+            got = _pfb(x, proto, 2048, 64)
+        torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {"polyphase_fir": 3,
+                                                               "welch_power_mean": 3}
+    assert torch.equal(got, want)
+    spans = _trace.snapshot()["spans"]
+    assert spans["bhw.pfb/bhw.pfb.branches/bhw.launch.polyphase_fir"]["count"] == 3
+    assert spans["bhw.pfb/bhw.pfb.power/bhw.launch.welch_power_mean"]["count"] == 3
+    assert "bhw.pfb/bhw.pfb.mean" not in spans
+    for s in PFB_STAGES:
+        row = spans[f"bhw.pfb/bhw.pfb.{s}"]
         assert row["count"] == row["stream_n"] == 3 and row["stream_s"] > 0

@@ -155,7 +155,8 @@ def test_signature_and_counter_are_registered():
 def test_bound_is_perf_md_s():
     # PERF.md section 6, row 12: the cell's spectrum read once, the mean written
     bounds = profiling.kernel_bounds(1 << 26, 7, 128 << 20, 1 << 20, 1 << 19, 2 * 4 << 26,
-                                     ((1 << 22) - 7, 16, 20), 8, dft_shape=(1 << 26, 128, 16))
+                                     ((1 << 22) - 7, 16, 20), 8, dft_shape=(1 << 26, 128, 16),
+                                     pfb_shape=(16, (8 * 1024 + 3) * 2048, 2048, 4, 1024))
     assert bounds["welch_power_mean"] == (pytest.approx(0.3199, abs=5e-5), "bytes")
 
 
